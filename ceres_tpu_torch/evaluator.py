@@ -6,7 +6,8 @@ blocks (B, r, T_j) of every argument. The Jacobian is never assembled
 globally: it stays as these per-family blocks (the BlockSparseMatrix
 analog), and every product with it reduces per-observation contributions
 into per-block rows through the family's reduce plans (``ops/reduce.py``;
-on CUDA the point-side ones run the sorted-segment-sum kernel).
+on CUDA the point-side ones run the sorted-segment-sum kernel and, from a
+few hundred cameras on, the camera-side ones the unsorted one).
 
 Only the trivial loss is in this slice (``problem.py`` rejects others), so
 the corrected residuals are the raw residuals.

@@ -2,7 +2,8 @@
 ``ceres_tpu/fused_lm.py``).
 
 Each iteration evaluates residuals and Jacobian blocks, applies Jacobi
-column scaling and LM damping, solves for the step (ITERATIVE_SCHUR), takes
+column scaling and LM damping, solves for the step (ITERATIVE_SCHUR or
+DENSE_SCHUR), takes
 the model cost change in f64, evaluates the candidate cost, and updates the
 radius and the invalid-step ladder with the four convergence tests of
 trust_region_minimizer.cc:640-764 — the semantics of the JAX package's
@@ -200,7 +201,7 @@ def _fused_minimize(x0, program, solve_aux, max_num_iterations: int,
     return s, cost0
 
 
-def run_fused(options, problem, device, host_loop_parity: bool):
+def run_fused(options, problem, device="cuda", *, host_loop_parity: bool):
     """Shared body of :func:`fused_solve` and ``solver.solve``."""
     t0 = time.perf_counter()
     device = torch.device(device)
@@ -265,8 +266,9 @@ def run_fused(options, problem, device, host_loop_parity: bool):
     return summary
 
 
-def fused_solve(options, problem, device) -> SolverSummary:
-    """Solve on ``device`` with the fused LM loop; returns a SolverSummary
+def fused_solve(options, problem, device="cuda") -> SolverSummary:
+    """Solve on ``device`` (the card by default; without one that raises, it
+    does not move to the CPU) with the fused LM loop; returns a SolverSummary
     and writes the solution back (the entry point bench.py drives in the
     JAX package). A step that meets the function/parameter tolerance is
     kept, as in the JAX package's fused_solve."""

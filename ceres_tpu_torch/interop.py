@@ -17,8 +17,7 @@ import numpy as np
 
 def state_to_numpy(problem) -> np.ndarray:
     """The problem's parameter blocks as one flat f64 ambient vector."""
-    blocks = [problem.parameter_block_value(p) for p in range(problem.num_parameter_blocks())]
-    return np.concatenate(blocks) if blocks else np.zeros(0)
+    return problem.state()
 
 
 def state_from_numpy(
@@ -32,10 +31,9 @@ def state_from_numpy(
     ``Program.ambient_offset``) is checked against the port's layout;
     a mismatch or a vector of the wrong length raises ValueError."""
     x = np.asarray(x_ambient, dtype=np.float64).reshape(-1)
-    ours, n = {}, 0
-    for pid in range(problem.num_parameter_blocks()):
-        ours[pid] = n
-        n += problem.parameter_block_value(pid).size
+    sizes = problem.block_sizes()
+    n = int(sizes.sum())
+    ours = dict(enumerate((np.cumsum(sizes) - sizes).tolist()))
     if x.shape[0] != n:
         raise ValueError(f"state has {x.shape[0]} values, problem has {n}")
     if ambient_offset is not None and dict(ambient_offset) != ours:

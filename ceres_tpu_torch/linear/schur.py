@@ -6,10 +6,11 @@ The e-blocks (points) are found by a greedy maximal independent set
 
     S x = (F'F + D_f^2) x - F'E (E'E + D_e^2)^{-1} E'F x
 
-ITERATIVE_SCHUR with SCHUR_JACOBI on an explicitly assembled S (nf <=
-EXPLICIT_S_AUTO_MAX_NF, ``schur_explicit.py``) is the path this slice
-runs; ``SchurOperator.s_times`` (the implicit product) is ported and
-tested, the implicit-S solve and the other Schur solvers are ROADMAP items.
+Two solves run on an explicitly assembled S (``schur_explicit.py``):
+ITERATIVE_SCHUR with SCHUR_JACOBI (nf <= EXPLICIT_S_AUTO_MAX_NF) and
+DENSE_SCHUR (a Cholesky factorization of S). ``SchurOperator.s_times`` (the
+implicit product) is ported and tested; the implicit-S solve, SPARSE_SCHUR
+and the other preconditioners are ROADMAP items.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.evaluator import JacobianContext
-from ceres_tpu_torch.linear.cg import conjugate_gradients
+from ceres_tpu_torch.linear.cg import conjugate_gradients, direct_termination
 from ceres_tpu_torch.linear.schur_explicit import _pair_product, assemble_reduced_system
 from ceres_tpu_torch.ops.reduce import apply_reduce, build_reduce_plan
 from ceres_tpu_torch.ops.small_linalg import spd_inverse, spd_solve
@@ -38,26 +39,46 @@ def compute_schur_ordering(program) -> List[int]:
     """Greedy maximal independent set of parameter blocks -> e-block pids
     (ComputeStableSchurOrdering analog): e-blocks must not share a
     residual block. Blocks are visited by (tangent size, -degree, pid), so
-    BA picks the points (3) over the cameras (9)."""
-    occurrences: Dict[int, List[Tuple[int, int]]] = {}
-    for fi, fam in enumerate(program.families):
-        for j in range(fam.block_ids.shape[1]):
-            for i, pid in enumerate(fam.block_ids[:, j].tolist()):
-                occurrences.setdefault(pid, []).append((fi, i))
-    active = {rec.pid: rec for rec in program.blocks}
-    order = sorted(
-        active.keys(),
-        key=lambda pid: (active[pid].tangent_size, -len(occurrences.get(pid, []))),
-    )
-    instance_blocked = set()
-    e_blocks: List[int] = []
-    for pid in order:
-        occs = occurrences.get(pid, [])
-        if any(o in instance_blocked for o in occs):
-            continue
-        e_blocks.append(pid)
-        instance_blocked.update(occs)
-    return e_blocks
+    BA picks the points (3) over the cameras (9).
+
+    The greedy set in a fixed visiting order is computed in rounds of
+    array operations: in each round every undecided block that comes
+    first, in visiting order, among the undecided blocks of each of its
+    residual blocks is taken, and the blocks sharing a residual block
+    with a taken one are dropped. That gives the same set as visiting the
+    blocks one by one (bundle adjustment ends after one round)."""
+    n = program.num_parameter_blocks()
+    occ_pid, occ_inst, base = [], [], 0
+    for fam in program.families:
+        B, k = fam.block_ids.shape
+        for j in range(k):
+            occ_pid.append(fam.block_ids[:, j])
+            occ_inst.append(base + np.arange(B, dtype=np.int64))
+        base += B
+    if occ_pid:
+        occ_pid, occ_inst = np.concatenate(occ_pid), np.concatenate(occ_inst)
+    else:
+        occ_pid = occ_inst = np.zeros(0, dtype=np.int64)
+    degree = np.bincount(occ_pid, minlength=n)
+    order = np.lexsort((-degree, program.block_sizes))  # stable: ties by pid
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n)
+    occ_rank = rank[occ_pid]
+    undecided = np.ones(n, dtype=bool)
+    taken = np.zeros(n, dtype=bool)
+    while undecided.any():
+        live = undecided[occ_pid]
+        first = np.full(base, n, dtype=np.int64)
+        np.minimum.at(first, occ_inst[live], occ_rank[live])
+        beaten = np.zeros(n, dtype=bool)
+        beaten[occ_pid[live & (first[occ_inst] != occ_rank)]] = True
+        new = undecided & ~beaten
+        taken |= new
+        undecided &= ~new
+        hit = np.zeros(base, dtype=bool)
+        hit[occ_inst[new[occ_pid]]] = True
+        undecided[occ_pid[hit[occ_inst]]] = False
+    return order[taken[order]].tolist()
 
 
 @dataclasses.dataclass
@@ -85,46 +106,42 @@ def build_schur_structure(program) -> SchurStructure:
     """Build the elimination structure on the program's device (the
     explicit-S plan is attached by the caller when S is to be assembled)."""
     dev = program.device
-    e_pids = compute_schur_ordering(program)
-    if not e_pids:
+    e_pids = np.asarray(compute_schur_ordering(program), dtype=np.int64)
+    if not e_pids.size:
         raise ValueError("no e-blocks found for Schur elimination")
-    pblocks = {rec.pid: rec for rec in program.blocks}
-    # Uniform e tangent size: keep the majority size.
-    sizes: Dict[int, List[int]] = {}
-    for pid in e_pids:
-        sizes.setdefault(pblocks[pid].tangent_size, []).append(pid)
-    Te, e_pids = max(sizes.items(), key=lambda kv: len(kv[1]))
-    e_set = set(e_pids)
-    P = len(e_pids)
-    e_group = np.empty((P, Te), dtype=np.int64)
-    for i, pid in enumerate(e_pids):
-        off = program.tangent_offset[pid]
-        e_group[i] = np.arange(off, off + Te)
+    sizes, offsets = program.block_sizes, program.block_offsets
+    n = sizes.shape[0]
+    # Uniform e tangent size: keep the majority size (ties: the size met
+    # first in the ordering).
+    e_sizes = sizes[e_pids]
+    cand, first, counts = np.unique(e_sizes, return_index=True, return_counts=True)
+    Te = int(cand[np.lexsort((first, -counts))[0]])
+    e_pids = e_pids[e_sizes == Te]
+    P = e_pids.shape[0]
+    e_group = offsets[e_pids][:, None] + np.arange(Te)
 
     f_mask = np.ones(program.num_tangent)
     f_mask[e_group.reshape(-1)] = 0.0
     f_idx = np.nonzero(f_mask > 0)[0]
 
-    f_rows: Dict[int, List[np.ndarray]] = {}
-    f_pos_of_pid: Dict[int, Tuple[int, int]] = {}
-    for rec in program.blocks:
-        if rec.pid in e_set:
-            continue
-        T = rec.tangent_size
-        off = program.tangent_offset[rec.pid]
-        rows = f_rows.setdefault(T, [])
-        f_pos_of_pid[rec.pid] = (T, len(rows))
-        rows.append(np.arange(off, off + T))
-    f_group_sizes = {T: len(rows) for T, rows in f_rows.items()}
-
-    max_pid = max(rec.pid for rec in program.blocks)
-    in_e_lut = np.zeros(max_pid + 2, dtype=bool)
-    in_e_lut[np.asarray(e_pids)] = True
-    pt_idx_lut = np.full(max_pid + 2, P, dtype=np.int64)
-    pt_idx_lut[np.asarray(e_pids)] = np.arange(P)
-    fpos_lut = {T: np.full(max_pid + 2, n, dtype=np.int64) for T, n in f_group_sizes.items()}
-    for pid, (T, row) in f_pos_of_pid.items():
-        fpos_lut[T][pid] = row
+    # f blocks by size (sizes in the order they first appear), block order
+    # inside a size; lookup tables pid -> point row / f block row (dummy =
+    # the group's size).
+    in_e_lut = np.zeros(n, dtype=bool)
+    in_e_lut[e_pids] = True
+    pt_idx_lut = np.full(n, P, dtype=np.int64)
+    pt_idx_lut[e_pids] = np.arange(P)
+    f_pids = np.nonzero(~in_e_lut)[0]
+    f_sizes = sizes[f_pids]
+    f_cand, f_first = np.unique(f_sizes, return_index=True)
+    f_rows: Dict[int, np.ndarray] = {}
+    fpos_lut: Dict[int, np.ndarray] = {}
+    for T in f_cand[np.argsort(f_first)].tolist():
+        pids_T = f_pids[f_sizes == T]
+        f_rows[T] = offsets[pids_T][:, None] + np.arange(T)
+        fpos_lut[T] = np.full(n, pids_T.shape[0], dtype=np.int64)
+        fpos_lut[T][pids_T] = np.arange(pids_T.shape[0])
+    f_group_sizes = {T: rows.shape[0] for T, rows in f_rows.items()}
 
     e_arg: List[int] = []
     e_pos: List[Optional[np.ndarray]] = []
@@ -183,7 +200,7 @@ def build_schur_structure(program) -> SchurStructure:
         f_idx=to_dev(f_idx),
         e_arg=tuple(e_arg),
         e_pos=tuple(to_dev(ep) for ep in e_pos),
-        f_groups={T: to_dev(np.stack(rows)) for T, rows in f_rows.items()},
+        f_groups={T: to_dev(rows) for T, rows in f_rows.items()},
         e_plan=e_plan,
         e_slice=e_slice,
         host_e_pos=tuple(e_pos),
@@ -331,15 +348,18 @@ class SchurOperator:
 
 
 def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructure):
-    """Solve min ||J y - f||^2 + ||D y||^2 by eliminating the e-blocks
+    """Solve min ||J y - f||^2 + ||D y||^2 by eliminating the e-blocks.
+    DENSE_SCHUR factors the assembled S (schur_complement_solver.cc);
+    ITERATIVE_SCHUR runs PCG on it
     (iterative_schur_complement_solver.cc:64-155 with an explicit S).
     Returns (y, linear_iterations, termination) with linear/cg.py codes."""
-    if config.linear_solver_type != LinearSolverType.ITERATIVE_SCHUR:
-        raise NotImplementedError(
-            f"{config.linear_solver_type.name}: DENSE_SCHUR is ROADMAP Queue 1 "
-            f"item 13 (large case); the others are {_OTHER_SOLVERS}"
-        )
-    if config.preconditioner_type != PreconditionerType.SCHUR_JACOBI:
+    lst = config.linear_solver_type
+    if lst not in (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR):
+        raise NotImplementedError(f"{lst.name}: {_OTHER_SOLVERS}")
+    if (
+        lst == LinearSolverType.ITERATIVE_SCHUR
+        and config.preconditioner_type != PreconditionerType.SCHUR_JACOBI
+    ):
         raise NotImplementedError(
             f"preconditioner {config.preconditioner_type.name}: {_OTHER_SOLVERS}"
         )
@@ -349,15 +369,30 @@ def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructur
             f"and its SCHUR_JACOBI blocks): {_OTHER_SOLVERS}"
         )
     op = SchurOperator(ctx, D, ss)
-    S = assemble_reduced_system(op, ss.explicit)
+    nt = ctx.num_tangent
     f_idx = ss.f_idx
+
+    if lst == LinearSolverType.DENSE_SCHUR:
+        # Cholesky of S as assembled (its lower triangle; no symmetrizing,
+        # as in the JAX package). An indefinite S gives a non-finite step
+        # and FAILURE, which the LM loop answers by shrinking the radius.
+        S, rhs_red, _ = op.dense_reduced_system()
+        chol, info = torch.linalg.cholesky_ex(S)
+        xf_red = torch.cholesky_solve(rhs_red[:, None], chol)[:, 0]
+        xf_red = torch.where(info == 0, xf_red, torch.nan)
+        x_f = torch.zeros((nt,), dtype=op.dtype, device=D.device)
+        x_f[f_idx] = xf_red
+        y = op.back_substitute(x_f)
+        one = torch.ones((), dtype=torch.int32, device=D.device)
+        return y, one, direct_termination(y)
+
+    S = assemble_reduced_system(op, ss.explicit)
     # S is symmetric in exact arithmetic; the assembled f32 matrix is not
     # exactly so (independent lower/upper accumulation orders), and CG on
     # the raw matrix produces steps with model_cost_change <= 0 near the
     # optimum. Symmetrize once.
     S = 0.5 * (S + S.T)
     M = op.schur_jacobi_preconditioner_from_dense(S)
-    nt = ctx.num_tangent
 
     def s_apply(v):
         out = torch.zeros((nt,), dtype=v.dtype, device=v.device)

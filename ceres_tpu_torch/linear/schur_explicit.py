@@ -11,12 +11,14 @@ F_i' F_j into camera-pair cells, and the correction term enumerates, per
 point, the pairs of its observations and reduces ``-W_a' M_p^{-1} W_b``
 into camera-pair cells. The pair and cell structure is built once on the
 host from the visibility pattern; the device work is batched einsums plus
-segment reductions (``ops/reduce.py``).
+segment reductions (``ops/reduce.py``), and for cell-sorted correction
+pairs the fused pair-outer kernel (``ops/outer_segment_sum.py``).
 
-Left out from the JAX package: the TPU-only MXU selection-matmul forms of
-the flat contractions (einsum here), the scatter-free grid placement
-(``index_put_`` here), and the uniform-window host fast path (the pair
-enumeration below is vectorized numpy for every visibility pattern).
+Left out from the JAX package, as devices of the TPU: the MXU
+selection-matmul forms of the flat contractions (einsum here), the
+scatter-free grid placement (``index_put_`` here), and the uniform-window
+host fast path (the pair enumeration below is vectorized numpy for every
+visibility pattern).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ceres_tpu_torch.ops.outer_segment_sum import flat_outer, outer_segment_sum
 from ceres_tpu_torch.ops.reduce import ReducePlan, apply_reduce, build_reduce_plan
 
 
@@ -207,7 +210,9 @@ def build_explicit_plan(program, ss) -> ExplicitSchurPlan:
         a, b = order[ia], order[ib]
         same = (oT[a] == oT[b]) & (pos[a] == pos[b])
         lower = ~same & (start[a] > start[b])
-        for T1, T2 in sorted({(int(x), int(y)) for x, y in zip(oT[a], oT[b])}):
+        tmax = int(oT.max()) + 1
+        for code in np.unique(oT[a] * tmax + oT[b]):
+            T1, T2 = int(code) // tmax, int(code) % tmax
             for diagonal, keep in ((True, same), (False, lower)):
                 m = keep & (oT[a] == T1) & (oT[b] == T2)
                 if not m.any():
@@ -267,14 +272,6 @@ def _pair_product(E: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bre,brt->bet", E, F).reshape(E.shape[0], -1)
 
 
-def _flat_outer(A: torch.Tensor, Bm: torch.Tensor, K: int, T1: int, T2: int):
-    """Flat ``out[p, i*T2+j] = sum_k A[p, k*T1+i] * B[p, k*T2+j]``."""
-    P = A.shape[0]
-    return torch.einsum(
-        "pki,pkj->pij", A.reshape(P, K, T1), Bm.reshape(P, K, T2)
-    ).reshape(P, T1 * T2)
-
-
 def _flat_apply_minv(minv: torch.Tensor, w: torch.Tensor, Te: int, T: int):
     """Flat ``y[b, e*T+t] = sum_f minv[b, e*Te+f] * w[b, f*T+t]``."""
     B = w.shape[0]
@@ -321,18 +318,21 @@ def compute_cell_blocks(op, plan: ExplicitSchurPlan):
 
     for g in plan.corr:
         if g.self_pairs:
-            nat = _flat_outer(W[g.T1], Y[g.T1], Te, g.T1, g.T1)
-            contrib = nat if g.natural else nat[g.a_idx]
+            nat = flat_outer(W[g.T1], Y[g.T1], Te, g.T1, g.T1)
+            red = apply_reduce(g.plan, nat if g.natural else nat[g.a_idx])
+        elif g.plan.kind == "sorted":
+            # Fused: the kernel gathers the operand rows and reduces the
+            # outer products into the cells without writing either.
+            red = outer_segment_sum(
+                W[g.T1], Y[g.T2], g.a_idx, g.b_idx, g.plan.row_ptr,
+                g.num_cells, Te, g.T1, g.T2,
+            )
         else:
-            if g.plan.kind == "sorted":
-                # The JAX package fuses the outer products into the sorted
-                # reduction here (pallas_segment.outer_segment_sum_blocked).
-                raise NotImplementedError(
-                    "sorted correction-pair cells need the fused pair-outer "
-                    "kernel: ROADMAP Queue 2 K4"
-                )
-            contrib = _flat_outer(W[g.T1][g.a_idx], Y[g.T2][g.b_idx], Te, g.T1, g.T2)
-        out.append((g, -apply_reduce(g.plan, contrib)[: g.num_cells]))
+            red = apply_reduce(
+                g.plan,
+                flat_outer(W[g.T1][g.a_idx], Y[g.T2][g.b_idx], Te, g.T1, g.T2),
+            )
+        out.append((g, -red[: g.num_cells]))
     return out
 
 

@@ -26,7 +26,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict = {}  # one lock per library: different libraries build in parallel
 _loaded: dict = {}
 # Seconds spent compiling each library in this process (0.0 when it was
 # already built on disk).
@@ -51,8 +52,11 @@ def _nvcc() -> str:
 
 def load_library(name: str, sources) -> ctypes.CDLL:
     """Compile ``sources`` (file names under csrc/) into one shared
-    library, once per process and per source hash, and load it."""
+    library, once per process and per source hash, and load it. Threads
+    loading different libraries compile at the same time."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
@@ -84,3 +88,23 @@ def load_library(name: str, sources) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(target))
         _loaded[name] = lib
         return lib
+
+
+def build_in_parallel(build_functions) -> None:
+    """Run the given ``build_kernel`` callables at the same time, one nvcc
+    each; the first failure is raised after all have ended."""
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as exc:  # raised again below, in the caller's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(fn,)) for fn in build_functions]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]

@@ -10,11 +10,11 @@ sums, row G being the dummy group (ids outside [0, G): callers slice
 - ``sorted``: sorted ids, many groups, on CUDA: the hand-written kernel K1
   (``ops/segment_sum.py``), which serves both of the JAX package's sorted
   kinds (``sorted`` and ``sorted_blocked``);
+- ``unsorted``: ids in any order, a few hundred to a few thousand groups,
+  on CUDA: the hand-written kernel K3 (``ops/unsorted_segment_sum.py``), the
+  counterpart of the JAX package's ``onehot_tiled`` kind. Its callers skip
+  the cell-sorting row gather a sorted kind would need;
 - ``scatter``: ``index_add_`` (the JAX package's ``ell`` and ``scatter``).
-
-The JAX package's ``onehot_tiled`` kind (an unsorted Pallas kernel, K3) is
-not chosen: off the TPU the JAX package does not choose it either, and its
-port is a ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,9 +27,19 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.ops.segment_sum import build_row_ptr, segment_sum_sorted
+from ceres_tpu_torch.ops.unsorted_segment_sum import segment_sum_unsorted
 
 ONEHOT_MAX_GROUPS = 288  # one-hot matmul: B x (G+1) operand stays small
 SORTED_MIN_ROWS = 4096  # below this a kernel launch buys nothing over index_add_
+# Most rows (G+1) of the ``unsorted`` kind's output. Measured against
+# ``index_add_`` on an H100 80GB HBM3 at 700 W (tools/sweep_kernels.py,
+# B = 1.2 M rows, float32): at 81 columns the kernel wins through
+# G+1 = 8192 (0.39 ms against 0.67 ms) and loses at 16384; at 9 columns it
+# wins through 2048 (0.067 against 0.087 ms) and loses from 4096 on (0.120
+# against 0.087 ms). A plan is chosen from the ids alone and serves every
+# width, and the 81-column sites move nine times the bytes (and would
+# otherwise pay a row gather as well), so the cap sits at 4096.
+UNSORTED_MAX_GROUPS = 4096
 
 
 def choose_plan_kind(seg: np.ndarray, num_groups: int, device_type: str) -> str:
@@ -43,12 +53,11 @@ def choose_plan_kind(seg: np.ndarray, num_groups: int, device_type: str) -> str:
     if G + 1 <= ONEHOT_MAX_GROUPS:
         return "onehot"
     seg = np.where((seg < 0) | (seg >= G), G, seg)
-    if (
-        device_type == "cuda"
-        and seg.shape[0] >= SORTED_MIN_ROWS
-        and np.all(seg[1:] >= seg[:-1])
-    ):
-        return "sorted"
+    if device_type == "cuda" and seg.shape[0] >= SORTED_MIN_ROWS:
+        if np.all(seg[1:] >= seg[:-1]):
+            return "sorted"
+        if G + 1 <= UNSORTED_MAX_GROUPS:
+            return "unsorted"
     return "scatter"
 
 
@@ -62,7 +71,7 @@ class ReducePlan:
     onehot: Optional[torch.Tensor] = None
     # sorted: (G+2,) int32 CSR row pointer (ops/segment_sum.build_row_ptr).
     row_ptr: Optional[torch.Tensor] = None
-    # scatter: (B,) int64 segment ids (dummy = G).
+    # scatter: (B,) int64 segment ids (dummy = G); unsorted: the same, int32.
     seg: Optional[torch.Tensor] = None
     _onehot_cast: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -98,6 +107,8 @@ def build_reduce_plan(
             num_groups=G,
             row_ptr=torch.from_numpy(build_row_ptr(seg, G)).to(device),
         )
+    if kind == "unsorted":
+        seg = seg.astype(np.int32)
     return ReducePlan(
         kind=kind, num_groups=G, seg=torch.from_numpy(seg).to(device)
     )
@@ -110,6 +121,8 @@ def apply_reduce(plan: ReducePlan, contrib: torch.Tensor) -> torch.Tensor:
     G = plan.num_groups
     if plan.kind == "sorted":
         return segment_sum_sorted(contrib, plan.row_ptr, G)
+    if plan.kind == "unsorted":
+        return segment_sum_unsorted(contrib, plan.seg, G)
     index = plan.onehot if plan.kind == "onehot" else plan.seg
     if index.device != contrib.device:
         raise ValueError(

@@ -14,6 +14,7 @@ The plan is a CSR row pointer built on the host (:func:`build_row_ptr`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -62,7 +63,9 @@ def segment_sum_sorted_plain(
     return out.reshape((num_groups + 1,) + tuple(contrib.shape[1:]))
 
 
+@functools.cache
 def _library():
+    """The loaded library with its argument types set (once per process)."""
     lib = cuda_build.load_library("sorted_segment_sum", [_SOURCE])
     for fn in (lib.sorted_segment_sum_f32, lib.sorted_segment_sum_f64):
         fn.argtypes = [

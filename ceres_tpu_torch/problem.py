@@ -14,6 +14,7 @@ raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -23,18 +24,6 @@ import torch
 from ceres_tpu_torch.ops.reduce import build_reduce_plan
 
 _MODELING_API = "ROADMAP Queue 1 item 15 (modeling API)"
-
-
-@dataclasses.dataclass
-class _ParameterBlockRec:
-    pid: int
-    values: np.ndarray  # current ambient values, shape (size,)
-
-    @property
-    def size(self) -> int:
-        return int(self.values.shape[0])
-
-    tangent_size = size
 
 
 @dataclasses.dataclass
@@ -123,7 +112,12 @@ class Problem:
     with the batched API (problem.h:70-553 analog)."""
 
     def __init__(self):
-        self._param_blocks: List[_ParameterBlockRec] = []
+        # One (n, size) f64 array per add_parameter_blocks call; block ids
+        # count through them in order. No per-block Python object exists:
+        # a bundle-adjustment problem has 10^5 blocks and more.
+        self._value_arrays: List[np.ndarray] = []
+        self._first_pid: List[int] = []  # id of each array's first block
+        self._num_blocks = 0
         self._residual_batches: List[_ResidualBatchRec] = []
         self._next_rid = 0
         self._programs: Dict[torch.device, Program] = {}
@@ -136,16 +130,20 @@ class Problem:
             raise NotImplementedError(f"manifolds: {_MODELING_API}")
         if constant:
             raise NotImplementedError(f"constant blocks: {_MODELING_API}")
-        values = np.asarray(values, dtype=np.float64)
+        values = np.array(values, dtype=np.float64)  # the problem's own copy
         if values.ndim != 2:
             raise ValueError("expected (num_blocks, block_size)")
-        base = len(self._param_blocks)
-        for i in range(values.shape[0]):
-            self._param_blocks.append(
-                _ParameterBlockRec(base + i, values[i].copy())
-            )
+        base = self._num_blocks
+        self._value_arrays.append(values)
+        self._first_pid.append(base)
+        self._num_blocks += values.shape[0]
         self._programs.clear()
         return base + np.arange(values.shape[0], dtype=np.int64)
+
+    def block_sizes(self) -> np.ndarray:
+        """(num_blocks,) int64 size of every parameter block."""
+        parts = [np.full(a.shape[0], a.shape[1], dtype=np.int64) for a in self._value_arrays]
+        return np.concatenate(parts) if parts else np.zeros(0, dtype=np.int64)
 
     def add_residual_blocks(
         self,
@@ -165,10 +163,11 @@ class Problem:
             raise ValueError("param id arrays must have equal length")
         cols = np.stack(cols, axis=1)
         if cols.size:
-            if cols.min() < 0 or cols.max() >= len(self._param_blocks):
+            if cols.min() < 0 or cols.max() >= self._num_blocks:
                 raise KeyError("parameter block id out of range")
+            block_sizes = self.block_sizes()
             for j in range(cols.shape[1]):
-                sizes = {self._param_blocks[int(p)].size for p in np.unique(cols[:, j])}
+                sizes = set(np.unique(block_sizes[cols[:, j]]).tolist())
                 if len(sizes) != 1:
                     raise ValueError(
                         f"argument {j}: mixed block sizes {sizes} in one "
@@ -191,10 +190,18 @@ class Problem:
         return base + np.arange(B, dtype=np.int64)
 
     def num_parameter_blocks(self) -> int:
-        return len(self._param_blocks)
+        return self._num_blocks
 
     def parameter_block_value(self, pid: int) -> np.ndarray:
-        return self._param_blocks[pid].values.copy()
+        if not 0 <= pid < self._num_blocks:
+            raise KeyError(f"parameter block id {pid} out of range")
+        k = bisect.bisect_right(self._first_pid, pid) - 1
+        return self._value_arrays[k][pid - self._first_pid[k]].copy()
+
+    def state(self) -> np.ndarray:
+        """Every block's current values as one flat f64 ambient vector."""
+        parts = [a.reshape(-1) for a in self._value_arrays]
+        return np.concatenate(parts) if parts else np.zeros(0)
 
     def program(self, device) -> "Program":
         """Freeze into an evaluation-ready Program on ``device``."""
@@ -209,9 +216,9 @@ class Problem:
         """Copy a solved flat ambient vector back into the blocks."""
         x_ambient = np.asarray(x_ambient, dtype=np.float64)
         off = 0
-        for rec in self._param_blocks:
-            rec.values[:] = x_ambient[off : off + rec.size]
-            off += rec.size
+        for a in self._value_arrays:
+            a[:] = x_ambient[off : off + a.size].reshape(a.shape)
+            off += a.size
 
 
 def _has_duplicates(cols: np.ndarray) -> bool:
@@ -267,34 +274,32 @@ class Program:
         self._problem = problem
         self.device = device
         self.eval_dtype = torch.float64
-        self.blocks = list(problem._param_blocks)
         self.solve_aux_cache: dict = {}
         self.schur_structure = None
         self.fixed_cost = 0.0
 
-        self.ambient_offset: Dict[int, int] = {}
-        off = 0
-        for rec in self.blocks:
-            self.ambient_offset[rec.pid] = off
-            off += rec.size
-        self.num_ambient = off
-        # No constant blocks and no manifolds: tangent layout = ambient.
-        self.tangent_offset = dict(self.ambient_offset)
-        self.num_tangent = off
+        # Per block (block id = position): size and offset in the flat
+        # ambient vector. No constant blocks and no manifolds: the tangent
+        # layout is the ambient one.
+        sizes = problem.block_sizes()
+        n_pid = sizes.shape[0]
+        offsets = np.cumsum(sizes) - sizes
+        self.block_sizes = sizes
+        self.block_offsets = offsets
+        self.ambient_offset: Dict[int, int] = dict(enumerate(offsets.tolist()))
+        self.num_ambient = int(sizes.sum())
+        self.num_tangent = self.num_ambient
 
-        # Block-diagonal grouping by size (block_jacobi layout); with
-        # ambient == tangent it also gives the evaluator's block gathers.
+        # Block-diagonal grouping by size (block_jacobi layout; sizes in the
+        # order they first appear); with ambient == tangent it also gives
+        # the evaluator's block gathers.
         self.bd_groups: Dict[int, np.ndarray] = {}
-        self.bd_pos_of_pid: Dict[int, Tuple[int, int]] = {}
-        rows: Dict[int, List[np.ndarray]] = {}
-        for rec in self.blocks:
-            T = rec.tangent_size
-            grp = rows.setdefault(T, [])
-            self.bd_pos_of_pid[rec.pid] = (T, len(grp))
-            toff = self.tangent_offset[rec.pid]
-            grp.append(np.arange(toff, toff + T, dtype=np.int64))
-        for T, grp in rows.items():
-            self.bd_groups[T] = np.stack(grp)
+        row_of_pid = np.zeros(n_pid, dtype=np.int64)
+        cand, first = np.unique(sizes, return_index=True)
+        for T in cand[np.argsort(first)].tolist():
+            pids = np.nonzero(sizes == T)[0]
+            row_of_pid[pids] = np.arange(pids.shape[0])
+            self.bd_groups[T] = offsets[pids][:, None] + np.arange(T, dtype=np.int64)
         starts = {T: _contiguous_start(t) for T, t in self.bd_groups.items()}
         self.groups = BlockGroups(
             {T: torch.from_numpy(t).to(device) for T, t in self.bd_groups.items()},
@@ -311,15 +316,11 @@ class Program:
             eu_identity=True,
         )
 
-        n_pid = len(self.blocks)
-        row_of_pid = np.zeros(n_pid, dtype=np.int64)
-        for rec in self.blocks:
-            row_of_pid[rec.pid] = self.bd_pos_of_pid[rec.pid][1]
         self.families: List[Family] = []
         for batch in problem._residual_batches:
             cols = batch.cols
             B, k = cols.shape
-            sizes = tuple(self.blocks[int(cols[0, j])].size for j in range(k))
+            sizes = tuple(int(self.block_sizes[cols[0, j]]) for j in range(k))
             bd_pos, plans = [], []
             for j in range(k):
                 pj = row_of_pid[cols[:, j]]
@@ -350,14 +351,10 @@ class Program:
 
     def initial_ambient(self) -> np.ndarray:
         """The blocks' current values as one flat f64 vector (host)."""
-        x = np.empty(self.num_ambient, dtype=np.float64)
-        for rec in self.blocks:
-            off = self.ambient_offset[rec.pid]
-            x[off : off + rec.size] = rec.values
-        return x
+        return self._problem.state()
 
     def num_parameter_blocks(self) -> int:
-        return len(self.blocks)
+        return int(self.block_sizes.shape[0])
 
     def num_residuals(self) -> int:
         return sum(f.batch * f.residual_size for f in self.families)

@@ -3,8 +3,9 @@ TRUST_REGION subset of ``ceres_tpu/solver.py``).
 
 Every configuration runs the fused LM loop of ``fused_lm.py``; options
 that need another minimizer, host work inside the loop, or a linear solver
-this slice does not have raise ``NotImplementedError`` naming their
-ROADMAP item. The device is an explicit argument of every solve.
+the port does not have yet (anything but ITERATIVE_SCHUR with SCHUR_JACOBI
+and DENSE_SCHUR) raise ``NotImplementedError`` naming their ROADMAP item.
+A solve runs on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ class SolverOptions:
 def check_supported(options: SolverOptions) -> None:
     """Raise NotImplementedError for what the fused LM loop of this slice
     cannot run (the conditions of fused_lm.fused_traced_eligible in the
-    JAX package, plus the slice's linear-solver subset)."""
+    JAX package, plus the port's linear-solver subset)."""
     if options.minimizer_type != MinimizerType.TRUST_REGION:
         raise NotImplementedError(f"LINE_SEARCH minimizer: {_MINIMIZERS}")
     if options.trust_region_strategy_type != TrustRegionStrategyType.LEVENBERG_MARQUARDT:
@@ -96,9 +97,15 @@ def check_supported(options: SolverOptions) -> None:
         raise NotImplementedError(
             f"max_solver_time_in_seconds needs the host-loop minimizer: {_MINIMIZERS}"
         )
-    if options.linear_solver_type != LinearSolverType.ITERATIVE_SCHUR:
+    if options.linear_solver_type not in (
+        LinearSolverType.ITERATIVE_SCHUR,
+        LinearSolverType.DENSE_SCHUR,
+    ):
         raise NotImplementedError(f"{options.linear_solver_type}: {_LINEAR}")
-    if options.preconditioner_type != PreconditionerType.SCHUR_JACOBI:
+    if (
+        options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR
+        and options.preconditioner_type != PreconditionerType.SCHUR_JACOBI
+    ):
         raise NotImplementedError(f"{options.preconditioner_type}: {_LINEAR}")
     if options.use_mixed_precision_solves:
         raise NotImplementedError(f"mixed-precision solves: {_LINEAR}")
@@ -146,9 +153,10 @@ class SolverSummary:
         )
 
 
-def solve(options: SolverOptions, problem, device) -> SolverSummary:
-    """Analog of ceres::Solve: solves on ``device`` and writes the solution
-    back into the problem. Like the JAX package's ``solve`` on its fused
+def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
+    """Analog of ceres::Solve: solves on ``device`` (the card by default;
+    without one that raises, it does not move to the CPU) and writes the
+    solution back into the problem. Like the JAX package's ``solve`` on its fused
     path, a step that meets the parameter or function tolerance ends the
     solve at the iterate BEFORE that step (trust_region_minimizer.cc:720-766)."""
     from ceres_tpu_torch.fused_lm import run_fused

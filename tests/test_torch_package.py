@@ -31,6 +31,10 @@ print(len(cuda_build._loaded))  # kernels build at first launch, not at import
         "ceres_tpu_torch.models.bal",
         "ceres_tpu_torch.interop",
         "ceres_tpu_torch.ops.segment_sum",
+        "ceres_tpu_torch.ops.unsorted_segment_sum",
+        "ceres_tpu_torch.ops.outer_segment_sum",
+        "ceres_tpu_torch.tools.sweep_kernels",
+        "ceres_tpu_torch.tools.profile_solve",
     ],
 )
 def test_import_leaves_jax_out(module):

@@ -127,7 +127,7 @@ def test_solve_schur_step(both):
 def test_other_solvers_are_roadmap_items(both):
     from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
 
-    for change in (dict(linear_solver_type=LinearSolverType.DENSE_SCHUR),
+    for change in (dict(linear_solver_type=LinearSolverType.SPARSE_SCHUR),
                    dict(preconditioner_type=PreconditionerType.JACOBI)):
         cfg = dataclasses.replace(both["cfg_t"], **change)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -161,19 +161,41 @@ def test_choose_plan_kind_flagship_point_ids():
 
 
 def test_choose_plan_kind_never_onehot_tiled():
+    """The JAX package's ``onehot_tiled`` kind is called ``unsorted`` in the
+    port (kernel K3): chosen on "cuda" for unsorted ids with
+    288 < G+1 <= UNSORTED_MAX_GROUPS and B >= SORTED_MIN_ROWS, never on
+    "cpu", and no kind carries the JAX name."""
     rng = np.random.default_rng(0)
-    kinds = set()
-    for G in (10, 287, 288, 289, 1000, 4095, 4096, 30000):
+    cap = tred.UNSORTED_MAX_GROUPS
+    kinds = {"cpu": set(), "cuda": set()}
+    for G in (10, 287, 288, 289, 1000, cap - 1, cap, 10 * cap):
         for B in (100, 4096, 20000):
             ids = rng.integers(0, G, B)
             for s in (ids, np.sort(ids)):
                 for dev in ("cpu", "cuda"):
-                    kinds.add(tred.choose_plan_kind(s, G, dev))
-    assert kinds == {"onehot", "sorted", "scatter"}
-    # G + 1 just above the one-hot cap, sorted, large B: the kernel on CUDA
+                    kinds[dev].add(tred.choose_plan_kind(s, G, dev))
+            in_range = 288 < G + 1 <= cap and B >= tred.SORTED_MIN_ROWS
+            assert (tred.choose_plan_kind(ids, G, "cuda") == "unsorted") == in_range
+    assert kinds["cpu"] == {"onehot", "scatter"}
+    assert kinds["cuda"] == {"onehot", "sorted", "unsorted", "scatter"}
+    # G + 1 just above the one-hot cap, sorted, large B: the sorted kernel
     assert tred.choose_plan_kind(np.sort(rng.integers(0, 288, 9000)), 288, "cuda") == "sorted"
+    # the same ids unsorted: the unsorted kernel; at G + 1 = cap + 1: index_add_
+    assert tred.choose_plan_kind(rng.integers(0, 288, 9000), 288, "cuda") == "unsorted"
+    assert tred.choose_plan_kind(rng.integers(0, cap, 9000), cap, "cuda") == "scatter"
     with pytest.raises(ValueError):
         tred.choose_plan_kind(np.arange(10), 5, "tpu")
+
+
+def test_choose_plan_kind_large_case_ids():
+    """The 464-camera / 200k-point / 1.2M-observation case: camera ids ->
+    the unsorted kernel (K3), point ids -> the sorted kernel (K1)."""
+    inst = jbal.synthesize_bal(num_cameras=464, num_points=200_000,
+                               num_observations=1_200_000, noise=2.0, perturb=0.7, seed=7)
+    order = np.argsort(inst.point_index, kind="stable")
+    assert tred.choose_plan_kind(inst.point_index[order], 200_000, "cuda") == "sorted"
+    assert tred.choose_plan_kind(inst.camera_index[order], 464, "cuda") == "unsorted"
+    assert tred.choose_plan_kind(inst.camera_index[order], 464, "cpu") == "scatter"
 
 
 def test_plan_and_tensor_on_different_devices_raise():
