@@ -7,26 +7,42 @@
 //     rmatvec for the points, E'E and E'w of the Schur eliminator);
 //   - sorted_segment_sum (_kernel), the same function with the whole output
 //     table resident, for smaller G.
-// Both become this one kernel. The TPU design (one-hot MXU matmul per row
-// tile, VMEM output windows, scalar-prefetch routing, halo overlap-add)
-// exists because of VMEM and is not carried over.
+// Both become the kernels of this file. The TPU design (one-hot MXU matmul
+// per row tile, VMEM output windows, scalar-prefetch routing, halo
+// overlap-add) exists because of VMEM and is not carried over.
 //
-// What bounds it on this card: it is memory-bound. It reads the B*d
-// contributions and the G+2 row pointers once and writes the (G+1)*d sums
-// once; there is about one add per element read. At the flagship's shapes
-// (B = 83718, d <= 9) that is a few MB, so a launch costs about as much as
-// the traffic.
+// What bounds it on this card: by its bytes it is memory-bound (B*d
+// contributions and G+2 row pointers read once, (G+1)*d sums written once,
+// one add per element read). At the shapes bundle adjustment gives it the
+// segments are tiny and uniform (a point is seen by 3 to 6 cameras, d is 3 or
+// 9), and then what a design spends per SEGMENT decides: a warp per segment
+// makes one load on 18 of its 32 lanes after two dependent row-pointer
+// loads and folds the lanes with ten shuffles to write 12 bytes; 200 000
+// such warps take eleven times the byte bound, bound by instructions and
+// latency per warp.
 //
 // What the design does about it: the host plan turns the sorted ids into a
-// CSR row pointer (row_ptr[g] .. row_ptr[g+1] are the rows of segment g),
-// so each segment is one contiguous slab of B*d memory. One warp owns one
-// segment: for d <= 32 the warp reads floor(32/d) whole rows per step
-// (neighbouring lanes on neighbouring addresses), sums them in registers and
-// folds the lanes of each column together with shuffles; for d > 32 each lane
-// owns columns lane, lane+32, ... and walks the rows. Every output row is
-// written exactly once, by one warp, in a fixed order: no atomics, no second
-// pass, and the same bits on every run. A segment thousands of rows long is
-// walked by its one warp (correct; load balance for such skew is later work).
+// CSR row pointer (row_ptr[g] .. row_ptr[g+1] are the rows of segment g), so
+// each segment is one contiguous slab of B*d memory, and picks one of two
+// kernels from that row pointer, once (ops/segment_sum.choose_sorted_path):
+//
+//   - `element`, for short segments: one THREAD per output element (g, c).
+//     Neighbouring lanes hold neighbouring columns and then neighbouring
+//     segments, so a warp covers 32/d segments whose rows are one contiguous
+//     slab; every lane is used whatever d is, the loads of up to kBatch rows
+//     are in flight together, and the 32 sums are written as one coalesced
+//     store. d = 3 and d = 9 are compile-time instantiations (the division
+//     t -> (g, c) is by a constant); every other d takes the run-time form.
+//   - `warp`, for long segments of d <= 32 columns: one warp per segment. The
+//     warp reads floor(32/d) whole rows per step, sums them in registers and
+//     folds the lanes of each column with shuffles. (Wider rows always take
+//     the element kernel: a lane per column walking the rows is what a warp
+//     would do with them, on fewer threads.)
+//
+// In both, every output row is written exactly once, by one thread or warp,
+// which adds its rows in a fixed order: no atomics, no second pass, and the
+// same bits on every run. Both are right for every row pointer; the choice
+// is about time only.
 
 #include <cuda_runtime.h>
 
@@ -35,13 +51,52 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;
+constexpr int kBatch = 8;  // rows whose loads one thread keeps in flight
 
+// One thread per output element. D > 0: the width at compile time.
+template <typename T, int D>
+__global__ void element_kernel(const T* __restrict__ contrib,
+                               const int32_t* __restrict__ row_ptr,
+                               T* __restrict__ out, int64_t num_elements,
+                               int d_run) {
+  const int d = D > 0 ? D : d_run;
+  const int64_t t =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= num_elements) return;
+  int64_t g;
+  int c;
+  if (num_elements <= INT32_MAX) {  // the same branch for every thread
+    const uint32_t t32 = static_cast<uint32_t>(t);
+    const uint32_t g32 = t32 / static_cast<uint32_t>(d);
+    g = g32;
+    c = static_cast<int>(t32 - g32 * static_cast<uint32_t>(d));
+  } else {
+    g = t / d;
+    c = static_cast<int>(t - g * d);
+  }
+  const int64_t begin = row_ptr[g];
+  const int n = static_cast<int>(row_ptr[g + 1] - begin);
+  const T* p = contrib + begin * d + c;
+  T acc = T(0);
+  for (int r = 0; r < n; r += kBatch, p += static_cast<int64_t>(kBatch) * d) {
+    T v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      v[i] = (r + i < n) ? p[static_cast<int64_t>(i) * d] : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (r + i < n) acc += v[i];  // rows in their stored order
+    }
+  }
+  out[t] = acc;
+}
+
+// One warp per segment; d <= 32.
 template <typename T>
-__global__ void sorted_segment_sum_kernel(const T* __restrict__ contrib,
-                                          const int32_t* __restrict__ row_ptr,
-                                          T* __restrict__ out,
-                                          int64_t num_segments, int d) {
+__global__ void warp_kernel(const T* __restrict__ contrib,
+                            const int32_t* __restrict__ row_ptr,
+                            T* __restrict__ out, int64_t num_segments, int d) {
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -50,57 +105,76 @@ __global__ void sorted_segment_sum_kernel(const T* __restrict__ contrib,
   const int64_t end = row_ptr[warp + 1];
   T* dst = out + warp * d;
 
-  if (d <= kWarp) {
-    const int rows_per_step = kWarp / d;
-    const int sub_row = lane / d;  // which of the step's rows this lane reads
-    const int col = lane % d;
-    T acc = T(0);
-    if (sub_row < rows_per_step) {
-      for (int64_t r = begin + sub_row; r < end; r += rows_per_step) {
-        acc += contrib[r * d + col];
-      }
-    }
-    // Lanes col, col + d, col + 2d, ... hold partial sums of one column.
-    // Lane `col` (< d) gathers them in a fixed order.
-    T total = T(0);
-    for (int j = 0; j < rows_per_step; ++j) {
-      const T v = __shfl_sync(0xffffffffu, acc, (j * d + lane) % kWarp);
-      total += v;
-    }
-    if (lane < d) dst[lane] = total;
-  } else {
-    for (int col = lane; col < d; col += kWarp) {
-      T acc = T(0);
-      for (int64_t r = begin; r < end; ++r) acc += contrib[r * d + col];
-      dst[col] = acc;
+  const int rows_per_step = kWarp / d;
+  const int sub_row = lane / d;  // which of the step's rows this lane reads
+  const int col = lane % d;
+  T acc = T(0);
+  if (sub_row < rows_per_step) {
+    for (int64_t r = begin + sub_row; r < end; r += rows_per_step) {
+      acc += contrib[r * d + col];
     }
   }
+  // Lanes col, col + d, col + 2d, ... hold partial sums of one column.
+  // Lane `col` (< d) gathers them in a fixed order.
+  T total = T(0);
+  for (int j = 0; j < rows_per_step; ++j) {
+    const T v = __shfl_sync(0xffffffffu, acc, (j * d + lane) % kWarp);
+    total += v;
+  }
+  if (lane < d) dst[lane] = total;
 }
 
 template <typename T>
-int launch(const void* contrib, const void* row_ptr, void* out,
-           int64_t num_segments, int d, void* stream) {
-  const int64_t threads = num_segments * kWarp;
-  const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  sorted_segment_sum_kernel<T><<<static_cast<unsigned int>(blocks), kThreads,
-                                 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(contrib), static_cast<const int32_t*>(row_ptr),
-      static_cast<T*>(out), num_segments, d);
+int launch(const void* contrib_v, const void* row_ptr_v, void* out_v,
+           int64_t num_segments, int d, int path, int threads, void* stream_v) {
+  if (d < 1 || threads < kWarp || threads > 1024 || threads % kWarp != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const T* contrib = static_cast<const T*>(contrib_v);
+  const int32_t* row_ptr = static_cast<const int32_t*>(row_ptr_v);
+  T* out = static_cast<T*>(out_v);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
+  const int64_t work =  // threads the grid must hold
+      path == 0 ? num_segments * d : num_segments * kWarp;
+  const int64_t blocks = (work + threads - 1) / threads;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int grid = static_cast<unsigned int>(blocks);
+  if (path == 0) {
+    if (d == 3) {
+      element_kernel<T, 3><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
+                                                         work, d);
+    } else if (d == 9) {
+      element_kernel<T, 9><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
+                                                         work, d);
+    } else {
+      element_kernel<T, 0><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
+                                                         work, d);
+    }
+  } else if (path == 1 && d <= kWarp) {
+    warp_kernel<T><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
+                                                 num_segments, d);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. Pointers are device pointers; `stream` is a
-// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
+// Plain C interface for ctypes. Pointers are device pointers; `path` is 0
+// for the element kernel and 1 for the warp kernel (d <= 32 only); `threads`
+// is the block size (a multiple of 32); `stream` is a cudaStream_t. Returns
+// the cudaError_t of the launch (0 = success).
 extern "C" int sorted_segment_sum_f32(const void* contrib, const void* row_ptr,
                                       void* out, int64_t num_segments, int d,
-                                      void* stream) {
-  return launch<float>(contrib, row_ptr, out, num_segments, d, stream);
+                                      int path, int threads, void* stream) {
+  return launch<float>(contrib, row_ptr, out, num_segments, d, path, threads,
+                       stream);
 }
 
 extern "C" int sorted_segment_sum_f64(const void* contrib, const void* row_ptr,
                                       void* out, int64_t num_segments, int d,
-                                      void* stream) {
-  return launch<double>(contrib, row_ptr, out, num_segments, d, stream);
+                                      int path, int threads, void* stream) {
+  return launch<double>(contrib, row_ptr, out, num_segments, d, path, threads,
+                        stream);
 }

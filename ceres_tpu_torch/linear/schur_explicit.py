@@ -29,7 +29,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ceres_tpu_torch.ops.outer_segment_sum import flat_outer, outer_segment_sum
+from ceres_tpu_torch.ops.outer_segment_sum import (
+    flat_outer,
+    outer_segment_sum,
+    pair_rows_int32,
+)
 from ceres_tpu_torch.ops.reduce import ReducePlan, apply_reduce, build_reduce_plan
 
 
@@ -259,11 +263,15 @@ def _pair_group(T1, T2, diagonal, sa, sb, pa, pb, slot_count, f_groups, coords,
             )
     order = np.argsort(ids, kind="stable")
     a_idx, b_idx = sa[order], sb[order]
+    plan = build_reduce_plan(ids[order], C, dev)
+    self_pairs = bool(T1 == T2 and np.array_equal(a_idx, b_idx))
+    if plan.kind == "sorted" and not self_pairs:
+        # The fused kernel reads the pair lists itself, as int32.
+        a_idx, b_idx = pair_rows_int32(a_idx), pair_rows_int32(b_idx)
     return PairGroup(
         T1=T1, T2=T2, diagonal=diagonal, num_cells=C, a_idx=to_dev(a_idx),
-        b_idx=to_dev(b_idx), plan=build_reduce_plan(ids[order], C, dev),
-        rows=rows, cols=cols,
-        self_pairs=bool(T1 == T2 and np.array_equal(a_idx, b_idx)),
+        b_idx=to_dev(b_idx), plan=plan, rows=rows, cols=cols,
+        self_pairs=self_pairs,
     )
 
 

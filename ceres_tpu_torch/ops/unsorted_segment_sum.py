@@ -16,6 +16,7 @@ run (the same terms in another order).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -27,6 +28,8 @@ from ceres_tpu_torch.ops import cuda_build
 # Kernel launches made by segment_sum_unsorted (a plain counter: a run can
 # show that its main path went through the kernel).
 launches = 0
+# The same launches by the width d of the contributions.
+launches_by_width: collections.Counter = collections.Counter()
 
 _SOURCE = "unsorted_segment_sum.cu"
 
@@ -127,4 +130,5 @@ def segment_sum_unsorted(
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches += 1
+    launches_by_width[d] += 1
     return out.reshape((G + 1,) + tuple(contrib.shape[1:]))

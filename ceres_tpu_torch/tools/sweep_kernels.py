@@ -1,18 +1,37 @@
-"""Sweep the launch parameters of the unsorted segment sum (K3) on the card.
+"""Sweep the launch parameters of the hand-written kernels on the card.
 
-    python3 -m ceres_tpu_torch.tools.sweep_kernels
+    python3 -m ceres_tpu_torch.tools.sweep_kernels [k1] [k3] [k4]
 
-Two tables, one JSON line per cell on standard output, each line with the
-card's name and power limit:
+(no argument: all three). One JSON line per cell on standard output, each
+with the card's name and power limit and a ``table``:
 
-- ``table``: K3 at the large bundle-adjustment case's camera-side shape
-  (B = 1.2 M rows, G = 464, uniform random ids; d = 81, 9, 3; f32 and f64)
-  for every (TABLE_BYTES, THREADS) pair, beside ``index_add_``;
-- ``cap``: K3 at its module defaults against ``index_add_`` for growing G
+- ``k1_threads``: the sorted segment sum (K1) at the point-side shapes of
+  the two bundle-adjustment cases (large: 200 000 segments of 6 rows;
+  flagship: 22 106 segments of 3 or 4 rows; d = 3 and 9; f32 and f64), both
+  kernels (``element``, ``warp``) at every block size, beside ``index_add_``.
+  ``ops/segment_sum.THREADS`` is set from it;
+- ``k1_length``: both K1 kernels on 1.2 M rows cut into uniform segments of
+  L rows, for growing L (d = 3, 9): where the warp kernel overtakes the
+  element kernel sets ``ops/segment_sum.ELEMENT_MAX_MEAN_ROWS``;
+- ``k1_outlier``: both K1 kernels at the large shape with one more segment of
+  N rows, for growing N: what a lone long segment costs the element kernel
+  sets ``ops/segment_sum.ELEMENT_MAX_LONGEST``;
+- ``k3_table``: the unsorted segment sum (K3) at the large case's
+  camera-side shape (B = 1.2 M rows, G = 464, uniform random ids; d = 81, 9,
+  3; f32 and f64) for every (TABLE_BYTES, THREADS) pair, beside
+  ``index_add_``;
+- ``k3_cap``: K3 at its module defaults against ``index_add_`` for growing G
   (d = 9 and 81, f32), which is what ``ops/reduce.UNSORTED_MAX_GROUPS`` is
-  set from.
+  set from;
+- ``k4``: the fused pair-outer segment sum (K4) on the large case's own
+  strict-lower pair lists (3.0 M pairs, 107 416 cells, K = 3, 9 x 9; random
+  slabs; f32 and f64): the compile-time form at every (threads, pairs per
+  staging buffer), and the run-time form at the same shape.
+  ``ops/outer_segment_sum.THREADS`` and ``STAGE_PAIRS`` are set from it.
 
-Times are CUDA-event means after a warm-up. Needs a CUDA device.
+K1 and K4 times are of the call replayed from a CUDA graph (the host's
+enqueue left out); K3 times are CUDA-event means over back-to-back calls.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,12 +43,19 @@ import sys
 import numpy as np
 import torch
 
+from ceres_tpu_torch.ops import outer_segment_sum as osum
+from ceres_tpu_torch.ops import segment_sum as ss
 from ceres_tpu_torch.ops import unsorted_segment_sum as us
 
 B = 1_200_000
 TABLE_BYTES = (32 * 1024, 48 * 1024, 64 * 1024, 100 * 1024, 160 * 1024, 227 * 1024)
 THREADS = (256, 512, 1024)
 CAP_GROUPS = (511, 1023, 2047, 4095, 8191, 16383)
+K1_THREADS = (64, 128, 256, 512, 1024)
+K1_LENGTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 1024, 4096)
+K1_OUTLIERS = (0, 256, 1024, 4096, 16384, 65536)
+K4_THREADS = (128, 256, 512)
+K4_STAGES = (3, 6, 9, 12, 15, 18)
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -46,18 +72,89 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise RuntimeError("sweep_kernels needs a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(0)
+def _graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``launches`` calls captured into one CUDA
+    graph, the graph replayed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
 
-    def emit(**fields):
-        print(json.dumps({**fields, "card": smi}), flush=True)
+
+def _name(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def _row_ptr(counts, dev):
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return torch.from_numpy(row_ptr).to(dev), int(row_ptr[-1])
+
+
+def _k1_both_paths(c, row_ptr, G) -> dict:
+    return {
+        f"{path}_ms": _graph_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G, path))
+        for path in ("element", "warp")
+    }
+
+
+def sweep_k1(dev, emit) -> None:
+    ss.build_kernel()
+    rng = np.random.default_rng(0)
+    defaults = dict(ss.THREADS)
+    shapes = {
+        "large": np.r_[np.full(200_000, 6), 0],
+        "flagship": np.r_[rng.permutation(np.r_[np.full(17400, 4), np.full(4706, 3)]), 0],
+    }
+    for case, counts in shapes.items():
+        row_ptr, rows = _row_ptr(counts, dev)
+        G = counts.size - 1
+        seg = torch.repeat_interleave(
+            torch.arange(G + 1, device=dev), torch.from_numpy(counts).to(dev)
+        )
+        for dtype in (torch.float32, torch.float64):
+            for d in (3, 9):
+                c = torch.randn((rows, d), dtype=dtype, device=dev)
+                lib = _graph_ms(
+                    lambda: torch.zeros((G + 1, d), dtype=dtype, device=dev).index_add_(0, seg, c)
+                )
+                for threads in K1_THREADS:
+                    ss.THREADS.update(element=threads, warp=threads)
+                    emit(table="k1_threads", case=case, rows=rows, G=G, d=d,
+                         dtype=_name(dtype), threads=threads, index_add_ms=lib,
+                         **_k1_both_paths(c, row_ptr, G))
+                ss.THREADS.update(defaults)
+    for L in K1_LENGTHS:
+        G = B // L
+        row_ptr, rows = _row_ptr(np.r_[np.full(G, L), 0], dev)
+        for d in (3, 9):
+            c = torch.randn((rows, d), dtype=torch.float32, device=dev)
+            emit(table="k1_length", rows=rows, G=G, L=L, d=d, dtype="float32",
+                 **_k1_both_paths(c, row_ptr, G))
+            del c
+    for n in K1_OUTLIERS:
+        counts = np.r_[np.full(100_000, 6), n, np.full(100_000, 6), 0]
+        row_ptr, rows = _row_ptr(counts, dev)
+        G = counts.size - 1
+        for d in (3, 9):
+            c = torch.randn((rows, d), dtype=torch.float32, device=dev)
+            emit(table="k1_outlier", rows=rows, G=G, outlier_rows=n, d=d,
+                 dtype="float32", **_k1_both_paths(c, row_ptr, G))
+
+
+def sweep_k3(dev, emit) -> None:
+    rng = np.random.default_rng(0)
 
     def index_add_ms(c, seg64, G):
         d = c.shape[1]
@@ -77,7 +174,7 @@ def main() -> int:
                 for threads in THREADS:
                     us.TABLE_BYTES, us.THREADS = table, threads
                     ms = _time_ms(lambda: us.segment_sum_unsorted(c, ids, 464))
-                    emit(table="table", dtype=str(dtype), d=d, G=464, B=B,
+                    emit(table="k3_table", dtype=str(dtype), d=d, G=464, B=B,
                          table_bytes=table, threads=threads, ms=ms, index_add_ms=lib)
             del c
     us.TABLE_BYTES, us.THREADS = defaults
@@ -88,13 +185,74 @@ def main() -> int:
         seg64 = ids.to(torch.int64)
         for d in (9, 81):
             c = torch.randn((B, d), dtype=torch.float32, device=dev)
-            emit(table="cap", dtype="torch.float32", d=d, G=G, B=B,
+            emit(table="k3_cap", dtype="torch.float32", d=d, G=G, B=B,
                  table_bytes=us.TABLE_BYTES, threads=us.THREADS,
                  ms=_time_ms(lambda: us.segment_sum_unsorted(c, ids, G)),
                  index_add_ms=index_add_ms(c, seg64, G))
             del c
+
+
+def sweep_k4(dev, emit) -> None:
+    from ceres_tpu_torch.linear import schur as schur_mod
+    from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
+    from ceres_tpu_torch.models import bal
+
+    osum.build_kernel()
+    program = bal.build_problem(bal.synthesize_bal(
+        num_cameras=464, num_points=200_000, num_observations=1_200_000,
+        noise=2.0, perturb=0.7, seed=7,
+    ))[0].program(dev)
+    plan = build_explicit_plan(program, schur_mod.build_schur_structure(program))
+    group = next(g for g in plan.corr if not g.self_pairs)
+    slots = program.families[0].batch
+    a, b, row_ptr, G = group.a_idx, group.b_idx, group.plan.row_ptr, group.num_cells
+    defaults = (osum.THREADS, dict(osum.STAGE_PAIRS), osum.TILED_SHAPES)
+
+    def run(W, Y):
+        return _graph_ms(lambda: osum.outer_segment_sum(W, Y, a, b, row_ptr, G, 3, 9, 9), 5)
+
+    for dtype in (torch.float32, torch.float64):
+        W = torch.randn((slots + 1, 27), dtype=dtype, device=dev)
+        Y = torch.randn((slots + 1, 27), dtype=dtype, device=dev)
+        common = dict(table="k4", dtype=_name(dtype), pairs=int(a.shape[0]), cells=G)
+        for threads in K4_THREADS:
+            osum.THREADS = threads
+            osum.TILED_SHAPES = frozenset()
+            emit(**common, form="run_time", threads=threads, stage=None, ms=run(W, Y))
+            osum.TILED_SHAPES = defaults[2]
+            for stage in K4_STAGES:
+                if 2 * stage * 54 * W.element_size() * (threads // 32) > 227 * 1024:
+                    continue
+                osum.STAGE_PAIRS = {4: stage, 8: stage}
+                emit(**common, form="compile_time", threads=threads, stage=stage,
+                     ms=run(W, Y))
+        osum.THREADS, osum.STAGE_PAIRS, osum.TILED_SHAPES = (
+            defaults[0], dict(defaults[1]), defaults[2]
+        )
+        del W, Y
+
+
+def main(argv) -> int:
+    sweeps = {"k1": sweep_k1, "k3": sweep_k3, "k4": sweep_k4}
+    chosen = argv or list(sweeps)
+    for name in chosen:
+        if name not in sweeps:
+            raise SystemExit(f"unknown sweep {name!r}; choose from {sorted(sweeps)}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_kernels needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+
+    def emit(**fields):
+        print(json.dumps({**fields, "card": smi}), flush=True)
+
+    for name in chosen:
+        sweeps[name](dev, emit)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

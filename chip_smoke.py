@@ -10,14 +10,19 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    one nvcc each, all at the same time: the sorted segment sum (K1), the
    unsorted segment sum (K3) and the fused pair-outer segment sum (K4);
 3. kernel: each kernel against its plain PyTorch version on the card, at the
-   shapes the solves below give it (f32 and f64) and at edge cases, with its
-   time, the plain version's, the one PyTorch call that computes the same
-   function where there is one (``index_add_``), and its bound: the bytes
-   it must move (inputs once, outputs once) over the card's 3.35 TB/s, or
-   its operations over 67 TFLOP/s of plain float32 if that is more (CUDA
-   events after a warm-up). ``ms`` is a call as the solve makes it, host
-   enqueue included; ``device_ms`` is the same call replayed from a CUDA
-   graph, which leaves the host out;
+   shapes the solves below give it (f32 and f64) and at edge cases (K1:
+   through the kernel its plan chooses and through both of its kernels, with
+   a row pointer for each choice; K4: K = 3, 9 x 9 through the compile-time
+   form, other shapes through the run-time form), with its time, the plain
+   version's, the one PyTorch call that computes the same function where
+   there is one (``index_add_``), and its bound: the bytes it must move
+   (inputs once, outputs once) over the card's 3.35 TB/s, or its operations
+   over 67 TFLOP/s of plain float32 if that is more (CUDA events after a
+   warm-up). ``ms`` is a call as the solve makes it, host enqueue included;
+   ``device_ms`` is the same call replayed from a CUDA graph, which leaves
+   the host out. K4 also gets ``floor_ms``: the 32-byte sectors its row
+   gathers touch, less those an L2 window of 25 MB of gathered traffic would
+   still hold, plus lists and output, over the same memory rate;
 4. solve, flagship: ``ceres_tpu_torch.fused_solve`` on the 16 cameras /
    22106 points / 83718 observations instance (seed 16, as bench.py builds
    it), ITERATIVE_SCHUR + SCHUR_JACOBI, in float32 and in float64, each after
@@ -34,7 +39,8 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
 
 ``solve_seconds`` is the LM loop on the device; the host set-up of each
 fresh problem is reported as ``setup_seconds``. Launch counters are set to
-zero just before a timed solve and read just after it.
+zero just before a timed solve and read just after it; K1's and K3's are
+also reported by the width d of what they reduce (``launches_by_width``).
 
 Before the last line: one ``{"kernels": [...]}`` line (per kernel: its times
 at the large case's float32 shape and its launches in the large float32
@@ -78,6 +84,10 @@ KERNEL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # core) float32 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+SECTOR_BYTES = 32  # what a memory access moves at the least
+# Gathered traffic an L2 of 50 MB is taken to still hold when a row is
+# wanted again (half of it: lists, output and the other slab share it).
+L2_WINDOW_BYTES = 25e6
 KERNELS = {
     "sorted_segment_sum": (ss, "ceres_tpu/ops/pallas_segment.py:389"),
     "unsorted_segment_sum": (us, "ceres_tpu/ops/pallas_segment.py:224"),
@@ -199,14 +209,14 @@ def _record(name: str, max_err: float, **times) -> dict:
 # ---- K1 ---------------------------------------------------------------------
 
 
-def _compare_sorted(row_ptr, G, contrib, label) -> float:
-    out = ss.segment_sum_sorted(contrib, row_ptr, G)
+def _compare_sorted(row_ptr, G, contrib, label, path) -> float:
+    out = ss.segment_sum_sorted(contrib, row_ptr, G, path)
     ref = ss.segment_sum_sorted_plain(contrib, row_ptr, G)
     scale = ss.segment_sum_sorted_plain(contrib.abs(), row_ptr, G)
-    return _within(out, ref, scale, contrib.dtype, label)
+    return _within(out, ref, scale, contrib.dtype, f"{label} ({path})")
 
 
-def _time_sorted(row_ptr, G, c, reps) -> dict:
+def _time_sorted(row_ptr, G, c, reps, path) -> dict:
     """K1's times at one shape: as called, the plain version, index_add_,
     the bound, and kernel and index_add_ from a CUDA graph."""
     B, d = c.shape
@@ -219,10 +229,10 @@ def _time_sorted(row_ptr, G, c, reps) -> dict:
     e = c.element_size()
     bound_ms, bound_by = _bound(B * d * e + (G + 2) * 4 + (G + 1) * d * e, B * d)
     return dict(
-        ms=_time_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G), reps),
+        ms=_time_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G, path), reps),
         plain_ms=_time_ms(lambda: ss.segment_sum_sorted_plain(c, row_ptr, G), reps),
         library_ms=_time_ms(library, reps), bound_ms=bound_ms, bound_by=bound_by,
-        device_ms=_device_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G)),
+        device_ms=_device_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G, path)),
         library_device_ms=_device_ms(library),
     )
 
@@ -230,21 +240,29 @@ def _time_sorted(row_ptr, G, c, reps) -> dict:
 def check_sorted(device, flagship_plan, large_plan) -> dict:
     """K1 vs plain at the point-side plans of both cases and at edge cases."""
     rng = np.random.default_rng(0)
-    max_err, checks, record = 0.0, 0, None
+    max_err, checks, record, shapes = 0.0, 0, None, []
     for case, plan, reps in (("flagship", flagship_plan, 200), ("large", large_plan, 50)):
-        if plan.kind != "sorted":
-            raise RuntimeError(f"{case} point plan is {plan.kind!r}, not 'sorted'")
+        if plan.kind != "sorted" or plan.sorted_path != "element":
+            raise RuntimeError(
+                f"{case} point plan is {plan.kind!r} / {plan.sorted_path!r}, "
+                "not 'sorted' / 'element'"
+            )
         G = plan.num_groups
         B = int(plan.row_ptr[-1])
         for dtype in (torch.float32, torch.float64):
             for d in (3, 9):
                 c = torch.tensor(rng.standard_normal((B, d)), dtype=dtype, device=device)
-                err = _compare_sorted(plan.row_ptr, G, c, f"K1 {case} d={d} {dtype}")
-                max_err, checks = max(max_err, err), checks + 1
+                for path in ("element", "warp"):
+                    err = _compare_sorted(plan.row_ptr, G, c, f"K1 {case} d={d} {dtype}", path)
+                    max_err, checks = max(max_err, err), checks + 1
                 if dtype == torch.float32:
-                    times = _time_sorted(plan.row_ptr, G, c, reps)
+                    times = _time_sorted(plan.row_ptr, G, c, reps, plan.sorted_path)
+                    times["warp_device_ms"] = _device_ms(
+                        lambda: ss.segment_sum_sorted(c, plan.row_ptr, G, "warp")
+                    )
                     phase("kernel_time", kernel="sorted_segment_sum", case=case, B=B, G=G,
-                          d=d, dtype="float32", **times)
+                          d=d, dtype="float32", path=plan.sorted_path, **times)
+                    shapes.append(dict(case=case, d=d, **times))
                     if case == "large" and d == 9:
                         record = times
     edge = {
@@ -255,15 +273,29 @@ def check_sorted(device, flagship_plan, large_plan) -> dict:
         ),
         "ids >= G to the dummy row, d=9": (np.sort(rng.integers(0, 1300, 20000)), 1000, 9),
         "G+1 = 289, d=3": (np.sort(rng.integers(0, 288, 9000)), 288, 3),
+        # one row pointer for each choice of kernel, and a mixed one
+        "short segments (4 rows each), d=3": (np.repeat(np.arange(30000), 4), 30000, 3),
+        "long segments (3 of 7000 rows), d=9": (np.repeat(np.arange(3), 7000), 600, 9),
+        "short segments and five of 800 rows, d=5": (
+            np.sort(np.concatenate([np.repeat(np.arange(5), 800), rng.integers(5, 9000, 30000)])),
+            9000, 5,
+        ),
     }
+    chosen = {}
     for label, (seg, g, d) in edge.items():
-        row_ptr = torch.from_numpy(ss.build_row_ptr(seg, g)).to(device)
+        host_row_ptr = ss.build_row_ptr(seg, g)
+        chosen[label] = ss.choose_sorted_path(host_row_ptr)
+        row_ptr = torch.from_numpy(host_row_ptr).to(device)
         for dtype in (torch.float32, torch.float64):
             c = torch.tensor(rng.standard_normal((seg.size, d)), dtype=dtype, device=device)
-            max_err = max(max_err, _compare_sorted(row_ptr, g, c, f"K1 {label} {dtype}"))
-            checks += 1
-    phase("kernel", kernel="sorted_segment_sum", checks=checks, max_abs_err=max_err)
-    return _record("sorted_segment_sum", max_err, **record)
+            for path in (None, "element", "warp"):  # None: chosen from the row pointer
+                err = _compare_sorted(row_ptr, g, c, f"K1 {label} {dtype}", path)
+                max_err, checks = max(max_err, err), checks + 1
+    if set(chosen.values()) != {"element", "warp"}:
+        raise RuntimeError(f"K1 edge cases do not reach both kernels: {chosen}")
+    phase("kernel", kernel="sorted_segment_sum", checks=checks, max_abs_err=max_err,
+          edge_case_paths=chosen)
+    return _record("sorted_segment_sum", max_err, timed_shapes=shapes, **record)
 
 
 # ---- K3 ---------------------------------------------------------------------
@@ -340,6 +372,32 @@ def _compare_outer(W, Y, a, b, row_ptr, G, K, T1, T2, label) -> float:
     return _within(out, ref, scale, W.dtype, label)
 
 
+def _gathered_floor_bytes(a, b, row_bytes: int):
+    """(bytes of the sectors K4's row gathers touch, the same less the rows
+    an L2 window still holds). A pair gathers row ``a[p]`` of one slab and
+    ``b[p]`` of the other, in the order of the list; a row wanted again
+    within L2_WINDOW_BYTES of gathered traffic counts as served by L2."""
+    pairs = a.shape[0]
+    position = torch.arange(pairs, device=a.device)
+
+    def sectors(rows):
+        first = rows * row_bytes
+        return (first + row_bytes - 1) // SECTOR_BYTES - first // SECTOR_BYTES + 1
+
+    touched = [sectors(idx.long()) for idx in (a, b)]
+    total = sum(int(t.sum()) for t in touched) * SECTOR_BYTES
+    window_pairs = L2_WINDOW_BYTES / (total / max(pairs, 1))
+    missed = 0
+    for idx, sec in zip((a, b), touched):
+        order = torch.argsort(idx.long() * pairs + position)  # by row, then position
+        rows, pos = idx[order], position[order]
+        again = (rows[1:] == rows[:-1]) & ((pos[1:] - pos[:-1]) <= window_pairs)
+        miss = torch.ones(pairs, dtype=torch.bool, device=a.device)
+        miss[1:] = ~again
+        missed += int(sec[order][miss].sum())
+    return total, missed * SECTOR_BYTES
+
+
 def check_outer(device, group, num_slots: int) -> dict:
     """K4 vs plain at the large case's strict-lower pair group (the plan's
     own pair lists and row pointer, random slabs) and at edge cases."""
@@ -348,8 +406,11 @@ def check_outer(device, group, num_slots: int) -> dict:
     rng = np.random.default_rng(2)
     K, T1, T2, G = 3, group.T1, group.T2, group.num_cells
     a, b, row_ptr = group.a_idx, group.b_idx, group.plan.row_ptr
+    if a.dtype != torch.int32 or (K, T1, T2) not in osum.TILED_SHAPES:
+        raise RuntimeError("the large case's pair group is not int32 lists at K=3, 9 x 9")
     Pp = a.shape[0]
     max_err, checks, record = 0.0, 0, None
+    forms = {"compile_time": 0, "run_time": 0}
     for dtype in (torch.float32, torch.float64):
         W = torch.tensor(rng.standard_normal((num_slots + 1, K * T1)), dtype=dtype, device=device)
         Y = torch.tensor(rng.standard_normal((num_slots + 1, K * T2)), dtype=dtype, device=device)
@@ -357,11 +418,13 @@ def check_outer(device, group, num_slots: int) -> dict:
         Y[num_slots] = 0.0
         err = _compare_outer(W, Y, a, b, row_ptr, G, K, T1, T2, f"K4 large {dtype}")
         max_err, checks = max(max_err, err), checks + 1
+        forms["compile_time"] += 1
         e = W.element_size()
+        other_bytes = 2 * Pp * 4 + (G + 2) * 4 + (G + 1) * T1 * T2 * e
         bound_ms, by = _bound(
-            (W.numel() + Y.numel()) * e + 2 * Pp * 8 + (G + 2) * 4 + (G + 1) * T1 * T2 * e,
-            2.0 * Pp * K * T1 * T2,
+            (W.numel() + Y.numel()) * e + other_bytes, 2.0 * Pp * K * T1 * T2,
         )
+        gathered, missed = _gathered_floor_bytes(a, b, K * T1 * e)
         times = dict(
             ms=_time_ms(lambda: osum.outer_segment_sum(W, Y, a, b, row_ptr, G, K, T1, T2), 20),
             plain_ms=_time_ms(
@@ -371,6 +434,8 @@ def check_outer(device, group, num_slots: int) -> dict:
             device_ms=_device_ms(
                 lambda: osum.outer_segment_sum(W, Y, a, b, row_ptr, G, K, T1, T2), 5
             ),
+            floor_ms=(missed + other_bytes) / PEAK_BYTES_PER_S * 1e3,
+            gathered_bytes=gathered, gathered_bytes_missing_l2=missed,
         )
         phase("kernel_time", kernel="outer_segment_sum", case="large", pairs=Pp, cells=G,
               slots=num_slots, K=K, T1=T1, T2=T2, dtype=str(dtype).split(".")[1], **times)
@@ -384,13 +449,19 @@ def check_outer(device, group, num_slots: int) -> dict:
         "one cell with 5000 pairs": (long_cell, 50, 3000, 3, 9, 9),
         "T1 != T2 (9 x 6)": (np.sort(rng.integers(0, 700, 20000)), 700, 5000, 3, 9, 6),
         "K=2, 12 x 12 (two passes of 128)": (np.sort(rng.integers(0, 300, 4000)), 300, 800, 2, 12, 12),
+        "cells of 1 to 60 pairs (every staging tail)": (
+            np.repeat(np.arange(600), np.arange(600) % 60 + 1), 600, 4000, 3, 9, 9,
+        ),
         "no pairs": (np.zeros(0, np.int64), 10, 20, 3, 9, 9),
     }
     for label, (cells, g, n, k, t1, t2) in edge.items():
         rp = torch.from_numpy(ss.build_row_ptr(cells, g)).to(device)
         # about one pair row in eight is the pad row n (a zero row)
-        ai = torch.from_numpy(np.where(rng.random(cells.size) < 0.125, n, rng.integers(0, n, cells.size))).to(device)
-        bi = torch.from_numpy(rng.integers(0, n + 1, cells.size)).to(device)
+        ai = torch.from_numpy(osum.pair_rows_int32(
+            np.where(rng.random(cells.size) < 0.125, n, rng.integers(0, n, cells.size))
+        )).to(device)
+        bi = torch.from_numpy(osum.pair_rows_int32(rng.integers(0, n + 1, cells.size))).to(device)
+        form = "compile_time" if (k, t1, t2) in osum.TILED_SHAPES else "run_time"
         for dtype in (torch.float32, torch.float64):
             W = torch.tensor(rng.standard_normal((n + 1, k * t1)), dtype=dtype, device=device)
             Y = torch.tensor(rng.standard_normal((n + 1, k * t2)), dtype=dtype, device=device)
@@ -398,7 +469,11 @@ def check_outer(device, group, num_slots: int) -> dict:
             Y[n] = 0.0
             err = _compare_outer(W, Y, ai, bi, rp, g, k, t1, t2, f"K4 {label} {dtype}")
             max_err, checks = max(max_err, err), checks + 1
-    phase("kernel", kernel="outer_segment_sum", checks=checks, max_abs_err=max_err)
+            forms[form] += 1
+    if not all(forms.values()):
+        raise RuntimeError(f"K4 checks do not reach both forms: {forms}")
+    phase("kernel", kernel="outer_segment_sum", checks=checks, max_abs_err=max_err,
+          checks_by_form=forms)
     return _record("outer_segment_sum", max_err, **record)
 
 
@@ -431,10 +506,20 @@ def check_kernels(device) -> list:
 def _reset_launches() -> None:
     for mod, _ in KERNELS.values():
         mod.launches = 0
+    for mod in (ss, us):
+        mod.launches_by_width.clear()
 
 
 def _launches() -> dict:
     return {name: mod.launches for name, (mod, _) in KERNELS.items()}
+
+
+def _launches_by_width() -> dict:
+    """K1's and K3's launches by the width d of the contributions."""
+    return {
+        name: {f"d={d}": n for d, n in sorted(KERNELS[name][0].launches_by_width.items())}
+        for name in ("sorted_segment_sum", "unsorted_segment_sum")
+    }
 
 
 def _options(dtype: str, iterative: bool, max_iters: int = 50):
@@ -475,7 +560,7 @@ def solve_flagship(device, dtype: str) -> dict:
             _reset_launches()
         runs.append(ctt.fused_solve(_options(dtype, True), problem, device=device))
         if i == 0:
-            launches, first_problem = _launches(), problem
+            launches, by_width, first_problem = _launches(), _launches_by_width(), problem
         if runs[-1].final_cost != runs[0].final_cost:
             raise RuntimeError(f"{dtype} solve is not repeatable on the card")
     summary = runs[0]
@@ -491,7 +576,7 @@ def solve_flagship(device, dtype: str) -> dict:
         seconds_per_lm_iteration=times[0] / max(summary.num_iterations, 1),
         solve_seconds_all=times, solve_seconds_median=float(np.median(times)),
         setup_seconds_all=[s.preprocessor_time_in_seconds for s in runs],
-        launches=launches,
+        launches=launches, launches_by_width=by_width,
     )
     if launches["sorted_segment_sum"] == 0:
         raise RuntimeError(f"flagship {dtype}: K1 was never launched")
@@ -508,7 +593,7 @@ def solve_large(device, dtype: str, inst) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     summary = ctt.fused_solve(_options(dtype, False), problem, device=device)
-    launches = _launches()
+    launches, by_width = _launches(), _launches_by_width()
     seconds = summary.minimizer_time_in_seconds
     rel = _checked(problem, summary, LARGE_REFERENCE_FINAL_COST, f"large {dtype}")
     phase(
@@ -520,12 +605,13 @@ def solve_large(device, dtype: str, inst) -> dict:
         termination=str(summary.termination_type), solve_seconds=seconds,
         seconds_per_lm_iteration=seconds / max(summary.num_iterations, 1),
         setup_seconds=summary.preprocessor_time_in_seconds, launches=launches,
+        launches_by_width=by_width,
         peak_device_bytes=torch.cuda.max_memory_allocated(),
     )
     for name, count in launches.items():
         if count == 0:
             raise RuntimeError(f"large {dtype}: {name} was never launched")
-    return launches
+    return launches, by_width
 
 
 def main() -> int:
@@ -536,10 +622,12 @@ def main() -> int:
     solve_flagship(device, "float32")
     solve_flagship(device, "float64")
     inst = large_instance()
-    launches = solve_large(device, "float32", inst)
+    launches, by_width = solve_large(device, "float32", inst)
     solve_large(device, "float64", inst)
     for record in records:
         record["launches"] = launches[record["name"]]
+        if record["name"] in by_width:
+            record["launches_by_width"] = by_width[record["name"]]
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({

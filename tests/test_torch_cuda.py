@@ -36,13 +36,19 @@ def device():
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
+# K1's kernels: each is held to the plain version on every row pointer (both
+# are right for all of them); None is the one choose_sorted_path picks.
+PATHS = [None, "element", "warp"]
+
+
+@pytest.mark.parametrize("path", PATHS, ids=["chosen", "element", "warp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize(
     "B,G,tail",
     [(83718, 22106, (3,)), (83718, 22106, (9,)), (5001, 40000, (24,)),
      (9000, 288, (1,)), (7000, 600, (81,)), (3000, 700, (3, 3)), (0, 10, (3,))],
 )
-def test_kernel_matches_plain(device, dtype, B, G, tail):
+def test_kernel_matches_plain(device, dtype, B, G, tail, path):
     rng = np.random.default_rng(B + G)
     seg = np.sort(rng.integers(0, G + 5, B))  # ids >= G go to the dummy row
     if B > 6000:
@@ -50,7 +56,7 @@ def test_kernel_matches_plain(device, dtype, B, G, tail):
     row_ptr = torch.from_numpy(ss.build_row_ptr(seg, G)).to(device)
     contrib = torch.tensor(rng.standard_normal((B,) + tail), dtype=dtype, device=device)
     before = ss.launches
-    out = ss.segment_sum_sorted(contrib, row_ptr, G)
+    out = ss.segment_sum_sorted(contrib, row_ptr, G, path)
     torch.cuda.synchronize()
     assert ss.launches == before + 1
     ref = ss.segment_sum_sorted_plain(contrib, row_ptr, G)
@@ -69,6 +75,50 @@ def test_kernel_is_deterministic(device):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("path", ["element", "warp"])
+@pytest.mark.parametrize("d", [3, 9, 5])
+def test_each_sorted_kernel_is_deterministic(device, path, d):
+    """Both kernels, at the compile-time widths (3, 9) and a run-time one:
+    the same bits on every launch, and the element kernel's sum is the
+    rows added one after another in their stored order."""
+    rng = np.random.default_rng(d)
+    seg = np.sort(rng.integers(0, 30000, 150000))
+    row_ptr = torch.from_numpy(ss.build_row_ptr(seg, 30000)).to(device)
+    c = torch.tensor(rng.standard_normal((150000, d)), dtype=torch.float32, device=device)
+    a = ss.segment_sum_sorted(c, row_ptr, 30000, path)
+    b = ss.segment_sum_sorted(c, row_ptr, 30000, path)
+    assert torch.equal(a, b)
+    if path == "element":
+        g = 17
+        lo, hi = int(row_ptr[g]), int(row_ptr[g + 1])
+        acc = torch.zeros(d, dtype=torch.float32, device=device)
+        for r in range(lo, hi):
+            acc = acc + c[r]
+        assert torch.equal(a[g], acc)
+
+
+@pytest.mark.parametrize(
+    "counts,path",
+    [(np.full(50000, 6), "element"), (np.r_[np.full(20000, 4), 9000], "warp"),
+     (np.r_[np.full(20000, 3), np.full(5, 800), np.zeros(300, np.int64)], "element")],
+    ids=["short", "long", "mixed"],
+)
+def test_chosen_path_matches_plain(device, counts, path):
+    """A row pointer for each of K1's paths (and a mixed one): the plan picks
+    the path and the launch through the plan agrees with the plain version."""
+    seg = np.repeat(np.arange(counts.size), counts)
+    G = counts.size
+    plan = tred.build_reduce_plan(seg, G, device)
+    assert plan.kind == "sorted" and plan.sorted_path == path
+    rng = np.random.default_rng(counts.size)
+    for dtype in (torch.float32, torch.float64):
+        c = torch.tensor(rng.standard_normal((seg.size, 3)), dtype=dtype, device=device)
+        out = tred.apply_reduce(plan, c)
+        ref = ss.segment_sum_sorted_plain(c, plan.row_ptr, G)
+        bound = RTOL[dtype] * ss.segment_sum_sorted_plain(c.abs(), plan.row_ptr, G)
+        assert bool(((out - ref).abs() <= bound).all())
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(device):
     row_ptr = torch.from_numpy(ss.build_row_ptr(np.arange(10), 10)).to(device)
     with pytest.raises(TypeError):
@@ -77,6 +127,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         ss.segment_sum_sorted(torch.ones(10, 2, device=device), row_ptr.cpu(), 10)
     with pytest.raises(ValueError, match="int32"):
         ss.segment_sum_sorted(torch.ones(10, 2, device=device), row_ptr.long(), 10)
+    with pytest.raises(ValueError, match="path"):
+        ss.segment_sum_sorted(torch.ones(10, 2, device=device), row_ptr, 10, "block")
 
 
 def test_sorted_plan_on_cuda_launches_the_kernel(device):
@@ -141,6 +193,17 @@ def test_unsorted_plan_on_cuda_launches_the_kernel(device):
 # ---- K4 ---------------------------------------------------------------------
 
 
+def _outer_inputs(rng, device, dtype, Pp, N, K, T1, T2):
+    """Slabs with a zero pad row N and int32 pair rows into them."""
+    a = torch.from_numpy(osum.pair_rows_int32(rng.integers(0, N + 1, Pp))).to(device)
+    b = torch.from_numpy(osum.pair_rows_int32(rng.integers(0, N + 1, Pp))).to(device)
+    W = torch.tensor(rng.standard_normal((N + 1, K * T1)), dtype=dtype, device=device)
+    Y = torch.tensor(rng.standard_normal((N + 1, K * T2)), dtype=dtype, device=device)
+    W[N] = 0.0
+    Y[N] = 0.0
+    return W, Y, a, b
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize(
     "Pp,G,N,K,T1,T2",
@@ -153,12 +216,7 @@ def test_outer_kernel_matches_plain(device, dtype, Pp, G, N, K, T1, T2):
     if Pp > 6000:
         cells[:5000] = cells[0]  # one cell with thousands of pairs
     row_ptr = torch.from_numpy(ss.build_row_ptr(cells, G)).to(device)
-    a = torch.from_numpy(rng.integers(0, N + 1, Pp)).to(device)  # N is the pad row
-    b = torch.from_numpy(rng.integers(0, N + 1, Pp)).to(device)
-    W = torch.tensor(rng.standard_normal((N + 1, K * T1)), dtype=dtype, device=device)
-    Y = torch.tensor(rng.standard_normal((N + 1, K * T2)), dtype=dtype, device=device)
-    W[N] = 0.0
-    Y[N] = 0.0
+    W, Y, a, b = _outer_inputs(rng, device, dtype, Pp, N, K, T1, T2)
     before = osum.launches
     out = osum.outer_segment_sum(W, Y, a, b, row_ptr, G, K, T1, T2)
     torch.cuda.synchronize()
@@ -171,6 +229,71 @@ def test_outer_kernel_matches_plain(device, dtype, Pp, G, N, K, T1, T2):
     assert bool(((out - ref).abs() <= bound).all())
     again = osum.outer_segment_sum(W, Y, a, b, row_ptr, G, K, T1, T2)
     assert torch.equal(out, again)  # fixed order: the same bits on every run
+
+
+def _outer_case(device, dtype, seed=11):
+    """K = 3, 9 x 9 at cells of 0 to ~60 pairs, one of 5000."""
+    rng = np.random.default_rng(seed)
+    Pp, G, N = 120000, 4000, 30000
+    cells = np.sort(rng.integers(0, G, Pp))
+    cells[:5000] = cells[0]
+    row_ptr = torch.from_numpy(ss.build_row_ptr(cells, G)).to(device)
+    return _outer_inputs(rng, device, dtype, Pp, N, 3, 9, 9) + (row_ptr, G)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("form", ["compile_time", "run_time"])
+def test_outer_kernel_both_forms_match_plain(device, dtype, form, monkeypatch):
+    """K = 3, 9 x 9 through the compile-time form and, with that form's
+    shape list emptied, through the run-time form: both against the plain
+    version."""
+    if form == "run_time":
+        monkeypatch.setattr(osum, "TILED_SHAPES", frozenset())
+    W, Y, a, b, row_ptr, G = _outer_case(device, dtype)
+    out = osum.outer_segment_sum(W, Y, a, b, row_ptr, G, 3, 9, 9)
+    torch.cuda.synchronize()
+    ref = osum.outer_segment_sum_plain(W, Y, a, b, row_ptr, G, 3, 9, 9)
+    bound = RTOL[dtype] * osum.outer_segment_sum_plain(
+        W.abs(), Y.abs(), a, b, row_ptr, G, 3, 9, 9
+    )
+    assert bool(((out - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("stage", [1, 2, 3, 7, 9, 16, 32])
+def test_outer_kernel_any_staging_depth(device, dtype, stage, monkeypatch):
+    """The compile-time form is right at every staging depth it accepts."""
+    monkeypatch.setattr(osum, "STAGE_PAIRS", {4: stage, 8: stage})
+    monkeypatch.setattr(osum, "THREADS", 128)
+    W, Y, a, b, row_ptr, G = _outer_case(device, dtype, seed=stage)
+    out = osum.outer_segment_sum(W, Y, a, b, row_ptr, G, 3, 9, 9)
+    torch.cuda.synchronize()
+    ref = osum.outer_segment_sum_plain(W, Y, a, b, row_ptr, G, 3, 9, 9)
+    bound = RTOL[dtype] * osum.outer_segment_sum_plain(
+        W.abs(), Y.abs(), a, b, row_ptr, G, 3, 9, 9
+    )
+    assert bool(((out - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("form", ["compile_time", "run_time"])
+def test_outer_kernel_is_deterministic(device, dtype, form, monkeypatch):
+    """Twice on the same inputs: the same bits (a warp adds its cell's pairs
+    in a fixed order; no atomics)."""
+    if form == "run_time":
+        monkeypatch.setattr(osum, "TILED_SHAPES", frozenset())
+    W, Y, a, b, row_ptr, G = _outer_case(device, dtype, seed=5)
+    first = osum.outer_segment_sum(W, Y, a, b, row_ptr, G, 3, 9, 9)
+    second = osum.outer_segment_sum(W, Y, a, b, row_ptr, G, 3, 9, 9)
+    assert torch.equal(first, second)
+
+
+def test_outer_wrapper_rejects_int64_pair_lists(device):
+    W = torch.zeros(5, 27, device=device)
+    idx = torch.zeros(4, dtype=torch.int64, device=device)
+    row_ptr = torch.from_numpy(ss.build_row_ptr(np.zeros(4, np.int64), 3)).to(device)
+    with pytest.raises(ValueError, match="int32"):
+        osum.outer_segment_sum(W, W, idx, idx, row_ptr, 3, 3, 9, 9)
 
 
 # ---- the DENSE_SCHUR path ---------------------------------------------------

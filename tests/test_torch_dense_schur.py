@@ -74,7 +74,7 @@ def test_explicit_s_with_cuda_plan_kinds(monkeypatch):
     assert any(s.perm is None and s.plan.kind == "unsorted" for s in plan.ftf)
     assert any(g.natural and g.plan.kind == "unsorted" for g in plan.corr)
     fused = [g for g in plan.corr if not g.self_pairs and g.plan.kind == "sorted"]
-    assert fused and fused[0].a_idx.dtype == torch.int64
+    assert fused and fused[0].a_idx.dtype == torch.int32
 
     calls = []
     plain = osum.outer_segment_sum_plain

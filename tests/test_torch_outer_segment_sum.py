@@ -2,9 +2,9 @@
 JAX package's Pallas kernel ``outer_segment_sum_blocked`` in interpret mode,
 as tests/test_pallas_segment.py runs it, and against numpy in f64.
 
-The port's function takes the slabs and the pair index arrays (it gathers
-the rows itself); the Pallas kernel takes pre-gathered rows, so the test
-gathers for it. f32 against the Pallas kernel: rtol 2e-5, atol 2e-4 (the
+The port's function takes the slabs and the pair index arrays (int32, made
+by ``pair_rows_int32``; it gathers the rows itself); the Pallas kernel takes
+pre-gathered rows, so the test gathers for it. f32 against the Pallas kernel: rtol 2e-5, atol 2e-4 (the
 JAX package's own tolerance: f32 sums in another order). f64 against numpy:
 1e-12 of the output scale.
 """
@@ -49,8 +49,9 @@ def _numpy_reference(W, Y, a, b, seg, G, K, T1, T2):
 def _port(W, Y, a, b, seg, G, K, T1, T2):
     row_ptr = torch.from_numpy(build_row_ptr(seg, G))
     return osum.outer_segment_sum(
-        torch.from_numpy(W), torch.from_numpy(Y), torch.from_numpy(a),
-        torch.from_numpy(b), row_ptr, G, K, T1, T2,
+        torch.from_numpy(W), torch.from_numpy(Y),
+        torch.from_numpy(osum.pair_rows_int32(a)),
+        torch.from_numpy(osum.pair_rows_int32(b)), row_ptr, G, K, T1, T2,
     ).numpy()
 
 
@@ -99,18 +100,94 @@ def test_flat_outer_layout():
 
 def test_wrapper_rejects_bad_arguments():
     W, Y = torch.zeros(5, 27), torch.zeros(5, 27)
-    idx = torch.zeros(4, dtype=torch.int64)
+    idx = torch.zeros(4, dtype=torch.int32)
     row_ptr = torch.from_numpy(build_row_ptr(np.zeros(4, np.int64), 3))
     before = osum.launches
     out = osum.outer_segment_sum(W, Y, idx, idx, row_ptr, 3, 3, 9, 9)
     assert out.shape == (4, 81) and osum.launches == before  # CPU: no launch
     with pytest.raises(ValueError, match="slabs must be"):
         osum.outer_segment_sum(W, Y, idx, idx, row_ptr, 3, 3, 9, 6)
-    with pytest.raises(ValueError, match="int64"):
-        osum.outer_segment_sum(W, Y, idx.int(), idx, row_ptr, 3, 3, 9, 9)
+    with pytest.raises(ValueError, match="int32"):
+        osum.outer_segment_sum(W, Y, idx.long(), idx, row_ptr, 3, 3, 9, 9)
     with pytest.raises(ValueError, match="row_ptr"):
         osum.outer_segment_sum(W, Y, idx, idx, row_ptr.long(), 3, 3, 9, 9)
     with pytest.raises(TypeError):
         osum.outer_segment_sum(W, Y.double(), idx, idx, row_ptr, 3, 3, 9, 9)
     with pytest.raises(ValueError, match="plan on"):
         osum.outer_segment_sum(W, Y, idx.to("meta"), idx, row_ptr, 3, 3, 9, 9)
+
+
+@pytest.mark.parametrize(
+    "rows",
+    [
+        np.array([0, 5, 1_199_999, 1_200_000], dtype=np.int64),
+        np.array([2**31 - 1, 0], dtype=np.int64),
+        np.array([3, 1, 2], dtype=np.uint16),
+        np.zeros(0, dtype=np.int64),
+        np.arange(20, dtype=np.int64)[::3],  # not contiguous
+    ],
+    ids=["large_case_slots", "largest_int32", "uint16", "empty", "strided"],
+)
+def test_pair_rows_int32_keeps_the_rows(rows):
+    out = osum.pair_rows_int32(rows)
+    assert out.dtype == np.int32 and out.flags.c_contiguous
+    assert out.shape == rows.shape
+    np.testing.assert_array_equal(out.astype(np.int64), rows.astype(np.int64))
+
+
+@pytest.mark.parametrize(
+    "rows",
+    [
+        np.array([0, 2**31], dtype=np.int64),
+        np.array([2**40], dtype=np.int64),
+        np.array([2**31], dtype=np.uint32),
+        np.array([-1, 4], dtype=np.int64),
+        np.array([1.0, 2.0]),
+        np.zeros((2, 2), dtype=np.int64),
+    ],
+    ids=["2^31", "2^40", "uint32_2^31", "negative", "floats", "matrix"],
+)
+def test_pair_rows_int32_refuses(rows):
+    with pytest.raises(ValueError):
+        osum.pair_rows_int32(rows)
+
+
+def test_tiled_shapes_are_the_bundle_adjustment_shape():
+    """The source compiles K = 3, T1 = T2 = 9 as constants; the wrapper sends
+    that shape and no other to the compile-time form, and has a staging depth
+    for both element sizes whose two buffers fit a block's shared memory."""
+    assert osum.TILED_SHAPES == {(3, 9, 9)}
+    assert osum.THREADS % 32 == 0 and 32 <= osum.THREADS <= 1024
+    for element_size, stage in osum.STAGE_PAIRS.items():
+        assert 1 <= stage <= 32
+        shared = 2 * stage * 54 * element_size * (osum.THREADS // 32)
+        assert shared <= 227 * 1024
+    assert set(osum.STAGE_PAIRS) == {4, 8}
+
+
+def test_explicit_plan_hands_the_fused_kernel_int32_pair_lists(monkeypatch):
+    """With the card's plan kinds, the strict-lower pair group of a BAL
+    problem carries int32 pair lists (the fused kernel's), the self-pair
+    group none, and the int32 lists index the slabs as the int64 ones did."""
+    from ceres_tpu_torch.linear import schur as tschur
+    from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
+    from ceres_tpu_torch.models import bal as tbal
+    from ceres_tpu_torch.ops import reduce as tred
+
+    choose = tred.choose_plan_kind
+    monkeypatch.setattr(tred, "choose_plan_kind", lambda seg, G, _dev: choose(seg, G, "cuda"))
+    inst = tbal.synthesize_bal(num_cameras=30, num_points=1500, num_observations=7000,
+                               noise=2.0, perturb=0.7, seed=2)
+    program = tbal.build_problem(inst)[0].program(torch.device("cpu"))
+    plan = build_explicit_plan(program, tschur.build_schur_structure(program))
+    fused = [g for g in plan.corr if not g.self_pairs and g.plan.kind == "sorted"]
+    assert fused
+    for g in fused:
+        assert g.a_idx.dtype == torch.int32 and g.b_idx.dtype == torch.int32
+        assert g.plan.sorted_path == "element"
+        n = program.families[0].batch
+        assert 0 <= int(g.a_idx.min()) and int(g.a_idx.max()) <= n
+        assert int(g.plan.row_ptr[-1]) == g.a_idx.shape[0]
+    for g in plan.corr:
+        if g.self_pairs:
+            assert g.a_idx.dtype == torch.int64
