@@ -7,7 +7,7 @@
 //     rmatvec for the points, E'E and E'w of the Schur eliminator);
 //   - sorted_segment_sum (_kernel), the same function with the whole output
 //     table resident, for smaller G.
-// Both become the kernels of this file. The TPU design (one-hot MXU matmul
+// Both become the one kernel of this file. The TPU design (one-hot MXU matmul
 // per row tile, VMEM output windows, scalar-prefetch routing, halo
 // overlap-add) exists because of VMEM and is not carried over.
 //
@@ -23,26 +23,23 @@
 //
 // What the design does about it: the host plan turns the sorted ids into a
 // CSR row pointer (row_ptr[g] .. row_ptr[g+1] are the rows of segment g), so
-// each segment is one contiguous slab of B*d memory, and picks one of two
-// kernels from that row pointer, once (ops/segment_sum.choose_sorted_path):
+// each segment is one contiguous slab of B*d memory, and one THREAD takes one
+// output element (g, c). Neighbouring lanes hold neighbouring columns and
+// then neighbouring segments, so a warp covers 32/d segments whose rows are
+// one contiguous slab; every lane is used whatever d is, the loads of up to
+// kBatch rows are in flight together, and the 32 sums are written as one
+// coalesced store. d = 3 and d = 9 are compile-time instantiations (the
+// division t -> (g, c) is by a constant); every other d takes the run-time
+// form.
 //
-//   - `element`, for short segments: one THREAD per output element (g, c).
-//     Neighbouring lanes hold neighbouring columns and then neighbouring
-//     segments, so a warp covers 32/d segments whose rows are one contiguous
-//     slab; every lane is used whatever d is, the loads of up to kBatch rows
-//     are in flight together, and the 32 sums are written as one coalesced
-//     store. d = 3 and d = 9 are compile-time instantiations (the division
-//     t -> (g, c) is by a constant); every other d takes the run-time form.
-//   - `warp`, for long segments of d <= 32 columns: one warp per segment. The
-//     warp reads floor(32/d) whole rows per step, sums them in registers and
-//     folds the lanes of each column with shuffles. (Wider rows always take
-//     the element kernel: a lane per column walking the rows is what a warp
-//     would do with them, on fewer threads.)
-//
-// In both, every output row is written exactly once, by one thread or warp,
-// which adds its rows in a fixed order: no atomics, no second pass, and the
-// same bits on every run. Both are right for every row pointer; the choice
-// is about time only.
+// Every output row is written exactly once, each element by one thread that
+// adds its rows one after another in their stored order: no atomics, no
+// second pass, and the same bits on every run. The kernel is right for every
+// row pointer. A long segment is walked by d threads alone (a lone segment
+// of 4096 rows among 200 000 short ones costs about 0.09 ms at d = 3 on an
+// H100); the solver's sorted plans (points seen by a few cameras each) hold
+// no such segments, and its long-segment reductions (the camera side) go to
+// the unsorted kernel, so no second kernel is built for them.
 
 #include <cuda_runtime.h>
 
@@ -92,41 +89,9 @@ __global__ void element_kernel(const T* __restrict__ contrib,
   out[t] = acc;
 }
 
-// One warp per segment; d <= 32.
-template <typename T>
-__global__ void warp_kernel(const T* __restrict__ contrib,
-                            const int32_t* __restrict__ row_ptr,
-                            T* __restrict__ out, int64_t num_segments, int d) {
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (warp >= num_segments) return;
-  const int64_t begin = row_ptr[warp];
-  const int64_t end = row_ptr[warp + 1];
-  T* dst = out + warp * d;
-
-  const int rows_per_step = kWarp / d;
-  const int sub_row = lane / d;  // which of the step's rows this lane reads
-  const int col = lane % d;
-  T acc = T(0);
-  if (sub_row < rows_per_step) {
-    for (int64_t r = begin + sub_row; r < end; r += rows_per_step) {
-      acc += contrib[r * d + col];
-    }
-  }
-  // Lanes col, col + d, col + 2d, ... hold partial sums of one column.
-  // Lane `col` (< d) gathers them in a fixed order.
-  T total = T(0);
-  for (int j = 0; j < rows_per_step; ++j) {
-    const T v = __shfl_sync(0xffffffffu, acc, (j * d + lane) % kWarp);
-    total += v;
-  }
-  if (lane < d) dst[lane] = total;
-}
-
 template <typename T>
 int launch(const void* contrib_v, const void* row_ptr_v, void* out_v,
-           int64_t num_segments, int d, int path, int threads, void* stream_v) {
+           int64_t num_segments, int d, int threads, void* stream_v) {
   if (d < 1 || threads < kWarp || threads > 1024 || threads % kWarp != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -134,47 +99,38 @@ int launch(const void* contrib_v, const void* row_ptr_v, void* out_v,
   const int32_t* row_ptr = static_cast<const int32_t*>(row_ptr_v);
   T* out = static_cast<T*>(out_v);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
-  const int64_t work =  // threads the grid must hold
-      path == 0 ? num_segments * d : num_segments * kWarp;
+  const int64_t work = num_segments * d;  // one thread per output element
   const int64_t blocks = (work + threads - 1) / threads;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int grid = static_cast<unsigned int>(blocks);
-  if (path == 0) {
-    if (d == 3) {
-      element_kernel<T, 3><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
-                                                         work, d);
-    } else if (d == 9) {
-      element_kernel<T, 9><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
-                                                         work, d);
-    } else {
-      element_kernel<T, 0><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
-                                                         work, d);
-    }
-  } else if (path == 1 && d <= kWarp) {
-    warp_kernel<T><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
-                                                 num_segments, d);
+  if (d == 3) {
+    element_kernel<T, 3><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
+                                                       work, d);
+  } else if (d == 9) {
+    element_kernel<T, 9><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
+                                                       work, d);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    element_kernel<T, 0><<<grid, threads, 0, stream>>>(contrib, row_ptr, out,
+                                                       work, d);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. Pointers are device pointers; `path` is 0
-// for the element kernel and 1 for the warp kernel (d <= 32 only); `threads`
-// is the block size (a multiple of 32); `stream` is a cudaStream_t. Returns
-// the cudaError_t of the launch (0 = success).
+// Plain C interface for ctypes. Pointers are device pointers; `threads` is
+// the block size (a multiple of 32); `stream` is a cudaStream_t. Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int sorted_segment_sum_f32(const void* contrib, const void* row_ptr,
                                       void* out, int64_t num_segments, int d,
-                                      int path, int threads, void* stream) {
-  return launch<float>(contrib, row_ptr, out, num_segments, d, path, threads,
+                                      int threads, void* stream) {
+  return launch<float>(contrib, row_ptr, out, num_segments, d, threads,
                        stream);
 }
 
 extern "C" int sorted_segment_sum_f64(const void* contrib, const void* row_ptr,
                                       void* out, int64_t num_segments, int d,
-                                      int path, int threads, void* stream) {
-  return launch<double>(contrib, row_ptr, out, num_segments, d, path, threads,
+                                      int threads, void* stream) {
+  return launch<double>(contrib, row_ptr, out, num_segments, d, threads,
                         stream);
 }

@@ -26,11 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ceres_tpu_torch.ops.segment_sum import (
-    build_row_ptr,
-    choose_sorted_path,
-    segment_sum_sorted,
-)
+from ceres_tpu_torch.ops.segment_sum import build_row_ptr, segment_sum_sorted
 from ceres_tpu_torch.ops.unsorted_segment_sum import segment_sum_unsorted
 
 ONEHOT_MAX_GROUPS = 288  # one-hot matmul: B x (G+1) operand stays small
@@ -74,9 +70,7 @@ class ReducePlan:
     # onehot: (G+1, B) int8; cast copies are cached per dtype.
     onehot: Optional[torch.Tensor] = None
     # sorted: (G+2,) int32 CSR row pointer (ops/segment_sum.build_row_ptr).
-    # and which of K1's kernels serves it (ops/segment_sum.choose_sorted_path).
     row_ptr: Optional[torch.Tensor] = None
-    sorted_path: Optional[str] = None
     # scatter: (B,) int64 segment ids (dummy = G); unsorted: the same, int32.
     seg: Optional[torch.Tensor] = None
     _onehot_cast: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -108,12 +102,10 @@ def build_reduce_plan(
             kind=kind, num_groups=G, onehot=torch.from_numpy(onehot).to(device)
         )
     if kind == "sorted":
-        row_ptr = build_row_ptr(seg, G)
         return ReducePlan(
             kind=kind,
             num_groups=G,
-            row_ptr=torch.from_numpy(row_ptr).to(device),
-            sorted_path=choose_sorted_path(row_ptr),
+            row_ptr=torch.from_numpy(build_row_ptr(seg, G)).to(device),
         )
     if kind == "unsorted":
         seg = seg.astype(np.int32)
@@ -128,7 +120,7 @@ def apply_reduce(plan: ReducePlan, contrib: torch.Tensor) -> torch.Tensor:
     tail = tuple(contrib.shape[1:])
     G = plan.num_groups
     if plan.kind == "sorted":
-        return segment_sum_sorted(contrib, plan.row_ptr, G, plan.sorted_path)
+        return segment_sum_sorted(contrib, plan.row_ptr, G)
     if plan.kind == "unsorted":
         return segment_sum_unsorted(contrib, plan.seg, G)
     index = plan.onehot if plan.kind == "onehot" else plan.seg

@@ -6,15 +6,13 @@ contributions whose segment ids are SORTED into (G+1, ...) group sums, row G
 being the dummy group for ids outside [0, G). The kernel source and its
 design note are in ``ceres_tpu_torch/csrc/sorted_segment_sum.cu``.
 
-The plan is a CSR row pointer built on the host (:func:`build_row_ptr`)
-and, chosen from it once by :func:`choose_sorted_path`, one of the source's
-two kernels: ``element`` (one thread per output element, for the short
-segments bundle adjustment has: 3 to 6 rows each) or ``warp`` (one warp per
-segment, for long ones). Both are right for every row pointer, add each
-segment's rows in a fixed order and write every output row once, so the
-result is the same bits on every run. :func:`segment_sum_sorted` launches the
-chosen kernel for CUDA tensors and takes :func:`segment_sum_sorted_plain` for
-CPU tensors; there is no other route.
+The plan is a CSR row pointer built on the host (:func:`build_row_ptr`).
+The kernel gives every output element (g, c) one thread, which adds its
+segment's rows one after another in their stored order: what the short
+segments of bundle adjustment (3 to 6 rows each, d = 3 or 9) need, right for
+every row pointer, every output row written once, the same bits on every
+run. :func:`segment_sum_sorted` launches it for CUDA tensors and takes
+:func:`segment_sum_sorted_plain` for CPU tensors; there is no other route.
 """
 
 from __future__ import annotations
@@ -23,7 +21,6 @@ import collections
 import ctypes
 import functools
 import math
-from typing import Optional
 
 import numpy as np
 import torch
@@ -37,21 +34,10 @@ launches = 0
 launches_by_width: collections.Counter = collections.Counter()
 
 _SOURCE = "sorted_segment_sum.cu"
-_PATHS = {"element": 0, "warp": 1}
-# Threads per block of each kernel, and the limits of the element kernel's
-# use, from tools/sweep_kernels.py on an H100 80GB HBM3 at 700 W (float32,
-# from a CUDA graph; more in PERF.md). 1.2 M rows in uniform segments of L
-# rows: the element kernel wins through L = 64 at d = 3 (0.0077 against
-# 0.0087 ms) and loses at 128 (0.0078 against 0.0057); at d = 9 it wins
-# through 128. One more segment of N rows among 200 000 of 6: at N = 1024
-# element 0.025 / 0.067 ms (d = 3 / 9) against warp 0.060 / 0.067, at 4096
-# 0.091 / 0.226 against 0.061 / 0.168. Rows wider than a warp always take
-# the element kernel (a lane per column walking the rows is all a warp
-# could do with them, on fewer threads).
-THREADS = {"element": 256, "warp": 256}
-ELEMENT_MAX_MEAN_ROWS = 64.0
-ELEMENT_MAX_LONGEST = 1024
-WARP_MAX_WIDTH = 32
+# Threads per block, from tools/sweep_kernels.py on an H100 80GB HBM3 at
+# 700 W (float32, from a CUDA graph): 128 to 512 within 6% of each other at
+# the point-side shapes of both bundle-adjustment cases.
+THREADS = 256
 
 
 def build_row_ptr(seg: np.ndarray, num_groups: int) -> np.ndarray:
@@ -68,32 +54,6 @@ def build_row_ptr(seg: np.ndarray, num_groups: int) -> np.ndarray:
     return np.searchsorted(seg, np.arange(G + 2), side="left").astype(
         np.int32
     )
-
-
-def choose_sorted_path(row_ptr: np.ndarray) -> str:
-    """Which kernel reduces the segments of ``row_ptr`` (a host array as
-    :func:`build_row_ptr` returns it): ``"element"`` while the non-empty
-    segments hold at most ELEMENT_MAX_MEAN_ROWS rows on average and none
-    holds more than ELEMENT_MAX_LONGEST (a thread walks its segment alone),
-    else ``"warp"``. Pure; made once, when a plan is built."""
-    counts = np.diff(np.asarray(row_ptr, dtype=np.int64).reshape(-1))
-    if counts.size == 0 or np.any(counts < 0):
-        raise ValueError("row_ptr must be a non-decreasing vector of 2 or more entries")
-    occupied = int(np.count_nonzero(counts))
-    if occupied == 0:
-        return "element"
-    if counts.max() > ELEMENT_MAX_LONGEST:
-        return "warp"
-    return "element" if counts.sum() <= ELEMENT_MAX_MEAN_ROWS * occupied else "warp"
-
-
-def kernel_for(path: str, d: int) -> str:
-    """The kernel that reduces contributions of width ``d`` under a plan whose
-    path is ``path``: the plan's, but the element kernel for every width above
-    WARP_MAX_WIDTH (the warp kernel folds whole rows across a warp's lanes)."""
-    if path not in _PATHS:
-        raise ValueError(f"path must be one of {sorted(_PATHS)}, got {path!r}")
-    return "element" if d > WARP_MAX_WIDTH else path
 
 
 def segment_sum_sorted_plain(
@@ -121,8 +81,7 @@ def _library():
     for fn in (lib.sorted_segment_sum_f32, lib.sorted_segment_sum_f64):
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -134,19 +93,13 @@ def build_kernel() -> None:
 
 
 def segment_sum_sorted(
-    contrib: torch.Tensor,
-    row_ptr: torch.Tensor,
-    num_groups: int,
-    path: Optional[str] = None,
+    contrib: torch.Tensor, row_ptr: torch.Tensor, num_groups: int
 ) -> torch.Tensor:
     """(B, ...) contributions with sorted ids -> (G+1, ...) segment sums.
 
     ``row_ptr`` is the (G+2,) int32 plan of :func:`build_row_ptr` on the
-    contributions' device and ``path`` what :func:`choose_sorted_path` said
-    of it when the plan was built (``ops/reduce.ReducePlan`` keeps both);
-    without it the row pointer is read back from the card on every call.
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise)."""
+    contributions' device. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (or raise)."""
     global launches
     G = int(num_groups)
     B = contrib.shape[0]
@@ -174,14 +127,11 @@ def segment_sum_sorted(
     out = torch.empty((G + 1, d), dtype=flat.dtype, device=flat.device)
     if d == 0:
         return out.reshape((G + 1,) + tuple(contrib.shape[1:]))
-    if path is None:
-        path = choose_sorted_path(row_ptr.cpu().numpy())
-    path = kernel_for(path, d)
     fn = getattr(_library(), name)
     stream = torch.cuda.current_stream(contrib.device).cuda_stream
     err = fn(
         flat.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), G + 1, d,
-        _PATHS[path], THREADS[path], stream,
+        THREADS, stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")

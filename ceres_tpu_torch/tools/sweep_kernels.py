@@ -7,15 +7,14 @@ with the card's name and power limit and a ``table``:
 
 - ``k1_threads``: the sorted segment sum (K1) at the point-side shapes of
   the two bundle-adjustment cases (large: 200 000 segments of 6 rows;
-  flagship: 22 106 segments of 3 or 4 rows; d = 3 and 9; f32 and f64), both
-  kernels (``element``, ``warp``) at every block size, beside ``index_add_``.
-  ``ops/segment_sum.THREADS`` is set from it;
-- ``k1_length``: both K1 kernels on 1.2 M rows cut into uniform segments of
-  L rows, for growing L (d = 3, 9): where the warp kernel overtakes the
-  element kernel sets ``ops/segment_sum.ELEMENT_MAX_MEAN_ROWS``;
-- ``k1_outlier``: both K1 kernels at the large shape with one more segment of
-  N rows, for growing N: what a lone long segment costs the element kernel
-  sets ``ops/segment_sum.ELEMENT_MAX_LONGEST``;
+  flagship: 22 106 segments of 3 or 4 rows; d = 3 and 9; f32 and f64) at
+  every block size, beside ``index_add_``. ``ops/segment_sum.THREADS`` is
+  set from it;
+- ``k1_length``: K1 on 1.2 M rows cut into uniform segments of L rows, for
+  growing L (d = 3, 9), beside ``index_add_``: what longer segments cost a
+  kernel that gives each output element one thread;
+- ``k1_outlier``: K1 at the large shape with one more segment of N rows, for
+  growing N: what a lone long segment costs it;
 - ``k3_table``: the unsorted segment sum (K3) at the large case's
   camera-side shape (B = 1.2 M rows, G = 464, uniform random ids; d = 81, 9,
   3; f32 and f64) for every (TABLE_BYTES, THREADS) pair, beside
@@ -102,17 +101,23 @@ def _row_ptr(counts, dev):
     return torch.from_numpy(row_ptr).to(dev), int(row_ptr[-1])
 
 
-def _k1_both_paths(c, row_ptr, G) -> dict:
-    return {
-        f"{path}_ms": _graph_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G, path))
-        for path in ("element", "warp")
-    }
+def _k1_ms(c, row_ptr, G) -> float:
+    return _graph_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G))
+
+
+def _index_add_ms(c, row_ptr, G) -> float:
+    counts = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    seg = torch.repeat_interleave(torch.arange(G + 1, device=c.device), counts)
+    shape = (G + 1, c.shape[1])
+    return _graph_ms(
+        lambda: torch.zeros(shape, dtype=c.dtype, device=c.device).index_add_(0, seg, c)
+    )
 
 
 def sweep_k1(dev, emit) -> None:
     ss.build_kernel()
     rng = np.random.default_rng(0)
-    defaults = dict(ss.THREADS)
+    default = ss.THREADS
     shapes = {
         "large": np.r_[np.full(200_000, 6), 0],
         "flagship": np.r_[rng.permutation(np.r_[np.full(17400, 4), np.full(4706, 3)]), 0],
@@ -120,28 +125,23 @@ def sweep_k1(dev, emit) -> None:
     for case, counts in shapes.items():
         row_ptr, rows = _row_ptr(counts, dev)
         G = counts.size - 1
-        seg = torch.repeat_interleave(
-            torch.arange(G + 1, device=dev), torch.from_numpy(counts).to(dev)
-        )
         for dtype in (torch.float32, torch.float64):
             for d in (3, 9):
                 c = torch.randn((rows, d), dtype=dtype, device=dev)
-                lib = _graph_ms(
-                    lambda: torch.zeros((G + 1, d), dtype=dtype, device=dev).index_add_(0, seg, c)
-                )
+                lib = _index_add_ms(c, row_ptr, G)
                 for threads in K1_THREADS:
-                    ss.THREADS.update(element=threads, warp=threads)
+                    ss.THREADS = threads
                     emit(table="k1_threads", case=case, rows=rows, G=G, d=d,
                          dtype=_name(dtype), threads=threads, index_add_ms=lib,
-                         **_k1_both_paths(c, row_ptr, G))
-                ss.THREADS.update(defaults)
+                         ms=_k1_ms(c, row_ptr, G))
+                ss.THREADS = default
     for L in K1_LENGTHS:
         G = B // L
         row_ptr, rows = _row_ptr(np.r_[np.full(G, L), 0], dev)
         for d in (3, 9):
             c = torch.randn((rows, d), dtype=torch.float32, device=dev)
             emit(table="k1_length", rows=rows, G=G, L=L, d=d, dtype="float32",
-                 **_k1_both_paths(c, row_ptr, G))
+                 ms=_k1_ms(c, row_ptr, G), index_add_ms=_index_add_ms(c, row_ptr, G))
             del c
     for n in K1_OUTLIERS:
         counts = np.r_[np.full(100_000, 6), n, np.full(100_000, 6), 0]
@@ -150,7 +150,8 @@ def sweep_k1(dev, emit) -> None:
         for d in (3, 9):
             c = torch.randn((rows, d), dtype=torch.float32, device=dev)
             emit(table="k1_outlier", rows=rows, G=G, outlier_rows=n, d=d,
-                 dtype="float32", **_k1_both_paths(c, row_ptr, G))
+                 dtype="float32", ms=_k1_ms(c, row_ptr, G),
+                 index_add_ms=_index_add_ms(c, row_ptr, G))
 
 
 def sweep_k3(dev, emit) -> None:

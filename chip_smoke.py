@@ -11,8 +11,7 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    unsorted segment sum (K3) and the fused pair-outer segment sum (K4);
 3. kernel: each kernel against its plain PyTorch version on the card, at the
    shapes the solves below give it (f32 and f64) and at edge cases (K1:
-   through the kernel its plan chooses and through both of its kernels, with
-   a row pointer for each choice; K4: K = 3, 9 x 9 through the compile-time
+   short segments, long ones and a mix; K4: K = 3, 9 x 9 through the compile-time
    form, other shapes through the run-time form), with its time, the plain
    version's, the one PyTorch call that computes the same function where
    there is one (``index_add_``), and its bound: the bytes it must move
@@ -20,9 +19,11 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    over 67 TFLOP/s of plain float32 if that is more (CUDA events after a
    warm-up). ``ms`` is a call as the solve makes it, host enqueue included;
    ``device_ms`` is the same call replayed from a CUDA graph, which leaves
-   the host out. K4 also gets ``floor_ms``: the 32-byte sectors its row
-   gathers touch, less those an L2 window of 25 MB of gathered traffic would
-   still hold, plus lists and output, over the same memory rate;
+   the host out. K4's ``kernel_time`` line also carries ``floor_ms``, a
+   number modelled from the pair lists and not measured (so it stays out of
+   the ``kernels`` line): the 32-byte sectors its row gathers touch, less
+   those an L2 window of 25 MB of gathered traffic would still hold, plus
+   lists and output, over the same memory rate;
 4. solve, flagship: ``ceres_tpu_torch.fused_solve`` on the 16 cameras /
    22106 points / 83718 observations instance (seed 16, as bench.py builds
    it), ITERATIVE_SCHUR + SCHUR_JACOBI, in float32 and in float64, each after
@@ -209,14 +210,14 @@ def _record(name: str, max_err: float, **times) -> dict:
 # ---- K1 ---------------------------------------------------------------------
 
 
-def _compare_sorted(row_ptr, G, contrib, label, path) -> float:
-    out = ss.segment_sum_sorted(contrib, row_ptr, G, path)
+def _compare_sorted(row_ptr, G, contrib, label) -> float:
+    out = ss.segment_sum_sorted(contrib, row_ptr, G)
     ref = ss.segment_sum_sorted_plain(contrib, row_ptr, G)
     scale = ss.segment_sum_sorted_plain(contrib.abs(), row_ptr, G)
-    return _within(out, ref, scale, contrib.dtype, f"{label} ({path})")
+    return _within(out, ref, scale, contrib.dtype, label)
 
 
-def _time_sorted(row_ptr, G, c, reps, path) -> dict:
+def _time_sorted(row_ptr, G, c, reps) -> dict:
     """K1's times at one shape: as called, the plain version, index_add_,
     the bound, and kernel and index_add_ from a CUDA graph."""
     B, d = c.shape
@@ -229,10 +230,10 @@ def _time_sorted(row_ptr, G, c, reps, path) -> dict:
     e = c.element_size()
     bound_ms, bound_by = _bound(B * d * e + (G + 2) * 4 + (G + 1) * d * e, B * d)
     return dict(
-        ms=_time_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G, path), reps),
+        ms=_time_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G), reps),
         plain_ms=_time_ms(lambda: ss.segment_sum_sorted_plain(c, row_ptr, G), reps),
         library_ms=_time_ms(library, reps), bound_ms=bound_ms, bound_by=bound_by,
-        device_ms=_device_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G, path)),
+        device_ms=_device_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G)),
         library_device_ms=_device_ms(library),
     )
 
@@ -242,26 +243,19 @@ def check_sorted(device, flagship_plan, large_plan) -> dict:
     rng = np.random.default_rng(0)
     max_err, checks, record, shapes = 0.0, 0, None, []
     for case, plan, reps in (("flagship", flagship_plan, 200), ("large", large_plan, 50)):
-        if plan.kind != "sorted" or plan.sorted_path != "element":
-            raise RuntimeError(
-                f"{case} point plan is {plan.kind!r} / {plan.sorted_path!r}, "
-                "not 'sorted' / 'element'"
-            )
+        if plan.kind != "sorted":
+            raise RuntimeError(f"{case} point plan is {plan.kind!r}, not 'sorted'")
         G = plan.num_groups
         B = int(plan.row_ptr[-1])
         for dtype in (torch.float32, torch.float64):
             for d in (3, 9):
                 c = torch.tensor(rng.standard_normal((B, d)), dtype=dtype, device=device)
-                for path in ("element", "warp"):
-                    err = _compare_sorted(plan.row_ptr, G, c, f"K1 {case} d={d} {dtype}", path)
-                    max_err, checks = max(max_err, err), checks + 1
+                err = _compare_sorted(plan.row_ptr, G, c, f"K1 {case} d={d} {dtype}")
+                max_err, checks = max(max_err, err), checks + 1
                 if dtype == torch.float32:
-                    times = _time_sorted(plan.row_ptr, G, c, reps, plan.sorted_path)
-                    times["warp_device_ms"] = _device_ms(
-                        lambda: ss.segment_sum_sorted(c, plan.row_ptr, G, "warp")
-                    )
+                    times = _time_sorted(plan.row_ptr, G, c, reps)
                     phase("kernel_time", kernel="sorted_segment_sum", case=case, B=B, G=G,
-                          d=d, dtype="float32", path=plan.sorted_path, **times)
+                          d=d, dtype="float32", **times)
                     shapes.append(dict(case=case, d=d, **times))
                     if case == "large" and d == 9:
                         record = times
@@ -273,7 +267,7 @@ def check_sorted(device, flagship_plan, large_plan) -> dict:
         ),
         "ids >= G to the dummy row, d=9": (np.sort(rng.integers(0, 1300, 20000)), 1000, 9),
         "G+1 = 289, d=3": (np.sort(rng.integers(0, 288, 9000)), 288, 3),
-        # one row pointer for each choice of kernel, and a mixed one
+        # short segments, long ones, and a mix
         "short segments (4 rows each), d=3": (np.repeat(np.arange(30000), 4), 30000, 3),
         "long segments (3 of 7000 rows), d=9": (np.repeat(np.arange(3), 7000), 600, 9),
         "short segments and five of 800 rows, d=5": (
@@ -281,20 +275,13 @@ def check_sorted(device, flagship_plan, large_plan) -> dict:
             9000, 5,
         ),
     }
-    chosen = {}
     for label, (seg, g, d) in edge.items():
-        host_row_ptr = ss.build_row_ptr(seg, g)
-        chosen[label] = ss.choose_sorted_path(host_row_ptr)
-        row_ptr = torch.from_numpy(host_row_ptr).to(device)
+        row_ptr = torch.from_numpy(ss.build_row_ptr(seg, g)).to(device)
         for dtype in (torch.float32, torch.float64):
             c = torch.tensor(rng.standard_normal((seg.size, d)), dtype=dtype, device=device)
-            for path in (None, "element", "warp"):  # None: chosen from the row pointer
-                err = _compare_sorted(row_ptr, g, c, f"K1 {label} {dtype}", path)
-                max_err, checks = max(max_err, err), checks + 1
-    if set(chosen.values()) != {"element", "warp"}:
-        raise RuntimeError(f"K1 edge cases do not reach both kernels: {chosen}")
-    phase("kernel", kernel="sorted_segment_sum", checks=checks, max_abs_err=max_err,
-          edge_case_paths=chosen)
+            err = _compare_sorted(row_ptr, g, c, f"K1 {label} {dtype}")
+            max_err, checks = max(max_err, err), checks + 1
+    phase("kernel", kernel="sorted_segment_sum", checks=checks, max_abs_err=max_err)
     return _record("sorted_segment_sum", max_err, timed_shapes=shapes, **record)
 
 
@@ -434,11 +421,15 @@ def check_outer(device, group, num_slots: int) -> dict:
             device_ms=_device_ms(
                 lambda: osum.outer_segment_sum(W, Y, a, b, row_ptr, G, K, T1, T2), 5
             ),
+        )
+        # Modelled from the pair lists, not measured: in this line only.
+        modelled = dict(
             floor_ms=(missed + other_bytes) / PEAK_BYTES_PER_S * 1e3,
             gathered_bytes=gathered, gathered_bytes_missing_l2=missed,
         )
         phase("kernel_time", kernel="outer_segment_sum", case="large", pairs=Pp, cells=G,
-              slots=num_slots, K=K, T1=T1, T2=T2, dtype=str(dtype).split(".")[1], **times)
+              slots=num_slots, K=K, T1=T1, T2=T2, dtype=str(dtype).split(".")[1],
+              **times, **modelled)
         if dtype == torch.float32:
             record = times
         del W, Y

@@ -36,19 +36,13 @@ def device():
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
-# K1's kernels: each is held to the plain version on every row pointer (both
-# are right for all of them); None is the one choose_sorted_path picks.
-PATHS = [None, "element", "warp"]
-
-
-@pytest.mark.parametrize("path", PATHS, ids=["chosen", "element", "warp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize(
     "B,G,tail",
     [(83718, 22106, (3,)), (83718, 22106, (9,)), (5001, 40000, (24,)),
      (9000, 288, (1,)), (7000, 600, (81,)), (3000, 700, (3, 3)), (0, 10, (3,))],
 )
-def test_kernel_matches_plain(device, dtype, B, G, tail, path):
+def test_kernel_matches_plain(device, dtype, B, G, tail):
     rng = np.random.default_rng(B + G)
     seg = np.sort(rng.integers(0, G + 5, B))  # ids >= G go to the dummy row
     if B > 6000:
@@ -56,7 +50,7 @@ def test_kernel_matches_plain(device, dtype, B, G, tail, path):
     row_ptr = torch.from_numpy(ss.build_row_ptr(seg, G)).to(device)
     contrib = torch.tensor(rng.standard_normal((B,) + tail), dtype=dtype, device=device)
     before = ss.launches
-    out = ss.segment_sum_sorted(contrib, row_ptr, G, path)
+    out = ss.segment_sum_sorted(contrib, row_ptr, G)
     torch.cuda.synchronize()
     assert ss.launches == before + 1
     ref = ss.segment_sum_sorted_plain(contrib, row_ptr, G)
@@ -75,41 +69,40 @@ def test_kernel_is_deterministic(device):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("path", ["element", "warp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("d", [3, 9, 5])
-def test_each_sorted_kernel_is_deterministic(device, path, d):
-    """Both kernels, at the compile-time widths (3, 9) and a run-time one:
-    the same bits on every launch, and the element kernel's sum is the
-    rows added one after another in their stored order."""
+def test_each_sorted_kernel_is_deterministic(device, dtype, d):
+    """The compile-time widths (3, 9) and a run-time one: the same bits on
+    every launch, and a sum is its rows added one after another in their
+    stored order."""
     rng = np.random.default_rng(d)
     seg = np.sort(rng.integers(0, 30000, 150000))
     row_ptr = torch.from_numpy(ss.build_row_ptr(seg, 30000)).to(device)
-    c = torch.tensor(rng.standard_normal((150000, d)), dtype=torch.float32, device=device)
-    a = ss.segment_sum_sorted(c, row_ptr, 30000, path)
-    b = ss.segment_sum_sorted(c, row_ptr, 30000, path)
+    c = torch.tensor(rng.standard_normal((150000, d)), dtype=dtype, device=device)
+    a = ss.segment_sum_sorted(c, row_ptr, 30000)
+    b = ss.segment_sum_sorted(c, row_ptr, 30000)
     assert torch.equal(a, b)
-    if path == "element":
-        g = 17
+    for g in (17, 4242, 29999):
         lo, hi = int(row_ptr[g]), int(row_ptr[g + 1])
-        acc = torch.zeros(d, dtype=torch.float32, device=device)
+        acc = torch.zeros(d, dtype=dtype, device=device)
         for r in range(lo, hi):
             acc = acc + c[r]
         assert torch.equal(a[g], acc)
 
 
 @pytest.mark.parametrize(
-    "counts,path",
-    [(np.full(50000, 6), "element"), (np.r_[np.full(20000, 4), 9000], "warp"),
-     (np.r_[np.full(20000, 3), np.full(5, 800), np.zeros(300, np.int64)], "element")],
-    ids=["short", "long", "mixed"],
+    "counts",
+    [np.full(50000, 6), np.r_[np.full(20000, 4), 9000], np.r_[np.full(5, 7000), np.zeros(300, np.int64)],
+     np.r_[np.full(20000, 3), np.full(5, 800), np.zeros(300, np.int64)]],
+    ids=["short", "one_long", "all_long", "mixed"],
 )
-def test_chosen_path_matches_plain(device, counts, path):
-    """A row pointer for each of K1's paths (and a mixed one): the plan picks
-    the path and the launch through the plan agrees with the plain version."""
+def test_short_long_and_mixed_segments_match_plain(device, counts):
+    """Short segments, long ones and a mix: the launch through the reduce
+    plan agrees with the plain version."""
     seg = np.repeat(np.arange(counts.size), counts)
     G = counts.size
     plan = tred.build_reduce_plan(seg, G, device)
-    assert plan.kind == "sorted" and plan.sorted_path == path
+    assert plan.kind == "sorted"
     rng = np.random.default_rng(counts.size)
     for dtype in (torch.float32, torch.float64):
         c = torch.tensor(rng.standard_normal((seg.size, 3)), dtype=dtype, device=device)
@@ -127,8 +120,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         ss.segment_sum_sorted(torch.ones(10, 2, device=device), row_ptr.cpu(), 10)
     with pytest.raises(ValueError, match="int32"):
         ss.segment_sum_sorted(torch.ones(10, 2, device=device), row_ptr.long(), 10)
-    with pytest.raises(ValueError, match="path"):
-        ss.segment_sum_sorted(torch.ones(10, 2, device=device), row_ptr, 10, "block")
 
 
 def test_sorted_plan_on_cuda_launches_the_kernel(device):

@@ -184,7 +184,6 @@ def test_explicit_plan_hands_the_fused_kernel_int32_pair_lists(monkeypatch):
     assert fused
     for g in fused:
         assert g.a_idx.dtype == torch.int32 and g.b_idx.dtype == torch.int32
-        assert g.plan.sorted_path == "element"
         n = program.families[0].batch
         assert 0 <= int(g.a_idx.min()) and int(g.a_idx.max()) <= n
         assert int(g.plan.row_ptr[-1]) == g.a_idx.shape[0]

@@ -213,45 +213,43 @@ def _row_ptr_of(counts):
     return np.concatenate([[0], np.cumsum(np.asarray(counts, dtype=np.int64))]).astype(np.int32)
 
 
-PATH_CASES = {
+ROW_POINTER_CASES = {
     # the large case: every one of 200 000 points seen 6 times (+ empty dummy)
-    "uniform_6_rows": (np.r_[np.full(200_000, 6), 0], "element"),
+    "uniform_6_rows": np.r_[np.full(200_000, 6), 0],
     # the flagship: 3 or 4 rows a point
-    "3_or_4_rows": (np.r_[np.tile([3, 4, 4, 4], 5000), 0], "element"),
-    "one_5000_row_segment": (np.r_[5000, 0], "warp"),
-    "5000_rows_among_short_ones": (np.r_[np.full(900, 4), 5000, np.full(900, 3), 0], "warp"),
-    "all_empty": (np.zeros(50), "element"),
-    "mostly_empty": (np.r_[np.zeros(4000), 2, np.zeros(3000), 7, 0], "element"),
-    "mixed_short_and_medium": (np.r_[np.full(3000, 3), np.full(10, 900)], "element"),
-    "longest_at_the_limit": (np.r_[np.full(3000, 3), ss.ELEMENT_MAX_LONGEST], "element"),
-    "longest_above_the_limit": (np.r_[np.full(3000, 3), ss.ELEMENT_MAX_LONGEST + 1], "warp"),
-    "uniform_at_the_mean_limit": (np.full(300, int(ss.ELEMENT_MAX_MEAN_ROWS)), "element"),
-    "uniform_above_the_mean_limit": (np.full(300, int(ss.ELEMENT_MAX_MEAN_ROWS) + 1), "warp"),
-    # empty segments do not dilute the mean: 10 segments of 1000 rows
-    "long_among_empty": (np.r_[np.zeros(5000), np.full(10, 1000)], "warp"),
-    "single_row": (np.r_[1, 0], "element"),
+    "3_or_4_rows": np.r_[np.tile([3, 4, 4, 4], 5000), 0],
+    "one_5000_row_segment": np.r_[5000, 0],
+    "5000_rows_among_short_ones": np.r_[np.full(900, 4), 5000, np.full(900, 3), 0],
+    "all_empty": np.zeros(50, np.int64),
+    "mostly_empty": np.r_[np.zeros(4000, np.int64), 2, np.zeros(3000, np.int64), 7, 0],
+    "mixed_short_and_medium": np.r_[np.full(3000, 3), np.full(10, 900)],
+    "long_among_empty": np.r_[np.zeros(5000, np.int64), np.full(10, 1000)],
+    "single_row": np.r_[1, 0],
+    "rows_in_the_dummy_segment": np.r_[np.full(100, 5), 40],
 }
 
 
-@pytest.mark.parametrize("name", sorted(PATH_CASES))
-def test_choose_sorted_path(name):
-    counts, path = PATH_CASES[name]
-    assert ss.choose_sorted_path(_row_ptr_of(counts)) == path
-
-
-@pytest.mark.parametrize(
-    "row_ptr", [np.zeros(0, np.int32), np.zeros(1, np.int32), np.array([0, 5, 3], np.int32)],
-    ids=["empty", "one_entry", "decreasing"],
-)
-def test_choose_sorted_path_refuses(row_ptr):
-    with pytest.raises(ValueError):
-        ss.choose_sorted_path(row_ptr)
+@pytest.mark.parametrize("name", sorted(ROW_POINTER_CASES))
+def test_row_pointer_and_sums_of_hand_made_segments(name):
+    """Segment lengths of every kind the kernel meets (short and uniform,
+    one long, empty, mixed): the row pointer built from the ids is the
+    running sum of the lengths, and the sums over it are numpy's (f64,
+    rtol 1e-12)."""
+    counts = ROW_POINTER_CASES[name]
+    G = counts.size - 1
+    seg = np.repeat(np.arange(counts.size), counts)
+    row_ptr = ss.build_row_ptr(seg, G)
+    assert row_ptr.dtype == np.int32
+    np.testing.assert_array_equal(row_ptr, _row_ptr_of(counts))
+    contrib = np.random.default_rng(counts.size).standard_normal((seg.size, 3))
+    out = ss.segment_sum_sorted(torch.from_numpy(contrib), torch.from_numpy(row_ptr), G)
+    _close(out.numpy(), _numpy_reference(contrib, seg, G), 1e-12)
 
 
 @pytest.mark.parametrize("case", ["flagship", "large"])
-def test_choose_sorted_path_bundle_adjustment_point_plans(case):
-    """Both cases' point-side row pointers take the element kernel, and the
-    reduce plan keeps the choice beside its row pointer."""
+def test_bundle_adjustment_point_plans_hold_short_segments(case):
+    """Both cases' point-side row pointers hold 3 to 6 rows a segment: the
+    traffic the kernel's one thread per output element is built for."""
     sizes = {"flagship": (16, 22106, 83718, 16), "large": (464, 200_000, 1_200_000, 7)}
     cams, pts, obs, seed = sizes[case]
     inst = jbal.synthesize_bal(num_cameras=cams, num_points=pts,
@@ -259,40 +257,23 @@ def test_choose_sorted_path_bundle_adjustment_point_plans(case):
     row_ptr = ss.build_row_ptr(np.sort(inst.point_index), pts)
     counts = np.diff(row_ptr)[:pts]
     assert counts.max() <= 6 and counts.min() >= 3
-    assert ss.choose_sorted_path(row_ptr) == "element"
+    assert row_ptr[-1] == obs and row_ptr[pts] == obs  # nothing in the dummy segment
 
 
-def test_sorted_plan_keeps_its_path(monkeypatch):
+def test_sorted_plans_of_short_and_long_segments(monkeypatch):
+    """A 'sorted' plan is its row pointer, whatever the segments' lengths."""
     monkeypatch.setattr(tred, "choose_plan_kind", lambda seg, G, dev: "sorted")
     short = tred.build_reduce_plan(np.repeat(np.arange(2000), 4), 2000, "cpu")
     long = tred.build_reduce_plan(np.repeat(np.arange(3), 6000), 3, "cpu")
-    assert (short.kind, short.sorted_path) == ("sorted", "element")
-    assert (long.kind, long.sorted_path) == ("sorted", "warp")
-    # on CPU tensors either plan takes the plain version, whatever its path
+    assert short.kind == long.kind == "sorted"
+    assert short.row_ptr.tolist()[-3:] == [7996, 8000, 8000]
+    assert long.row_ptr.tolist() == [0, 6000, 12000, 18000, 18000]
     c = torch.ones(8000, 3, dtype=torch.float64)
     out = tred.apply_reduce(short, c)
     assert out.shape == (2001, 3) and float(out[:2000].min()) == 4.0
+    out = tred.apply_reduce(long, torch.ones(18000, 2, dtype=torch.float64))
+    assert out.tolist() == [[6000.0, 6000.0]] * 3 + [[0.0, 0.0]]
 
 
-def test_path_does_not_matter_for_cpu_tensors():
-    """``path`` names a kernel; CPU tensors never reach one."""
-    seg, G, contrib = _case("d3")
-    row_ptr = torch.from_numpy(ss.build_row_ptr(seg, G))
-    out = ss.segment_sum_sorted(torch.from_numpy(contrib), row_ptr, G, path="warp")
-    _close(out.numpy(), _plain(contrib, seg, G), 0)
-    assert set(ss.THREADS) == {"element", "warp"}
-    assert all(32 <= t <= 1024 and t % 32 == 0 for t in ss.THREADS.values())
-
-
-@pytest.mark.parametrize(
-    "path,d,kernel",
-    [("element", 3, "element"), ("warp", 3, "warp"), ("warp", 32, "warp"),
-     ("warp", 33, "element"), ("warp", 81, "element"), ("element", 81, "element")],
-)
-def test_kernel_for_width(path, d, kernel):
-    assert ss.kernel_for(path, d) == kernel
-
-
-def test_kernel_for_refuses_an_unknown_path():
-    with pytest.raises(ValueError, match="path"):
-        ss.kernel_for("block", 3)
+def test_block_size_is_a_launchable_one():
+    assert 32 <= ss.THREADS <= 1024 and ss.THREADS % 32 == 0
