@@ -1,37 +1,82 @@
-// Unsorted segment sum on Hopper: out[g, :] += contrib[b, :] for every row b
-// whose segment id is g, ids in ANY order, a few hundred to a few thousand
-// segments. Ids outside [0, G) go to the dummy row G.
+// Unsorted segment sum on Hopper: out[g, :] = sum of contrib[b, :] over the
+// rows b whose segment id is g, ids in ANY order in the caller's array, a few
+// hundred to a few thousand segments. Ids outside [0, G) go to the dummy row G.
 //
 // Replaces the TPU kernel of ceres_tpu/ops/pallas_segment.py:224
 // (segment_sum_onehot_tiled, body _kernel_onehot_full :199, wrapper
 // segment_sum_onehot :254): one full-height one-hot matmul per 512-row tile
 // into a (G_pad, d) table resident in fast memory. What that kernel gives its
-// caller is kept: no sort of the rows and no (B, d) row gather before the
-// reduction. The one-hot matmul and the 512-row tile are matrix-unit and
-// fast-memory devices of the TPU and are not carried over.
+// caller is kept: the caller neither sorts its rows nor gathers them into a
+// second (B, d) array before the reduction. The one-hot matmul and the
+// 512-row tile are matrix-unit and fast-memory devices of the TPU and are not
+// carried over.
 //
 // Where it runs: the camera-side reductions of the large bundle-adjustment
 // case (G = 464 cameras, B = 1.2 M observations): gradient, column norms and
-// rmatvec (d <= 9), and the F'F and self-pair cell blocks (d = 81).
+// rmatvec (d = 9), and the F'F and self-pair cell blocks (d = 81).
 //
-// What bounds it on this card: memory. It reads B*d contributions and B ids
-// once and writes (G+1)*d sums; there is one add per element read.
+// What bounds it on this card: memory. It reads B*d contributions once and
+// writes (G+1)*d sums; there is one add per element read.
 //
-// What the design does about it: each CTA owns a contiguous chunk of rows and
-// a chunk of columns and keeps a (G+1) x dc table of partial sums in shared
-// memory, so the B*d adds are shared-memory atomics (f32 and f64 both native
-// on sm_90) and never reach device memory. A (G+1) x d table does not always
-// fit under the 227 KB a block may opt into (465 x 81 f64 = 301 KB), so the
-// columns are chunked over grid.y, dc sized from G, the element size and the
-// caller's table budget; the ids are re-read per column chunk (4 B against
-// d * sizeof(T) of row). Rows are read as they lie: for dc <= 32 a warp reads
-// floor(32/dc) rows per step, else each lane owns columns lane, lane+32, ...
-// of one row; four rows are in flight per warp. At the end each CTA adds the
-// non-zero entries of its table into the zeroed output with global atomics.
+// What the design does about it. The ids of a plan never change, so the host
+// sorts them ONCE (ops/unsorted_segment_sum.build_plan_arrays): `perm` lists
+// the rows of segment 0, then of segment 1, ... (each in ascending row
+// order), and every segment's list is cut evenly into pieces, as few as it
+// takes for all pieces together to number no more than the warps the card
+// holds at one time (40 an SM).
+//   - gather_kernel: one warp owns one piece. It reads its next 32 row numbers
+//     with one coalesced load (the batch after that is already on its way),
+//     hands them round by shuffle and reads the rows where they lie: lane =
+//     column for rows wider than a warp (81 columns: three loads a row), and
+//     floor(32/d) rows side by side for narrow ones (d = 9: three rows, 27
+//     lanes). The sums stay in registers; a piece leaves as one row of
+//     `partial`. All warps are resident at once and have about the same
+//     number of rows: one wave, no tail. d = 9 and d = 81 are compiled as
+//     constants; every other width takes the run-time form, 32 columns per
+//     warp and grid.y column groups.
+//   - sum_pieces_kernel: one thread per output element adds its segment's
+//     pieces in their order and writes the element, zeros for an empty
+//     segment included. So every output element is written exactly once:
+//     the output needs no zeroing launch.
+// There is no atomic anywhere and every sum is taken in one fixed order
+// (rows ascending within a piece's lane slot, slots then pieces ascending):
+// the same bits on every run. No table in shared memory, so neither the
+// number of segments nor the width is limited by it, and float64 takes the
+// same path as float32.
 //
-// Not bit-repeatable: the order of the shared and the global atomic adds
-// changes from run to run, so f32 and f64 sums differ in their last bits
-// between runs (by a reordering of the same terms).
+// Cutting per segment (and not the whole list into equal runs, which was
+// measured too) has a side effect that narrow rows gain from: where the rows
+// of the segments lie interleaved in memory, as the cameras' rows do among
+// observations sorted by point, piece k of every segment covers the same
+// stretch of the array, all warps walk their pieces at the same pace, and two
+// rows that share a 32-byte sector are read within microseconds of each
+// other, the second from L2 (d = 9: about a fifth faster than with equal
+// runs).
+//
+// What it replaces on this card, and why. The first port kept a (G+1) x d
+// table of partial sums per CTA in shared memory, streamed the rows in order
+// and added with shared-memory atomics, then flushed with global atomics. On
+// sm_90 atomicAdd on shared float and double both compile to a
+// compare-and-swap loop (ATOMS.CAST.SPIN, ATOMS.CAST.SPIN.64 in the SASS of
+// that kernel: there is no native shared floating-point add), one loop per
+// element read; a 465 x 81 float64 table does not fit 227 KB; and its sums
+// changed from run to run. A second table kernel that fed those atomics from
+// a cp.async ring of 16-byte copies (so that no load waited for an add) was
+// built and measured slower than this gather at every shape of the main
+// path: with the loads out of the way the compare-and-swap loops are what
+// is left. The gather pays for its order with sectors: a 324-byte row
+// touches 11 sectors of 32 bytes where 10.1 would do, a 36-byte row two (64
+// bytes for 36), and rows read where they lie, three 4-byte-a-lane loads at a
+// pitch of 324 bytes, reach about 2.4 TB/s where a sequential pass of 16-byte
+// loads reaches 3.1 TB/s on the same card (tools/sweep_kernels.py k3:
+// gather_ms beside stream_ms). Loading the rows
+// as aligned 16-byte vectors, and an order of the pieces that keeps
+// concurrent warps inside one window of the array, were both measured and
+// changed nothing; they are not kept.
+//
+// A segment with very many rows has many pieces, which sum_pieces_kernel adds
+// one after another in one thread per column (correct; bundle adjustment's
+// cameras hold 2400 to 2800 rows, eleven pieces). Byte offsets are 64-bit.
 
 #include <cuda_runtime.h>
 
@@ -40,171 +85,215 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kUnroll = 4;  // rows in flight per warp (or per row slot)
-constexpr int kMaxSharedBytes = 232448;  // 227 KB, the opt-in limit of sm_90
+constexpr unsigned int kFullMask = 0xffffffffu;
+constexpr int kThreads = 128;
 
-template <typename T>
-__global__ void unsorted_segment_sum_kernel(const T* __restrict__ contrib,
-                                            const int32_t* __restrict__ ids,
-                                            T* __restrict__ out, int64_t B,
-                                            int d, int num_rows_out, int dc,
-                                            int64_t rows_per_cta) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* table = reinterpret_cast<T*>(smem_raw);
+// Row loads a lane keeps in flight, chosen so that every form of the kernel
+// stays within 48 registers and the 40 warps an SM that the plan counts on
+// are resident at once (nvcc 12 -Xptxas -v: 32 to 44). Wide rows (three
+// loads a row): from 2 to 8 rows the time moved by under 5% (d = 81), so they
+// take the fewest registers. Narrow constant widths in float32 take a whole
+// batch of 32 rows.
+template <typename T, int D>
+struct RowsInFlight {
+  static constexpr int kSlots = (D > 0 && D <= kWarp) ? kWarp / (D > 0 ? D : 1) : 1;
+  static constexpr int kNarrow = sizeof(T) == 4 ? (kWarp + kSlots - 1) / kSlots : 4;
+  static constexpr int kWide = sizeof(T) == 4 ? 4 : 2;
+  // the run-time form (D == 0) has one load a row
+  static constexpr int value = D == 0 ? 4 : (D <= kWarp ? kNarrow : kWide);
+};
 
-  const int c0 = blockIdx.y * dc;
-  const int w = (d - c0 < dc) ? d - c0 : dc;  // columns of this chunk
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows_per_cta;
-  const int64_t r1 = (r0 + rows_per_cta < B) ? r0 + rows_per_cta : B;
-  const int n = num_rows_out * w;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) table[i] = T(0);
-  __syncthreads();
-
+// D > 0: the width as a constant; D == 0: the run-time form, 32 columns of
+// `d_run` per warp, column group blockIdx.y.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    gather_kernel(const T* __restrict__ contrib,
+                  const int32_t* __restrict__ perm,
+                  const int32_t* __restrict__ piece_ptr,
+                  T* __restrict__ partial, int num_pieces, int d_run) {
+  constexpr int kPass = D > 0 ? (D + kWarp - 1) / kWarp : 1;
+  constexpr int kRows = RowsInFlight<T, D>::value;
   const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int num_warps = blockDim.x / kWarp;
-  const int dummy = num_rows_out - 1;
+  const int piece = blockIdx.x * (kThreads / kWarp) + threadIdx.x / kWarp;
+  if (piece >= num_pieces) return;  // whole warps leave; no block-wide barrier
+  const int d = D > 0 ? D : d_run;
+  const int slots = d <= kWarp ? kWarp / d : 1;  // rows side by side
+  const int slot = d <= kWarp ? lane / d : 0;
+  const int lcol = lane - slot * d;
+  const bool lane_on = slot < slots;
+  const int c0 = blockIdx.y * kWarp * kPass;
+  T acc[kPass];
+#pragma unroll
+  for (int p = 0; p < kPass; ++p) acc[p] = T(0);
 
-  if (w <= kWarp) {
-    // floor(32/w) rows per warp step: lane -> (row slot, column).
-    const int rows_per_step = kWarp / w;
-    const int sub = lane / w;
-    const int col = lane % w;
-    if (sub < rows_per_step) {
-      const int64_t stride = static_cast<int64_t>(num_warps) * rows_per_step;
-      for (int64_t r = r0 + warp * rows_per_step + sub; r < r1;
-           r += kUnroll * stride) {
-        T v[kUnroll];
-        int g[kUnroll];
+  const int begin = piece_ptr[piece];
+  const int end = piece_ptr[piece + 1];
+  int next = begin + lane < end ? perm[begin + lane] : 0;
+  for (int base = begin; base < end; base += kWarp) {
+    const int n = end - base < kWarp ? end - base : kWarp;
+    const int mine = next;  // lane q holds row number q of this batch
+    next = base + kWarp + lane < end ? perm[base + kWarp + lane] : 0;
+    for (int q0 = 0; q0 < n; q0 += kRows * slots) {
+      T v[kRows][kPass];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int64_t rr = r + u * stride;
-          g[u] = -1;
-          v[u] = T(0);
-          if (rr < r1) {
-            const int id = ids[rr];
-            g[u] = (id < 0 || id >= dummy) ? dummy : id;
-            v[u] = contrib[rr * d + c0 + col];
-          }
-        }
+      for (int u = 0; u < kRows; ++u) {
+        const int q = q0 + u * slots + slot;
+        const int64_t r = __shfl_sync(kFullMask, mine, q & (kWarp - 1));
+        const bool ok = lane_on && q < n;
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (g[u] >= 0) atomicAdd(&table[g[u] * w + col], v[u]);
+        for (int p = 0; p < kPass; ++p) {
+          const int col = c0 + p * kWarp + lcol;
+          v[u][p] = (ok && col < d) ? contrib[r * d + col] : T(0);
         }
       }
-    }
-  } else {
-    // One row per warp step, lanes on columns lane, lane+32, ...
-    for (int64_t r = r0 + warp; r < r1;
-         r += static_cast<int64_t>(kUnroll) * num_warps) {
-      int g[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t rr = r + static_cast<int64_t>(u) * num_warps;
-        g[u] = -1;
-        if (rr < r1) {
-          const int id = ids[rr];
-          g[u] = (id < 0 || id >= dummy) ? dummy : id;
-        }
-      }
-      for (int col = lane; col < w; col += kWarp) {
-        T v[kUnroll];
+      for (int u = 0; u < kRows; ++u) {
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int64_t rr = r + static_cast<int64_t>(u) * num_warps;
-          v[u] = (g[u] >= 0) ? contrib[rr * d + c0 + col] : T(0);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (g[u] >= 0) atomicAdd(&table[g[u] * w + col], v[u]);
-        }
+        for (int p = 0; p < kPass; ++p) acc[p] += v[u][p];
       }
     }
   }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T v = table[i];
-    if (v != T(0)) {
-      atomicAdd(&out[static_cast<int64_t>(i / w) * d + c0 + (i % w)], v);
+  // Fold the row slots into slot 0: slot 0 + slot 1 + ..., in that order.
+  if (slots > 1) {
+    T total = acc[0];
+    for (int s = 1; s < slots; ++s) {
+      total += __shfl_down_sync(kFullMask, acc[0], s * d);
+    }
+    acc[0] = total;
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int p = 0; p < kPass; ++p) {
+      const int col = c0 + p * kWarp + lcol;
+      if (col < d) partial[static_cast<int64_t>(piece) * d + col] = acc[p];
     }
   }
 }
 
-// Columns per chunk: as many as the table budget holds, evened out over the
-// chunks. 0 when not even one column fits.
-int columns_per_chunk(int num_rows_out, int d, int elem, int table_bytes) {
-  const int64_t fit = static_cast<int64_t>(table_bytes) /
-                      (static_cast<int64_t>(num_rows_out) * elem);
-  if (fit < 1) return 0;
-  const int dc_max = static_cast<int>(fit < d ? fit : d);
-  const int chunks = (d + dc_max - 1) / dc_max;
-  return (d + chunks - 1) / chunks;
+// out[g, col] = partial[p, col] summed over the pieces p of segment g, in
+// their order. One thread per output element.
+template <typename T>
+__global__ void sum_pieces_kernel(const T* __restrict__ partial,
+                                  const int32_t* __restrict__ seg_piece_ptr,
+                                  T* __restrict__ out, int64_t n_out, int d) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const int g = static_cast<int>(i / d);
+  const int col = static_cast<int>(i - static_cast<int64_t>(g) * d);
+  T s = T(0);
+  const int p1 = seg_piece_ptr[g + 1];
+#pragma unroll 4
+  for (int p = seg_piece_ptr[g]; p < p1; ++p) {
+    s += partial[static_cast<int64_t>(p) * d + col];
+  }
+  out[i] = s;
 }
+
+// A yardstick for the measuring tools, never on a solve's path: read `n`
+// 16-byte vectors in order, four loads in flight per thread, and add them up.
+__global__ void stream_kernel(const float4* __restrict__ x, int64_t n,
+                              float* __restrict__ out) {
+  float s = 0.f;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; i + 3 * stride < n; i += 4 * stride) {
+    const float4 a = x[i], b = x[i + stride], c = x[i + 2 * stride],
+                 e = x[i + 3 * stride];
+    s += (a.x + a.y + a.z + a.w) + (b.x + b.y + b.z + b.w) +
+         (c.x + c.y + c.z + c.w) + (e.x + e.y + e.z + e.w);
+  }
+  for (; i < n; i += stride) {
+    const float4 a = x[i];
+    s += a.x + a.y + a.z + a.w;
+  }
+  if (s == -1.2345e30f) out[0] = s;  // keeps the loads; never true in practice
+}
+
+constexpr int kGather = 1;  // bits of `stages`
+constexpr int kSum = 2;
 
 template <typename T>
-int launch(const void* contrib, const void* ids, void* out, int64_t B, int d,
-           int num_rows_out, int table_bytes, int threads, void* stream) {
-  if (table_bytes > kMaxSharedBytes) table_bytes = kMaxSharedBytes;
-  const int dc = columns_per_chunk(num_rows_out, d, sizeof(T), table_bytes);
-  if (dc == 0 || threads < kWarp || threads > 1024 || threads % kWarp != 0) {
+int launch(const void* contrib, const void* perm, const void* piece_ptr,
+           const void* seg_piece_ptr, void* partial, void* out,
+           int num_pieces, int d, int num_rows_out, int compile_time,
+           int stages, void* stream_v) {
+  if (d < 1 || num_rows_out < 1 || num_pieces < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int chunks = (d + dc - 1) / dc;
-  const size_t smem = static_cast<size_t>(num_rows_out) * dc * sizeof(T);
-
-  static bool opted_in = false;  // one flag per template instantiation
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        unsorted_segment_sum_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
+  constexpr int kWarps = kThreads / kWarp;
+  const unsigned int blocks =
+      static_cast<unsigned int>((num_pieces + kWarps - 1) / kWarps);
+  const T* c = static_cast<const T*>(contrib);
+  const int32_t* rows = static_cast<const int32_t*>(perm);
+  const int32_t* pieces = static_cast<const int32_t*>(piece_ptr);
+  T* part = static_cast<T*>(partial);
+  if ((stages & kGather) && num_pieces > 0) {
+    if (compile_time && d == 81) {
+      gather_kernel<T, 81><<<blocks, kThreads, 0, stream>>>(c, rows, pieces,
+                                                            part, num_pieces, d);
+    } else if (compile_time && d == 9) {
+      gather_kernel<T, 9><<<blocks, kThreads, 0, stream>>>(c, rows, pieces,
+                                                           part, num_pieces, d);
+    } else if (compile_time) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      const dim3 grid(blocks, (d + kWarp - 1) / kWarp);
+      gather_kernel<T, 0><<<grid, kThreads, 0, stream>>>(c, rows, pieces, part,
+                                                         num_pieces, d);
+    }
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
   }
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-
-  // One wave of CTAs, each with enough rows that zeroing and flushing its
-  // table stays a small part of its work.
-  int64_t per_sm = kMaxSharedBytes / static_cast<int64_t>(smem + 1024);
-  if (per_sm > 2048 / threads) per_sm = 2048 / threads;
-  if (per_sm < 1) per_sm = 1;
-  int64_t grid_x = (sms * per_sm + chunks - 1) / chunks;
-  int64_t min_rows = 8LL * num_rows_out;
-  if (min_rows < 256) min_rows = 256;
-  const int64_t most = (B + min_rows - 1) / min_rows;
-  if (grid_x > most) grid_x = most;
-  if (grid_x < 1) grid_x = 1;
-  const int64_t rows_per_cta = (B + grid_x - 1) / grid_x;
-
-  const dim3 grid(static_cast<unsigned int>(grid_x),
-                  static_cast<unsigned int>(chunks));
-  unsorted_segment_sum_kernel<T>
-      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(contrib), static_cast<const int32_t*>(ids),
-          static_cast<T*>(out), B, d, num_rows_out, dc, rows_per_cta);
-  return static_cast<int>(cudaGetLastError());
+  if (stages & kSum) {
+    const int64_t n_out = static_cast<int64_t>(num_rows_out) * d;
+    const unsigned int grid = static_cast<unsigned int>((n_out + 255) / 256);
+    sum_pieces_kernel<T><<<grid, 256, 0, stream>>>(
+        part, static_cast<const int32_t*>(seg_piece_ptr), static_cast<T*>(out),
+        n_out, d);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. Pointers are device pointers; `out` is
-// (num_rows_out, d), ZEROED by the caller; `table_bytes` is the shared-memory
-// budget of one CTA's table; `stream` is a cudaStream_t. Returns the
+// Plain C interface for ctypes. Pointers are device pointers: contrib (B, d)
+// row-major; perm (B,) int32, the rows of segment 0, 1, ..., G in turn;
+// piece_ptr (num_pieces + 1,) int32 over perm, no piece across two segments;
+// seg_piece_ptr (num_rows_out + 1,) int32, the pieces of each segment;
+// partial (num_pieces, d) scratch; out (num_rows_out, d), every element of
+// which is written. `compile_time` != 0 asks for the constant-width form
+// (d = 9 or 81 only); `stages` is 3 (1 = gather only, 2 = sum of the pieces
+// only: for the measuring tools); `stream` is a cudaStream_t. Returns the
 // cudaError_t of the launch (0 = success).
-extern "C" int unsorted_segment_sum_f32(const void* contrib, const void* ids,
-                                        void* out, int64_t B, int d,
-                                        int num_rows_out, int table_bytes,
-                                        int threads, void* stream) {
-  return launch<float>(contrib, ids, out, B, d, num_rows_out, table_bytes,
-                       threads, stream);
+extern "C" int unsorted_segment_sum_f32(
+    const void* contrib, const void* perm, const void* piece_ptr,
+    const void* seg_piece_ptr, void* partial, void* out, int num_pieces, int d,
+    int num_rows_out, int compile_time, int stages, void* stream) {
+  return launch<float>(contrib, perm, piece_ptr, seg_piece_ptr, partial, out,
+                       num_pieces, d, num_rows_out, compile_time, stages,
+                       stream);
 }
 
-extern "C" int unsorted_segment_sum_f64(const void* contrib, const void* ids,
-                                        void* out, int64_t B, int d,
-                                        int num_rows_out, int table_bytes,
-                                        int threads, void* stream) {
-  return launch<double>(contrib, ids, out, B, d, num_rows_out, table_bytes,
-                        threads, stream);
+extern "C" int unsorted_segment_sum_f64(
+    const void* contrib, const void* perm, const void* piece_ptr,
+    const void* seg_piece_ptr, void* partial, void* out, int num_pieces, int d,
+    int num_rows_out, int compile_time, int stages, void* stream) {
+  return launch<double>(contrib, perm, piece_ptr, seg_piece_ptr, partial, out,
+                        num_pieces, d, num_rows_out, compile_time, stages,
+                        stream);
+}
+
+// The streaming yardstick: reads `num_bytes` (a multiple of 16, 16-byte
+// aligned) at `x` once; `out` is one float of scratch.
+extern "C" int unsorted_segment_sum_stream(const void* x, int64_t num_bytes,
+                                           void* out, int blocks, int threads,
+                                           void* stream) {
+  if (num_bytes % 16 != 0 || blocks < 1 || threads < 1 || threads > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  stream_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), num_bytes / 16, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,8 @@ sums, row G being the dummy group (ids outside [0, G): callers slice
 - ``unsorted``: ids in any order, a few hundred to a few thousand groups,
   on CUDA: the hand-written kernel K3 (``ops/unsorted_segment_sum.py``), the
   counterpart of the JAX package's ``onehot_tiled`` kind. Its callers skip
-  the cell-sorting row gather a sorted kind would need;
+  the cell-sorting row gather a sorted kind would need (the kernel reads
+  the rows where they lie, through a row list the host builds once);
 - ``scatter``: ``index_add_`` (the JAX package's ``ell`` and ``scatter``).
 """
 
@@ -27,18 +28,24 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.ops.segment_sum import build_row_ptr, segment_sum_sorted
-from ceres_tpu_torch.ops.unsorted_segment_sum import segment_sum_unsorted
+from ceres_tpu_torch.ops.unsorted_segment_sum import (
+    UnsortedPlan,
+    build_unsorted_plan,
+    segment_sum_unsorted,
+)
 
 ONEHOT_MAX_GROUPS = 288  # one-hot matmul: B x (G+1) operand stays small
 SORTED_MIN_ROWS = 4096  # below this a kernel launch buys nothing over index_add_
-# Most rows (G+1) of the ``unsorted`` kind's output. Measured against
-# ``index_add_`` on an H100 80GB HBM3 at 700 W (tools/sweep_kernels.py,
-# B = 1.2 M rows, float32): at 81 columns the kernel wins through
-# G+1 = 8192 (0.39 ms against 0.67 ms) and loses at 16384; at 9 columns it
-# wins through 2048 (0.067 against 0.087 ms) and loses from 4096 on (0.120
-# against 0.087 ms). A plan is chosen from the ids alone and serves every
-# width, and the 81-column sites move nine times the bytes (and would
-# otherwise pay a row gather as well), so the cap sits at 4096.
+# Most rows (G+1) of the ``unsorted`` kind's output: the range of the JAX
+# package's ``onehot_tiled`` kind. The kernel keeps no table, so nothing in
+# it depends on the cap; against ``index_add_`` on an NVIDIA H100 80GB HBM3
+# at 700 W (tools/sweep_kernels.py k3, table ``k3_cap``: B = 1.2 M rows,
+# G+1 = 512 ... 16384, d = 3, 9, 81, float32 and float64, from a CUDA graph)
+# it takes 0.11 to 0.67 of the library call's time at every one of the 36
+# shapes, e.g. at G+1 = 4096: d = 9 0.027 against 0.084 ms, d = 81 0.179
+# against 0.664 ms (float32), d = 3 0.021 against 0.038 ms (float64); the
+# closest is d = 3, float64, G+1 = 16384: 0.023 against 0.034 ms. So every
+# width of an ``unsorted`` plan goes to the kernel.
 UNSORTED_MAX_GROUPS = 4096
 
 
@@ -71,8 +78,11 @@ class ReducePlan:
     onehot: Optional[torch.Tensor] = None
     # sorted: (G+2,) int32 CSR row pointer (ops/segment_sum.build_row_ptr).
     row_ptr: Optional[torch.Tensor] = None
-    # scatter: (B,) int64 segment ids (dummy = G); unsorted: the same, int32.
+    # scatter: (B,) int64 segment ids (dummy = G).
     seg: Optional[torch.Tensor] = None
+    # unsorted: the rows of each segment, cut into pieces
+    # (ops/unsorted_segment_sum.UnsortedPlan).
+    unsorted: Optional[UnsortedPlan] = None
     _onehot_cast: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def onehot_as(self, dtype: torch.dtype) -> torch.Tensor:
@@ -108,7 +118,9 @@ def build_reduce_plan(
             row_ptr=torch.from_numpy(build_row_ptr(seg, G)).to(device),
         )
     if kind == "unsorted":
-        seg = seg.astype(np.int32)
+        return ReducePlan(
+            kind=kind, num_groups=G, unsorted=build_unsorted_plan(seg, G, device)
+        )
     return ReducePlan(
         kind=kind, num_groups=G, seg=torch.from_numpy(seg).to(device)
     )
@@ -122,7 +134,7 @@ def apply_reduce(plan: ReducePlan, contrib: torch.Tensor) -> torch.Tensor:
     if plan.kind == "sorted":
         return segment_sum_sorted(contrib, plan.row_ptr, G)
     if plan.kind == "unsorted":
-        return segment_sum_unsorted(contrib, plan.seg, G)
+        return segment_sum_unsorted(contrib, plan.unsorted)
     index = plan.onehot if plan.kind == "onehot" else plan.seg
     if index.device != contrib.device:
         raise ValueError(

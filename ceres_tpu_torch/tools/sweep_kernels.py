@@ -15,22 +15,26 @@ with the card's name and power limit and a ``table``:
   kernel that gives each output element one thread;
 - ``k1_outlier``: K1 at the large shape with one more segment of N rows, for
   growing N: what a lone long segment costs it;
-- ``k3_table``: the unsorted segment sum (K3) at the large case's
-  camera-side shape (B = 1.2 M rows, G = 464, uniform random ids; d = 81, 9,
-  3; f32 and f64) for every (TABLE_BYTES, THREADS) pair, beside
-  ``index_add_``;
+- ``k3_parts``: the unsorted segment sum (K3) at the large case's
+  camera-side shapes (B = 1.2 M rows, G = 464; d = 81 and 9; f32 and f64), on
+  the case's own camera ids (observations sorted by point) and on uniform
+  random ids: the whole call, its gather kernel alone, its sum-of-pieces
+  kernel alone, a pass that only streams the same bytes in order with
+  16-byte loads, ``index_add_``, the bound and the scratch bytes;
+- ``k3_warps``: K3 at the same shapes with the segments cut into no more
+  than SMs x n pieces (one warp each), for growing n;
+  ``ops/unsorted_segment_sum.WARPS_PER_SM`` is set from it;
 - ``k3_cap``: K3 at its module defaults against ``index_add_`` for growing G
-  (d = 9 and 81, f32), which is what ``ops/reduce.UNSORTED_MAX_GROUPS`` is
-  set from;
+  (d = 3, 9 and 81; f32 and f64), which is what
+  ``ops/reduce.UNSORTED_MAX_GROUPS`` is held against;
 - ``k4``: the fused pair-outer segment sum (K4) on the large case's own
   strict-lower pair lists (3.0 M pairs, 107 416 cells, K = 3, 9 x 9; random
   slabs; f32 and f64): the compile-time form at every (threads, pairs per
   staging buffer), and the run-time form at the same shape.
   ``ops/outer_segment_sum.THREADS`` and ``STAGE_PAIRS`` are set from it.
 
-K1 and K4 times are of the call replayed from a CUDA graph (the host's
-enqueue left out); K3 times are CUDA-event means over back-to-back calls.
-Needs a CUDA device.
+All times are of the call replayed from a CUDA graph (the host's enqueue
+left out). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,28 +51,14 @@ from ceres_tpu_torch.ops import segment_sum as ss
 from ceres_tpu_torch.ops import unsorted_segment_sum as us
 
 B = 1_200_000
-TABLE_BYTES = (32 * 1024, 48 * 1024, 64 * 1024, 100 * 1024, 160 * 1024, 227 * 1024)
-THREADS = (256, 512, 1024)
+PEAK_BYTES_PER_S = 3.35e12  # the card's published device memory rate
+K3_WARPS_PER_SM = (16, 24, 32, 36, 40, 44, 48, 52, 64, 96)
 CAP_GROUPS = (511, 1023, 2047, 4095, 8191, 16383)
 K1_THREADS = (64, 128, 256, 512, 1024)
 K1_LENGTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 1024, 4096)
 K1_OUTLIERS = (0, 256, 1024, 4096, 16384, 65536)
 K4_THREADS = (128, 256, 512)
 K4_STAGES = (3, 6, 9, 12, 15, 18)
-
-
-def _time_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
@@ -155,42 +145,77 @@ def sweep_k1(dev, emit) -> None:
 
 
 def sweep_k3(dev, emit) -> None:
-    rng = np.random.default_rng(0)
-
-    def index_add_ms(c, seg64, G):
-        d = c.shape[1]
-        return _time_ms(
-            lambda: torch.zeros((G + 1, d), dtype=c.dtype, device=dev).index_add_(0, seg64, c)
-        )
+    from ceres_tpu_torch.models import bal
 
     us.build_kernel()
-    defaults = (us.TABLE_BYTES, us.THREADS)
-    ids = torch.from_numpy(rng.integers(0, 464, B).astype(np.int32)).to(dev)
-    seg64 = ids.to(torch.int64)
-    for dtype in (torch.float32, torch.float64):
-        for d in (81, 9, 3):
-            c = torch.randn((B, d), dtype=dtype, device=dev)
-            lib = index_add_ms(c, seg64, 464)
-            for table in TABLE_BYTES:
-                for threads in THREADS:
-                    us.TABLE_BYTES, us.THREADS = table, threads
-                    ms = _time_ms(lambda: us.segment_sum_unsorted(c, ids, 464))
-                    emit(table="k3_table", dtype=str(dtype), d=d, G=464, B=B,
-                         table_bytes=table, threads=threads, ms=ms, index_add_ms=lib)
-            del c
-    us.TABLE_BYTES, us.THREADS = defaults
-    for G in CAP_GROUPS:
-        if G > us.max_num_groups(torch.float32):
-            continue
-        ids = torch.from_numpy(rng.integers(0, G, B).astype(np.int32)).to(dev)
-        seg64 = ids.to(torch.int64)
-        for d in (9, 81):
-            c = torch.randn((B, d), dtype=torch.float32, device=dev)
-            emit(table="k3_cap", dtype="torch.float32", d=d, G=G, B=B,
-                 table_bytes=us.TABLE_BYTES, threads=us.THREADS,
-                 ms=_time_ms(lambda: us.segment_sum_unsorted(c, ids, G)),
-                 index_add_ms=index_add_ms(c, seg64, G))
-            del c
+    rng = np.random.default_rng(0)
+    G = 464
+    inst = bal.synthesize_bal(
+        num_cameras=G, num_points=200_000, num_observations=B,
+        noise=2.0, perturb=0.7, seed=7,
+    )
+    # observations lie sorted by point, as models/bal.build_problem lays them
+    camera_ids = inst.camera_index[np.argsort(inst.point_index, kind="stable")]
+    id_sets = {"camera": camera_ids, "random": rng.integers(0, G, B)}
+
+    def index_add_ms(c, seg64, groups):
+        shape = (groups + 1, c.shape[1])
+        return _graph_ms(
+            lambda: torch.zeros(shape, dtype=c.dtype, device=dev).index_add_(0, seg64, c)
+        )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def stream_ms(c):
+        """The streaming yardstick over the bytes of ``c`` (16-byte loads)."""
+        lib, sink = us._library(), torch.empty(4, device=dev)
+        num_bytes = c.numel() * c.element_size() // 16 * 16
+
+        def run():
+            err = lib.unsorted_segment_sum_stream(
+                c.data_ptr(), num_bytes, sink.data_ptr(), 4 * sms, 512,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"stream yardstick failed: cudaError {err}")
+
+        return _graph_ms(run)
+
+    shapes = [(dtype, d) for dtype in (torch.float32, torch.float64) for d in (81, 9)]
+    for dtype, d in shapes:
+        c = torch.randn((B, d), dtype=dtype, device=dev)
+        e = c.element_size()
+        common = dict(dtype=_name(dtype), d=d, G=G, B=B)
+        for ids_name, ids in id_sets.items():
+            plan = us.build_unsorted_plan(ids, G, dev)
+            partial = torch.empty((plan.num_pieces, d), dtype=dtype, device=dev)
+            out = torch.empty((G + 1, d), dtype=dtype, device=dev)
+            emit(table="k3_parts", **common, ids=ids_name, pieces=plan.num_pieces,
+                 bound_ms=(B * d * e + B * 4 + (G + 1) * d * e) / PEAK_BYTES_PER_S * 1e3,
+                 scratch_bytes=plan.num_pieces * d * e,
+                 ms=_graph_ms(lambda: us.segment_sum_unsorted(c, plan)),
+                 gather_ms=_graph_ms(lambda: us._launch(c, plan, partial, out, 1)),
+                 sum_pieces_ms=_graph_ms(lambda: us._launch(c, plan, partial, out, 2)),
+                 stream_ms=stream_ms(c),
+                 index_add_ms=index_add_ms(c, torch.from_numpy(ids).to(dev).long(), G))
+        for warps_per_sm in K3_WARPS_PER_SM:
+            plan = us.build_unsorted_plan(camera_ids, G, dev, sms * warps_per_sm)
+            emit(table="k3_warps", **common, ids="camera", warps_per_sm=warps_per_sm,
+                 pieces=plan.num_pieces,
+                 ms=_graph_ms(lambda: us.segment_sum_unsorted(c, plan)))
+        del c
+    for groups in CAP_GROUPS:
+        ids = rng.integers(0, groups, B)
+        plan = us.build_unsorted_plan(ids, groups, dev)
+        seg64 = torch.from_numpy(ids).to(dev).long()
+        for dtype in (torch.float32, torch.float64):
+            for d in (3, 9, 81):
+                c = torch.randn((B, d), dtype=dtype, device=dev)
+                emit(table="k3_cap", dtype=_name(dtype), d=d, G=groups, B=B,
+                     pieces=plan.num_pieces,
+                     ms=_graph_ms(lambda: us.segment_sum_unsorted(c, plan)),
+                     index_add_ms=index_add_ms(c, seg64, groups))
+                del c
 
 
 def sweep_k4(dev, emit) -> None:

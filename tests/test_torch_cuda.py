@@ -134,51 +134,133 @@ def test_sorted_plan_on_cuda_launches_the_kernel(device):
 # ---- K3 ---------------------------------------------------------------------
 
 
+def _unsorted_case(device, dtype, B, G, tail, seed=None):
+    rng = np.random.default_rng(B + G if seed is None else seed)
+    seg = rng.integers(-2, G + 5, B)  # ids outside [0, G) go to the dummy row
+    if B > 6000:
+        seg[:5000] = 1  # one group far larger than the others
+    plan = us.build_unsorted_plan(seg, G, device)
+    contrib = torch.tensor(rng.standard_normal((B,) + tail), dtype=dtype, device=device)
+    return plan, contrib
+
+
+def _assert_unsorted_matches_plain(plan, contrib):
+    out = us.segment_sum_unsorted(contrib, plan)
+    torch.cuda.synchronize()
+    ref = us.segment_sum_unsorted_plain(contrib, plan)
+    bound = RTOL[contrib.dtype] * us.segment_sum_unsorted_plain(contrib.abs(), plan)
+    assert out.shape == (plan.num_groups + 1,) + tuple(contrib.shape[1:])
+    assert out.dtype == contrib.dtype
+    assert bool(((out - ref).abs() <= bound).all())
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize(
     "B,G,tail",
     [(200000, 464, (81,)), (200000, 464, (9,)), (50001, 4095, (81,)), (9000, 288, (1,)),
-     (30000, 1000, (3, 3)), (7, 500, (40,)), (0, 300, (3,))],
+     (30000, 1000, (3, 3)), (7, 500, (40,)), (0, 300, (3,)), (70001, 464, (100,)),
+     (60000, 65535, (3,)), (100003, 464, (1,))],
 )
 def test_unsorted_kernel_matches_plain(device, dtype, B, G, tail):
-    rng = np.random.default_rng(B + G)
-    seg = rng.integers(-2, G + 5, B)  # ids outside [0, G) go to the dummy row
-    if B > 6000:
-        seg[:5000] = 1  # one group far larger than the others
-    ids = torch.from_numpy(seg.astype(np.int32)).to(device)
-    contrib = torch.tensor(rng.standard_normal((B,) + tail), dtype=dtype, device=device)
+    """The compile-time widths (9 and 81, also as a (3, 3) tail) and
+    run-time ones (1, 3, 40, 100: one and several column groups)."""
+    plan, contrib = _unsorted_case(device, dtype, B, G, tail)
     before = us.launches
-    out = us.segment_sum_unsorted(contrib, ids, G)
-    torch.cuda.synchronize()
+    _assert_unsorted_matches_plain(plan, contrib)
     assert us.launches == before + (1 if B else 0)
-    ref = us.segment_sum_unsorted_plain(contrib, ids, G)
-    bound = RTOL[dtype] * us.segment_sum_unsorted_plain(contrib.abs(), ids, G)
-    assert out.shape == (G + 1,) + tail and out.dtype == dtype
-    assert bool(((out - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("d", [9, 81])
+@pytest.mark.parametrize("form", ["compile_time", "run_time"])
+def test_unsorted_kernel_both_forms_match_plain(device, dtype, d, form, monkeypatch):
+    """d = 9 and 81 through the compile-time form and, with the list of
+    compiled widths emptied, through the run-time form."""
+    if form == "run_time":
+        monkeypatch.setattr(us, "COMPILED_WIDTHS", frozenset())
+    plan, contrib = _unsorted_case(device, dtype, 120000, 464, (d,))
+    _assert_unsorted_matches_plain(plan, contrib)
+
+
+UNSORTED_EDGE_CASES = {
+    "all_rows_in_one_group": (np.full(50000, 3), 464, 9),
+    "dummy_row": (np.random.default_rng(3).integers(-5, 700, 30000), 600, 9),
+    "G_plus_1_is_289": (np.random.default_rng(4).integers(0, 288, 20000), 288, 81),
+    "sorted_ids": (np.sort(np.random.default_rng(5).integers(0, 900, 40000)), 900, 81),
+    "empty_groups": (np.random.default_rng(6).integers(0, 4000, 5000) // 7 * 7, 4000, 9),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNSORTED_EDGE_CASES))
+def test_unsorted_kernel_edge_cases(device, name):
+    seg, G, d = UNSORTED_EDGE_CASES[name]
+    plan = us.build_unsorted_plan(seg, G, device)
+    rng = np.random.default_rng(len(name))
+    for dtype in (torch.float32, torch.float64):
+        c = torch.tensor(rng.standard_normal((seg.size, d)), dtype=dtype, device=device)
+        _assert_unsorted_matches_plain(plan, c)
+
+
+@pytest.mark.parametrize("max_pieces", [1, 300, 450, 1249, 1251, 5280, 100000])
+def test_unsorted_kernel_any_number_of_pieces(device, max_pieces):
+    """From one piece per segment (thousands of rows in one warp) down to
+    the shortest pieces the plan cuts (a batch of 32 rows, more or less a
+    row), and the card's own number."""
+    rng = np.random.default_rng(max_pieces)
+    seg = rng.integers(0, 300, 40000)
+    seg[:9000] = 5
+    plan = us.build_unsorted_plan(seg, 300, device, max_pieces)
+    for d in (9, 81, 5):
+        for dtype in (torch.float32, torch.float64):
+            c = torch.tensor(rng.standard_normal((40000, d)), dtype=dtype, device=device)
+            _assert_unsorted_matches_plain(plan, c)
+
+
+def test_unsorted_kernel_many_tiny_segments(device):
+    """More segments than the card holds warps: pieces of one or two rows."""
+    rng = np.random.default_rng(7)
+    seg = rng.integers(0, 30000, 50000)
+    plan = us.build_unsorted_plan(seg, 30000, device)
+    for d in (9, 81, 3):
+        c = torch.tensor(rng.standard_normal((50000, d)), dtype=torch.float64, device=device)
+        _assert_unsorted_matches_plain(plan, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("d", [9, 81, 5, 40])
+def test_unsorted_kernel_is_deterministic(device, dtype, d):
+    """No atomics: twice on the same input, the same bits."""
+    plan, contrib = _unsorted_case(device, dtype, 150000, 464, (d,), seed=d)
+    first = us.segment_sum_unsorted(contrib, plan)
+    second = us.segment_sum_unsorted(contrib, plan)
+    assert torch.equal(first, second)
 
 
 def test_unsorted_wrapper_rejects_what_the_kernel_does_not_take(device):
-    ids = torch.zeros(10, dtype=torch.int32, device=device)
+    plan = us.build_unsorted_plan(np.zeros(10, np.int64), 10, device)
     with pytest.raises(TypeError):
-        us.segment_sum_unsorted(torch.ones(10, 2, dtype=torch.float16, device=device), ids, 10)
+        us.segment_sum_unsorted(torch.ones(10, 2, dtype=torch.float16, device=device), plan)
     with pytest.raises(ValueError, match="plan on"):
-        us.segment_sum_unsorted(torch.ones(10, 2, device=device), ids.cpu(), 10)
-    with pytest.raises(ValueError, match="int32"):
-        us.segment_sum_unsorted(torch.ones(10, 2, device=device), ids.long(), 10)
-    with pytest.raises(ValueError, match="groups"):
         us.segment_sum_unsorted(
-            torch.ones(10, 2, device=device), ids, us.max_num_groups(torch.float32) + 1
+            torch.ones(10, 2, device=device), us.build_unsorted_plan(np.zeros(10, np.int64), 10, "cpu")
         )
+    with pytest.raises(ValueError, match="rows"):
+        us.segment_sum_unsorted(torch.ones(9, 2, device=device), plan)
 
 
 def test_unsorted_plan_on_cuda_launches_the_kernel(device):
     seg = np.random.default_rng(2).integers(0, 464, 50000)
     plan = tred.build_reduce_plan(seg, 464, device)
-    assert plan.kind == "unsorted" and plan.seg.dtype == torch.int32
-    assert plan.seg.device.type == "cuda"
-    before = us.launches
+    assert plan.kind == "unsorted" and plan.unsorted.perm.dtype == torch.int32
+    assert plan.unsorted.device.type == "cuda"
+    before, by_width = us.launches, dict(us.launches_by_width)
     tred.apply_reduce(plan, torch.ones(50000, 9, device=device))
-    assert us.launches == before + 1
+    tred.apply_reduce(plan, torch.ones(50000, 3, 3, device=device))
+    tred.apply_reduce(plan, torch.ones(50000, 81, device=device))
+    assert us.launches == before + 3
+    assert us.launches_by_width[9] == by_width.get(9, 0) + 2
+    assert us.launches_by_width[81] == by_width.get(81, 0) + 1
 
 
 # ---- K4 ---------------------------------------------------------------------

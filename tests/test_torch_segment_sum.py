@@ -277,3 +277,26 @@ def test_sorted_plans_of_short_and_long_segments(monkeypatch):
 
 def test_block_size_is_a_launchable_one():
     assert 32 <= ss.THREADS <= 1024 and ss.THREADS % 32 == 0
+
+
+@pytest.mark.parametrize("tail", [(1,), (3,), (9,), (81,), (3, 3)], ids=str)
+@pytest.mark.parametrize("kind", ["onehot", "sorted", "unsorted", "scatter"])
+def test_apply_reduce_on_cpu_tensors_every_kind_and_width(kind, tail, monkeypatch):
+    """Every plan kind at every width the solver reduces, on CPU tensors:
+    the plain versions, no kernel launch, numpy's sums (f64, rtol 1e-12)."""
+    from ceres_tpu_torch.ops import unsorted_segment_sum as us
+
+    monkeypatch.setattr(tred, "choose_plan_kind", lambda seg, G, dev: kind)
+    rng = np.random.default_rng(len(kind) + len(tail) + tail[0])
+    B, G = 2500, 300
+    seg = rng.integers(-1, G + 2, B)  # ids outside [0, G) go to the dummy row
+    if kind == "sorted":
+        seg = np.sort(np.where((seg < 0) | (seg >= G), G, seg))
+    plan = tred.build_reduce_plan(seg, G, "cpu")
+    assert plan.kind == kind
+    contrib = rng.standard_normal((B,) + tail)
+    before = (ss.launches, us.launches)
+    out = tred.apply_reduce(plan, torch.from_numpy(contrib))
+    assert (ss.launches, us.launches) == before
+    assert out.shape == (G + 1,) + tail and out.dtype == torch.float64
+    _close(out.numpy(), _numpy_reference(contrib, seg, G), 1e-12)
