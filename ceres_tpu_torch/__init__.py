@@ -1,24 +1,53 @@
 """ceres_tpu_torch: the PyTorch/CUDA port of ceres_tpu.
 
-The fused Levenberg-Marquardt bundle-adjustment solve on an NVIDIA H100, on
-an explicitly assembled reduced camera system: ITERATIVE_SCHUR with
-SCHUR_JACOBI, and DENSE_SCHUR. The JAX package's Pallas kernels are
-rewritten as CUDA kernels (``csrc/``): the sorted segment sum
-(``ops/segment_sum.py``), the unsorted segment sum
+Nonlinear least squares on an NVIDIA H100 with the fused
+Levenberg-Marquardt loop: robust loss functions, manifolds and constant
+parameter blocks, solved with DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR
+(IDENTITY, JACOBI, SUBSET), DENSE_SCHUR or ITERATIVE_SCHUR with SCHUR_JACOBI
+(the Schur solvers on an explicitly assembled reduced camera system). The
+JAX package's Pallas kernels are rewritten as CUDA kernels (``csrc/``): the
+sorted segment sum (``ops/segment_sum.py``), the unsorted segment sum
 (``ops/unsorted_segment_sum.py``) and the fused pair-outer segment sum
 (``ops/outer_segment_sum.py``). Imports torch, never jax; ``ceres_tpu`` is
 the reference the tests hold it to.
 
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.models import bal
-    problem, _, _ = bal.build_problem(bal.synthesize_bal(seed=16))
-    summary = ctt.fused_solve(bal.default_options(), problem)  # on the card
+    problem, _, _ = bal.build_problem(
+        bal.synthesize_bal(seed=16), loss=ctt.loss.HuberLoss(1.0))
+    summary = ctt.solve(bal.default_options(), problem)  # on the card
 """
 
+from ceres_tpu_torch import cost_functions, loss, manifold, rotation
 from ceres_tpu_torch.fused_lm import fused_solve
+from ceres_tpu_torch.loss import (
+    ArctanLoss,
+    CauchyLoss,
+    ComposedLoss,
+    HuberLoss,
+    LossFunction,
+    LossFunctionWrapper,
+    ScaledLoss,
+    SoftLOneLoss,
+    TolerantLoss,
+    TrivialLoss,
+    TukeyLoss,
+)
+from ceres_tpu_torch.manifold import (
+    EigenQuaternionManifold,
+    EuclideanManifold,
+    LineManifold,
+    Manifold,
+    ProductManifold,
+    QuaternionManifold,
+    SphereManifold,
+    SubsetManifold,
+)
 from ceres_tpu_torch.problem import Problem
 from ceres_tpu_torch.solver import SolverOptions, SolverSummary, solve
+from ceres_tpu_torch.trust_region import IterationSummary
 from ceres_tpu_torch.types import (
+    LinearSolverTerminationType,
     LinearSolverType,
     MinimizerType,
     PreconditionerType,
@@ -27,14 +56,39 @@ from ceres_tpu_torch.types import (
 )
 
 __all__ = [
+    "ArctanLoss",
+    "CauchyLoss",
+    "ComposedLoss",
+    "EigenQuaternionManifold",
+    "EuclideanManifold",
+    "HuberLoss",
+    "IterationSummary",
+    "LineManifold",
+    "LinearSolverTerminationType",
     "LinearSolverType",
+    "LossFunction",
+    "LossFunctionWrapper",
+    "Manifold",
     "MinimizerType",
     "PreconditionerType",
     "Problem",
+    "ProductManifold",
+    "QuaternionManifold",
+    "ScaledLoss",
+    "SoftLOneLoss",
     "SolverOptions",
     "SolverSummary",
+    "SphereManifold",
+    "SubsetManifold",
     "TerminationType",
+    "TolerantLoss",
+    "TrivialLoss",
     "TrustRegionStrategyType",
+    "TukeyLoss",
+    "cost_functions",
     "fused_solve",
+    "loss",
+    "manifold",
+    "rotation",
     "solve",
 ]

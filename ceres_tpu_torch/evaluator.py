@@ -9,8 +9,13 @@ into per-block rows through the family's reduce plans (``ops/reduce.py``;
 on CUDA the point-side ones run the sorted-segment-sum kernel and, from a
 few hundred cameras on, the camera-side ones the unsorted one).
 
-Only the trivial loss is in this slice (``problem.py`` rejects others), so
-the corrected residuals are the raw residuals.
+Each instance is differentiated as a function of tangent deltas at
+delta = 0, ``r(delta) = fn(plus(x_j, delta_j), ...)``, which folds the cost
+function's Jacobian and the manifold's PlusJacobian into one forward-mode
+pass (residual_block.cc:136-159 does it in two steps). A family's loss
+corrects its residuals and Jacobian blocks (the Triggs correction of
+corrector.cc) before any solver sees them: the model cost change and rho
+use the corrected arrays, the cost uses rho(s).
 """
 
 from __future__ import annotations
@@ -18,9 +23,15 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from ceres_tpu_torch.loss import (
+    correct_jacobian,
+    correct_residuals,
+    corrector_coefficients,
+)
 from ceres_tpu_torch.ops.reduce import apply_reduce
 from ceres_tpu_torch.problem import BlockGroups, Family
 
@@ -35,46 +46,76 @@ def _group_rows(groups: BlockGroups, v: torch.Tensor, T: int) -> torch.Tensor:
     return v[groups[T]]
 
 
-def _gather_blocks(family: Family, x: torch.Tensor, groups: BlockGroups):
-    """Per-instance parameter blocks (B, A_j) per arg: the size group's
-    (G, A) table of x and one row gather."""
+def _gather_blocks(family: Family, x: torch.Tensor):
+    """Per-instance parameter blocks (B, A_j) per arg: the ambient size
+    group's (G, A) table of x and one row gather. Constant blocks are
+    gathered like the others."""
     return tuple(
-        _group_rows(groups, x, A)[family.bd_pos[j]]
+        _group_rows(family.amb_groups, x, A)[family.amb_pos[j]]
         for j, A in enumerate(family.structure.block_sizes)
     )
 
 
-def family_residuals(family: Family, x: torch.Tensor, groups: BlockGroups) -> torch.Tensor:
+def family_residuals(family: Family, x: torch.Tensor) -> torch.Tensor:
     """Raw residuals (B, r)."""
     data = (family.data,) if family.structure.has_data else ()
-    return vmap(family.structure.fn)(*_gather_blocks(family, x, groups), *data)
+    return vmap(family.structure.fn)(*_gather_blocks(family, x), *data)
 
 
 def family_residuals_and_jacobians(
-    family: Family, x: torch.Tensor, groups: BlockGroups
+    family: Family, x: torch.Tensor
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """Raw residuals (B, r) and Jacobians per arg (B, r, T_j) in one
-    vmapped forward-mode pass. Blocks are gathered outside the vmapped
-    function; every block is Euclidean, so the Jacobian with respect to
-    the block is the tangent Jacobian."""
-    blocks = _gather_blocks(family, x, groups)
-    fn, k = family.structure.fn, family.num_args
-    data = (family.data,) if family.structure.has_data else ()
+    """Raw residuals (B, r) and tangent Jacobians per arg (B, r, T_j) in
+    one vmapped forward-mode pass over the tangent deltas at 0. An arg
+    without a manifold is differentiated with respect to the block itself,
+    which is the same Jacobian."""
+    st = family.structure
+    blocks = _gather_blocks(family, x)
+    fn, k = st.fn, family.num_args
+    data = (family.data,) if st.has_data else ()
+    # The variable of differentiation per arg: the block itself, or the
+    # tangent delta (at 0) of a block on a manifold.
+    variables = tuple(
+        blocks[j] if m is None else x.new_zeros((family.batch, st.tangent_sizes[j]))
+        for j, m in enumerate(st.manifolds)
+    )
 
     def one(*args):
-        def f(*b):
-            out = fn(*b, *args[k:])
+        bs, rest = args[:k], args[2 * k :]
+
+        def f(*v):
+            moved = [
+                v[j] if m is None else m.plus(bs[j], v[j])
+                for j, m in enumerate(st.manifolds)
+            ]
+            out = fn(*moved, *rest)
             return out, out
 
-        jacs, r = jacfwd(f, argnums=tuple(range(k)), has_aux=True)(*args[:k])
+        jacs, r = jacfwd(f, argnums=tuple(range(k)), has_aux=True)(*args[k : 2 * k])
         return r, jacs
 
-    args = blocks + data
-    r, jacs = vmap(one)(*args)
+    r, jacs = vmap(one)(*blocks, *variables, *data)
     # A residual written with Python floats on 0-dim tensors gets float64
     # tangents under vmap(jacfwd) (see models/bal.py); keep the blocks in
     # the evaluation dtype.
     return r, tuple(J.to(r.dtype) for J in jacs)
+
+
+def _apply_loss(family: Family, r: torch.Tensor, jacs):
+    """Triggs-correct residuals and Jacobians; returns (cost, r_c, jacs_c)
+    (residual_block.cc:160-196 + corrector.cc). With no loss,
+    cost = 0.5 ||r||^2 and the arrays pass through. The cost is summed in
+    f64 (see _cost_impl)."""
+    sq_norm = torch.sum(r * r, dim=-1)
+    if family.loss is None:
+        return 0.5 * torch.sum(sq_norm.to(torch.float64)), r, jacs
+    rho0, rho1, rho2 = family.loss.evaluate(sq_norm)
+    cost = 0.5 * torch.sum(rho0.to(torch.float64))
+    scale, alpha_sq_norm = corrector_coefficients(sq_norm, rho1, rho2)
+    sqrt_rho1 = torch.sqrt(rho1)
+    if jacs is not None:
+        jacs = tuple(correct_jacobian(J, r, sqrt_rho1, alpha_sq_norm) for J in jacs)
+    return cost, correct_residuals(r, scale), jacs
 
 
 @dataclasses.dataclass
@@ -135,8 +176,12 @@ class JacobianContext:
             for j in range(fam.num_args):
                 if skip is not None and j == skip[fi]:
                     continue
-                vj = vg[fam.structure.tangent_sizes[j]][fam.bd_pos[j]]
-                acc = acc + torch.einsum("brt,bt->br", self.jacs[fi][j], vj)
+                T = fam.structure.tangent_sizes[j]
+                if T not in vg:
+                    continue  # every block of this size is constant
+                acc = acc + torch.einsum(
+                    "brt,bt->br", self.jacs[fi][j], vg[T][fam.bd_pos[j]]
+                )
             out.append(acc)
         return tuple(out)
 
@@ -151,13 +196,19 @@ class JacobianContext:
                 if skip is not None and j == skip[fi]:
                     continue
                 T = fam.structure.tangent_sizes[j]
+                if T not in self.groups:
+                    continue  # every block of this size is constant
                 contrib = torch.einsum("brt,br->bt", self.jacs[fi][j], w[fi])
                 red = apply_reduce(fam.reduce_plans[j], contrib)
                 acc[T] = red if T not in acc else acc[T] + red
         return self._ungroup_add(acc, w[0].dtype)
 
+    def normal_matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """J'J v in one pass (the CGNR product)."""
+        return self.rmatvec(self.matvec(v))
+
     def gradient(self) -> torch.Tensor:
-        """g = J' r."""
+        """g = J' r (with corrected arrays this equals rho' J' r)."""
         return self.rmatvec(self.residuals)
 
     def squared_column_norms(self) -> torch.Tensor:
@@ -166,6 +217,8 @@ class JacobianContext:
         for fi, fam in enumerate(self.families):
             for j in range(fam.num_args):
                 T = fam.structure.tangent_sizes[j]
+                if T not in self.groups:
+                    continue
                 contrib = torch.sum(self.jacs[fi][j] ** 2, dim=1)
                 red = apply_reduce(fam.reduce_plans[j], contrib)
                 acc[T] = red if T not in acc else acc[T] + red
@@ -179,31 +232,146 @@ class JacobianContext:
         for fi, fam in enumerate(self.families):
             js = []
             for j in range(fam.num_args):
-                sj = sg[fam.structure.tangent_sizes[j]][fam.bd_pos[j]]
-                js.append(self.jacs[fi][j] * sj[:, None, :])
+                T = fam.structure.tangent_sizes[j]
+                if T not in sg:
+                    js.append(self.jacs[fi][j])
+                    continue
+                js.append(self.jacs[fi][j] * sg[T][fam.bd_pos[j]][:, None, :])
             new_jacs.append(tuple(js))
         return dataclasses.replace(self, jacs=tuple(new_jacs))
 
+    def block_jtj(self, group_sizes) -> dict:
+        """Block diagonal of J'J grouped by tangent size
+        (block_jacobi_preconditioner.h:55): {T: (G_T, T, T)} batched
+        matrices, one einsum and one plan reduction per family arg.
+        ``group_sizes`` is {tangent_size: num_blocks}."""
+        dev = self.residuals[0].device
+        out = {
+            T: torch.zeros((G, T, T), dtype=self.dtype, device=dev)
+            for T, G in group_sizes.items()
+        }
+        for fi, fam in enumerate(self.families):
+            for j in range(fam.num_args):
+                T = fam.structure.tangent_sizes[j]
+                if T not in out:
+                    continue
+                Jj = self.jacs[fi][j]
+                contrib = torch.einsum("bri,brj->bij", Jj, Jj)
+                red = apply_reduce(fam.reduce_plans[j], contrib)
+                out[T] = out[T] + red[: out[T].shape[0]]
+        return out
 
-def _cost_impl(x: torch.Tensor, families, groups: BlockGroups) -> torch.Tensor:
-    """0.5 ||r||^2 accumulated in f64 even for f32 evaluation: the LM
-    accept/reject and function-tolerance tests compare cost differences,
+    def residual_vector(self) -> torch.Tensor:
+        """Flat corrected residual vector (M,)."""
+        return torch.cat([r.reshape(-1) for r in self.residuals])
+
+    @property
+    def num_rows(self) -> int:
+        return sum(f.batch * f.residual_size for f in self.families)
+
+    def tangent_idx(self, fi: int, j: int) -> torch.Tensor:
+        """(B, T_j) tangent coordinates of arg j's blocks; a constant block
+        points at the dummy coordinate ``num_tangent``."""
+        fam = self.families[fi]
+        T = fam.structure.tangent_sizes[j]
+        pos = fam.bd_pos[j]
+        dummy = torch.full((1, T), self.num_tangent, dtype=torch.int64, device=pos.device)
+        if T not in self.groups:
+            return dummy.expand(fam.batch, T)
+        return torch.cat([self.groups[T], dummy], dim=0)[pos]
+
+    def to_dense(self) -> torch.Tensor:
+        """The dense Jacobian (M, num_tangent): dense solvers and small
+        problems only (dense_jacobian_writer.h analog)."""
+        dev = self.residuals[0].device
+        nt = self.num_tangent
+        dense = torch.zeros((self.num_rows, nt + 1), dtype=self.dtype, device=dev)
+        row = 0
+        for fi, fam in enumerate(self.families):
+            B, r = fam.batch, fam.residual_size
+            rows = row + torch.arange(B * r, device=dev).reshape(B, r)
+            for j in range(fam.num_args):
+                dense.index_put_(
+                    (rows[:, :, None], self.tangent_idx(fi, j)[:, None, :]),
+                    self.jacs[fi][j],
+                    accumulate=True,
+                )
+            row += B * r
+        return dense[:, :nt]
+
+
+def to_crs(ctx: JacobianContext):
+    """Scipy CSR of the block Jacobian (include/ceres/crs_matrix.h analog
+    for Problem.evaluate), assembled on the host from the per-family
+    (B, r, T_j) blocks without the dense matrix."""
+    import scipy.sparse as sp
+
+    rows_l, cols_l, vals_l = [], [], []
+    row0 = 0
+    nt = ctx.num_tangent
+    for fi, fam in enumerate(ctx.families):
+        B, r = fam.batch, fam.residual_size
+        rows_f = row0 + np.arange(B * r).reshape(B, r)
+        for j in range(fam.num_args):
+            tj = ctx.tangent_idx(fi, j).cpu().numpy()
+            Jj = ctx.jacs[fi][j].cpu().numpy()
+            T = tj.shape[1]
+            kk = np.broadcast_to((tj < nt)[:, None, :], (B, r, T))
+            rows_l.append(np.broadcast_to(rows_f[:, :, None], (B, r, T))[kk])
+            cols_l.append(np.broadcast_to(tj[:, None, :], (B, r, T))[kk])
+            vals_l.append(Jj[kk])
+        row0 += B * r
+    if not rows_l:
+        return sp.csr_matrix((0, nt))
+    return sp.csr_matrix(
+        (np.concatenate(vals_l), (np.concatenate(rows_l), np.concatenate(cols_l))),
+        shape=(row0, nt),
+    )
+
+
+def _cost_impl(x: torch.Tensor, families, apply_loss: bool = True) -> torch.Tensor:
+    """0.5 sum rho(||r||^2) accumulated in f64 even for f32 evaluation: the
+    LM accept/reject and function-tolerance tests compare cost differences,
     which f32 sums over 10^5 residuals would drown."""
     total = torch.zeros((), dtype=torch.float64, device=x.device)
     for fam in families:
-        r = family_residuals(fam, x, groups)
-        total = total + 0.5 * torch.sum((r * r).to(torch.float64))
+        r = family_residuals(fam, x)
+        if apply_loss and fam.loss is not None:
+            rho0, _, _ = fam.loss.evaluate(torch.sum(r * r, dim=-1))
+            total = total + 0.5 * torch.sum(rho0.to(torch.float64))
+        else:
+            total = total + 0.5 * torch.sum((r * r).to(torch.float64))
     return total
 
 
-def _full_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups):
-    """(cost f64, gradient, JacobianContext) at x."""
+def _residuals_impl(x: torch.Tensor, families, apply_loss: bool = True) -> torch.Tensor:
+    """Flat residual vector of the given families, loss-corrected when
+    ``apply_loss``."""
+    outs = []
+    for fam in families:
+        r = family_residuals(fam, x)
+        if apply_loss and fam.loss is not None:
+            sq = torch.sum(r * r, dim=-1)
+            _, rho1, rho2 = fam.loss.evaluate(sq)
+            scale, _ = corrector_coefficients(sq, rho1, rho2)
+            r = correct_residuals(r, scale)
+        outs.append(r.reshape(-1))
+    return torch.cat(outs) if outs else x.new_zeros((0,))
+
+
+def _full_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
+               apply_loss: bool = True):
+    """(cost f64, gradient, JacobianContext) at x; residuals and Jacobian
+    blocks of the context are loss-corrected."""
     cost = torch.zeros((), dtype=torch.float64, device=x.device)
     all_jacs, all_res = [], []
     for fam in families:
-        r, jacs = family_residuals_and_jacobians(fam, x, groups)
-        sq_norm = torch.sum(r * r, dim=-1)
-        cost = cost + 0.5 * torch.sum(sq_norm.to(torch.float64))
+        r, jacs = family_residuals_and_jacobians(fam, x)
+        if apply_loss:
+            c, r, jacs = _apply_loss(fam, r, jacs)
+        else:
+            c = 0.5 * torch.sum((r * r).to(torch.float64))
+        cost = cost + c
         all_jacs.append(jacs)
         all_res.append(r)
     ctx = JacobianContext(

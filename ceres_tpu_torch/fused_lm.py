@@ -1,10 +1,10 @@
 """The Levenberg-Marquardt loop with every tensor on the device (port of
 ``ceres_tpu/fused_lm.py``).
 
-Each iteration evaluates residuals and Jacobian blocks, applies Jacobi
-column scaling and LM damping, solves for the step (ITERATIVE_SCHUR or
-DENSE_SCHUR), takes
-the model cost change in f64, evaluates the candidate cost, and updates the
+Each iteration evaluates residuals and Jacobian blocks (loss-corrected,
+in the tangent space of the blocks' manifolds), applies Jacobi column
+scaling and LM damping, solves for the step (``trust_region._linear_solve``),
+takes the model cost change in f64, evaluates the candidate cost, and updates the
 radius and the invalid-step ladder with the four convergence tests of
 trust_region_minimizer.cc:640-764 — the semantics of the JAX package's
 ``lax.while_loop`` body. The loop itself runs on the host and reads one
@@ -27,6 +27,7 @@ from ceres_tpu_torch.linear.cg import CG_FAILURE
 from ceres_tpu_torch.problem import cast_program, plus_apply
 from ceres_tpu_torch.solver import SolverSummary, check_supported
 from ceres_tpu_torch.trust_region import (
+    IterationSummary,
     _SolveConfig,
     _build_solve_aux,
     _config_from_options,
@@ -81,7 +82,17 @@ class _FusedState:
     last_accept: torch.Tensor
 
 
-def _body(s: _FusedState, program, solve_aux, config: _FusedConfig) -> _FusedState:
+# Columns of one iteration's trace row (all f64): the iterate entering the
+# iteration (cost, gradient norms, radius, ||x||) and the step taken in it.
+_TRACE_FIELDS = (
+    "state_cost", "state_gmax", "state_gnorm", "state_radius", "step_norm",
+    "step_rho", "step_cost_change", "step_lin_iters", "step_valid",
+    "step_accept", "step_xnorm",
+)
+
+
+def _body(s: _FusedState, program, solve_aux, config: _FusedConfig, trace: bool):
+    """One LM iteration: (next state, trace row or None)."""
     sc = config.solve
     families = program.families
     cost, grad, ctx = _full_impl(s.x, families, program.num_tangent, program.groups)
@@ -111,7 +122,7 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig) -> _FusedSta
     step_is_valid = torch.isfinite(mcc) & (mcc > 0.0) & (lin_term < CG_FAILURE)
 
     candidate = plus_apply(program.plus_struct, s.x, step)
-    cand_cost = _cost_impl(candidate, families, program.groups)
+    cand_cost = _cost_impl(candidate, families)
     cand_cost = torch.where(torch.isfinite(cand_cost), cand_cost, torch.inf)
     rho = (cost - cand_cost) / mcc
     accept = step_is_valid & (rho > config.min_relative_decrease)
@@ -150,6 +161,12 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig) -> _FusedSta
         torch.where(too_invalid, _FAILURE, _RUNNING),
     ).to(torch.int32)
     acc = accept.to(torch.int32)
+    row = None
+    if trace:
+        row = torch.stack(
+            [cost, gmax, gnorm, s.radius, step_norm, rho, cost - cand_cost,
+             lin_iters.to(_F64), step_is_valid.to(_F64), accept.to(_F64), x_norm]
+        )
     return _FusedState(
         x=torch.where(keep, candidate, s.x),
         cost=torch.where(keep, cand_cost, cost),
@@ -164,12 +181,13 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig) -> _FusedSta
         gmax=gmax,
         gnorm=gnorm,
         last_accept=accept,
-    )
+    ), row
 
 
 def _fused_minimize(x0, program, solve_aux, max_num_iterations: int,
-                    config: _FusedConfig):
-    """Run the LM loop from x0; returns (final state, initial cost)."""
+                    config: _FusedConfig, trace: bool = False):
+    """Run the LM loop from x0; returns (final state, initial cost, trace),
+    the trace a (iterations, len(_TRACE_FIELDS)) f64 device tensor or None."""
     dev = x0.device
     cost0, grad0, _ = _full_impl(x0, program.families, program.num_tangent, program.groups)
     g0 = grad0.to(_F64)
@@ -196,9 +214,136 @@ def _fused_minimize(x0, program, solve_aux, max_num_iterations: int,
         gnorm=torch.linalg.norm(g0),
         last_accept=torch.tensor(True, device=dev),
     )
+    rows = []
     while s.iteration < max_num_iterations and int(s.termination) == _RUNNING:
-        s = _body(s, program, solve_aux, config)
-    return s, cost0
+        s, row = _body(s, program, solve_aux, config, trace)
+        rows.append(row)
+    return s, cost0, (torch.stack(rows) if trace and rows else None)
+
+
+def _fill_records(summary, opts, final, cost0: float, tr):
+    """Fill ``summary`` with the IterationSummary records, termination type
+    and message the JAX package's solve reports (its host loop's
+    bookkeeping, rebuilt from the trace as ``minimize_fused_traced`` does).
+    ``final``: host scalars of the final state; ``tr``: {field: (T,) numpy}."""
+    T = final["iteration"]
+    fixed = summary.fixed_cost
+    last = max(T - 1, 0)
+    term_code = final["termination"]
+    if T == 0:
+        reason = "grad" if term_code == _CONVERGENCE else "max_iters"
+    elif term_code == _CONVERGENCE:
+        snorm = float(tr["step_norm"][last])
+        xnorm = float(tr["step_xnorm"][last])
+        cchange = abs(float(tr["step_cost_change"][last]))
+        prev_cost = float(tr["state_cost"][last])
+        valid = bool(tr["step_valid"][last])
+        had_success = final["successful_steps"] - int(bool(tr["step_accept"][last])) > 0
+        if (
+            valid
+            and had_success
+            and snorm <= opts.parameter_tolerance * (xnorm + opts.parameter_tolerance)
+        ):
+            reason = "param"
+        elif valid and cchange <= opts.function_tolerance * prev_cost:
+            reason = "func"
+        elif final["gmax"] <= opts.gradient_tolerance:
+            reason = "grad"
+        else:
+            reason = "radius"
+    elif term_code == _FAILURE:
+        reason = "invalid"
+    else:
+        reason = "max_iters"
+
+    # The host loop appends it_0 .. it_T, except the last trip's record
+    # when it returned before appending (param/func/invalid).
+    records = [
+        IterationSummary(
+            iteration=0,
+            cost=(float(tr["state_cost"][0]) if T > 0 else cost0) + fixed,
+            gradient_max_norm=float(tr["state_gmax"][0]) if T > 0 else final["gmax"],
+            gradient_norm=float(tr["state_gnorm"][0]) if T > 0 else final["gnorm"],
+            trust_region_radius=float(tr["state_radius"][0])
+            if T > 0
+            else opts.initial_trust_region_radius,
+            eta=opts.eta,
+            step_is_valid=True,
+            step_is_successful=True,
+        )
+    ]
+    n_emit = T if reason in ("grad", "radius", "max_iters") else max(T - 1, 0)
+    for k in range(1, n_emit + 1):
+        if k < T:
+            state = tuple(
+                float(tr[f][k])
+                for f in ("state_cost", "state_gmax", "state_gnorm", "state_radius")
+            )
+        else:
+            state = (final["cost"], final["gmax"], final["gnorm"], final["radius"])
+        records.append(
+            IterationSummary(
+                iteration=k,
+                cost=state[0] + fixed,
+                cost_change=float(tr["step_cost_change"][k - 1]),
+                gradient_max_norm=state[1],
+                gradient_norm=state[2],
+                step_norm=float(tr["step_norm"][k - 1]),
+                relative_decrease=float(tr["step_rho"][k - 1]),
+                trust_region_radius=state[3],
+                eta=opts.eta,
+                linear_solver_iterations=int(tr["step_lin_iters"][k - 1]),
+                step_is_valid=bool(tr["step_valid"][k - 1]),
+                step_is_successful=bool(tr["step_accept"][k - 1]),
+            )
+        )
+    summary.iterations = records
+
+    summary.termination_type = TerminationType.CONVERGENCE
+    if reason == "param":
+        snorm = float(tr["step_norm"][last])
+        xnorm = float(tr["step_xnorm"][last])
+        summary.message = (
+            f"Parameter tolerance reached. Relative step_norm: "
+            f"{snorm / (xnorm + opts.parameter_tolerance):e} <= "
+            f"{opts.parameter_tolerance:e}."
+        )
+    elif reason == "func":
+        cchange = abs(float(tr["step_cost_change"][last]))
+        prev_cost = float(tr["state_cost"][last])
+        summary.message = (
+            f"Function tolerance reached. |cost_change|/cost: "
+            f"{cchange / prev_cost if prev_cost else 0.0:e} <= "
+            f"{opts.function_tolerance:e}"
+        )
+    elif reason == "grad":
+        summary.message = (
+            f"Gradient tolerance reached. Gradient max norm: "
+            f"{final['gmax']:e} <= {opts.gradient_tolerance:e}"
+        )
+    elif reason == "radius":
+        summary.message = (
+            "Minimum trust region radius reached. Trust region radius: "
+            f"{final['radius']:e} <= {opts.min_trust_region_radius:e}"
+        )
+    elif reason == "invalid":
+        summary.termination_type = TerminationType.FAILURE
+        summary.message = (
+            "Number of consecutive invalid steps more than "
+            "Solver::Options::max_num_consecutive_invalid_steps: "
+            f"{opts.max_num_consecutive_invalid_steps}"
+        )
+    else:
+        summary.termination_type = TerminationType.NO_CONVERGENCE
+        summary.message = (
+            f"Maximum number of iterations reached. Number of iterations: {T}."
+        )
+    # Postprocess as the JAX package's solve does (solver.cc:834-855).
+    summary.initial_cost = records[0].cost
+    summary.final_cost = min(r.cost for r in records)
+    summary.num_successful_steps = sum(1 for r in records if r.step_is_successful)
+    summary.num_unsuccessful_steps = sum(1 for r in records if not r.step_is_successful)
+    summary.num_linear_solver_iterations = sum(r.linear_solver_iterations for r in records)
 
 
 def run_fused(options, problem, device="cuda", *, host_loop_parity: bool):
@@ -206,13 +351,53 @@ def run_fused(options, problem, device="cuda", *, host_loop_parity: bool):
     t0 = time.perf_counter()
     device = torch.device(device)
     program = problem.program(device)
-    if options.evaluation_dtype is not None:
-        cast_program(program, options.evaluation_dtype)
+    summary = SolverSummary()
+    summary.minimizer_type = options.minimizer_type
+    summary.device = str(device)
+    summary.num_parameter_blocks = program.num_parameter_blocks()
+    summary.num_parameters = program.num_ambient
+    summary.num_effective_parameters = program.num_tangent
+    summary.num_residual_blocks = program.num_residual_blocks()
+    summary.num_residuals = program.num_residuals()
+    # Cost of the residual blocks the reduced program drops
+    # (program.cc:291-415): constant for the whole solve.
+    summary.fixed_cost = program.fixed_cost
+
+    err = options.validate(program.num_tangent)
+    if err is not None:
+        summary.termination_type = TerminationType.FAILURE
+        summary.message = f"Invalid options: {err}"
+        return summary
+    if program.num_tangent == 0 or program.num_residuals() == 0:
+        # All blocks constant / no residual blocks: nothing to optimize
+        # (solver.cc:795-812).
+        c = program.fixed_cost
+        if program.families:
+            x = torch.from_numpy(program.initial_ambient()).to(device)
+            c += float(_cost_impl(x, program.families))
+        summary.initial_cost = summary.final_cost = c
+        summary.termination_type = TerminationType.CONVERGENCE
+        summary.message = (
+            "Function tolerance reached. No non-constant parameter blocks found."
+        )
+        summary.total_time_in_seconds = time.perf_counter() - t0
+        return summary
+    if not program.is_feasible():
+        summary.termination_type = TerminationType.FAILURE
+        summary.message = "Initial point infeasible (violates bounds)."
+        return summary
+
     resolved = dataclasses.replace(
         options,
         linear_solver_type=options.resolved_linear_solver_type(program.num_tangent),
     )
-    check_supported(resolved)
+    check_supported(resolved, program)
+    summary.linear_solver_type_used = resolved.linear_solver_type
+    summary.preconditioner_type_used = resolved.preconditioner_type
+    summary.trust_region_strategy_type_used = resolved.trust_region_strategy_type
+    summary.evaluation_dtype = options.evaluation_dtype
+    if options.evaluation_dtype is not None:
+        cast_program(program, options.evaluation_dtype)
     config = _FusedConfig(
         solve=_config_from_options(resolved),
         function_tolerance=resolved.function_tolerance,
@@ -229,35 +414,43 @@ def run_fused(options, problem, device="cuda", *, host_loop_parity: bool):
     solve_aux = _build_solve_aux(resolved, program)
     x0 = torch.from_numpy(program.initial_ambient()).to(device, program.eval_dtype)
     t1 = time.perf_counter()
-    final, cost0 = _fused_minimize(
-        x0, program, solve_aux, resolved.max_num_iterations, config
+    final, cost0, trace = _fused_minimize(
+        x0, program, solve_aux, resolved.max_num_iterations, config,
+        trace=host_loop_parity,
     )
     term = int(final.termination)  # waits for the device
     t2 = time.perf_counter()
 
-    summary = SolverSummary()
-    summary.fixed_cost = program.fixed_cost
-    summary.initial_cost = float(cost0) + program.fixed_cost
-    summary.final_cost = float(final.cost) + program.fixed_cost
     summary.num_iterations = final.iteration
-    summary.num_successful_steps = int(final.successful_steps)
-    summary.num_unsuccessful_steps = int(final.unsuccessful_steps)
-    summary.minimizer_type = resolved.minimizer_type
-    summary.linear_solver_type_used = resolved.linear_solver_type
-    if term == _CONVERGENCE:
-        summary.termination_type = TerminationType.CONVERGENCE
-        summary.message = "Fused minimizer converged."
-    elif term == _FAILURE:
-        summary.termination_type = TerminationType.FAILURE
-        summary.message = "Too many consecutive invalid steps."
+    if host_loop_parity:
+        # One batched read of the per-iteration trace.
+        tr_host = None if trace is None else trace.cpu().numpy()
+        tr = {} if tr_host is None else {f: tr_host[:, i] for i, f in enumerate(_TRACE_FIELDS)}
+        host_final = dict(
+            iteration=final.iteration,
+            termination=term,
+            successful_steps=int(final.successful_steps),
+            cost=float(final.cost),
+            gmax=float(final.gmax),
+            gnorm=float(final.gnorm),
+            radius=float(final.radius),
+        )
+        _fill_records(summary, resolved, host_final, float(cost0), tr)
     else:
-        summary.termination_type = TerminationType.NO_CONVERGENCE
-        summary.message = f"Maximum iterations reached ({final.iteration})."
-    summary.num_linear_solver_iterations = int(final.linear_iterations)
-    summary.num_parameter_blocks = program.num_parameter_blocks()
-    summary.num_parameters = program.num_ambient
-    summary.num_effective_parameters = program.num_tangent
-    summary.num_residuals = program.num_residuals()
+        summary.initial_cost = float(cost0) + program.fixed_cost
+        summary.final_cost = float(final.cost) + program.fixed_cost
+        summary.num_successful_steps = int(final.successful_steps)
+        summary.num_unsuccessful_steps = int(final.unsuccessful_steps)
+        summary.num_linear_solver_iterations = int(final.linear_iterations)
+        if term == _CONVERGENCE:
+            summary.termination_type = TerminationType.CONVERGENCE
+            summary.message = "Fused minimizer converged."
+        elif term == _FAILURE:
+            summary.termination_type = TerminationType.FAILURE
+            summary.message = "Too many consecutive invalid steps."
+        else:
+            summary.termination_type = TerminationType.NO_CONVERGENCE
+            summary.message = f"Maximum iterations reached ({final.iteration})."
     if summary.is_solution_usable():
         problem.write_back(final.x.to(_F64).cpu().numpy())
     summary.preprocessor_time_in_seconds = t1 - t0

@@ -13,11 +13,13 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ceres_tpu_torch.types import LinearSolverTerminationType
+
 # Termination codes (LinearSolverTerminationType, linear_solver.h:57-74),
 # ordered so that max() combines codes with the worst outcome winning.
-CG_NO_CONVERGENCE = 0
-CG_SUCCESS = 1
-CG_FAILURE = 2
+CG_NO_CONVERGENCE = LinearSolverTerminationType.NO_CONVERGENCE.value
+CG_SUCCESS = LinearSolverTerminationType.SUCCESS.value
+CG_FAILURE = LinearSolverTerminationType.FAILURE.value
 
 
 def direct_termination(y: torch.Tensor) -> torch.Tensor:

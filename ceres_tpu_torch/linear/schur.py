@@ -38,8 +38,8 @@ _OTHER_SOLVERS = "ROADMAP Queue 1 item 14 (other linear solvers and precondition
 def compute_schur_ordering(program) -> List[int]:
     """Greedy maximal independent set of parameter blocks -> e-block pids
     (ComputeStableSchurOrdering analog): e-blocks must not share a
-    residual block. Blocks are visited by (tangent size, -degree, pid), so
-    BA picks the points (3) over the cameras (9).
+    residual block. The non-constant blocks are visited by (tangent size,
+    -degree, pid), so BA picks the points (3) over the cameras (9).
 
     The greedy set in a fixed visiting order is computed in rounds of
     array operations: in each round every undecided block that comes
@@ -47,7 +47,7 @@ def compute_schur_ordering(program) -> List[int]:
     residual blocks is taken, and the blocks sharing a residual block
     with a taken one are dropped. That gives the same set as visiting the
     blocks one by one (bundle adjustment ends after one round)."""
-    n = program.num_parameter_blocks()
+    n = program.num_pids
     occ_pid, occ_inst, base = [], [], 0
     for fam in program.families:
         B, k = fam.block_ids.shape
@@ -60,11 +60,14 @@ def compute_schur_ordering(program) -> List[int]:
     else:
         occ_pid = occ_inst = np.zeros(0, dtype=np.int64)
     degree = np.bincount(occ_pid, minlength=n)
-    order = np.lexsort((-degree, program.block_sizes))  # stable: ties by pid
-    rank = np.empty(n, dtype=np.int64)
-    rank[order] = np.arange(n)
+    order = np.lexsort((-degree, program.tangent_sizes))  # stable: ties by pid
+    order = order[program.active[order]]
+    # Constant blocks are never candidates and block nobody: they rank last
+    # and start out decided.
+    rank = np.full(n, n, dtype=np.int64)
+    rank[order] = np.arange(order.shape[0])
     occ_rank = rank[occ_pid]
-    undecided = np.ones(n, dtype=bool)
+    undecided = program.active.copy()
     taken = np.zeros(n, dtype=bool)
     while undecided.any():
         live = undecided[occ_pid]
@@ -109,8 +112,8 @@ def build_schur_structure(program) -> SchurStructure:
     e_pids = np.asarray(compute_schur_ordering(program), dtype=np.int64)
     if not e_pids.size:
         raise ValueError("no e-blocks found for Schur elimination")
-    sizes, offsets = program.block_sizes, program.block_offsets
-    n = sizes.shape[0]
+    sizes, offsets = program.tangent_sizes, program.tangent_offsets
+    n = program.num_pids
     # Uniform e tangent size: keep the majority size (ties: the size met
     # first in the ordering).
     e_sizes = sizes[e_pids]
@@ -131,7 +134,7 @@ def build_schur_structure(program) -> SchurStructure:
     in_e_lut[e_pids] = True
     pt_idx_lut = np.full(n, P, dtype=np.int64)
     pt_idx_lut[e_pids] = np.arange(P)
-    f_pids = np.nonzero(~in_e_lut)[0]
+    f_pids = np.nonzero(program.active & ~in_e_lut)[0]
     f_sizes = sizes[f_pids]
     f_cand, f_first = np.unique(f_sizes, return_index=True)
     f_rows: Dict[int, np.ndarray] = {}
@@ -152,7 +155,9 @@ def build_schur_structure(program) -> SchurStructure:
         for j in range(bids.shape[1]):
             in_e = in_e_lut[bids[:, j]]
             if in_e.any():
-                if not np.all(in_e):
+                # Constant blocks are variable-free: they may share an
+                # e-column (their contributions drop at the dummy row).
+                if not np.all(in_e | program.constant[bids[:, j]]):
                     raise ValueError(
                         "mixed e/f blocks in one family argument position; "
                         "regroup the problem"

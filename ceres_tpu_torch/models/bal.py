@@ -1,5 +1,6 @@
 """BAL (Bundle Adjustment in the Large) problems (port of
-``ceres_tpu/models/bal.py``).
+``ceres_tpu/models/bal.py``): BAL text files or synthetic instances of the
+same structure, with or without a robust loss.
 
 One residual family: cameras (9 parameters: angle-axis rotation,
 translation, focal length, k1, k2), points (3), one 2-D Snavely
@@ -63,6 +64,34 @@ class BALProblem:
     @property
     def num_observations(self) -> int:
         return self.observations.shape[0]
+
+
+def load_bal_file(path) -> BALProblem:
+    """Parse the BAL text format (examples/bal_problem.cc ReadFile):
+    ``C P O``, then O lines ``camera point x y``, then 9 C camera values and
+    3 P point values."""
+    with open(path) as f:
+        tokens = f.read().split()
+    try:
+        C, P, O = (int(t) for t in tokens[:3])
+    except ValueError:
+        raise ValueError(f"{path}: not a BAL file (missing header)") from None
+    if len(tokens) < 3:
+        raise ValueError(f"{path}: not a BAL file (missing header)")
+    if len(tokens) != 3 + 4 * O + 9 * C + 3 * P:
+        raise ValueError(
+            f"{path}: truncated BAL file: expected "
+            f"{3 + 4 * O + 9 * C + 3 * P} tokens, got {len(tokens)}"
+        )
+    obs_tokens = np.asarray(tokens[3 : 3 + 4 * O]).reshape(O, 4)
+    rest = np.asarray(tokens[3 + 4 * O :], dtype=np.float64)
+    return BALProblem(
+        cameras=rest[: 9 * C].reshape(C, 9),
+        points=rest[9 * C :].reshape(P, 3),
+        camera_index=obs_tokens[:, 0].astype(np.int64),
+        point_index=obs_tokens[:, 1].astype(np.int64),
+        observations=obs_tokens[:, 2:].astype(np.float64),
+    )
 
 
 def synthesize_bal(
@@ -166,7 +195,9 @@ def _rotation_matrix_to_angle_axis_np(R: np.ndarray) -> np.ndarray:
 
 
 def build_problem(bal: BALProblem, loss=None) -> Tuple[Problem, np.ndarray, np.ndarray]:
-    """Build a Problem; returns (problem, camera_ids, point_ids).
+    """Build a Problem; returns (problem, camera_ids, point_ids). ``loss``
+    (a ``ceres_tpu_torch.loss.LossFunction`` or None) robustifies every
+    observation.
 
     Observations are ordered by point id (reorder_program.cc
     LexicographicallyOrderResidualBlocks): the point-side reductions then

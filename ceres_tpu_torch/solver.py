@@ -1,11 +1,14 @@
 """Solver entry point: options, summary and ``solve`` (port of the
 TRUST_REGION subset of ``ceres_tpu/solver.py``).
 
-Every configuration runs the fused LM loop of ``fused_lm.py``; options
-that need another minimizer, host work inside the loop, or a linear solver
-the port does not have yet (anything but ITERATIVE_SCHUR with SCHUR_JACOBI
-and DENSE_SCHUR) raise ``NotImplementedError`` naming their ROADMAP item.
-A solve runs on the card unless the caller names another device.
+Every configuration runs the fused LM loop of ``fused_lm.py``, with a loss,
+manifolds and constant blocks, and one of the linear solvers DENSE_QR,
+DENSE_NORMAL_CHOLESKY, CGNR (IDENTITY, JACOBI, SUBSET), DENSE_SCHUR and
+ITERATIVE_SCHUR with SCHUR_JACOBI. Options that need another minimizer,
+host work inside the loop (bounds, callbacks, inner iterations) or a linear
+solver the port does not have yet raise ``NotImplementedError`` naming
+their ROADMAP item. A solve runs on the card unless the caller names
+another device.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ class SolverOptions:
     min_linear_solver_iterations: int = 0
     max_linear_solver_iterations: int = 500
     eta: float = 1e-1
+    # Residual block ids whose rows form the SUBSET preconditioner
+    # (subset_preconditioner.h:44-80).
+    residual_blocks_for_subset_preconditioner: Optional[List[int]] = None
     use_explicit_schur_complement: bool = False
     use_mixed_precision_solves: bool = False
     # None keeps float64; "float32" evaluates residuals/Jacobians and runs
@@ -64,6 +70,107 @@ class SolverOptions:
     update_state_every_iteration: bool = False
     callbacks: List[Callable] = dataclasses.field(default_factory=list)
 
+    def validate(self, num_tangent: int = 0) -> Optional[str]:
+        """Cross-validation analog of Solver::Options::IsValid
+        (solver.cc:714; CommonOptionsAreValid, TrustRegionOptionsAreValid,
+        OptionsAreValidForLinearSolver, solver.cc:99-452) for the options
+        the port has. Returns the first complaint, or None."""
+        for name, lo in (
+            ("max_num_iterations", 0),
+            ("max_solver_time_in_seconds", 0.0),
+            ("function_tolerance", 0.0),
+            ("gradient_tolerance", 0.0),
+            ("parameter_tolerance", 0.0),
+        ):
+            if getattr(self, name) < lo:
+                return f"{name} must be >= {lo}, got {getattr(self, name)}"
+        if self.minimizer_type == MinimizerType.TRUST_REGION:
+            err = self._validate_trust_region()
+            if err is not None:
+                return err
+        if self.evaluation_dtype is not None and self.evaluation_dtype not in (
+            "float32",
+            "float64",
+        ):
+            return (
+                "evaluation_dtype must be 'float32' or 'float64', got "
+                f"{self.evaluation_dtype!r} (lower precisions lack the "
+                "factorization kernels)"
+            )
+        return None
+
+    def _validate_trust_region(self) -> Optional[str]:
+        """TrustRegionOptionsAreValid (solver.cc:405-452)."""
+        for name in (
+            "initial_trust_region_radius",
+            "min_trust_region_radius",
+            "max_trust_region_radius",
+            "eta",
+        ):
+            if getattr(self, name) <= 0:
+                return f"{name} must be > 0, got {getattr(self, name)}"
+        if self.min_trust_region_radius > self.max_trust_region_radius:
+            return "min_trust_region_radius > max_trust_region_radius"
+        if self.min_trust_region_radius > self.initial_trust_region_radius:
+            return "min_trust_region_radius > initial_trust_region_radius"
+        if self.initial_trust_region_radius > self.max_trust_region_radius:
+            return "initial_trust_region_radius > max_trust_region_radius"
+        if self.min_relative_decrease < 0:
+            return "min_relative_decrease must be >= 0"
+        if self.min_lm_diagonal < 0 or self.max_lm_diagonal < 0:
+            return "min/max_lm_diagonal must be >= 0"
+        if self.min_lm_diagonal > self.max_lm_diagonal:
+            return "min_lm_diagonal > max_lm_diagonal"
+        if self.max_num_consecutive_invalid_steps < 0:
+            return "max_num_consecutive_invalid_steps must be >= 0"
+        if self.min_linear_solver_iterations < 0:
+            return "min_linear_solver_iterations must be >= 0"
+        if self.max_linear_solver_iterations < 0:
+            return "max_linear_solver_iterations must be >= 0"
+        if self.min_linear_solver_iterations > self.max_linear_solver_iterations:
+            return "min_linear_solver_iterations > max_linear_solver_iterations"
+        lst = self.linear_solver_type
+        if (
+            self.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
+            and lst in (LinearSolverType.CGNR, LinearSolverType.ITERATIVE_SCHUR)
+        ):
+            return (
+                "DOGLEG only supports exact factorization based linear "
+                "solvers; use LEVENBERG_MARQUARDT with iterative solvers "
+                "(solver.cc:431-438)"
+            )
+        return self._validate_linear_solver()
+
+    def _validate_linear_solver(self) -> Optional[str]:
+        """OptionsAreValidForLinearSolver (solver.cc:377-403)."""
+        lst = self.linear_solver_type
+        pt = self.preconditioner_type
+        if lst == LinearSolverType.CGNR and pt not in (
+            PreconditionerType.IDENTITY,
+            PreconditionerType.JACOBI,
+            PreconditionerType.SUBSET,
+        ):
+            return f"Can't use CGNR with preconditioner_type = {pt.name}"
+        if lst == LinearSolverType.ITERATIVE_SCHUR:
+            if pt == PreconditionerType.SUBSET:
+                return "Can't use SUBSET preconditioner with ITERATIVE_SCHUR"
+            if (
+                self.use_explicit_schur_complement
+                and pt != PreconditionerType.SCHUR_JACOBI
+            ):
+                return (
+                    "use_explicit_schur_complement only supports "
+                    "SCHUR_JACOBI as the preconditioner"
+                )
+        if pt == PreconditionerType.SUBSET and not (
+            self.residual_blocks_for_subset_preconditioner
+        ):
+            return (
+                "When using SUBSET preconditioner, "
+                "residual_blocks_for_subset_preconditioner cannot be empty"
+            )
+        return None
+
     def resolved_linear_solver_type(self, num_tangent: int) -> LinearSolverType:
         if self.linear_solver_type is not None:
             return self.linear_solver_type
@@ -73,10 +180,20 @@ class SolverOptions:
         return LinearSolverType.CGNR
 
 
-def check_supported(options: SolverOptions) -> None:
-    """Raise NotImplementedError for what the fused LM loop of this slice
-    cannot run (the conditions of fused_lm.fused_traced_eligible in the
-    JAX package, plus the port's linear-solver subset)."""
+_SUPPORTED_LINEAR = (
+    LinearSolverType.DENSE_QR,
+    LinearSolverType.DENSE_NORMAL_CHOLESKY,
+    LinearSolverType.CGNR,
+    LinearSolverType.DENSE_SCHUR,
+    LinearSolverType.ITERATIVE_SCHUR,
+)
+
+
+def check_supported(options: SolverOptions, program) -> None:
+    """Raise NotImplementedError for what the fused LM loop cannot run (the
+    conditions of fused_lm.fused_traced_eligible in the JAX package, which
+    there fall back to the host-loop minimizer) and for the linear solvers
+    and preconditioners the port does not have yet."""
     if options.minimizer_type != MinimizerType.TRUST_REGION:
         raise NotImplementedError(f"LINE_SEARCH minimizer: {_MINIMIZERS}")
     if options.trust_region_strategy_type != TrustRegionStrategyType.LEVENBERG_MARQUARDT:
@@ -97,10 +214,11 @@ def check_supported(options: SolverOptions) -> None:
         raise NotImplementedError(
             f"max_solver_time_in_seconds needs the host-loop minimizer: {_MINIMIZERS}"
         )
-    if options.linear_solver_type not in (
-        LinearSolverType.ITERATIVE_SCHUR,
-        LinearSolverType.DENSE_SCHUR,
-    ):
+    if program.has_bounds:
+        raise NotImplementedError(
+            f"parameter bounds need the host-loop minimizer: {_MINIMIZERS}"
+        )
+    if options.linear_solver_type not in _SUPPORTED_LINEAR:
         raise NotImplementedError(f"{options.linear_solver_type}: {_LINEAR}")
     if (
         options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR
@@ -121,10 +239,15 @@ class SolverSummary:
     initial_cost: float = 0.0
     final_cost: float = 0.0
     fixed_cost: float = 0.0
+    # IterationSummary records (trust_region.py), record 0 = the start.
+    # ``solve`` fills them as the JAX package's solve does; ``fused_solve``
+    # keeps only the count (``num_iterations``).
+    iterations: List = dataclasses.field(default_factory=list)
     num_iterations: int = 0
     num_parameter_blocks: int = 0
     num_parameters: int = 0
     num_effective_parameters: int = 0
+    num_residual_blocks: int = 0
     num_residuals: int = 0
     num_successful_steps: int = 0
     num_unsuccessful_steps: int = 0
@@ -135,6 +258,10 @@ class SolverSummary:
     minimizer_time_in_seconds: float = 0.0
     total_time_in_seconds: float = 0.0
     linear_solver_type_used: Optional[LinearSolverType] = None
+    preconditioner_type_used: Optional[PreconditionerType] = None
+    trust_region_strategy_type_used: Optional[TrustRegionStrategyType] = None
+    evaluation_dtype: Optional[str] = None
+    device: str = ""
     minimizer_type: MinimizerType = MinimizerType.TRUST_REGION
 
     def is_solution_usable(self) -> bool:
@@ -151,6 +278,47 @@ class SolverSummary:
             f"Final cost: {self.final_cost:e}, "
             f"Termination: {self.termination_type}"
         )
+
+
+    def full_report(self) -> str:
+        """Analog of Summary::FullReport (solver.cc:890-960), with the
+        fields the fused solve fills."""
+        lines = [
+            "",
+            "Solver Summary (ceres_tpu_torch)",
+            "",
+            f"{'Parameter blocks':<30}{self.num_parameter_blocks:>12}",
+            f"{'Parameters':<30}{self.num_parameters:>12}",
+            f"{'Effective parameters':<30}{self.num_effective_parameters:>12}",
+            f"{'Residual blocks':<30}{self.num_residual_blocks:>12}",
+            f"{'Residuals':<30}{self.num_residuals:>12}",
+            "",
+            f"{'Minimizer type':<30}{str(self.minimizer_type):>12}",
+            f"{'Trust region strategy':<30}"
+            f"{str(self.trust_region_strategy_type_used):>12}",
+            f"{'Linear solver':<30}{str(self.linear_solver_type_used):>12}",
+            f"{'Preconditioner':<30}{str(self.preconditioner_type_used):>12}",
+            f"{'Evaluation dtype':<30}{str(self.evaluation_dtype or 'float64'):>12}",
+            f"{'Device':<30}{self.device:>12}",
+            "",
+            f"{'Initial cost':<30}{self.initial_cost:>12.6e}",
+            f"{'Final cost':<30}{self.final_cost:>12.6e}",
+            f"{'Fixed cost':<30}{self.fixed_cost:>12.6e}",
+            "",
+            f"{'Iterations':<30}{self.num_iterations:>12}",
+            f"{'Successful steps':<30}{self.num_successful_steps:>12}",
+            f"{'Unsuccessful steps':<30}{self.num_unsuccessful_steps:>12}",
+            f"{'Linear solver iterations':<30}"
+            f"{self.num_linear_solver_iterations:>12}",
+            "",
+            "Time (in seconds):",
+            f"{'Preprocessor':<34}{self.preprocessor_time_in_seconds:>10.4f}",
+            f"{'Minimizer':<34}{self.minimizer_time_in_seconds:>10.4f}",
+            f"{'Total':<34}{self.total_time_in_seconds:>10.4f}",
+            "",
+            f"Termination: {self.termination_type} ({self.message})",
+        ]
+        return "\n".join(lines)
 
 
 def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:

@@ -1,10 +1,13 @@
 """Where the time of one solve goes on the card.
 
-    python3 -m ceres_tpu_torch.tools.profile_solve [large|flagship] [float32|float64]...
+    python3 -m ceres_tpu_torch.tools.profile_solve [CASE] [float32|float64]...
 
 For each dtype (default: both), on the named case (default: large: 464
 cameras / 200 000 points / 1 200 000 observations, DENSE_SCHUR; flagship:
-16 / 22106 / 83718, ITERATIVE_SCHUR), after a 2-iteration warm-up solve:
+16 / 22106 / 83718, ITERATIVE_SCHUR; robust_large and robust_flagship: the
+same with HuberLoss(1.0); pose_graph: the 2500-pose sphere, CGNR + block
+Jacobi, cut to its first 6 LM iterations because the whole solve runs tens
+of thousands of CG iterations), after a 2-iteration warm-up solve:
 
 1. ``stages``: one solve with every stage bracketed by
    ``torch.cuda.synchronize()`` and timed on the host clock, so a stage's
@@ -34,14 +37,21 @@ import torch
 
 import ceres_tpu_torch as ctt
 from ceres_tpu_torch import fused_lm
-from ceres_tpu_torch.linear import schur, schur_explicit
-from ceres_tpu_torch.models import bal
+from ceres_tpu_torch.linear import cgnr, schur, schur_explicit
+from ceres_tpu_torch.models import bal, pose_graph
 from ceres_tpu_torch.ops import reduce
 
+_LARGE = dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7)
+_FLAGSHIP = dict(num_cameras=16, num_points=22106, num_observations=83718, seed=16)
+# case -> (BAL sizes or None for the pose graph, ITERATIVE_SCHUR?, Huber loss?)
 CASES = {
-    "large": (dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7), False),
-    "flagship": (dict(num_cameras=16, num_points=22106, num_observations=83718, seed=16), True),
+    "large": (_LARGE, False, False),
+    "flagship": (_FLAGSHIP, True, False),
+    "robust_large": (_LARGE, False, True),
+    "robust_flagship": (_FLAGSHIP, True, True),
+    "pose_graph": (None, None, False),
 }
+POSE_GRAPH_LM_ITERATIONS = 6
 
 
 class _Stages:
@@ -78,6 +88,7 @@ class _Stages:
         self.wrap(torch.linalg, "cholesky_ex", "- Cholesky factorization of S")
         self.wrap(torch, "cholesky_solve", "- Cholesky solve")
         self.wrap(schur, "conjugate_gradients", "- CG")
+        self.wrap(cgnr, "conjugate_gradients", "- CG on the normal equations")
         self.wrap(reduce, "segment_sum_sorted", "K1 launches (all sites)")
         self.wrap(reduce, "segment_sum_unsorted", "K3 launches (all sites)")
         self.wrap(schur_explicit, "outer_segment_sum", "K4 launches")
@@ -129,7 +140,7 @@ def main(argv) -> int:
         raise RuntimeError("profile_solve needs a CUDA device")
     case = argv[0] if argv else "large"
     dtypes = argv[1:] or ["float32", "float64"]
-    sizes, iterative = CASES[case]
+    sizes, iterative, robust = CASES[case]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -138,12 +149,36 @@ def main(argv) -> int:
     def emit(**fields):
         print(json.dumps({"case": case, **fields, "card": smi}), flush=True)
 
-    inst = bal.synthesize_bal(noise=2.0, perturb=0.7, **sizes)
+    if sizes is None:
+        graph = pose_graph.synthesize_sphere(2500, seed=0)[:3]
+        full = POSE_GRAPH_LM_ITERATIONS
 
-    def solve(dtype, max_iters=50, problem=None):
+        def build():
+            return pose_graph.build_problem_3d(*graph)[0]
+
+        def options(dtype, max_iters):
+            opts = pose_graph.default_options()
+            opts.max_num_iterations = max_iters
+            opts.evaluation_dtype = dtype
+            return opts
+    else:
+        inst = bal.synthesize_bal(noise=2.0, perturb=0.7, **sizes)
+        full = 50
+
+        def build():
+            return bal.build_problem(inst, loss=ctt.HuberLoss(1.0) if robust else None)[0]
+
+        def options(dtype, max_iters):
+            opts = _options(dtype, iterative, max_iters)
+            if robust:
+                opts.function_tolerance = 1e-6  # the model's default
+            return opts
+
+    def solve(dtype, max_iters=None, problem=None):
         if problem is None:
-            problem = bal.build_problem(inst)[0]
-        return ctt.fused_solve(_options(dtype, iterative, max_iters), problem)
+            problem = build()
+        max_iters = full if max_iters is None else max_iters
+        return ctt.fused_solve(options(dtype, max_iters), problem)
 
     for dtype in dtypes:
         solve(dtype, max_iters=2)
@@ -152,18 +187,20 @@ def main(argv) -> int:
             timed = solve(dtype)
         emit(
             result="stages", dtype=dtype, lm_iterations=timed.num_iterations,
+            linear_solver_iterations=timed.num_linear_solver_iterations,
             final_cost=timed.final_cost,
             loop_seconds_plain=plain.minimizer_time_in_seconds,
             loop_seconds_synchronized=timed.minimizer_time_in_seconds,
             setup_seconds=plain.preprocessor_time_in_seconds,
             stages={k: {"seconds": v, "calls": stages.calls[k]} for k, v in stages.seconds.items()},
         )
-        prepared = bal.build_problem(inst)[0]
+        prepared = build()
         solve(dtype, max_iters=0, problem=prepared)  # set-up only; cached on the problem
         summary, busy, ops, top = _device_profile(lambda: solve(dtype, problem=prepared))
         loop = summary.minimizer_time_in_seconds
         emit(
             result="device", dtype=dtype, lm_iterations=summary.num_iterations,
+            linear_solver_iterations=summary.num_linear_solver_iterations,
             loop_seconds_profiled=loop, device_busy_seconds=busy,
             device_idle_share_of_loop=(1.0 - busy / loop) if busy else None,
             device_operations=ops,

@@ -7,8 +7,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ceres_tpu_torch.linear.cg import direct_termination
+from ceres_tpu_torch.linear.cgnr import solve_cgnr
+from ceres_tpu_torch.linear.dense import solve_dense_normal_cholesky, solve_dense_qr
 from ceres_tpu_torch.linear.schur import (
     EXPLICIT_S_AUTO_MAX_NF,
     build_schur_structure,
@@ -16,6 +20,31 @@ from ceres_tpu_torch.linear.schur import (
 )
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
 from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
+
+@dataclasses.dataclass
+class IterationSummary:
+    """Analog of ceres::IterationSummary (iteration_callback.h): one record
+    per LM iteration, record 0 being the starting point."""
+
+    iteration: int = 0
+    step_is_valid: bool = False
+    step_is_nonmonotonic: bool = False
+    step_is_successful: bool = False
+    cost: float = 0.0
+    cost_change: float = 0.0
+    gradient_max_norm: float = 0.0
+    gradient_norm: float = 0.0
+    step_norm: float = 0.0
+    relative_decrease: float = 0.0
+    trust_region_radius: float = 0.0
+    eta: float = 0.0
+    step_size: float = 0.0
+    line_search_function_evaluations: int = 0
+    linear_solver_iterations: int = 0
+    iteration_time_in_seconds: float = 0.0
+    step_solver_time_in_seconds: float = 0.0
+    cumulative_time_in_seconds: float = 0.0
+
 
 _SCHUR_TYPES = (
     LinearSolverType.DENSE_SCHUR,
@@ -50,13 +79,16 @@ def _config_from_options(options) -> _SolveConfig:
 
 
 def _build_solve_aux(options, program) -> dict:
-    """Preprocessor-built index structures (the Schur elimination structure
-    and, for a small reduced system, the explicit-S assembly plan),
+    """Preprocessor-built index structures (the block-Jacobi groups, the
+    Schur elimination structure with, for a small reduced system, the
+    explicit-S assembly plan, and the SUBSET preconditioner's row masks),
     memoized on the program per structural option set."""
+    subset = options.residual_blocks_for_subset_preconditioner
     key = (
         options.linear_solver_type,
         options.preconditioner_type,
         options.use_explicit_schur_complement,
+        tuple(sorted(int(r) for r in subset)) if subset else None,
     )
     hit = program.solve_aux_cache.get(key)
     if hit is not None:
@@ -75,7 +107,16 @@ def _build_solve_aux(options, program) -> dict:
             or int(ss.f_idx.shape[0]) <= EXPLICIT_S_AUTO_MAX_NF
         ):
             ss.explicit = build_explicit_plan(program, ss)
-    aux = {"ss": ss}
+    subset_masks = None
+    if options.preconditioner_type == PreconditionerType.SUBSET and subset:
+        rids = np.asarray(sorted(int(r) for r in subset), dtype=np.int64)
+        subset_masks = tuple(
+            torch.from_numpy(np.isin(f.residual_ids, rids).astype(np.float64)).to(
+                program.device, program.eval_dtype
+            )
+            for f in program.families
+        )
+    aux = {"bd_groups": program.groups, "ss": ss, "subset_masks": subset_masks}
     program.solve_aux_cache[key] = aux
     return aux
 
@@ -91,12 +132,43 @@ def _lm_damping(diag: torch.Tensor, radius: torch.Tensor) -> torch.Tensor:
     return D
 
 
-def _linear_solve(ctx, D, solve_aux, config: _SolveConfig):
+def _linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
     """LinearSolver::Solve dispatch (linear_solver.cc:75). Returns (y,
-    num_iterations, termination) with linear/cg.py termination codes."""
-    if config.linear_solver_type in _SCHUR_TYPES:
+    num_iterations, termination) with linear/cg.py termination codes:
+    iterative solvers report their CG termination (FAILURE on breakdown),
+    direct solvers FAILURE on a non-finite result. ``rhs``: an explicit
+    tangent right-hand side in place of J'f (not for the Schur solvers)."""
+    lst = config.linear_solver_type
+    if lst in _SCHUR_TYPES:
+        if rhs is not None:
+            raise NotImplementedError(
+                "an explicit right-hand side with a Schur solver: ROADMAP "
+                "Queue 1 item 14 (other linear solvers and preconditioners)"
+            )
         return solve_schur(ctx, D, config, solve_aux["ss"])
+    one = torch.ones((), dtype=torch.int32, device=D.device)
+    if lst == LinearSolverType.DENSE_QR:
+        y = solve_dense_qr(ctx, D, rhs=rhs)
+        return y, one, direct_termination(y)
+    if lst == LinearSolverType.DENSE_NORMAL_CHOLESKY:
+        y = solve_dense_normal_cholesky(ctx, D, rhs=rhs)
+        return y, one, direct_termination(y)
+    if lst == LinearSolverType.CGNR:
+        jacobi = config.preconditioner_type == PreconditionerType.JACOBI
+        res = solve_cgnr(
+            ctx,
+            D,
+            preconditioner_type=config.preconditioner_type,
+            bd_groups=solve_aux["bd_groups"] if jacobi else None,
+            max_num_iterations=config.max_linear_solver_iterations,
+            min_num_iterations=config.min_linear_solver_iterations,
+            q_tolerance=config.eta,
+            r_tolerance=-1.0,
+            rhs=rhs,
+            subset_masks=solve_aux.get("subset_masks"),
+        )
+        return res.x, res.num_iterations, res.termination
     raise NotImplementedError(
-        f"linear solver {config.linear_solver_type.name}: ROADMAP Queue 1 "
+        f"linear solver {lst.name}: ROADMAP Queue 1 "
         "item 14 (other linear solvers and preconditioners)"
     )

@@ -1,7 +1,8 @@
 """Enums of the solver vocabulary the port uses.
 
-Port of the subset of ``ceres_tpu/types.py`` that the fused LM
-bundle-adjustment slice reads; names and members match the JAX package.
+Port of the subset of ``ceres_tpu/types.py`` that the port's modules read
+(linear solvers, preconditioners, strategies, minimizers, terminations);
+names and members match the JAX package.
 """
 
 from __future__ import annotations
@@ -62,3 +63,13 @@ class TerminationType(_StrEnum):
     FAILURE = enum.auto()
     USER_SUCCESS = enum.auto()
     USER_FAILURE = enum.auto()
+
+
+class LinearSolverTerminationType(_StrEnum):
+    """Analog of LinearSolverTerminationType (linear_solver.h:57-74); the
+    codes of ``linear/cg.py`` are these members' positions."""
+
+    NO_CONVERGENCE = 0
+    SUCCESS = 1
+    FAILURE = 2
+    FATAL_ERROR = 3

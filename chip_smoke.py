@@ -43,7 +43,27 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    on this path adds with atomics, so every repeat must reach the same final
    cost to the bit). Both final costs must lie within 1e-3 relative of the
    JAX reference's 3587827.37 (BENCH_r05.json), and K1, K3 and K4 must each
-   have been launched during the first timed solve.
+   have been launched during the first timed solve;
+6. solve, robust large: the large instance again with ``HuberLoss(1.0)``
+   (the Jacobians and residuals the kernels reduce are the loss-corrected
+   ones), DENSE_SCHUR, float32 and float64, a 2-iteration warm-up and two
+   timed solves each: equal final costs to the bit, a usable termination,
+   the float32 cost within 1e-3 relative of the float64 one, and K1, K3 and
+   K4 each launched;
+7. solve, robust flagship: the flagship instance with ``HuberLoss(1.0)``,
+   ITERATIVE_SCHUR + SCHUR_JACOBI at ``bal.default_options()``, float64,
+   within 1e-3 relative of the JAX package's float64 final cost on the same
+   instance, K1 launched;
+8. solve, pose graph: ``pose_graph.synthesize_sphere(2500, seed=0)`` (4998
+   blocks of tangent size 3 on the Eigen-quaternion manifold and in R^3, the
+   first pose constant, 2598 constraints), ``ctt.solve`` with
+   ``pose_graph.default_options()`` (CGNR + block Jacobi, 200 iterations),
+   float64: CONVERGENCE within 1e-3 relative of the JAX package's final
+   cost. Its reductions are below the kernels' sizes (2598 rows into 4998
+   groups: ``index_add_``), which the phase checks and prints;
+9. solve, dense: a small robust BAL (8 / 500 / 2000, seed 42, Huber) with
+   DENSE_QR and with DENSE_NORMAL_CHOLESKY, final costs within 1e-6 relative
+   of each other.
 
 ``solve_seconds`` is the LM loop on the device; the host set-up of each
 fresh problem is reported as ``setup_seconds``. Launch counters are set to
@@ -51,8 +71,9 @@ zero just before a timed solve and read just after it; K1's and K3's are
 also reported by the width d of what they reduce (``launches_by_width``).
 
 Before the last line: one ``{"kernels": [...]}`` line (per kernel: its times
-at the large case's float32 shape and its launches in the large float32
-solve) and the card's name and power limit. The last line is
+at the large case's float32 shape, its launches in the large float32 solve,
+and under ``launches_by_path`` its launches in the first timed solve of
+every path above) and the card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -69,7 +90,7 @@ import torch
 import ceres_tpu_torch as ctt
 from ceres_tpu_torch.linear import schur as schur_mod
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
-from ceres_tpu_torch.models import bal
+from ceres_tpu_torch.models import bal, pose_graph
 from ceres_tpu_torch.ops import cuda_build
 from ceres_tpu_torch.ops import outer_segment_sum as osum
 from ceres_tpu_torch.ops import segment_sum as ss
@@ -81,6 +102,17 @@ PERTURB, NOISE = 0.7, 2.0
 REFERENCE_FINAL_COST = 202425.46  # ceres_tpu fused_solve, f32 (BENCH_r05.json)
 LARGE_REFERENCE_FINAL_COST = 3587827.37  # the same, large case
 COST_RTOL = 1e-3
+# ceres_tpu.fused_lm.fused_solve on the flagship instance with
+# HuberLoss(1.0) and bal.default_options(iterative=True), float64, JAX on
+# the CPU: CONVERGENCE after 39 iterations.
+ROBUST_FLAGSHIP_REFERENCE_FINAL_COST = 114544.60539235643
+# ceres_tpu.solve on pose_graph.synthesize_sphere(2500, seed=0) with
+# pose_graph.default_options(), float64, JAX on the CPU: CONVERGENCE after
+# 96 LM iterations and 44 687 CG iterations, from 10.250683705811847.
+POSE_GRAPH_POSES, POSE_GRAPH_SEED = 2500, 0
+POSE_GRAPH_REFERENCE_FINAL_COST = 0.377419867537356
+SMALL_ROBUST = dict(num_cameras=8, num_points=500, num_observations=2000, seed=42)
+DENSE_RTOL = 1e-6
 # Timed flagship solves per dtype (each on a fresh problem); the first is
 # the run whose K1 launches are counted.
 REPEATS = 3
@@ -638,18 +670,186 @@ def solve_large(device, dtype: str, inst) -> dict:
     return launches, by_width
 
 
+def _usable(summary, label: str) -> None:
+    if not summary.is_solution_usable():
+        raise RuntimeError(f"{label}: {summary.termination_type} ({summary.message})")
+
+
+def _plan_kinds(program) -> list:
+    return [[p.kind for p in fam.reduce_plans] for fam in program.families]
+
+
+def solve_robust_large(device, dtype: str, inst):
+    """The large case with HuberLoss(1.0): a 2-iteration warm-up, then two
+    timed solves on fresh problems, equal to the bit. Returns (summary,
+    launches of the first timed solve)."""
+    loss = ctt.HuberLoss(1.0)
+    warm, _, _ = bal.build_problem(inst, loss=loss)
+    ctt.fused_solve(_options(dtype, False, max_iters=2), warm, device=device)
+    del warm
+    runs = []
+    for i in range(LARGE_REPEATS):
+        problem, _, _ = bal.build_problem(inst, loss=loss)
+        if i == 0:
+            _reset_launches()
+        runs.append(ctt.fused_solve(_options(dtype, False), problem, device=device))
+        if i == 0:
+            launches, by_width = _launches(), _launches_by_width()
+            kinds = _plan_kinds(problem.program(device))
+            x = problem.state()
+            if x.shape != (runs[0].num_parameters,) or not np.all(np.isfinite(x)):
+                raise RuntimeError(f"robust large {dtype}: bad or non-finite solution")
+        if runs[-1].final_cost != runs[0].final_cost:
+            raise RuntimeError(f"robust large {dtype} solve is not repeatable on the card")
+        del problem
+    summary = runs[0]
+    _usable(summary, f"robust large {dtype}")
+    seconds = summary.minimizer_time_in_seconds
+    phase(
+        "solve", case="robust_large", loss="HuberLoss(1.0)", dtype=dtype,
+        initial_cost=summary.initial_cost, final_cost=summary.final_cost,
+        lm_iterations=summary.num_iterations,
+        successful_steps=summary.num_successful_steps,
+        termination=str(summary.termination_type), solve_seconds=seconds,
+        seconds_per_lm_iteration=seconds / max(summary.num_iterations, 1),
+        solve_seconds_all=[s.minimizer_time_in_seconds for s in runs],
+        setup_seconds_all=[s.preprocessor_time_in_seconds for s in runs],
+        plan_kinds=kinds, launches=launches, launches_by_width=by_width,
+    )
+    for name, count in launches.items():
+        if count == 0:
+            raise RuntimeError(f"robust large {dtype}: {name} was never launched")
+    return summary, launches
+
+
+def solve_robust_flagship(device) -> dict:
+    """The flagship instance with HuberLoss(1.0), float64, at the model's
+    default options, against the JAX package's final cost."""
+    inst = flagship_instance()
+    loss = ctt.HuberLoss(1.0)
+    warm, _, _ = bal.build_problem(inst, loss=loss)
+    opts = bal.default_options(iterative=True)
+    opts.max_num_iterations = 2
+    ctt.fused_solve(opts, warm, device=device)
+    problem, _, _ = bal.build_problem(inst, loss=loss)
+    _reset_launches()
+    summary = ctt.fused_solve(bal.default_options(iterative=True), problem, device=device)
+    launches, by_width = _launches(), _launches_by_width()
+    rel = _checked(problem, summary, ROBUST_FLAGSHIP_REFERENCE_FINAL_COST, "robust flagship")
+    _usable(summary, "robust flagship")
+    phase(
+        "solve", case="robust_flagship", loss="HuberLoss(1.0)", dtype="float64",
+        initial_cost=summary.initial_cost, final_cost=summary.final_cost,
+        reference_final_cost=ROBUST_FLAGSHIP_REFERENCE_FINAL_COST, rel_err=rel,
+        lm_iterations=summary.num_iterations,
+        cg_iterations=summary.num_linear_solver_iterations,
+        termination=str(summary.termination_type),
+        solve_seconds=summary.minimizer_time_in_seconds,
+        setup_seconds=summary.preprocessor_time_in_seconds,
+        plan_kinds=_plan_kinds(problem.program(device)),
+        launches=launches, launches_by_width=by_width,
+    )
+    if launches["sorted_segment_sum"] == 0:
+        raise RuntimeError("robust flagship: K1 was never launched")
+    return launches
+
+
+def solve_pose_graph(device) -> dict:
+    """The 2500-pose sphere through ``ctt.solve`` with CGNR + block Jacobi,
+    float64, against the JAX package's final cost."""
+    t0 = time.perf_counter()
+    positions, quats, constraints, _ = pose_graph.synthesize_sphere(
+        POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED
+    )
+    problem, _, _ = pose_graph.build_problem_3d(positions, quats, constraints)
+    build_seconds = time.perf_counter() - t0
+    opts = pose_graph.default_options()
+    warm_opts = pose_graph.default_options()
+    warm_opts.max_num_iterations = 1
+    warm, _, _ = pose_graph.build_problem_3d(positions, quats, constraints)
+    ctt.solve(warm_opts, warm, device=device)
+    _reset_launches()
+    summary = ctt.solve(opts, problem, device=device)
+    launches = _launches()
+    program = problem.program(device)
+    kinds = _plan_kinds(program)
+    rel = _checked(problem, summary, POSE_GRAPH_REFERENCE_FINAL_COST, "pose graph")
+    phase(
+        "solve", case="pose_graph_3d", poses=POSE_GRAPH_POSES, dtype="float64",
+        constraints=len(constraints), num_tangent=program.num_tangent,
+        tangent_groups={str(T): int(t.shape[0]) for T, t in program.bd_groups.items()},
+        initial_cost=summary.initial_cost, final_cost=summary.final_cost,
+        reference_final_cost=POSE_GRAPH_REFERENCE_FINAL_COST, rel_err=rel,
+        lm_iterations=len(summary.iterations) - 1,
+        cg_iterations=summary.num_linear_solver_iterations,
+        termination=str(summary.termination_type), message=summary.message,
+        build_seconds=build_seconds,
+        setup_seconds=summary.preprocessor_time_in_seconds,
+        solve_seconds=summary.minimizer_time_in_seconds,
+        seconds_per_cg_iteration=summary.minimizer_time_in_seconds
+        / max(summary.num_linear_solver_iterations, 1),
+        plan_kinds=kinds, launches=launches,
+    )
+    if summary.termination_type != ctt.TerminationType.CONVERGENCE:
+        raise RuntimeError(f"pose graph: {summary.termination_type} ({summary.message})")
+    # 2598 rows into 4998 groups: below SORTED_MIN_ROWS and above
+    # UNSORTED_MAX_GROUPS, so every reduction is an index_add_ and no
+    # kernel is on this path.
+    if any(k != "scatter" for fam in kinds for k in fam) or any(launches.values()):
+        raise RuntimeError(f"pose graph: plan kinds {kinds}, launches {launches}")
+    return launches
+
+
+def solve_dense(device) -> None:
+    """A small robust BAL with both dense solvers, one against the other."""
+    inst = bal.synthesize_bal(**SMALL_ROBUST)
+    costs = {}
+    for solver in (ctt.LinearSolverType.DENSE_QR, ctt.LinearSolverType.DENSE_NORMAL_CHOLESKY):
+        problem, _, _ = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))
+        opts = ctt.SolverOptions(linear_solver_type=solver)
+        summary = ctt.solve(opts, problem, device=device)
+        _usable(summary, f"dense {solver}")
+        x = problem.state()
+        if not np.all(np.isfinite(x)) or not summary.final_cost < 0.1 * summary.initial_cost:
+            raise RuntimeError(f"dense {solver}: no progress or non-finite solution")
+        costs[solver] = summary.final_cost
+        phase(
+            "solve", case="small_robust_dense", linear_solver=str(solver), dtype="float64",
+            initial_cost=summary.initial_cost, final_cost=summary.final_cost,
+            lm_iterations=len(summary.iterations) - 1,
+            termination=str(summary.termination_type),
+            solve_seconds=summary.minimizer_time_in_seconds,
+        )
+    qr, chol = costs.values()
+    if abs(qr - chol) > DENSE_RTOL * chol:
+        raise RuntimeError(f"DENSE_QR {qr} and DENSE_NORMAL_CHOLESKY {chol} disagree")
+
+
 def main() -> int:
     smi = check_device()
     device = torch.device("cuda", 0)
     build_kernels()
     records = check_kernels(device)
-    solve_flagship(device, "float32")
-    solve_flagship(device, "float64")
+    paths = {}
+    paths["flagship_float32"] = solve_flagship(device, "float32")
+    paths["flagship_float64"] = solve_flagship(device, "float64")
     inst = large_instance()
     launches, by_width = solve_large(device, "float32", inst)
-    solve_large(device, "float64", inst)
+    paths["large_float32"] = launches
+    paths["large_float64"] = solve_large(device, "float64", inst)[0]
+    r32, paths["robust_large_float32"] = solve_robust_large(device, "float32", inst)
+    r64, paths["robust_large_float64"] = solve_robust_large(device, "float64", inst)
+    rel = abs(r32.final_cost - r64.final_cost) / r64.final_cost
+    phase("compare", case="robust_large", float32_vs_float64_rel=rel)
+    if rel > COST_RTOL:
+        raise RuntimeError(f"robust large: float32 {r32.final_cost} vs float64 {r64.final_cost}")
+    del inst
+    paths["robust_flagship_float64"] = solve_robust_flagship(device)
+    paths["pose_graph_3d_float64"] = solve_pose_graph(device)
+    solve_dense(device)
     for record in records:
         record["launches"] = launches[record["name"]]
+        record["launches_by_path"] = {k: v[record["name"]] for k, v in paths.items()}
         if record["name"] in by_width:
             record["launches_by_width"] = by_width[record["name"]]
     print(json.dumps({"kernels": records}))

@@ -1,7 +1,9 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels (sorted segment sum K1,
 unsorted segment sum K3, fused pair-outer segment sum K4) against their
-plain versions on the card, the plan choice on a CUDA device, and a
-DENSE_SCHUR solve whose plans reach all three kernels. Skipped without a
+plain versions on the card, the plan choice on a CUDA device, a
+DENSE_SCHUR solve whose plans reach all three kernels, and the modeling API
+on the card against the CPU (robust BAL with a constant camera, a pose
+graph, the dense solvers and CGNR, ``Problem.evaluate``). Skipped without a
 card.
 
 This file imports neither jax nor ceres_tpu, so it also runs where only
@@ -392,3 +394,74 @@ def test_dense_schur_solve_reaches_all_three_kernels(device):
     assert on_card.final_cost < 1e-2 * on_card.initial_cost
     np.testing.assert_allclose(on_card.final_cost, on_cpu.final_cost, rtol=1e-9)
     assert np.all(np.isfinite(problem.state()))
+
+
+# ---- the modeling API on the card ---------------------------------------------
+
+
+@pytest.mark.parametrize("iterative", [True, False], ids=["iterative_schur", "dense_schur"])
+def test_robust_bal_on_the_card_matches_the_cpu(device, iterative):
+    """The canonical drive (8 / 500 / 2000, seed 42, HuberLoss(1.0), f64)
+    with one constant camera: the card's records equal the CPU's (costs to
+    1e-9 relative)."""
+    inst = bal.synthesize_bal(num_cameras=8, num_points=500, num_observations=2000, seed=42)
+    summaries = []
+    for dev in ("cpu", device):
+        problem, cams, _ = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))
+        problem.set_parameter_block_constant(int(cams[0]))
+        summaries.append(ctt.solve(bal.default_options(iterative=iterative), problem, device=dev))
+        assert np.all(np.isfinite(problem.state()))
+    on_cpu, on_card = summaries
+    assert on_card.device.startswith("cuda") and on_card.termination_type.name == "CONVERGENCE"
+    assert len(on_card.iterations) == len(on_cpu.iterations)
+    for a, b in zip(on_card.iterations, on_cpu.iterations):
+        np.testing.assert_allclose(a.cost, b.cost, rtol=1e-9)
+        assert a.step_is_successful == b.step_is_successful
+
+
+def test_pose_graph_on_the_card_matches_the_cpu(device):
+    """A 120-pose sphere with CGNR + block Jacobi (manifold plus, constant
+    first pose, index_add_ reductions): the card converges where the CPU
+    does, to the same cost within CG's rounding (1e-6 relative)."""
+    from ceres_tpu_torch.models import pose_graph
+
+    graph = pose_graph.synthesize_sphere(120, seed=3)[:3]
+    on_cpu = ctt.solve(pose_graph.default_options(),
+                       pose_graph.build_problem_3d(*graph)[0], device="cpu")
+    problem = pose_graph.build_problem_3d(*graph)[0]
+    on_card = ctt.solve(pose_graph.default_options(), problem)
+    assert on_card.termination_type.name == on_cpu.termination_type.name == "CONVERGENCE"
+    assert len(on_card.iterations) == len(on_cpu.iterations)
+    np.testing.assert_allclose(on_card.final_cost, on_cpu.final_cost, rtol=1e-6)
+    quats = np.stack([problem.parameter_block_value(i) for i in problem.parameter_block_ids()[1::2]])
+    np.testing.assert_allclose(np.linalg.norm(quats, axis=1), 1.0, atol=1e-12)
+
+
+@pytest.mark.parametrize("solver", ["DENSE_QR", "DENSE_NORMAL_CHOLESKY", "CGNR"])
+def test_dense_and_cgnr_solvers_on_the_card(device, solver):
+    inst = bal.synthesize_bal(num_cameras=5, num_points=60, num_observations=240,
+                              noise=2.0, perturb=0.5, seed=9)
+    costs = []
+    for dev in ("cpu", device):
+        problem, cams, _ = bal.build_problem(inst, loss=ctt.CauchyLoss(2.0))
+        problem.set_parameter_block_constant(cams[:2])
+        opts = ctt.SolverOptions(linear_solver_type=ctt.LinearSolverType[solver],
+                                 max_num_iterations=30)
+        s = ctt.solve(opts, problem, device=dev)
+        assert s.is_solution_usable()
+        costs.append(s.final_cost)
+    np.testing.assert_allclose(costs[1], costs[0], rtol=1e-6)
+
+
+def test_evaluate_on_the_card_matches_the_cpu(device):
+    inst = bal.synthesize_bal(num_cameras=4, num_points=50, num_observations=200, seed=1)
+    problem, cams, _ = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))
+    problem.set_parameter_block_constant(int(cams[1]))
+    on_card = problem.evaluate(residuals=True, gradient=True, jacobian=True)
+    on_cpu = problem.evaluate(residuals=True, gradient=True, jacobian=True, device="cpu")
+    np.testing.assert_allclose(on_card["cost"], on_cpu["cost"], rtol=1e-12)
+    for key in ("residuals", "gradient", "jacobian"):
+        np.testing.assert_allclose(on_card[key], on_cpu[key], rtol=1e-9, atol=1e-9)
+    block = problem.evaluate_residual_block(3)
+    np.testing.assert_allclose(block["cost"], problem.evaluate_residual_block(3, device="cpu")["cost"],
+                               rtol=1e-12)

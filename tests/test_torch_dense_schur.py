@@ -199,6 +199,9 @@ def _fake_program(block_sizes, families):
     sizes = np.asarray(block_sizes, dtype=np.int64)
     return types.SimpleNamespace(
         block_sizes=sizes,
+        tangent_sizes=sizes,
+        active=np.ones(sizes.shape[0], dtype=bool),
+        num_pids=sizes.shape[0],
         families=[types.SimpleNamespace(block_ids=ids) for ids in families],
         num_parameter_blocks=lambda: sizes.shape[0],
     )
@@ -232,3 +235,120 @@ def test_ordering_matches_jax_on_bal(cams, pts, obs, seed):
     got = tschur.compute_schur_ordering(tprog)
     assert got == jschur.compute_schur_ordering(jprog)
     assert got == _greedy_ordering(tprog.block_sizes.tolist(), [f.block_ids for f in tprog.families])
+
+
+# -- Schur elimination on programs with a loss, constant and manifold blocks --
+
+
+def _modeled_bal():
+    """Robust BAL with a constant camera, two constant points and a camera
+    on a Subset manifold (focal length and distortion held): tangent size 6
+    beside 9, dummy rows on both sides, corrected Jacobians."""
+    import ceres_tpu as ct
+
+    inst = jbal.synthesize_bal(num_cameras=7, num_points=300, num_observations=1300,
+                               noise=2.0, perturb=0.6, seed=4)
+    out = []
+    for mod, module in ((ct, jbal), (ctt, tbal)):
+        p, cams, pts = module.build_problem(inst, loss=mod.loss.HuberLoss(1.0))
+        p.set_parameter_block_constant(int(cams[2]))
+        p.set_parameter_block_constant(pts[[5, 17]])
+        out.append(p)
+    return out
+
+
+def _pose_graph():
+    from ceres_tpu.models import pose_graph as jpg
+    from ceres_tpu_torch.models import pose_graph as tpg
+
+    inst = jpg.synthesize_sphere(40, seed=2)
+    return (jpg.build_problem_3d(*inst[:3])[0],
+            tpg.build_problem_3d(*tpg.synthesize_sphere(40, seed=2)[:3])[0])
+
+
+@pytest.mark.parametrize("build", [_modeled_bal, _pose_graph], ids=["robust_bal", "pose_graph"])
+def test_schur_ordering_and_structure_match_jax_on_modeled_programs(build):
+    jp, tp = build()
+    jprog, tprog = jp.program(), tp.program("cpu")
+    e_j = jschur.compute_schur_ordering(jprog)
+    e_t = tschur.compute_schur_ordering(tprog)
+    assert e_t == [int(p) for p in e_j]
+    assert not any(tprog.constant[p] for p in e_t)
+    if build is _pose_graph:
+        # positions and quaternions of one pose share residual blocks, so
+        # the independent set mixes e and f blocks in one argument: both
+        # packages refuse to eliminate (pose graphs run CGNR)
+        for mod, prog in ((jschur, jprog), (tschur, tprog)):
+            with pytest.raises(ValueError, match="mixed e/f"):
+                mod.build_schur_structure(prog)
+        return
+    ss_j = jschur.build_schur_structure(jprog, with_explicit=True)
+    ss_t = tschur.build_schur_structure(tprog)
+    assert (ss_t.num_points, ss_t.e_tangent_size, ss_t.e_arg) == (
+        ss_j.num_points, ss_j.e_tangent_size, ss_j.e_arg)
+    assert np.array_equal(ss_t.e_group.numpy(), np.asarray(ss_j.e_group))
+    assert np.array_equal(ss_t.f_idx.numpy(), np.asarray(ss_j.f_idx))
+    assert np.array_equal(ss_t.f_mask.numpy(), np.asarray(ss_j.f_mask))
+    assert list(ss_t.f_groups) == list(ss_j.f_groups)
+    for T in ss_j.f_groups:
+        assert np.array_equal(ss_t.f_groups[T].numpy(), np.asarray(ss_j.f_groups[T]))
+    for fi in range(len(jprog.families)):
+        ej, et = ss_j._host_e_pos[fi], ss_t.host_e_pos[fi]
+        assert (ej is None) == (et is None)
+        if ej is not None:
+            assert np.array_equal(et, ej)
+        for a, b in zip(ss_t.host_f_pos[fi], ss_j._host_f_pos[fi]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("iterative", [False, True], ids=["dense_schur", "iterative_schur"])
+def test_schur_step_on_robust_program_with_constant_blocks_matches_jax(iterative):
+    """solve_schur on corrected Jacobians with dummy rows on both sides:
+    the step equals JAX's (1e-9, f64) and solves the full damped normal
+    equations of the corrected system."""
+    jp, tp = _modeled_bal()
+    jprog, tprog = jp.program(), tp.program("cpu")
+    x0 = np.asarray(jprog.initial_ambient())
+    _, _, ctx_j = jax_full(jnp.asarray(x0), jprog.families, True, jprog.num_tangent,
+                           jprog.jnp_bd_groups())
+    _, _, ctx_t = _full_impl(torch.tensor(x0), tprog.families, tprog.num_tangent, tprog.groups)
+    ss_j = jschur.build_schur_structure(jprog, with_explicit=True)
+    ss_t = tschur.build_schur_structure(tprog)
+    ss_t.explicit = build_explicit_plan(tprog, ss_t)
+    D = np.random.default_rng(3).uniform(0.5, 3.0, tprog.num_tangent)
+    oj, ot = jbal.default_options(iterative=iterative), tbal.default_options(iterative=iterative)
+    oj.eta = ot.eta = 1e-10
+    y_t, it_t, term_t = tschur.solve_schur(ctx_t, torch.tensor(D), _config_from_options(ot), ss_t)
+    y_j, it_j, term_j = jschur.solve_schur(ctx_j, jnp.asarray(D), jprog,
+                                           jax_config(oj, jprog), ss=ss_j)
+    assert int(term_t) == int(term_j) == CG_SUCCESS and int(it_t) == int(it_j)
+    _close(y_t, y_j, 1e-9)
+    Dt = torch.tensor(D)
+    res = ctx_t.normal_matvec(y_t) + Dt * Dt * y_t - ctx_t.gradient()
+    # (CG on S stops by its Q test, not at the factorization's accuracy)
+    assert float(res.norm() / ctx_t.gradient().norm()) < (1e-6 if iterative else 1e-9)
+
+
+def test_constant_camera_keeps_the_point_side_sorted():
+    """A constant block sends its rows to the dummy group G. With a constant
+    camera that lands in the middle of the camera list, which was in no
+    order anyway; the point side stays sorted, so a CUDA device still gives
+    it the sorted kernel (``choose_plan_kind`` is pure: asked as for
+    "cuda"). A constant point does break the point side's order: its plan
+    falls to the unsorted kind (or to index_add_ above its cap)."""
+    inst = tbal.synthesize_bal(num_cameras=20, num_points=3000, num_observations=12000, seed=6)
+    p, cams, pts = tbal.build_problem(inst, loss=ctt.HuberLoss(1.0))
+    p.set_parameter_block_constant(int(cams[3]))
+    fam = p.program("cpu").families[0]
+    cam_ids, pt_ids = fam.bd_pos[0].numpy(), fam.bd_pos[1].numpy()
+    assert (cam_ids == 19).sum() == (fam.block_ids[:, 0] == cams[3]).sum() > 0
+    assert tred.choose_plan_kind(pt_ids, 3000, "cuda") == "sorted"
+    assert tred.choose_plan_kind(cam_ids, 19, "cuda") == "onehot"
+    ss = tschur.build_schur_structure(p.program("cpu"))
+    assert tred.choose_plan_kind(ss.host_e_pos[0], ss.num_points, "cuda") == "sorted"
+    p.set_parameter_block_constant(int(pts[100]))
+    pt_ids = p.program("cpu").families[0].bd_pos[1].numpy()
+    assert (pt_ids == 2999).sum() > 0 and not np.all(pt_ids[1:] >= pt_ids[:-1])
+    assert tred.choose_plan_kind(pt_ids, 2999, "cuda") == "unsorted"

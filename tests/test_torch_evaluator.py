@@ -3,7 +3,10 @@ on one small BAL instance (f64, rtol 1e-10; f32, rtol 1e-4).
 
 Covers cost, gradient, every Jacobian block, squared_column_norms, matvec
 and rmatvec (with and without the Schur e-arg skipped), scale_columns and
-the cost-only evaluation.
+the cost-only evaluation; then (second half) the same on a problem with
+Huber and Cauchy losses, quaternion and Subset blocks and constant blocks:
+corrected Jacobian blocks and residuals, to_dense, block_jtj, normal_matvec,
+tangent_idx and the manifold plus_apply (f64 1e-10, f32 2e-4).
 """
 
 import jax.numpy as jnp
@@ -98,7 +101,7 @@ def test_scale_columns(both):
 
 def test_cost_only_evaluation(both):
     cj = jax_cost(both["xj"], both["jprog"].families, True)
-    ct_ = _cost_impl(both["xt"], both["tprog"].families, both["tprog"].groups)
+    ct_ = _cost_impl(both["xt"], both["tprog"].families)
     assert ct_.dtype == torch.float64
     _close(ct_, cj, both["rtol"])
 
@@ -122,3 +125,94 @@ def test_plus_apply(identity):
         jnp.asarray(x), jnp.asarray(delta),
     )
     _close(ours, ref, 1e-15)
+
+
+# -- loss, manifolds, constant blocks ---------------------------------------
+
+
+@pytest.fixture(scope="module", params=[("float64", 1e-10), ("float32", 2e-4)],
+                ids=["f64", "f32"])
+def modeled(request):
+    """The mixed problem of test_torch_problem_api (Huber and Cauchy losses,
+    quaternion and Subset blocks, constant blocks) evaluated by both."""
+    from test_torch_problem_api import _build
+
+    dtype, rtol = request.param
+    jprog = _build("jax")[0].program()
+    tprog = _build("torch")[0].program("cpu")
+    jax_cast(jprog, dtype)
+    cast_program(tprog, dtype)
+    x0 = np.asarray(jprog.initial_ambient())
+    xj, xt = jnp.asarray(x0, dtype), torch.tensor(x0, dtype=getattr(torch, dtype))
+    j = jax_full(xj, jprog.families, True, jprog.num_tangent, jprog.jnp_bd_groups())
+    t = _full_impl(xt, tprog.families, tprog.num_tangent, tprog.groups)
+    return dict(j=j, t=t, jprog=jprog, tprog=tprog, xj=xj, xt=xt, rtol=rtol,
+                dtype=getattr(torch, dtype))
+
+
+def test_corrected_cost_gradient_blocks(modeled):
+    (cj, gj, ctx_j), (ct_, gt, ctx_t) = modeled["j"], modeled["t"]
+    rtol = modeled["rtol"]
+    assert ct_.dtype == torch.float64 and gt.dtype == modeled["dtype"]
+    _close(ct_, cj, rtol)
+    _close(gt, gj, rtol)
+    assert len(ctx_t.jacs) == len(ctx_j.jacs)
+    for fi in range(len(ctx_j.jacs)):
+        _close(ctx_t.residuals[fi], ctx_j.residuals[fi], rtol)
+        for Jt, Jj in zip(ctx_t.jacs[fi], ctx_j.jacs[fi]):
+            assert Jt.dtype == modeled["dtype"]
+            _close(Jt, Jj, rtol)
+    _close(ctx_t.squared_column_norms(), ctx_j.squared_column_norms(), rtol)
+    _close(_cost_impl(modeled["xt"], modeled["tprog"].families),
+           jax_cost(modeled["xj"], modeled["jprog"].families, True), rtol)
+    _close(_cost_impl(modeled["xt"], modeled["tprog"].families, False),
+           jax_cost(modeled["xj"], modeled["jprog"].families, False), rtol)
+
+
+def test_to_dense_block_jtj_normal_matvec(modeled):
+    ctx_j, ctx_t = modeled["j"][2], modeled["t"][2]
+    rtol, dt = modeled["rtol"], modeled["dtype"]
+    _close(ctx_t.to_dense(), ctx_j.to_dense(), rtol)
+    assert ctx_t.num_rows == ctx_j.num_rows
+    _close(ctx_t.residual_vector(), ctx_j.residual_vector(), rtol)
+    sizes = {T: tab.shape[0] for T, tab in modeled["jprog"].bd_groups.items()}
+    bj, bt = ctx_j.block_jtj(sizes), ctx_t.block_jtj(sizes)
+    assert set(bt) == set(bj)
+    for T in bj:
+        _close(bt[T], bj[T], rtol)
+    v = np.random.default_rng(4).standard_normal(ctx_t.num_tangent)
+    _close(ctx_t.normal_matvec(torch.tensor(v, dtype=dt)),
+           ctx_j.normal_matvec(jnp.asarray(v, ctx_j.dtype)), rtol)
+    # a constant block's columns are nowhere: J v ignores it, J' w drops it
+    dense = ctx_t.to_dense().to(torch.float64)
+    mv = torch.cat([m.reshape(-1) for m in ctx_t.matvec(torch.tensor(v, dtype=dt))])
+    _close(mv, dense.numpy() @ v, max(rtol, 1e-5 if dt == torch.float32 else 0))
+    for fi, fam in enumerate(ctx_t.families):
+        for j in range(fam.num_args):
+            _close(ctx_t.tangent_idx(fi, j), np.asarray(ctx_j.families[fi].tangent_idx[j]), 0)
+
+
+def test_scaled_context_with_constant_blocks(modeled):
+    ctx_j, ctx_t = modeled["j"][2], modeled["t"][2]
+    s = np.random.default_rng(2).uniform(0.5, 2.0, ctx_t.num_tangent)
+    sj = ctx_j.scale_columns(jnp.asarray(s, ctx_j.dtype))
+    st = ctx_t.scale_columns(torch.tensor(s, dtype=modeled["dtype"]))
+    for fi in range(len(sj.jacs)):
+        for Jt, Jj in zip(st.jacs[fi], sj.jacs[fi]):
+            _close(Jt, Jj, modeled["rtol"])
+    _close(st.gradient(), sj.gradient(), modeled["rtol"])
+
+
+def test_manifold_plus_apply_matches_jax():
+    """plus_apply with manifold groups (quaternion blocks) against JAX's."""
+    from test_torch_problem_api import _build
+
+    jprog = _build("jax")[0].program()
+    tprog = _build("torch")[0].program("cpu")
+    x = np.asarray(jprog.initial_ambient())
+    d = 0.2 * np.random.default_rng(6).standard_normal(jprog.num_tangent)
+    ours = plus_apply(tprog.plus_struct, torch.from_numpy(x), torch.from_numpy(d))
+    ref = jax_plus_apply(jprog.plus_struct, jnp.asarray(x), jnp.asarray(d))
+    _close(ours, ref, 1e-13)
+    f32 = plus_apply(tprog.plus_struct, torch.tensor(x, dtype=torch.float32), torch.from_numpy(d))
+    assert f32.dtype == torch.float32

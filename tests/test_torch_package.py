@@ -1,8 +1,12 @@
 """The port's package boundary: importing ceres_tpu_torch loads neither jax
-nor the JAX package. Checked in a subprocess, because this test process
-has already imported jax (tests/conftest.py)."""
+nor the JAX package (checked in a subprocess, because this test process has
+already imported jax, tests/conftest.py; and in the sources, import by
+import), and whatever the port does not do yet says which ROADMAP item
+brings it."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,7 +33,15 @@ print(len(cuda_build._loaded))  # kernels build at first launch, not at import
     [
         "ceres_tpu_torch",
         "ceres_tpu_torch.models.bal",
+        "ceres_tpu_torch.models.pose_graph",
         "ceres_tpu_torch.interop",
+        "ceres_tpu_torch.loss",
+        "ceres_tpu_torch.manifold",
+        "ceres_tpu_torch.rotation",
+        "ceres_tpu_torch.cost_functions",
+        "ceres_tpu_torch.linear.cgnr",
+        "ceres_tpu_torch.linear.dense",
+        "ceres_tpu_torch.linear.preconditioners",
         "ceres_tpu_torch.ops.segment_sum",
         "ceres_tpu_torch.ops.unsorted_segment_sum",
         "ceres_tpu_torch.ops.outer_segment_sum",
@@ -47,3 +59,79 @@ def test_import_leaves_jax_out(module):
     leaked, built = out.stdout.split("\n")[:2]
     assert leaked == "", f"{module} imported {leaked}"
     assert built == "0"
+
+
+def _port_sources():
+    files = sorted((REPO / "ceres_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 25
+    return files
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "ceres_tpu", "flax"), f"{path}: imports {name}"
+
+
+def test_every_not_implemented_error_names_a_roadmap_item():
+    """A ``raise NotImplementedError(...)`` with a message must carry the
+    word ROADMAP, in the message or through a module-level constant (a bare
+    raise marks an abstract method of a base class)."""
+    found = 0
+    for path in _port_sources():
+        tree = ast.parse(path.read_text())
+        constants = {
+            t.id: node.value.value
+            for node in tree.body
+            if isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant)
+            and isinstance(node.value.value, str)
+            for t in node.targets if isinstance(t, ast.Name)
+        }
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", "") == "NotImplementedError"):
+                continue
+            found += 1
+            texts = [n.value for n in ast.walk(node.exc)
+                     if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+            texts += [constants.get(n.id, "") for n in ast.walk(node.exc) if isinstance(n, ast.Name)]
+            assert any("ROADMAP" in t for t in texts), f"{path}:{node.lineno}"
+    assert found >= 8
+    # ... and the items the messages name are in ROADMAP.md's Queue 1
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    named = set()
+    for path in _port_sources():
+        named.update(re.findall(r"Queue 1 item (\d+)", path.read_text()))
+    assert named and all(re.search(rf"^{n}\. \*\*", roadmap, re.M) for n in named), named
+
+
+def test_default_device_is_the_card_and_a_missing_card_raises():
+    """No quiet move to the CPU: without a card a solve on the default
+    device raises (run in a subprocess where CUDA is not available)."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.models import bal, pose_graph
+
+    problem = bal.build_problem(
+        bal.synthesize_bal(num_cameras=3, num_points=20, num_observations=60, seed=1),
+        loss=ctt.HuberLoss(1.0),
+    )[0]
+    for entry in (ctt.solve, ctt.fused_solve):
+        with pytest.raises((RuntimeError, AssertionError)):
+            entry(bal.default_options(), problem)
+    graph = pose_graph.build_problem_3d(*pose_graph.synthesize_sphere(10, seed=0)[:3])[0]
+    with pytest.raises((RuntimeError, AssertionError)):
+        ctt.solve(pose_graph.default_options(), graph)
+    with pytest.raises((RuntimeError, AssertionError)):
+        problem.evaluate()

@@ -1,5 +1,7 @@
 """The whole slice: ceres_tpu_torch.fused_solve / solve against ceres_tpu's
-on one small BAL instance, both with ITERATIVE_SCHUR + SCHUR_JACOBI.
+on one small BAL instance, both with ITERATIVE_SCHUR + SCHUR_JACOBI, and
+(second half) robust bundle adjustment with a Huber loss and a constant
+camera under every linear solver the port has, record by record.
 
 f64: equal LM iteration and successful-step counts, final cost rtol 1e-8,
 parameters within 1e-6 x max|x|. f32: final cost rtol 1e-4 (near the
@@ -92,10 +94,163 @@ def test_interop_round_trips_initial_ambient():
 def test_unsupported_options_are_roadmap_items():
     tp = tbal.build_problem(tbal.synthesize_bal(**SIZES, seed=1))[0]
     for field, value in (("use_nonmonotonic_steps", True),
-                         ("linear_solver_type", ctt.LinearSolverType.CGNR),
+                         ("linear_solver_type", ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY),
                          ("preconditioner_type", ctt.PreconditionerType.JACOBI),
                          ("use_mixed_precision_solves", True)):
         opts = _options(tbal, None)
         setattr(opts, field, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ctt.fused_solve(opts, tp, device="cpu")
+
+
+# -- robust bundle adjustment through solve ----------------------------------
+
+ROBUST = dict(num_cameras=8, num_points=500, num_observations=2000, seed=42)
+
+
+def _robust_pair(constant_cameras=0, **sizes):
+    inst = jbal.synthesize_bal(**(sizes or ROBUST))
+    jp, jcams, _ = jbal.build_problem(inst, loss=ct.loss.HuberLoss(1.0))
+    tp, tcams, _ = tbal.build_problem(inst, loss=ctt.loss.HuberLoss(1.0))
+    if constant_cameras:
+        jp.set_parameter_block_constant(jcams[:constant_cameras])
+        tp.set_parameter_block_constant(tcams[:constant_cameras])
+    return jp, tp
+
+
+def _same_records(st, sj, cost_rtol=1e-9, grad_rtol=1e-5):
+    """Equal iteration counts and per-iteration records: costs to
+    ``cost_rtol``, the flags and the CG iteration counts exactly."""
+    assert len(st.iterations) == len(sj.iterations)
+    assert st.termination_type.name == sj.termination_type.name
+    assert st.message.split(":")[0] == sj.message.split(":")[0]
+    for a, b in zip(st.iterations, sj.iterations):
+        assert a.iteration == b.iteration
+        np.testing.assert_allclose(a.cost, b.cost, rtol=cost_rtol)
+        assert (a.step_is_valid, a.step_is_successful) == (b.step_is_valid, b.step_is_successful)
+        assert a.linear_solver_iterations == b.linear_solver_iterations
+        np.testing.assert_allclose(a.trust_region_radius, b.trust_region_radius, rtol=1e-6)
+        np.testing.assert_allclose(a.gradient_max_norm, b.gradient_max_norm, rtol=grad_rtol)
+        # (not the step norm: without a fixed gauge the step's component
+        # along the gauge directions is set by rounding alone)
+    np.testing.assert_allclose(st.initial_cost, sj.initial_cost, rtol=1e-12)
+    np.testing.assert_allclose(st.final_cost, sj.final_cost, rtol=cost_rtol)
+    assert st.num_successful_steps == sj.num_successful_steps
+    assert st.num_unsuccessful_steps == sj.num_unsuccessful_steps
+    assert st.num_linear_solver_iterations == sj.num_linear_solver_iterations
+
+
+@pytest.mark.parametrize("constant_camera", [False, True], ids=["free", "constant_camera"])
+@pytest.mark.parametrize("iterative", [True, False], ids=["iterative_schur", "dense_schur"])
+def test_robust_bal_solve_matches_jax_record_by_record(iterative, constant_camera):
+    """The canonical drive: BAL 8/500/2000, seed 42, HuberLoss(1.0), f64."""
+    jp, tp = _robust_pair(int(constant_camera))
+    sj = ct.solve(jbal.default_options(iterative=iterative), jp)
+    st = ctt.solve(tbal.default_options(iterative=iterative), tp, device="cpu")
+    assert st.termination_type == ctt.TerminationType.CONVERGENCE
+    assert len(st.iterations) > 10
+    _same_records(st, sj)
+    xj = _state(jp)
+    np.testing.assert_allclose(_state(tp), xj, rtol=0, atol=1e-8 * np.abs(xj).max())
+    assert st.num_effective_parameters == sj.num_effective_parameters
+    assert "Huber" not in st.full_report() and "ITERATIVE_SCHUR" in st.full_report() or not iterative
+
+
+@pytest.mark.parametrize("solver", ["DENSE_QR", "DENSE_NORMAL_CHOLESKY", "CGNR"])
+def test_robust_bal_small_with_dense_solvers_and_cgnr(solver):
+    """A BAL small enough to factor densely (5/60/240), Huber, two constant
+    cameras (they fix the gauge, so the normal equations are well
+    conditioned and LAPACK's and XLA's factorizations agree). The dense
+    solvers match JAX record by record. CGNR's final cost is held at 1e-6
+    (each CG solve stops by the same test on Jacobians equal to 1e-12, but
+    its rounding differs and the LM loop carries it)."""
+    sizes = dict(num_cameras=5, num_points=60, num_observations=240, noise=2.0, perturb=0.5, seed=9)
+    jp, tp = _robust_pair(2, **sizes)
+    oj = ct.SolverOptions(linear_solver_type=ct.LinearSolverType[solver], max_num_iterations=30)
+    ot = ctt.SolverOptions(linear_solver_type=ctt.LinearSolverType[solver], max_num_iterations=30)
+    sj, st = ct.solve(oj, jp), ctt.solve(ot, tp, device="cpu")
+    assert st.linear_solver_type_used.name == solver
+    if solver == "CGNR":
+        assert len(st.iterations) == len(sj.iterations)
+        np.testing.assert_allclose(st.final_cost, sj.final_cost, rtol=1e-6)
+    else:
+        _same_records(st, sj)
+        xj = _state(jp)
+        np.testing.assert_allclose(_state(tp), xj, rtol=0, atol=1e-8 * np.abs(xj).max())
+
+
+def test_auto_linear_solver_resolves_as_jax():
+    sizes = dict(num_cameras=5, num_points=60, num_observations=240, noise=2.0, perturb=0.5, seed=9)
+    jp, tp = _robust_pair(0, **sizes)
+    sj = ct.solve(ct.SolverOptions(max_num_iterations=5), jp)
+    st = ctt.solve(ctt.SolverOptions(max_num_iterations=5), tp, device="cpu")
+    assert st.linear_solver_type_used.name == sj.linear_solver_type_used.name == "DENSE_NORMAL_CHOLESKY"
+    _same_records(st, sj)
+    assert st.termination_type == ctt.TerminationType.NO_CONVERGENCE
+
+
+def test_robust_fused_solve_f32_close_to_f64():
+    jp, tp = _robust_pair()
+    o64, o32 = tbal.default_options(), tbal.default_options()
+    o32.evaluation_dtype = "float32"
+    s64 = ctt.fused_solve(o64, tp, device="cpu")
+    s32 = ctt.fused_solve(o32, _robust_pair()[1], device="cpu")
+    sj = jax_fused_solve(jbal.default_options(), jp)
+    np.testing.assert_allclose(s64.final_cost, sj.final_cost, rtol=1e-9)
+    assert s64.num_iterations == len(sj.iterations)
+    np.testing.assert_allclose(s32.final_cost, s64.final_cost, rtol=1e-4)
+    assert s64.iterations == []  # fused_solve keeps the count only
+
+
+def test_exits_before_the_loop():
+    """Invalid options, no non-constant blocks and an infeasible start end
+    as in the JAX package's solve, without running the loop."""
+    sizes = dict(num_cameras=3, num_points=20, num_observations=60, seed=2)
+    for mod, module, kw in ((ct, jbal, {}), (ctt, tbal, dict(device="cpu"))):
+        inst = module.synthesize_bal(**sizes)
+        p = module.build_problem(inst, loss=mod.loss.HuberLoss(1.0))[0]
+        bad = module.default_options()
+        bad.max_trust_region_radius = 1.0  # below the initial radius
+        s = mod.solve(bad, p, **kw)
+        assert s.termination_type.name == "FAILURE" and s.message.startswith("Invalid options")
+        bad = module.default_options()
+        bad.linear_solver_type = mod.LinearSolverType.CGNR  # with SCHUR_JACOBI
+        assert "CGNR" in mod.solve(bad, p, **kw).message
+
+        p.set_parameter_block_constant(np.arange(p.num_parameter_blocks()))
+        s = mod.solve(module.default_options(), p, **kw)
+        assert s.termination_type.name == "CONVERGENCE"
+        assert s.message.endswith("No non-constant parameter blocks found.")
+        assert s.initial_cost == s.final_cost == s.fixed_cost > 0
+        if mod is ct:
+            fixed_jax = s.fixed_cost
+        else:
+            np.testing.assert_allclose(s.fixed_cost, fixed_jax, rtol=1e-12)
+
+        p = module.build_problem(inst)[0]
+        p.set_parameter_lower_bound(0, 0, 1e3)
+        s = mod.solve(module.default_options(), p, **kw)
+        assert s.termination_type.name == "FAILURE" and "infeasible" in s.message
+
+
+@pytest.mark.parametrize("field,value,complaint", [
+    ("max_num_iterations", -1, "max_num_iterations"),
+    ("eta", 0.0, "eta"),
+    ("min_lm_diagonal", 1e40, "min_lm_diagonal > max_lm_diagonal"),
+    ("min_linear_solver_iterations", 1000, "min_linear_solver_iterations >"),
+    ("evaluation_dtype", "float16", "evaluation_dtype"),
+    ("preconditioner_type", "SUBSET", "SUBSET"),
+    ("trust_region_strategy_type", "DOGLEG", "DOGLEG"),
+])
+def test_validate_matches_jax(field, value, complaint):
+    oj, ot = jbal.default_options(), tbal.default_options()
+    for o, mod in ((oj, ct), (ot, ctt)):
+        v = value
+        if field == "preconditioner_type":
+            v = mod.PreconditionerType[value]
+        if field == "trust_region_strategy_type":
+            v = mod.TrustRegionStrategyType[value]
+        setattr(o, field, v)
+    assert ot.validate(0) == oj.validate(0)
+    assert complaint in ot.validate(0)
+    assert tbal.default_options().validate(0) is None
