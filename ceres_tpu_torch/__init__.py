@@ -3,8 +3,11 @@
 Nonlinear least squares on an NVIDIA H100 with the fused
 Levenberg-Marquardt loop: robust loss functions, manifolds and constant
 parameter blocks, solved with DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR
-(IDENTITY, JACOBI, SUBSET), DENSE_SCHUR or ITERATIVE_SCHUR with SCHUR_JACOBI
-(the Schur solvers on an explicitly assembled reduced camera system). The
+(IDENTITY, JACOBI, SUBSET), DENSE_SCHUR or ITERATIVE_SCHUR (IDENTITY, JACOBI,
+SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION; on an assembled reduced camera
+system up to 2048 camera coordinates, on the implicit one above), with
+optional mixed-precision refinement and a user elimination ordering
+(``OrderedGroups``). The
 JAX package's Pallas kernels are rewritten as CUDA kernels (``csrc/``): the
 sorted segment sum (``ops/segment_sum.py``), the unsorted segment sum
 (``ops/unsorted_segment_sum.py``) and the fused pair-outer segment sum
@@ -43,6 +46,7 @@ from ceres_tpu_torch.manifold import (
     SphereManifold,
     SubsetManifold,
 )
+from ceres_tpu_torch.ordered_groups import OrderedGroups
 from ceres_tpu_torch.problem import Problem
 from ceres_tpu_torch.solver import SolverOptions, SolverSummary, solve
 from ceres_tpu_torch.trust_region import IterationSummary
@@ -70,6 +74,7 @@ __all__ = [
     "LossFunctionWrapper",
     "Manifold",
     "MinimizerType",
+    "OrderedGroups",
     "PreconditionerType",
     "Problem",
     "ProductManifold",

@@ -135,6 +135,18 @@ class JacobianContext:
     def dtype(self) -> torch.dtype:
         return self.residuals[0].dtype
 
+    def to_dtype(self, dtype: torch.dtype) -> "JacobianContext":
+        """The context with its Jacobian blocks and residuals in ``dtype``
+        (itself when they already are): the mixed-precision solve's f32
+        copy and f64 refinement copy."""
+        if self.dtype == dtype:
+            return self
+        return dataclasses.replace(
+            self,
+            jacs=tuple(tuple(J.to(dtype) for J in js) for js in self.jacs),
+            residuals=tuple(r.to(dtype) for r in self.residuals),
+        )
+
     def _group_pad(self, v: torch.Tensor, fill: float = 0.0) -> dict:
         """Flat tangent vector -> {T: (G_T+1, T)} with a dummy last row."""
         out = {}

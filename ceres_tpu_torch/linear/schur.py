@@ -6,11 +6,15 @@ The e-blocks (points) are found by a greedy maximal independent set
 
     S x = (F'F + D_f^2) x - F'E (E'E + D_e^2)^{-1} E'F x
 
-Two solves run on an explicitly assembled S (``schur_explicit.py``):
-ITERATIVE_SCHUR with SCHUR_JACOBI (nf <= EXPLICIT_S_AUTO_MAX_NF) and
-DENSE_SCHUR (a Cholesky factorization of S). ``SchurOperator.s_times`` (the
-implicit product) is ported and tested; the implicit-S solve, SPARSE_SCHUR
-and the other preconditioners are ROADMAP items.
+DENSE_SCHUR factors an explicitly assembled S (``schur_explicit.py``).
+ITERATIVE_SCHUR runs PCG on the assembled S when the reduced camera system
+is small (nf <= EXPLICIT_S_AUTO_MAX_NF, or ``use_explicit_schur_complement``)
+and on the implicit product ``SchurOperator.s_times`` above that, with the
+IDENTITY, JACOBI / SCHUR_JACOBI (block diagonal of S) or
+SCHUR_POWER_SERIES_EXPANSION preconditioner and, optionally, a power-series
+initial guess. Both take an explicit tangent right-hand side (the
+mixed-precision refinement of ``trust_region._linear_solve``). SPARSE_SCHUR
+and the cluster preconditioners are a ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,7 +27,12 @@ import torch
 
 from ceres_tpu_torch.evaluator import JacobianContext
 from ceres_tpu_torch.linear.cg import conjugate_gradients, direct_termination
-from ceres_tpu_torch.linear.schur_explicit import _pair_product, assemble_reduced_system
+from ceres_tpu_torch.linear.schur_explicit import (
+    _flat_apply_minv,
+    _pair_product,
+    assemble_reduced_system,
+)
+from ceres_tpu_torch.ops.outer_segment_sum import flat_outer
 from ceres_tpu_torch.ops.reduce import apply_reduce, build_reduce_plan
 from ceres_tpu_torch.ops.small_linalg import spd_inverse, spd_solve
 from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
@@ -32,7 +41,10 @@ from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
 # linear solve and runs CG on the dense matrix (the JAX package's policy).
 EXPLICIT_S_AUTO_MAX_NF = 2048
 
-_OTHER_SOLVERS = "ROADMAP Queue 1 item 14 (other linear solvers and preconditioners)"
+_ITEM_14B = (
+    "ROADMAP Queue 1 item 14b (host-driven sparse solvers and the cluster "
+    "preconditioners, after the port's ctypes loader)"
+)
 
 
 def compute_schur_ordering(program) -> List[int]:
@@ -96,6 +108,10 @@ class SchurStructure:
     e_arg: Tuple[int, ...]  # per family: the e-block arg, or -1
     e_pos: Tuple[Optional[torch.Tensor], ...]  # (B,) point row per family
     f_groups: Dict[int, torch.Tensor]  # {T: (G, T)} f block coords
+    # per family/arg: the f block row of each instance (dummy = the size
+    # group's count; None for the e-arg) and its camera-side reduce plan
+    f_pos: Tuple[Tuple[Optional[torch.Tensor], ...], ...]
+    f_plan: Tuple[Tuple, ...]
     e_plan: Tuple  # per family: point-side reduce plan
     e_slice: Optional[int]  # start when e coords are one ascending range
     # host copies of e_pos and of the per family/arg f block positions
@@ -104,12 +120,23 @@ class SchurStructure:
     host_f_pos: Tuple[Tuple[Optional[np.ndarray], ...], ...]
     explicit: Optional[object] = None  # schur_explicit.ExplicitSchurPlan
 
+    def to_dtype(self, dtype: torch.dtype) -> "SchurStructure":
+        """The structure with its one floating array, ``f_mask``, in
+        ``dtype`` (the mixed-precision solve; everything else is indices
+        and plans, which serve every dtype)."""
+        return dataclasses.replace(self, f_mask=self.f_mask.to(dtype))
 
-def build_schur_structure(program) -> SchurStructure:
+
+def build_schur_structure(program, ordering: Optional[List[int]] = None) -> SchurStructure:
     """Build the elimination structure on the program's device (the
-    explicit-S plan is attached by the caller when S is to be assembled)."""
+    explicit-S plan is attached by the caller when S is to be assembled).
+    ``ordering``: the e-block ids to eliminate (group 0 of
+    ``SolverOptions.linear_solver_ordering``) in place of the automatic
+    independent set."""
     dev = program.device
-    e_pids = np.asarray(compute_schur_ordering(program), dtype=np.int64)
+    if ordering is None:
+        ordering = compute_schur_ordering(program)
+    e_pids = np.asarray([int(p) for p in ordering], dtype=np.int64)
     if not e_pids.size:
         raise ValueError("no e-blocks found for Schur elimination")
     sizes, offsets = program.tangent_sizes, program.tangent_offsets
@@ -187,6 +214,24 @@ def build_schur_structure(program) -> SchurStructure:
     e_plan = tuple(
         None if ep is None else build_reduce_plan(ep, P, dev) for ep in e_pos
     )
+    # Camera-side plans (the JAX package's f_plan). Where an arg's f block
+    # rows are its block-diagonal rows, as for BA's cameras, the family's
+    # own plan is the same plan and is shared.
+    f_plan = []
+    for fam, fps in zip(program.families, f_pos):
+        plans = []
+        for j, fp in enumerate(fps):
+            if fp is None:
+                plans.append(None)
+                continue
+            own = fam.reduce_plans[j]
+            G = f_group_sizes.get(fam.structure.tangent_sizes[j], 0)
+            col = fam.block_ids[:, j]
+            bd_pos = np.where(program.constant[col], own.num_groups, program._bd_row[col])
+            same = own.num_groups == G and np.array_equal(bd_pos, fp)
+            plans.append(own if same else build_reduce_plan(fp, G, dev))
+        f_plan.append(tuple(plans))
+
     e_flat = e_group.ravel()
     e_slice = (
         int(e_flat[0])
@@ -206,6 +251,8 @@ def build_schur_structure(program) -> SchurStructure:
         e_arg=tuple(e_arg),
         e_pos=tuple(to_dev(ep) for ep in e_pos),
         f_groups={T: to_dev(rows) for T, rows in f_rows.items()},
+        f_pos=tuple(tuple(to_dev(p) for p in fp) for fp in f_pos),
+        f_plan=tuple(f_plan),
         e_plan=e_plan,
         e_slice=e_slice,
         host_e_pos=tuple(e_pos),
@@ -310,6 +357,15 @@ class SchurOperator:
         diff = tuple(a - b for a, b in zip(ctx.residuals, w2))
         return ctx.rmatvec(diff, skip=ss.e_arg) * ss.f_mask
 
+    def rhs_from_tangent(self, r: torch.Tensor) -> torch.Tensor:
+        """Reduced rhs for a tangent-space rhs r = [r_e; r_f]:
+        r_f - F'E (E'E + D_e^2)^{-1} r_e (the mixed-precision refinement's
+        right-hand sides)."""
+        ss = self.ss
+        u = self._solve_ete(self._gather_e(r))
+        corr = self.ctx.rmatvec(self._e_times(u), skip=ss.e_arg)  # F'E u
+        return (r - corr) * ss.f_mask
+
     def back_substitute(self, x_f: torch.Tensor) -> torch.Tensor:
         """Recover the e part: y_e = (E'E)^{-1} E'(f - F x_f)
         (implicit_schur_complement.cc:208)."""
@@ -318,6 +374,57 @@ class SchurOperator:
         Jx = ctx.matvec(x_f, skip=ss.e_arg)
         diff = tuple(r - w for r, w in zip(ctx.residuals, Jx))
         return x_f + self._embed_e(self._solve_ete(self._edot(diff)))
+
+    def back_substitute_tangent(self, x_f: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """The e part for a tangent rhs r: y_e = (E'E + D_e^2)^{-1}
+        (r_e - E'F x_f)."""
+        ss = self.ss
+        x_f = x_f * ss.f_mask
+        etfx = self._edot(self.ctx.matvec(x_f, skip=ss.e_arg))
+        return x_f + self._embed_e(self._solve_ete(self._gather_e(r) - etfx))
+
+    # -- preconditioners -----------------------------------------------------
+
+    def schur_jacobi_blocks(self) -> Dict[int, torch.Tensor]:
+        """Block diagonal of S over the f blocks, damping included
+        (schur_jacobi_preconditioner.h:78), without S: per instance
+        F'F - W' (E'E + D_e^2)^{-1} W with W = E'F, reduced into the f
+        blocks through the camera-side plans. Exact when each (e-block,
+        f-block) pair shares at most one residual block (BA: one
+        observation per camera-point pair)."""
+        ctx, ss = self.ctx, self.ss
+        Te = ss.e_tangent_size
+        out = {
+            T: torch.zeros((idx.shape[0], T, T), dtype=self.dtype, device=self.D.device)
+            for T, idx in ss.f_groups.items()
+        }
+        # Zero row P: an instance whose e-slot is a constant block
+        # (e_pos == num_points) contributes no correction.
+        minv = self._ete_inv.reshape(-1, Te * Te)
+        minv = torch.cat([minv, minv.new_zeros((1, Te * Te))], dim=0)
+        for fi, fam in enumerate(ctx.families):
+            ea = ss.e_arg[fi]
+            for j in range(fam.num_args):
+                T = fam.structure.tangent_sizes[j]
+                if j == ea or T not in out:
+                    continue
+                F = ctx.jacs[fi][j]
+                contrib = _pair_product(F, F)
+                if ea >= 0:
+                    w = _pair_product(ctx.jacs[fi][ea], F)  # (B, Te*T)
+                    y = _flat_apply_minv(minv[ss.e_pos[fi]], w, Te, T)
+                    contrib = contrib - flat_outer(w, y, Te, T, T)
+                red = apply_reduce(ss.f_plan[fi][j], contrib)[: out[T].shape[0]]
+                out[T] = out[T] + red.reshape(-1, T, T)
+        for T, idx in ss.f_groups.items():
+            df = self.D[idx]
+            out[T] = out[T] + torch.diag_embed(df * df)
+        return out
+
+    def schur_jacobi_preconditioner(self):
+        """SCHUR_JACOBI from the implicit blocks (no S in hand)."""
+        blocks = self.schur_jacobi_blocks()
+        return self._block_diag_apply({T: spd_inverse(b) for T, b in blocks.items()})
 
     def schur_jacobi_preconditioner_from_dense(self, S: torch.Tensor):
         """SCHUR_JACOBI from the f block diagonal of a dense S (damping
@@ -335,12 +442,39 @@ class SchurOperator:
             eye = torch.eye(T, dtype=S.dtype, device=S.device)
             blocks = torch.where(valid[:, None, None], blocks, eye)
             inverses[T] = spd_inverse(blocks)
+        return self._block_diag_apply(inverses)
+
+    def _block_diag_apply(self, inverses: Dict[int, torch.Tensor]):
+        """v -> the f blocks of v, each times its inverse (zero on e)."""
+        ss = self.ss
 
         def apply(v: torch.Tensor) -> torch.Tensor:
             out = torch.zeros_like(v)
             for T, idx in ss.f_groups.items():
                 out[idx.reshape(-1)] = spd_solve(inverses[T], v[idx]).reshape(-1)
             return out * ss.f_mask
+
+        return apply
+
+    def power_series_preconditioner(self, num_terms: int, tolerance: float = 0.0):
+        """Truncated Neumann series S^{-1} ~ sum_k (I - M^{-1} S)^k M^{-1},
+        M the block diagonal of S (power_series_expansion_preconditioner.h:44).
+        After the leading M^{-1} v, terms are added until ``num_terms`` were
+        added or the latest term's norm drops below ``tolerance`` x
+        ||M^{-1} v|| (power_series_expansion_preconditioner.cc:60-84).
+        ``tolerance = 0`` is the fixed count a preconditioner runs: no host
+        read. A tolerance reads one norm per term."""
+        bj = self.schur_jacobi_preconditioner()
+
+        def apply(v: torch.Tensor) -> torch.Tensor:
+            acc = bj(v)
+            threshold = tolerance * torch.linalg.norm(acc) if tolerance > 0 else None
+            for _ in range(num_terms):
+                term = bj(v - self.s_times(acc))
+                acc = acc + term
+                if threshold is not None and not bool(torch.linalg.norm(term) >= threshold):
+                    break
+            return acc
 
         return apply
 
@@ -352,65 +486,101 @@ class SchurOperator:
         return S, self.rhs()[ss.f_idx], ss.f_idx
 
 
-def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructure):
-    """Solve min ||J y - f||^2 + ||D y||^2 by eliminating the e-blocks.
-    DENSE_SCHUR factors the assembled S (schur_complement_solver.cc);
-    ITERATIVE_SCHUR runs PCG on it
-    (iterative_schur_complement_solver.cc:64-155 with an explicit S).
-    Returns (y, linear_iterations, termination) with linear/cg.py codes."""
+def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructure,
+                rhs: Optional[torch.Tensor] = None):
+    """Solve min ||J y - f||^2 + ||D y||^2 by eliminating the e-blocks, or,
+    with ``rhs``, (J'J + D^2) y = rhs for a tangent-space rhs. DENSE_SCHUR
+    factors the assembled S (schur_complement_solver.cc); ITERATIVE_SCHUR
+    runs PCG (iterative_schur_complement_solver.cc:64-155) on the assembled
+    S when the reduced system is small or ``use_explicit_schur_complement``
+    asks for it, else on the implicit S x. Returns (y, linear_iterations,
+    termination) with linear/cg.py codes."""
     lst = config.linear_solver_type
     if lst not in (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR):
-        raise NotImplementedError(f"{lst.name}: {_OTHER_SOLVERS}")
-    if (
-        lst == LinearSolverType.ITERATIVE_SCHUR
-        and config.preconditioner_type != PreconditionerType.SCHUR_JACOBI
-    ):
-        raise NotImplementedError(
-            f"preconditioner {config.preconditioner_type.name}: {_OTHER_SOLVERS}"
-        )
-    if ss.explicit is None:
-        raise NotImplementedError(
-            f"ITERATIVE_SCHUR with nf > {EXPLICIT_S_AUTO_MAX_NF} (implicit S "
-            f"and its SCHUR_JACOBI blocks): {_OTHER_SOLVERS}"
-        )
+        raise NotImplementedError(f"{lst.name}: {_ITEM_14B}")
     op = SchurOperator(ctx, D, ss)
     nt = ctx.num_tangent
     f_idx = ss.f_idx
+
+    def back_substitute(x_f):
+        if rhs is None:
+            return op.back_substitute(x_f)
+        return op.back_substitute_tangent(x_f, rhs)
+
+    def reduced_rhs():
+        return op.rhs() if rhs is None else op.rhs_from_tangent(rhs)
 
     if lst == LinearSolverType.DENSE_SCHUR:
         # Cholesky of S as assembled (its lower triangle; no symmetrizing,
         # as in the JAX package). An indefinite S gives a non-finite step
         # and FAILURE, which the LM loop answers by shrinking the radius.
-        S, rhs_red, _ = op.dense_reduced_system()
+        S = assemble_reduced_system(op, ss.explicit)
         chol, info = torch.linalg.cholesky_ex(S)
-        xf_red = torch.cholesky_solve(rhs_red[:, None], chol)[:, 0]
+        xf_red = torch.cholesky_solve(reduced_rhs()[f_idx][:, None], chol)[:, 0]
         xf_red = torch.where(info == 0, xf_red, torch.nan)
         x_f = torch.zeros((nt,), dtype=op.dtype, device=D.device)
         x_f[f_idx] = xf_red
-        y = op.back_substitute(x_f)
+        y = back_substitute(x_f)
         one = torch.ones((), dtype=torch.int32, device=D.device)
         return y, one, direct_termination(y)
 
-    S = assemble_reduced_system(op, ss.explicit)
-    # S is symmetric in exact arithmetic; the assembled f32 matrix is not
-    # exactly so (independent lower/upper accumulation orders), and CG on
-    # the raw matrix produces steps with model_cost_change <= 0 near the
-    # optimum. Symmetrize once.
-    S = 0.5 * (S + S.T)
-    M = op.schur_jacobi_preconditioner_from_dense(S)
+    # The explicit-S policy: the user's flag, or a small reduced system
+    # whose assembly plan is in hand (a structure shared with DENSE_SCHUR
+    # carries one at any nf).
+    S = None
+    if config.use_explicit_schur_complement or (
+        ss.explicit is not None and int(f_idx.shape[0]) <= EXPLICIT_S_AUTO_MAX_NF
+    ):
+        S = assemble_reduced_system(op, ss.explicit)
+        # S is symmetric in exact arithmetic; the assembled f32 matrix is
+        # not exactly so (independent lower/upper accumulation orders), and
+        # CG on the raw matrix produces steps with model_cost_change <= 0
+        # near the optimum. Symmetrize once. (The implicit S x is run
+        # unsymmetrized, as in the JAX package.)
+        S = 0.5 * (S + S.T)
 
-    def s_apply(v):
-        out = torch.zeros((nt,), dtype=v.dtype, device=v.device)
-        out[f_idx] = S @ v[f_idx]
-        return out
+    pt = config.preconditioner_type
+    if pt in (PreconditionerType.SCHUR_JACOBI, PreconditionerType.JACOBI):
+        if S is not None:
+            M = op.schur_jacobi_preconditioner_from_dense(S)
+        else:
+            M = op.schur_jacobi_preconditioner()
+    elif pt == PreconditionerType.SCHUR_POWER_SERIES_EXPANSION:
+        # As a preconditioner the series runs a fixed term count, so that M
+        # is the same linear operator in every CG iteration
+        # (iterative_schur_complement_solver.cc:179-183); spse_tolerance
+        # belongs to the initialization below. It runs the implicit S x even
+        # when S is assembled, as the JAX package does.
+        M = op.power_series_preconditioner(config.max_num_spse_iterations, 0.0)
+    elif pt == PreconditionerType.IDENTITY:
+        M = None
+    else:
+        raise NotImplementedError(f"preconditioner {pt.name}: {_ITEM_14B}")
+
+    b = reduced_rhs()
+    x0 = None
+    if config.use_spse_initialization:
+        # Power-series initial guess (iterative_schur_complement_solver.cc:101-111).
+        x0 = op.power_series_preconditioner(
+            config.max_num_spse_iterations, config.spse_tolerance
+        )(b)
+
+    s_apply = op.s_times
+    if S is not None:
+
+        def s_apply(v):
+            out = torch.zeros((nt,), dtype=v.dtype, device=v.device)
+            out[f_idx] = S @ v[f_idx]
+            return out
 
     res = conjugate_gradients(
         s_apply,
-        op.rhs(),
+        b,
         preconditioner=M,
+        x0=x0,
         max_num_iterations=config.max_linear_solver_iterations,
         min_num_iterations=config.min_linear_solver_iterations,
         q_tolerance=config.eta,
         r_tolerance=-1.0,
     )
-    return op.back_substitute(res.x), res.num_iterations, res.termination
+    return back_substitute(res.x), res.num_iterations, res.termination

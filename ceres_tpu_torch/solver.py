@@ -4,18 +4,21 @@ TRUST_REGION subset of ``ceres_tpu/solver.py``).
 Every configuration runs the fused LM loop of ``fused_lm.py``, with a loss,
 manifolds and constant blocks, and one of the linear solvers DENSE_QR,
 DENSE_NORMAL_CHOLESKY, CGNR (IDENTITY, JACOBI, SUBSET), DENSE_SCHUR and
-ITERATIVE_SCHUR with SCHUR_JACOBI. Options that need another minimizer,
-host work inside the loop (bounds, callbacks, inner iterations) or a linear
-solver the port does not have yet raise ``NotImplementedError`` naming
-their ROADMAP item. A solve runs on the card unless the caller names
+ITERATIVE_SCHUR (IDENTITY, JACOBI, SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION;
+explicit or implicit S), any of them with mixed-precision refinement and,
+for the Schur solvers, a user elimination ordering. Options that need
+another minimizer, host work inside the loop (bounds, callbacks, inner
+iterations) or a linear solver or preconditioner the port does not have yet
+raise ``NotImplementedError`` naming their ROADMAP item. A solve runs on the card unless the caller names
 another device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
+from ceres_tpu_torch.ordered_groups import OrderedGroups
 from ceres_tpu_torch.types import (
     LinearSolverType,
     MinimizerType,
@@ -24,8 +27,12 @@ from ceres_tpu_torch.types import (
     TrustRegionStrategyType,
 )
 
-_MINIMIZERS = "ROADMAP Queue 1 item 16 (other minimizers)"
-_LINEAR = "ROADMAP Queue 1 item 14 (other linear solvers and preconditioners)"
+_HOST_LOOP = "ROADMAP Queue 1 item 16a (the host-loop trust-region minimizer)"
+_MINIMIZERS = "ROADMAP Queue 1 item 16b (the other minimizers)"
+_SPARSE = (
+    "ROADMAP Queue 1 item 14b (host-driven sparse solvers and the cluster "
+    "preconditioners, after the port's ctypes loader)"
+)
 
 
 @dataclasses.dataclass
@@ -61,9 +68,17 @@ class SolverOptions:
     residual_blocks_for_subset_preconditioner: Optional[List[int]] = None
     use_explicit_schur_complement: bool = False
     use_mixed_precision_solves: bool = False
+    max_num_refinement_iterations: int = 0
     # None keeps float64; "float32" evaluates residuals/Jacobians and runs
     # the linear solves in f32 (cost sums and LM scalars stay f64).
     evaluation_dtype: Optional[str] = None
+    use_spse_initialization: bool = False
+    max_num_spse_iterations: int = 5
+    spse_tolerance: float = 0.1
+    # Elimination-order hint (ordered_groups.h): groups of parameter block
+    # ids, group 0 eliminated first (the e-blocks of the Schur solvers).
+    # None = automatic (greedy maximal independent set).
+    linear_solver_ordering: Optional[Union[OrderedGroups, List[List[int]]]] = None
     use_inner_iterations: bool = False
     minimizer_progress_to_stdout: bool = False
     check_gradients: bool = False
@@ -154,14 +169,25 @@ class SolverOptions:
         if lst == LinearSolverType.ITERATIVE_SCHUR:
             if pt == PreconditionerType.SUBSET:
                 return "Can't use SUBSET preconditioner with ITERATIVE_SCHUR"
+            if self.use_explicit_schur_complement:
+                if pt != PreconditionerType.SCHUR_JACOBI:
+                    return (
+                        "use_explicit_schur_complement only supports "
+                        "SCHUR_JACOBI as the preconditioner"
+                    )
+                if self.use_spse_initialization:
+                    return (
+                        "use_explicit_schur_complement does not support "
+                        "use_spse_initialization"
+                    )
             if (
-                self.use_explicit_schur_complement
-                and pt != PreconditionerType.SCHUR_JACOBI
+                self.use_spse_initialization
+                or pt == PreconditionerType.SCHUR_POWER_SERIES_EXPANSION
             ):
-                return (
-                    "use_explicit_schur_complement only supports "
-                    "SCHUR_JACOBI as the preconditioner"
-                )
+                if self.max_num_spse_iterations < 1:
+                    return "max_num_spse_iterations must be >= 1"
+                if self.spse_tolerance < 0:
+                    return "spse_tolerance must be >= 0"
         if pt == PreconditionerType.SUBSET and not (
             self.residual_blocks_for_subset_preconditioner
         ):
@@ -208,25 +234,23 @@ def check_supported(options: SolverOptions, program) -> None:
     ):
         if getattr(options, flag):
             raise NotImplementedError(
-                f"{flag} needs the host-loop minimizer: {_MINIMIZERS}"
+                f"{flag} needs the host-loop minimizer: {_HOST_LOOP}"
             )
     if options.max_solver_time_in_seconds < 1e6:
         raise NotImplementedError(
-            f"max_solver_time_in_seconds needs the host-loop minimizer: {_MINIMIZERS}"
+            f"max_solver_time_in_seconds needs the host-loop minimizer: {_HOST_LOOP}"
         )
     if program.has_bounds:
         raise NotImplementedError(
-            f"parameter bounds need the host-loop minimizer: {_MINIMIZERS}"
+            f"parameter bounds need the host-loop minimizer: {_HOST_LOOP}"
         )
     if options.linear_solver_type not in _SUPPORTED_LINEAR:
-        raise NotImplementedError(f"{options.linear_solver_type}: {_LINEAR}")
-    if (
-        options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR
-        and options.preconditioner_type != PreconditionerType.SCHUR_JACOBI
+        raise NotImplementedError(f"{options.linear_solver_type}: {_SPARSE}")
+    if options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR and (
+        options.preconditioner_type
+        in (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
     ):
-        raise NotImplementedError(f"{options.preconditioner_type}: {_LINEAR}")
-    if options.use_mixed_precision_solves:
-        raise NotImplementedError(f"mixed-precision solves: {_LINEAR}")
+        raise NotImplementedError(f"{options.preconditioner_type}: {_SPARSE}")
 
 
 @dataclasses.dataclass

@@ -3,18 +3,22 @@
     python3 -m ceres_tpu_torch.tools.profile_solve [CASE] [float32|float64]...
 
 For each dtype (default: both), on the named case (default: large: 464
-cameras / 200 000 points / 1 200 000 observations, DENSE_SCHUR; flagship:
-16 / 22106 / 83718, ITERATIVE_SCHUR; robust_large and robust_flagship: the
-same with HuberLoss(1.0); pose_graph: the 2500-pose sphere, CGNR + block
-Jacobi, cut to its first 6 LM iterations because the whole solve runs tens
-of thousands of CG iterations), after a 2-iteration warm-up solve:
+cameras / 200 000 points / 1 200 000 observations, DENSE_SCHUR;
+large_iterative: the same at ``bal.default_options(iterative=True)``,
+ITERATIVE_SCHUR + SCHUR_JACOBI on the implicit S; flagship: 16 / 22106 /
+83718, ITERATIVE_SCHUR; robust_large and robust_flagship: the large and
+flagship cases with HuberLoss(1.0); pose_graph: the 2500-pose sphere, CGNR +
+block Jacobi, cut to its first 6 LM iterations because the whole solve runs
+tens of thousands of CG iterations), after a 2-iteration warm-up solve:
 
 1. ``stages``: one solve with every stage bracketed by
    ``torch.cuda.synchronize()`` and timed on the host clock, so a stage's
    seconds hold its host work and its device work. Stages nest: the
    kernels' wrappers (K1, K3, K4) are inside the evaluation and the S
-   assembly, and are listed on their own. The synchronizing makes this solve
-   slower than a plain one; both loop times are printed.
+   assembly or the S x products, S x and the preconditioner's applications
+   inside CG, and all are listed on their own. The synchronizing makes this
+   solve slower than a plain one; both loop times are printed, and the
+   seconds per CG iteration of both.
 2. ``device``: one plain solve under ``torch.profiler``, on a problem whose
    host set-up (program, plans, copies to the card) was done beforehand by
    a 0-iteration solve: the device's busy time (union of its kernels'
@@ -43,13 +47,16 @@ from ceres_tpu_torch.ops import reduce
 
 _LARGE = dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7)
 _FLAGSHIP = dict(num_cameras=16, num_points=22106, num_observations=83718, seed=16)
-# case -> (BAL sizes or None for the pose graph, ITERATIVE_SCHUR?, Huber loss?)
+# case -> (BAL sizes or None for the pose graph, ITERATIVE_SCHUR?, Huber
+# loss?, the model's default function tolerance (else 1e-9 for an
+# iterative solve, as chip_smoke.py's flagship)?)
 CASES = {
-    "large": (_LARGE, False, False),
-    "flagship": (_FLAGSHIP, True, False),
-    "robust_large": (_LARGE, False, True),
-    "robust_flagship": (_FLAGSHIP, True, True),
-    "pose_graph": (None, None, False),
+    "large": (_LARGE, False, False, False),
+    "large_iterative": (_LARGE, True, False, True),
+    "flagship": (_FLAGSHIP, True, False, False),
+    "robust_large": (_LARGE, False, True, True),
+    "robust_flagship": (_FLAGSHIP, True, True, True),
+    "pose_graph": (None, None, False, True),
 }
 POSE_GRAPH_LM_ITERATIONS = 6
 
@@ -62,9 +69,7 @@ class _Stages:
         self.calls = collections.defaultdict(int)
         self._undo = []
 
-    def wrap(self, owner, attr, label):
-        fn = getattr(owner, attr)
-
+    def _timed(self, fn, label):
         def timed(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -74,8 +79,18 @@ class _Stages:
             self.calls[label] += 1
             return out
 
-        setattr(owner, attr, timed)
+        return timed
+
+    def wrap(self, owner, attr, label):
+        fn = getattr(owner, attr)
+        setattr(owner, attr, self._timed(fn, label))
         self._undo.append((owner, attr, fn))
+
+    def wrap_returned(self, owner, attr, label):
+        """Time the calls of the function that ``owner.attr`` returns."""
+        make = getattr(owner, attr)
+        setattr(owner, attr, lambda *a, **k: self._timed(make(*a, **k), label))
+        self._undo.append((owner, attr, make))
 
     def __enter__(self):
         self.wrap(fused_lm, "_full_impl", "full evaluation (residuals, Jacobians, gradient)")
@@ -83,6 +98,10 @@ class _Stages:
         self.wrap(fused_lm, "_linear_solve", "linear solve")
         self.wrap(schur.SchurOperator, "rhs", "- reduced rhs")
         self.wrap(schur.SchurOperator, "back_substitute", "- back substitution")
+        self.wrap(schur.SchurOperator, "s_times", "- S x (implicit, inside CG)")
+        self.wrap(schur.SchurOperator, "schur_jacobi_blocks", "- SCHUR_JACOBI blocks (implicit)")
+        self.wrap_returned(schur.SchurOperator, "_block_diag_apply",
+                           "- preconditioner applications (inside CG)")
         self.wrap(schur, "SchurOperator", "- point blocks (E'E+D^2)^-1")
         self.wrap(schur, "assemble_reduced_system", "- S assembly")
         self.wrap(torch.linalg, "cholesky_ex", "- Cholesky factorization of S")
@@ -140,7 +159,7 @@ def main(argv) -> int:
         raise RuntimeError("profile_solve needs a CUDA device")
     case = argv[0] if argv else "large"
     dtypes = argv[1:] or ["float32", "float64"]
-    sizes, iterative, robust = CASES[case]
+    sizes, iterative, robust, default_tolerance = CASES[case]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -170,7 +189,7 @@ def main(argv) -> int:
 
         def options(dtype, max_iters):
             opts = _options(dtype, iterative, max_iters)
-            if robust:
+            if default_tolerance:
                 opts.function_tolerance = 1e-6  # the model's default
             return opts
 
@@ -191,6 +210,10 @@ def main(argv) -> int:
             final_cost=timed.final_cost,
             loop_seconds_plain=plain.minimizer_time_in_seconds,
             loop_seconds_synchronized=timed.minimizer_time_in_seconds,
+            seconds_per_cg_iteration_plain=plain.minimizer_time_in_seconds
+            / max(plain.num_linear_solver_iterations, 1),
+            seconds_per_cg_iteration_synchronized=timed.minimizer_time_in_seconds
+            / max(timed.num_linear_solver_iterations, 1),
             setup_seconds=plain.preprocessor_time_in_seconds,
             stages={k: {"seconds": v, "calls": stages.calls[k]} for k, v in stages.seconds.items()},
         )

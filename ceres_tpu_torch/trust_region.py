@@ -1,7 +1,7 @@
 """Levenberg-Marquardt core shared by the solve loop (port of the LM part
 of ``ceres_tpu/trust_region.py``): the linear-solve configuration, the
 preprocessor-built solve structures, the LM damping and the linear-solve
-dispatch."""
+dispatch with its mixed-precision refinement."""
 
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from ceres_tpu_torch.linear.schur import (
     solve_schur,
 )
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
+from ceres_tpu_torch.ordered_groups import normalize_ordering, validate_ordering_partition
 from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
 
 @dataclasses.dataclass
@@ -62,8 +63,14 @@ class _SolveConfig:
     eta: float
     max_linear_solver_iterations: int
     min_linear_solver_iterations: int
+    max_num_spse_iterations: int
+    spse_tolerance: float
+    use_spse_initialization: bool
+    use_explicit_schur_complement: bool
     min_lm_diagonal: float
     max_lm_diagonal: float
+    use_mixed_precision_solves: bool
+    num_refinement_iterations: int
 
 
 def _config_from_options(options) -> _SolveConfig:
@@ -73,8 +80,14 @@ def _config_from_options(options) -> _SolveConfig:
         eta=options.eta,
         max_linear_solver_iterations=options.max_linear_solver_iterations,
         min_linear_solver_iterations=options.min_linear_solver_iterations,
+        max_num_spse_iterations=options.max_num_spse_iterations,
+        spse_tolerance=options.spse_tolerance,
+        use_spse_initialization=options.use_spse_initialization,
+        use_explicit_schur_complement=options.use_explicit_schur_complement,
         min_lm_diagonal=options.min_lm_diagonal,
         max_lm_diagonal=options.max_lm_diagonal,
+        use_mixed_precision_solves=options.use_mixed_precision_solves,
+        num_refinement_iterations=max(options.max_num_refinement_iterations, 1),
     )
 
 
@@ -84,10 +97,12 @@ def _build_solve_aux(options, program) -> dict:
     explicit-S assembly plan, and the SUBSET preconditioner's row masks),
     memoized on the program per structural option set."""
     subset = options.residual_blocks_for_subset_preconditioner
+    groups = normalize_ordering(options.linear_solver_ordering)
     key = (
         options.linear_solver_type,
         options.preconditioner_type,
         options.use_explicit_schur_complement,
+        tuple(tuple(sorted(int(p) for p in g)) for g in groups) if groups else None,
         tuple(sorted(int(r) for r in subset)) if subset else None,
     )
     hit = program.solve_aux_cache.get(key)
@@ -95,9 +110,17 @@ def _build_solve_aux(options, program) -> dict:
         return hit
     ss = None
     if options.linear_solver_type in _SCHUR_TYPES:
+        ordering = None
+        if groups:
+            # Group 0 is eliminated first; more groups must partition the
+            # active blocks (ordered_groups.h) and order the reduced system,
+            # which is inert for the dense and iterative reduced solves.
+            if len(groups) > 1:
+                validate_ordering_partition(program, groups)
+            ordering = list(groups[0])
         ss = program.schur_structure
-        if ss is None:
-            ss = build_schur_structure(program)
+        if ss is None or ordering is not None:
+            ss = build_schur_structure(program, ordering=ordering)
             program.schur_structure = ss
         # DENSE/SPARSE_SCHUR always assemble S; ITERATIVE_SCHUR does when
         # the reduced camera system is small (EXPLICIT_S_AUTO_MAX_NF).
@@ -132,20 +155,15 @@ def _lm_damping(diag: torch.Tensor, radius: torch.Tensor) -> torch.Tensor:
     return D
 
 
-def _linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
+def _base_linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
     """LinearSolver::Solve dispatch (linear_solver.cc:75). Returns (y,
     num_iterations, termination) with linear/cg.py termination codes:
     iterative solvers report their CG termination (FAILURE on breakdown),
     direct solvers FAILURE on a non-finite result. ``rhs``: an explicit
-    tangent right-hand side in place of J'f (not for the Schur solvers)."""
+    tangent right-hand side in place of J'f."""
     lst = config.linear_solver_type
     if lst in _SCHUR_TYPES:
-        if rhs is not None:
-            raise NotImplementedError(
-                "an explicit right-hand side with a Schur solver: ROADMAP "
-                "Queue 1 item 14 (other linear solvers and preconditioners)"
-            )
-        return solve_schur(ctx, D, config, solve_aux["ss"])
+        return solve_schur(ctx, D, config, solve_aux["ss"], rhs=rhs)
     one = torch.ones((), dtype=torch.int32, device=D.device)
     if lst == LinearSolverType.DENSE_QR:
         y = solve_dense_qr(ctx, D, rhs=rhs)
@@ -169,6 +187,42 @@ def _linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
         )
         return res.x, res.num_iterations, res.termination
     raise NotImplementedError(
-        f"linear solver {lst.name}: ROADMAP Queue 1 "
-        "item 14 (other linear solvers and preconditioners)"
+        f"linear solver {lst.name}: ROADMAP Queue 1 item 14b (host-driven "
+        "sparse solvers)"
     )
+
+
+def _solve_aux_as(solve_aux: dict, dtype: torch.dtype) -> dict:
+    """The solve structures with their floating arrays in ``dtype``."""
+    ss, masks = solve_aux["ss"], solve_aux.get("subset_masks")
+    return dict(
+        solve_aux,
+        ss=None if ss is None else ss.to_dtype(dtype),
+        subset_masks=None if masks is None else tuple(m.to(dtype) for m in masks),
+    )
+
+
+def _linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
+    """The dispatch with the mixed-precision wrapper
+    (``use_mixed_precision_solves``; dense_cholesky.h:104-246,
+    iterative_refiner.{h,cc}): every solve in f32, the refinement residual
+    rhs - (J'J + D^2) y and the accumulation of y in f64, with
+    ``num_refinement_iterations`` refinement steps; the iteration counts
+    add up and the termination is the worst of the solves'. The result is
+    then f64 whatever the evaluation dtype."""
+    if not config.use_mixed_precision_solves:
+        return _base_linear_solve(ctx, D, solve_aux, config, rhs=rhs)
+    f32, f64 = torch.float32, torch.float64
+    ctx32, ctx64 = ctx.to_dtype(f32), ctx.to_dtype(f64)
+    D32, D64 = D.to(f32), D.to(f64)
+    aux32 = _solve_aux_as(solve_aux, f32)
+    rhs64 = ctx64.gradient() if rhs is None else rhs.to(f64)
+    y32, iters, term = _base_linear_solve(ctx32, D32, aux32, config, rhs=rhs64.to(f32))
+    y = y32.to(f64)
+    for _ in range(config.num_refinement_iterations):
+        r = rhs64 - (ctx64.normal_matvec(y) + (D64 * D64) * y)
+        dy32, it, t = _base_linear_solve(ctx32, D32, aux32, config, rhs=r.to(f32))
+        y = y + dy32.to(f64)
+        iters = iters + it
+        term = torch.maximum(term, t)
+    return y, iters, term

@@ -63,17 +63,45 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    groups: ``index_add_``), which the phase checks and prints;
 9. solve, dense: a small robust BAL (8 / 500 / 2000, seed 42, Huber) with
    DENSE_QR and with DENSE_NORMAL_CHOLESKY, final costs within 1e-6 relative
-   of each other.
+   of each other;
+10. solve, large iterative (``large_iterative``): the large instance at
+   ``bal.default_options(iterative=True)``: ITERATIVE_SCHUR + SCHUR_JACOBI,
+   eta 0.1, at most 50 LM iterations. nf = 4176 > 2048, so no S is
+   assembled: every CG iteration runs the implicit S x (K1 on the point
+   side, K3 on the camera side) and every LM iteration the implicit
+   SCHUR_JACOBI blocks (K3 at d = 81). float32 and float64, a 2-iteration
+   warm-up and two timed solves each, equal to the bit (cost, LM and CG
+   iterations), a usable termination, within 1e-3 relative of 3587827.37,
+   float32 within 1e-5 of float64; K1 and K3 launched, K4 never. Its
+   ``plan`` line shows the Schur structure's plan kinds;
+11. solve, flagship preconditioners (``flagship_preconditioners``): the
+   flagship instance at ``bal.default_options(iterative=True)``, float64,
+   once each with IDENTITY, JACOBI,
+   SCHUR_POWER_SERIES_EXPANSION (which runs the implicit S x at the
+   flagship's shapes even though S is assembled), SCHUR_JACOBI with the
+   power-series initialization, and SCHUR_JACOBI in float32 with
+   mixed-precision refinement (3 steps), each within 1e-3 relative of the
+   JAX package's final cost for the same options;
+12. solve, pose graph twice (``pose_graph_repeat``):
+   ``pose_graph.synthesize_sphere(500, seed=0)`` through ``ctt.solve`` twice
+   in one process: every plan ``scatter`` (``index_add_``, which adds with
+   atomics on the card), and the two solves' final costs and LM and CG
+   iteration counts equal to the bit, the cost within 1e-3 of the JAX
+   package's.
 
 ``solve_seconds`` is the LM loop on the device; the host set-up of each
-fresh problem is reported as ``setup_seconds``. Launch counters are set to
-zero just before a timed solve and read just after it; K1's and K3's are
-also reported by the width d of what they reduce (``launches_by_width``).
+fresh problem is reported as ``setup_seconds``; ``seconds_per_cg_iteration``
+of the large iterative solve is the time of its CG loops (S x included, the
+rest of the LM iteration not) over its CG iterations. Launch counters are
+set to zero just before a timed solve and read just after it; K1's and K3's
+are also reported by the width d of what they reduce (``launches_by_width``).
 
-Before the last line: one ``{"kernels": [...]}`` line (per kernel: its times
-at the large case's float32 shape, its launches in the large float32 solve,
-and under ``launches_by_path`` its launches in the first timed solve of
-every path above) and the card's name and power limit. The last line is
+Before the last line: an ``elapsed`` line (the script's seconds), one
+``{"kernels": [...]}`` line (per kernel: its times at the large case's
+float32 shape, its launches in the large float32 solve, its launches by
+width there and in the large iterative float32 solve, and under
+``launches_by_path`` its launches in the first timed solve of every path
+above) and the card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -111,7 +139,35 @@ ROBUST_FLAGSHIP_REFERENCE_FINAL_COST = 114544.60539235643
 # 96 LM iterations and 44 687 CG iterations, from 10.250683705811847.
 POSE_GRAPH_POSES, POSE_GRAPH_SEED = 2500, 0
 POSE_GRAPH_REFERENCE_FINAL_COST = 0.377419867537356
+# The same for synthesize_sphere(500, seed=0) (518 constraints, every plan
+# ``scatter``): CONVERGENCE after 15 LM and 3837 CG iterations.
+POSE_GRAPH_REPEAT_POSES = 500
+POSE_GRAPH_REPEAT_REFERENCE_FINAL_COST = 0.058063696871759066
 SMALL_ROBUST = dict(num_cameras=8, num_points=500, num_observations=2000, seed=42)
+# The large iterative solve's float32 cost against its float64 one.
+LARGE_ITERATIVE_F32_RTOL = 1e-5
+# ceres_tpu.fused_lm.fused_solve on the flagship instance at
+# bal.default_options(iterative=True) (function tolerance 1e-6), float64,
+# with the changes named, JAX on the CPU: (changes, final cost); all
+# CONVERGENCE, in 6 / 4 / 4 / 4 / 4 LM and 92 / 12 / 8 / 4 / 77 CG
+# iterations. The last runs in float32 as named (the same options with
+# float64 evaluation end at 202425.45070322294).
+FLAGSHIP_PRECONDITIONERS = {
+    "IDENTITY": (dict(preconditioner_type=ctt.PreconditionerType.IDENTITY),
+                 202425.45296992327),
+    "JACOBI": (dict(preconditioner_type=ctt.PreconditionerType.JACOBI), 202425.4507877496),
+    "SCHUR_POWER_SERIES_EXPANSION": (
+        dict(preconditioner_type=ctt.PreconditionerType.SCHUR_POWER_SERIES_EXPANSION),
+        202425.45068803162,
+    ),
+    "SCHUR_JACOBI, use_spse_initialization": (dict(use_spse_initialization=True),
+                                              202425.45070201234),
+    "SCHUR_JACOBI, float32, use_mixed_precision_solves": (
+        dict(evaluation_dtype="float32", use_mixed_precision_solves=True,
+             max_num_refinement_iterations=3),
+        202425.44741709408,
+    ),
+}
 DENSE_RTOL = 1e-6
 # Timed flagship solves per dtype (each on a fresh problem); the first is
 # the run whose K1 launches are counted.
@@ -800,6 +856,173 @@ def solve_pose_graph(device) -> dict:
     return launches
 
 
+def _iterative_options(dtype: str, max_iters: int = 50):
+    opts = bal.default_options(iterative=True)
+    opts.max_num_iterations = max_iters
+    opts.evaluation_dtype = dtype
+    return opts
+
+
+def _schur_plans(program) -> dict:
+    """The Schur structure's plan kinds (point side per family; camera side
+    per family and argument) and whether S is assembled."""
+    ss_ = program.schur_structure
+    return dict(
+        nf=int(ss_.f_idx.shape[0]), explicit_s=ss_.explicit is not None,
+        e_plan=[None if p is None else p.kind for p in ss_.e_plan],
+        f_plan=[[None if p is None else p.kind for p in fam] for fam in ss_.f_plan],
+    )
+
+
+class _CGClock:
+    """Device-inclusive seconds spent in the Schur solver's CG loops: the
+    CG call is bracketed by ``torch.cuda.synchronize()`` (two per linear
+    solve, which the loop's own host reads make nearly free)."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._cg = schur_mod.conjugate_gradients
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._cg(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        schur_mod.conjugate_gradients = timed
+        return self
+
+    def __exit__(self, *exc):
+        schur_mod.conjugate_gradients = self._cg
+
+
+def solve_large_iterative(device, dtype: str, inst):
+    """The large case with ITERATIVE_SCHUR on the implicit S: a 2-iteration
+    warm-up, then two timed solves on fresh problems, equal to the bit, the
+    first with its CG loops clocked. Returns (summary, launches and launches
+    by width of the first)."""
+    warm, _, _ = bal.build_problem(inst)
+    ctt.fused_solve(_iterative_options(dtype, 2), warm, device=device)
+    del warm
+    runs = []
+    for i in range(LARGE_REPEATS):
+        problem, _, _ = bal.build_problem(inst)
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            with _CGClock() as cg_clock:
+                runs.append(ctt.fused_solve(_iterative_options(dtype), problem, device=device))
+        else:
+            runs.append(ctt.fused_solve(_iterative_options(dtype), problem, device=device))
+        if i == 0:
+            launches, by_width = _launches(), _launches_by_width()
+            peak = torch.cuda.max_memory_allocated()
+            rel = _checked(problem, runs[0], LARGE_REFERENCE_FINAL_COST,
+                           f"large iterative {dtype}")
+            plans = _schur_plans(problem.program(device))
+        first, last = runs[0], runs[-1]
+        if (last.final_cost, last.num_iterations, last.num_linear_solver_iterations) != (
+            first.final_cost, first.num_iterations, first.num_linear_solver_iterations
+        ):
+            raise RuntimeError(f"large iterative {dtype} solve is not repeatable on the card")
+        del problem
+    summary = runs[0]
+    _usable(summary, f"large iterative {dtype}")
+    phase("plan", case="large_iterative", dtype=dtype, **plans)
+    if plans["explicit_s"] or plans["f_plan"][0][0] != "unsorted" or plans["e_plan"][0] != "sorted":
+        raise RuntimeError(f"large iterative {dtype}: not the implicit S on K1 and K3: {plans}")
+    seconds = summary.minimizer_time_in_seconds
+    cg = summary.num_linear_solver_iterations
+    phase(
+        "solve", case="large_iterative", dtype=dtype, initial_cost=summary.initial_cost,
+        final_cost=summary.final_cost, reference_final_cost=LARGE_REFERENCE_FINAL_COST,
+        rel_err=rel, lm_iterations=summary.num_iterations,
+        successful_steps=summary.num_successful_steps, cg_iterations=cg,
+        termination=str(summary.termination_type), solve_seconds=seconds,
+        seconds_per_lm_iteration=seconds / max(summary.num_iterations, 1),
+        cg_seconds=cg_clock.seconds, seconds_per_cg_iteration=cg_clock.seconds / max(cg, 1),
+        solve_seconds_all=[s.minimizer_time_in_seconds for s in runs],
+        setup_seconds=summary.preprocessor_time_in_seconds,
+        setup_seconds_all=[s.preprocessor_time_in_seconds for s in runs],
+        launches=launches, launches_by_width=by_width, peak_device_bytes=peak,
+    )
+    if (launches["sorted_segment_sum"] == 0 or launches["unsorted_segment_sum"] == 0
+            or launches["outer_segment_sum"] != 0):
+        raise RuntimeError(f"large iterative {dtype}: launches {launches} (K1, K3 > 0, K4 = 0)")
+    return summary, launches, by_width
+
+
+def solve_flagship_preconditioners(device) -> dict:
+    """The flagship instance once with each preconditioner and option of
+    FLAGSHIP_PRECONDITIONERS, against the JAX package's final cost for the
+    same options. Returns the launches of each solve."""
+    inst = flagship_instance()
+    paths = {}
+    for name, (changes, reference) in FLAGSHIP_PRECONDITIONERS.items():
+        opts = bal.default_options(iterative=True)
+        for field, value in changes.items():
+            setattr(opts, field, value)
+        problem, _, _ = bal.build_problem(inst)
+        _reset_launches()
+        summary = ctt.fused_solve(opts, problem, device=device)
+        launches, by_width = _launches(), _launches_by_width()
+        rel = _checked(problem, summary, reference, f"flagship {name}")
+        _usable(summary, f"flagship {name}")
+        phase(
+            "solve", case="flagship_preconditioners", variant=name,
+            dtype=opts.evaluation_dtype or "float64", initial_cost=summary.initial_cost,
+            final_cost=summary.final_cost, reference_final_cost=reference, rel_err=rel,
+            lm_iterations=summary.num_iterations,
+            cg_iterations=summary.num_linear_solver_iterations,
+            termination=str(summary.termination_type),
+            solve_seconds=summary.minimizer_time_in_seconds,
+            setup_seconds=summary.preprocessor_time_in_seconds,
+            launches=launches, launches_by_width=by_width,
+        )
+        if launches["sorted_segment_sum"] == 0:
+            raise RuntimeError(f"flagship {name}: K1 was never launched")
+        paths[f"flagship_{name}"] = launches
+    return paths
+
+
+def solve_pose_graph_twice(device) -> dict:
+    """A pose graph whose every plan is ``scatter`` (``index_add_``, atomics
+    on the card), solved twice in one process: the same final cost and LM
+    and CG iteration counts to the bit, and the JAX package's cost."""
+    positions, quats, constraints, _ = pose_graph.synthesize_sphere(
+        POSE_GRAPH_REPEAT_POSES, seed=POSE_GRAPH_SEED
+    )
+    runs = []
+    for _ in range(2):
+        problem, _, _ = pose_graph.build_problem_3d(positions, quats, constraints)
+        _reset_launches()
+        summary = ctt.solve(pose_graph.default_options(), problem, device=device)
+        launches = _launches()
+        rel = _checked(problem, summary, POSE_GRAPH_REPEAT_REFERENCE_FINAL_COST,
+                       "pose graph repeat")
+        _usable(summary, "pose graph repeat")
+        runs.append(summary)
+    kinds = _plan_kinds(problem.program(device))
+    keys = [(s.final_cost, len(s.iterations) - 1, s.num_linear_solver_iterations) for s in runs]
+    phase(
+        "solve", case="pose_graph_repeat", poses=POSE_GRAPH_REPEAT_POSES, dtype="float64",
+        constraints=len(constraints), final_costs=[k[0] for k in keys],
+        reference_final_cost=POSE_GRAPH_REPEAT_REFERENCE_FINAL_COST, rel_err=rel,
+        lm_iterations=[k[1] for k in keys], cg_iterations=[k[2] for k in keys],
+        termination=str(runs[0].termination_type),
+        solve_seconds=[s.minimizer_time_in_seconds for s in runs],
+        equal_to_the_bit=keys[0] == keys[1], plan_kinds=kinds, launches=launches,
+    )
+    if any(k != "scatter" for fam in kinds for k in fam) or any(launches.values()):
+        raise RuntimeError(f"pose graph repeat: plan kinds {kinds}, launches {launches}")
+    if keys[0] != keys[1]:
+        raise RuntimeError(f"pose graph repeat: two solves differ: {keys}")
+    return launches
+
+
 def solve_dense(device) -> None:
     """A small robust BAL with both dense solvers, one against the other."""
     inst = bal.synthesize_bal(**SMALL_ROBUST)
@@ -826,6 +1049,7 @@ def solve_dense(device) -> None:
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     smi = check_device()
     device = torch.device("cuda", 0)
     build_kernels()
@@ -843,15 +1067,27 @@ def main() -> int:
     phase("compare", case="robust_large", float32_vs_float64_rel=rel)
     if rel > COST_RTOL:
         raise RuntimeError(f"robust large: float32 {r32.final_cost} vs float64 {r64.final_cost}")
+    i32, paths["large_iterative_float32"], iter_by_width = solve_large_iterative(
+        device, "float32", inst
+    )
+    i64, paths["large_iterative_float64"], _ = solve_large_iterative(device, "float64", inst)
+    rel = abs(i32.final_cost - i64.final_cost) / i64.final_cost
+    phase("compare", case="large_iterative", float32_vs_float64_rel=rel)
+    if rel > LARGE_ITERATIVE_F32_RTOL:
+        raise RuntimeError(f"large iterative: float32 {i32.final_cost} vs float64 {i64.final_cost}")
     del inst
     paths["robust_flagship_float64"] = solve_robust_flagship(device)
+    paths.update(solve_flagship_preconditioners(device))
     paths["pose_graph_3d_float64"] = solve_pose_graph(device)
+    paths["pose_graph_repeat_float64"] = solve_pose_graph_twice(device)
     solve_dense(device)
     for record in records:
         record["launches"] = launches[record["name"]]
         record["launches_by_path"] = {k: v[record["name"]] for k, v in paths.items()}
         if record["name"] in by_width:
             record["launches_by_width"] = by_width[record["name"]]
+            record["launches_by_width_large_iterative_float32"] = iter_by_width[record["name"]]
+    phase("elapsed", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({

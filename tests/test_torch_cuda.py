@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels (sorted segment sum K1,
 unsorted segment sum K3, fused pair-outer segment sum K4) against their
 plain versions on the card, the plan choice on a CUDA device, a
-DENSE_SCHUR solve whose plans reach all three kernels, and the modeling API
+DENSE_SCHUR solve whose plans reach all three kernels, an implicit-S
+ITERATIVE_SCHUR step that reaches K1 and K3 and not K4, and the modeling API
 on the card against the CPU (robust BAL with a constant camera, a pose
 graph, the dense solvers and CGNR, ``Problem.evaluate``). Skipped without a
 card.
@@ -17,11 +18,14 @@ import pytest
 import torch
 
 import ceres_tpu_torch as ctt
+from ceres_tpu_torch.evaluator import _full_impl
+from ceres_tpu_torch.linear import schur
 from ceres_tpu_torch.models import bal
 from ceres_tpu_torch.ops import outer_segment_sum as osum
 from ceres_tpu_torch.ops import reduce as tred
 from ceres_tpu_torch.ops import segment_sum as ss
 from ceres_tpu_torch.ops import unsorted_segment_sum as us
+from ceres_tpu_torch.trust_region import _config_from_options, _lm_damping
 
 pytestmark = pytest.mark.cuda
 
@@ -394,6 +398,35 @@ def test_dense_schur_solve_reaches_all_three_kernels(device):
     assert on_card.final_cost < 1e-2 * on_card.initial_cost
     np.testing.assert_allclose(on_card.final_cost, on_cpu.final_cost, rtol=1e-9)
     assert np.all(np.isfinite(problem.state()))
+
+
+def test_implicit_schur_solve_reaches_k1_and_k3_not_k4(device):
+    """ITERATIVE_SCHUR above nf = 2048 (300 cameras: nf = 2700) on a CUDA
+    tensor: no S is assembled, so every S x runs K1 (point side) and K3
+    (camera side) and K4 never launches; the step, its CG count and its
+    termination equal the CPU's (plain versions; f64, steps to 1e-9)."""
+    inst = bal.synthesize_bal(num_cameras=300, num_points=8000, num_observations=48000,
+                              noise=2.0, perturb=0.7, seed=5)
+    cfg = _config_from_options(bal.default_options(iterative=True))
+    steps = []
+    for dev in ("cpu", device):
+        prog = bal.build_problem(inst)[0].program(dev)
+        x = torch.from_numpy(prog.initial_ambient()).to(dev)
+        _, _, ctx = _full_impl(x, prog.families, prog.num_tangent, prog.groups)
+        D = _lm_damping(torch.clamp(ctx.squared_column_norms(), 1e-6, 1e32),
+                        torch.tensor(1e4, dtype=torch.float64, device=dev))
+        ss_ = schur.build_schur_structure(prog)
+        assert ss_.explicit is None and ss_.f_idx.shape[0] == 2700
+        before = (ss.launches, us.launches, osum.launches)
+        steps.append(schur.solve_schur(ctx, D, cfg, ss_))
+        torch.cuda.synchronize()
+        k1, k3, k4 = (a - b for a, b in zip((ss.launches, us.launches, osum.launches), before))
+    assert ss_.e_plan[0].kind == "sorted" and ss_.f_plan[0][0].kind == "unsorted"
+    assert k1 > 0 and k3 > 0 and k4 == 0
+    (y_cpu, it_cpu, t_cpu), (y_card, it_card, t_card) = steps
+    assert int(it_card) == int(it_cpu) > 1 and int(t_card) == int(t_cpu)
+    scale = float(y_cpu.abs().max())
+    assert float((y_card.cpu() - y_cpu).abs().max()) <= 1e-9 * scale
 
 
 # ---- the modeling API on the card ---------------------------------------------

@@ -128,7 +128,8 @@ def test_other_solvers_are_roadmap_items(both):
     from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
 
     for change in (dict(linear_solver_type=LinearSolverType.SPARSE_SCHUR),
-                   dict(preconditioner_type=PreconditionerType.JACOBI)):
+                   dict(preconditioner_type=PreconditionerType.CLUSTER_JACOBI),
+                   dict(preconditioner_type=PreconditionerType.CLUSTER_TRIDIAGONAL)):
         cfg = dataclasses.replace(both["cfg_t"], **change)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14b"):
             tschur.solve_schur(both["ctx_t"], torch.tensor(both["D"]), cfg, both["ss_t"])

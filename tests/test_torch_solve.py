@@ -95,8 +95,9 @@ def test_unsupported_options_are_roadmap_items():
     tp = tbal.build_problem(tbal.synthesize_bal(**SIZES, seed=1))[0]
     for field, value in (("use_nonmonotonic_steps", True),
                          ("linear_solver_type", ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY),
-                         ("preconditioner_type", ctt.PreconditionerType.JACOBI),
-                         ("use_mixed_precision_solves", True)):
+                         ("preconditioner_type", ctt.PreconditionerType.CLUSTER_JACOBI),
+                         ("preconditioner_type", ctt.PreconditionerType.CLUSTER_TRIDIAGONAL),
+                         ("linear_solver_type", ctt.LinearSolverType.SPARSE_SCHUR)):
         opts = _options(tbal, None)
         setattr(opts, field, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
