@@ -22,6 +22,7 @@ the reference the tests hold it to.
 """
 
 from ceres_tpu_torch import cost_functions, loss, manifold, rotation
+from ceres_tpu_torch.cost_functions import EvaluationCallback
 from ceres_tpu_torch.fused_lm import fused_solve
 from ceres_tpu_torch.loss import (
     ArctanLoss,
@@ -51,6 +52,7 @@ from ceres_tpu_torch.problem import Problem
 from ceres_tpu_torch.solver import SolverOptions, SolverSummary, solve
 from ceres_tpu_torch.trust_region import IterationSummary
 from ceres_tpu_torch.types import (
+    CallbackReturnType,
     LinearSolverTerminationType,
     LinearSolverType,
     MinimizerType,
@@ -61,10 +63,12 @@ from ceres_tpu_torch.types import (
 
 __all__ = [
     "ArctanLoss",
+    "CallbackReturnType",
     "CauchyLoss",
     "ComposedLoss",
     "EigenQuaternionManifold",
     "EuclideanManifold",
+    "EvaluationCallback",
     "HuberLoss",
     "IterationSummary",
     "LineManifold",

@@ -13,8 +13,8 @@ higher-order functions:
 - ``to_functor``      — cost_function_to_functor.h: the identity here
 - ``analytic_cost``   — a hand-written Jacobian attached to a residual
 
-``EvaluationCallback`` belongs to the host-loop minimizer and is not in the
-port yet.
+and ``EvaluationCallback``, the hook the host-loop minimizer calls before
+each evaluation.
 """
 
 from __future__ import annotations
@@ -143,3 +143,15 @@ def analytic_cost(residual_fn: Callable, jacobian_fn: Callable) -> Callable:
         return _Analytic.apply(*args)
 
     return fn
+
+
+class EvaluationCallback:
+    """Analog of ceres::EvaluationCallback (evaluation_callback.h:63):
+    ``prepare_for_evaluation(new_evaluation_point, evaluate_jacobians)``
+    fires before every residual/Jacobian evaluation the solver performs.
+    Attach via ``SolverOptions.evaluation_callback``."""
+
+    def prepare_for_evaluation(
+        self, new_evaluation_point: bool, evaluate_jacobians: bool
+    ) -> None:
+        raise NotImplementedError

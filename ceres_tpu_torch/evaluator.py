@@ -16,6 +16,11 @@ pass (residual_block.cc:136-159 does it in two steps). A family's loss
 corrects its residuals and Jacobian blocks (the Triggs correction of
 corrector.cc) before any solver sees them: the model cost change and rho
 use the corrected arrays, the cost uses rho(s).
+
+``Evaluator`` wraps these functions for the host-loop minimizer
+(evaluator.h / program_evaluator.h): the entry points, the
+``EvaluationCallback`` hook, call statistics, and ``cost_and_gradient``, the
+tangent gradient by reverse mode without a Jacobian.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from ceres_tpu_torch.loss import (
     corrector_coefficients,
 )
 from ceres_tpu_torch.ops.reduce import apply_reduce
-from ceres_tpu_torch.problem import BlockGroups, Family
+from ceres_tpu_torch.problem import BlockGroups, Family, plus_apply
 
 
 def _group_rows(groups: BlockGroups, v: torch.Tensor, T: int) -> torch.Tensor:
@@ -390,3 +395,90 @@ def _full_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
         list(families), tuple(all_jacs), tuple(all_res), num_tangent, groups
     )
     return cost, ctx.gradient(), ctx
+
+
+def _cost_grad_impl(x: torch.Tensor, families, plus_struct, apply_loss: bool,
+                    num_tangent: int):
+    """(cost f64, tangent gradient) by reverse mode: the gradient of
+    cost(plus(x, delta)) at delta = 0, with no Jacobian formed
+    (program_evaluator.h:266-284 analog). The gradient has x's dtype; the
+    inputs are detached, and grad is enabled here, so an outer
+    ``torch.no_grad()`` does not stop it."""
+    with torch.enable_grad():
+        delta = torch.zeros((num_tangent,), dtype=x.dtype, device=x.device, requires_grad=True)
+        cost = _cost_impl(plus_apply(plus_struct, x.detach(), delta), families, apply_loss)
+        (grad,) = torch.autograd.grad(cost, delta)
+    return cost.detach(), grad
+
+
+@dataclasses.dataclass
+class FullEval:
+    cost: torch.Tensor
+    gradient: torch.Tensor
+    jacobian_context: JacobianContext
+
+
+class Evaluator:
+    """Evaluation entry points over a frozen Program (analog of Evaluator,
+    evaluator.h, and ProgramEvaluator, program_evaluator.h:118): ``cost``,
+    ``residuals``, ``cost_and_gradient`` and ``cost_gradient_jacobian``,
+    each of them device work that returns without waiting for the device.
+
+    ``evaluation_callback`` (an ``EvaluationCallback``) is told before every
+    evaluation whether the point is new — by the identity of x, as the
+    reference tells it by its parameter pointers — and whether Jacobians
+    are wanted. ``statistics()`` holds the calls and host seconds of each
+    entry point (execution_summary.h)."""
+
+    def __init__(self, program, apply_loss_function: bool = True, evaluation_callback=None):
+        from ceres_tpu_torch.utils.observability import ExecutionSummary
+
+        self.program = program
+        self.apply_loss = apply_loss_function
+        self.evaluation_callback = evaluation_callback
+        self._last_x = None
+        self.execution_summary = ExecutionSummary()
+
+    def _notify(self, x, evaluate_jacobians: bool) -> None:
+        """EvaluationCallback hook (evaluation_callback.h:63-80)."""
+        if self.evaluation_callback is None:
+            return
+        new_point = self._last_x is not x
+        self._last_x = x
+        self.evaluation_callback.prepare_for_evaluation(new_point, evaluate_jacobians)
+
+    def _timer(self, name: str):
+        from ceres_tpu_torch.utils.observability import ScopedExecutionTimer
+
+        return ScopedExecutionTimer(name, self.execution_summary)
+
+    def cost(self, x: torch.Tensor) -> torch.Tensor:
+        self._notify(x, False)
+        with self._timer("Evaluator::Residual"):
+            return _cost_impl(x, self.program.families, self.apply_loss)
+
+    def residuals(self, x: torch.Tensor) -> torch.Tensor:
+        self._notify(x, False)
+        with self._timer("Evaluator::Residual"):
+            return _residuals_impl(x, self.program.families, self.apply_loss)
+
+    def cost_and_gradient(self, x: torch.Tensor):
+        """(cost, tangent gradient) without forming the Jacobian."""
+        self._notify(x, False)
+        p = self.program
+        with self._timer("Evaluator::Gradient"):
+            return _cost_grad_impl(x, p.families, p.plus_struct, self.apply_loss, p.num_tangent)
+
+    def cost_gradient_jacobian(self, x: torch.Tensor) -> FullEval:
+        self._notify(x, True)
+        p = self.program
+        with self._timer("Evaluator::Jacobian"):
+            cost, grad, ctx = _full_impl(x, p.families, p.num_tangent, p.groups, self.apply_loss)
+        return FullEval(cost=cost, gradient=grad, jacobian_context=ctx)
+
+    def statistics(self):
+        """Evaluator::Statistics analog (program_evaluator.h:143-147)."""
+        return self.execution_summary
+
+    def plus(self, x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+        return self.program.plus(x, delta)

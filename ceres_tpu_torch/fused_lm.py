@@ -24,17 +24,16 @@ import torch
 
 from ceres_tpu_torch.evaluator import _cost_impl, _full_impl
 from ceres_tpu_torch.linear.cg import CG_FAILURE
-from ceres_tpu_torch.problem import cast_program, plus_apply
-from ceres_tpu_torch.solver import SolverSummary, check_supported
+from ceres_tpu_torch.solver import SolverSummary, preprocess
 from ceres_tpu_torch.trust_region import (
     IterationSummary,
     _SolveConfig,
     _build_solve_aux,
     _config_from_options,
-    _linear_solve,
-    _lm_damping,
+    candidate_point,
+    lm_step,
 )
-from ceres_tpu_torch.types import TerminationType
+from ceres_tpu_torch.types import MinimizerType, TerminationType, TrustRegionStrategyType
 
 # Termination codes of the loop (the JAX package's values).
 _RUNNING = 0
@@ -97,31 +96,18 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig, trace: bool)
     families = program.families
     cost, grad, ctx = _full_impl(s.x, families, program.num_tangent, program.groups)
 
-    scaling = None
+    scaling = norms0 = None
     if config.jacobi_scaling:
-        # One column-norm pass: the scaled norms are scaling^2 * norms.
+        # The scaling of this iterate's Jacobian (the host loop fixes it at
+        # iteration 0; the step does not depend on it but for rounding and
+        # the clipped LM diagonal).
         norms0 = ctx.squared_column_norms()
         scaling = 1.0 / (1.0 + torch.sqrt(norms0))
-        ctx = ctx.scale_columns(scaling)
-        scaled_norms = scaling * scaling * norms0
-    else:
-        scaled_norms = ctx.squared_column_norms()
-    diag = torch.clamp(scaled_norms, sc.min_lm_diagonal, sc.max_lm_diagonal)
-    D = _lm_damping(diag, s.radius)
-    y, lin_iters, lin_term = _linear_solve(ctx, D, solve_aux, sc)
-    step_scaled = -y.to(diag.dtype)
-    Js = ctx.matvec(step_scaled)
-    mcc = torch.zeros((), dtype=_F64, device=s.x.device)
-    for fi in range(len(ctx.families)):
-        # f64 accumulation: f32 cancellation here makes tiny steps near
-        # the optimum look invalid (mcc <= 0 noise).
-        j64 = Js[fi].to(_F64)
-        mcc = mcc - torch.sum(j64 * (ctx.residuals[fi].to(_F64) + j64 / 2.0))
-    step = step_scaled * scaling if config.jacobi_scaling else step_scaled
+    _, step_scaled, mcc, lin_iters, lin_term = lm_step(ctx, s.radius, solve_aux, sc, scaling, norms0)
     # A linear-solver FAILURE invalidates the step (linear_solver.h:57).
     step_is_valid = torch.isfinite(mcc) & (mcc > 0.0) & (lin_term < CG_FAILURE)
 
-    candidate = plus_apply(program.plus_struct, s.x, step)
+    candidate = candidate_point(program.plus_struct, s.x, step_scaled, scaling)
     cand_cost = _cost_impl(candidate, families)
     cand_cost = torch.where(torch.isfinite(cand_cost), cand_cost, torch.inf)
     rho = (cost - cand_cost) / mcc
@@ -338,67 +324,10 @@ def _fill_records(summary, opts, final, cost0: float, tr):
         summary.message = (
             f"Maximum number of iterations reached. Number of iterations: {T}."
         )
-    # Postprocess as the JAX package's solve does (solver.cc:834-855).
-    summary.initial_cost = records[0].cost
-    summary.final_cost = min(r.cost for r in records)
-    summary.num_successful_steps = sum(1 for r in records if r.step_is_successful)
-    summary.num_unsuccessful_steps = sum(1 for r in records if not r.step_is_successful)
-    summary.num_linear_solver_iterations = sum(r.linear_solver_iterations for r in records)
 
 
-def run_fused(options, problem, device="cuda", *, host_loop_parity: bool):
-    """Shared body of :func:`fused_solve` and ``solver.solve``."""
-    t0 = time.perf_counter()
-    device = torch.device(device)
-    program = problem.program(device)
-    summary = SolverSummary()
-    summary.minimizer_type = options.minimizer_type
-    summary.device = str(device)
-    summary.num_parameter_blocks = program.num_parameter_blocks()
-    summary.num_parameters = program.num_ambient
-    summary.num_effective_parameters = program.num_tangent
-    summary.num_residual_blocks = program.num_residual_blocks()
-    summary.num_residuals = program.num_residuals()
-    # Cost of the residual blocks the reduced program drops
-    # (program.cc:291-415): constant for the whole solve.
-    summary.fixed_cost = program.fixed_cost
-
-    err = options.validate(program.num_tangent)
-    if err is not None:
-        summary.termination_type = TerminationType.FAILURE
-        summary.message = f"Invalid options: {err}"
-        return summary
-    if program.num_tangent == 0 or program.num_residuals() == 0:
-        # All blocks constant / no residual blocks: nothing to optimize
-        # (solver.cc:795-812).
-        c = program.fixed_cost
-        if program.families:
-            x = torch.from_numpy(program.initial_ambient()).to(device)
-            c += float(_cost_impl(x, program.families))
-        summary.initial_cost = summary.final_cost = c
-        summary.termination_type = TerminationType.CONVERGENCE
-        summary.message = (
-            "Function tolerance reached. No non-constant parameter blocks found."
-        )
-        summary.total_time_in_seconds = time.perf_counter() - t0
-        return summary
-    if not program.is_feasible():
-        summary.termination_type = TerminationType.FAILURE
-        summary.message = "Initial point infeasible (violates bounds)."
-        return summary
-
-    resolved = dataclasses.replace(
-        options,
-        linear_solver_type=options.resolved_linear_solver_type(program.num_tangent),
-    )
-    check_supported(resolved, program)
-    summary.linear_solver_type_used = resolved.linear_solver_type
-    summary.preconditioner_type_used = resolved.preconditioner_type
-    summary.trust_region_strategy_type_used = resolved.trust_region_strategy_type
-    summary.evaluation_dtype = options.evaluation_dtype
-    if options.evaluation_dtype is not None:
-        cast_program(program, options.evaluation_dtype)
-    config = _FusedConfig(
+def _fused_config(resolved, revert_on_tolerance: bool) -> _FusedConfig:
+    return _FusedConfig(
         solve=_config_from_options(resolved),
         function_tolerance=resolved.function_tolerance,
         gradient_tolerance=resolved.gradient_tolerance,
@@ -409,54 +338,82 @@ def run_fused(options, problem, device="cuda", *, host_loop_parity: bool):
         min_trust_region_radius=resolved.min_trust_region_radius,
         max_invalid_steps=resolved.max_num_consecutive_invalid_steps,
         jacobi_scaling=resolved.jacobi_scaling,
-        revert_on_tolerance=host_loop_parity,
+        revert_on_tolerance=revert_on_tolerance,
     )
-    solve_aux = _build_solve_aux(resolved, program)
-    x0 = torch.from_numpy(program.initial_ambient()).to(device, program.eval_dtype)
-    t1 = time.perf_counter()
-    final, cost0, trace = _fused_minimize(
-        x0, program, solve_aux, resolved.max_num_iterations, config,
-        trace=host_loop_parity,
-    )
-    term = int(final.termination)  # waits for the device
-    t2 = time.perf_counter()
 
-    summary.num_iterations = final.iteration
-    if host_loop_parity:
-        # One batched read of the per-iteration trace.
-        tr_host = None if trace is None else trace.cpu().numpy()
-        tr = {} if tr_host is None else {f: tr_host[:, i] for i, f in enumerate(_TRACE_FIELDS)}
-        host_final = dict(
-            iteration=final.iteration,
-            termination=term,
-            successful_steps=int(final.successful_steps),
-            cost=float(final.cost),
-            gmax=float(final.gmax),
-            gnorm=float(final.gnorm),
-            radius=float(final.radius),
+
+# The JAX package's trace lengths: the traced loop runs at most 2048
+# iterations, and ``solve`` gives a longer budget to the host loop.
+_MAX_TRACED_ITERATIONS = 2048
+
+
+def fused_traced_eligible(options, program) -> bool:
+    """Whether ``solve`` can run the fused loop and still give the complete
+    Summary/IterationSummary records (the JAX package's condition). Any
+    feature that needs host work between the step and the candidate
+    (bounds, inner iterations, callbacks, gradient checks, dumps, live
+    progress printing, non-monotonic step bookkeeping, a wall-clock budget)
+    goes to the host loop, ``trust_region.TrustRegionMinimizer``."""
+    return (
+        options.minimizer_type == MinimizerType.TRUST_REGION
+        and options.trust_region_strategy_type == TrustRegionStrategyType.LEVENBERG_MARQUARDT
+        and not program.has_bounds
+        and not options.use_inner_iterations
+        and not options.callbacks
+        and options.evaluation_callback is None
+        and not options.check_gradients
+        and not options.update_state_every_iteration
+        and not options.use_nonmonotonic_steps
+        and not options.minimizer_progress_to_stdout
+        and not (
+            options.trust_region_problem_dump_directory
+            and options.trust_region_minimizer_iterations_to_dump
         )
-        _fill_records(summary, resolved, host_final, float(cost0), tr)
-    else:
-        summary.initial_cost = float(cost0) + program.fixed_cost
-        summary.final_cost = float(final.cost) + program.fixed_cost
-        summary.num_successful_steps = int(final.successful_steps)
-        summary.num_unsuccessful_steps = int(final.unsuccessful_steps)
-        summary.num_linear_solver_iterations = int(final.linear_iterations)
-        if term == _CONVERGENCE:
-            summary.termination_type = TerminationType.CONVERGENCE
-            summary.message = "Fused minimizer converged."
-        elif term == _FAILURE:
-            summary.termination_type = TerminationType.FAILURE
-            summary.message = "Too many consecutive invalid steps."
-        else:
-            summary.termination_type = TerminationType.NO_CONVERGENCE
-            summary.message = f"Maximum iterations reached ({final.iteration})."
-    if summary.is_solution_usable():
-        problem.write_back(final.x.to(_F64).cpu().numpy())
-    summary.preprocessor_time_in_seconds = t1 - t0
-    summary.minimizer_time_in_seconds = t2 - t1
-    summary.total_time_in_seconds = time.perf_counter() - t0
-    return summary
+        and options.max_solver_time_in_seconds >= 1e6
+        and options.linear_solver_type is not None
+        and options.linear_solver_type.name not in ("SPARSE_NORMAL_CHOLESKY", "SPARSE_SCHUR")
+        and 0 < options.max_num_iterations <= _MAX_TRACED_ITERATIONS
+    )
+
+
+def minimize_fused_traced(resolved, program, x0, summary) -> torch.Tensor:
+    """Run the fused loop with a per-iteration trace and fill ``summary``
+    with the records, termination and counters the host loop would give
+    (a step meeting the parameter or function tolerance is not applied, as
+    the host loop returns before it). Returns the final x (device)."""
+    t0 = time.perf_counter()
+    final, cost0, trace = _fused_minimize(
+        x0, program, _build_solve_aux(resolved, program), resolved.max_num_iterations,
+        _fused_config(resolved, revert_on_tolerance=True), trace=True,
+    )
+    # One batched read of the per-iteration trace and one of the final
+    # scalars.
+    tr_host = None if trace is None else trace.cpu().numpy()
+    tr = {} if tr_host is None else {f: tr_host[:, i] for i, f in enumerate(_TRACE_FIELDS)}
+    cost0, term, succ, cost, gmax, gnorm, radius = torch.stack([
+        cost0, final.termination.to(_F64), final.successful_steps.to(_F64), final.cost,
+        final.gmax, final.gnorm, final.radius,
+    ]).cpu().tolist()
+    T = final.iteration
+    summary.num_iterations = T
+    host_final = dict(
+        iteration=T, termination=int(term), successful_steps=int(succ), cost=cost,
+        gmax=gmax, gnorm=gnorm, radius=radius,
+    )
+    _fill_records(summary, resolved, host_final, cost0, tr)
+    # The whole solve is one device computation.
+    summary.linear_solver_time_in_seconds += time.perf_counter() - t0
+    summary.num_linear_solves += T
+    summary.num_residual_evaluations += T + 1
+    summary.num_jacobian_evaluations += T + 1
+    return final.x
+
+
+# What the fused loop cannot honour and fused_solve refuses rather than drop.
+_HOST_LOOP_OPTIONS = (
+    "callbacks", "evaluation_callback", "minimizer_progress_to_stdout",
+    "update_state_every_iteration", "use_nonmonotonic_steps",
+)
 
 
 def fused_solve(options, problem, device="cuda") -> SolverSummary:
@@ -464,5 +421,55 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
     does not move to the CPU) with the fused LM loop; returns a SolverSummary
     and writes the solution back (the entry point bench.py drives in the
     JAX package). A step that meets the function/parameter tolerance is
-    kept, as in the JAX package's fused_solve."""
-    return run_fused(options, problem, device, host_loop_parity=False)
+    kept, as in the JAX package's fused_solve. Options only the host loop
+    honours (bounds, callbacks, progress output, non-monotonic steps, a time
+    budget, dumps) raise ``ValueError``: ``solve`` runs them."""
+    t0 = time.perf_counter()
+    summary = SolverSummary()
+    prep = preprocess(options, problem, device, summary)
+    if prep is None:
+        summary.total_time_in_seconds = time.perf_counter() - t0
+        return summary
+    program, resolved = prep
+    refused = [f for f in _HOST_LOOP_OPTIONS if getattr(resolved, f)]
+    if program.has_bounds:
+        refused.append("parameter bounds")
+    if resolved.max_solver_time_in_seconds < 1e6:
+        refused.append("max_solver_time_in_seconds")
+    if resolved.trust_region_problem_dump_directory and resolved.trust_region_minimizer_iterations_to_dump:
+        refused.append("trust-region problem dumps")
+    if refused:
+        raise ValueError(
+            f"fused_solve runs the fused loop, which cannot honour {', '.join(refused)}; "
+            "ctt.solve runs them on the host-loop minimizer"
+        )
+    solve_aux = _build_solve_aux(resolved, program)
+    x0 = torch.from_numpy(program.initial_ambient()).to(program.device, program.eval_dtype)
+    t1 = time.perf_counter()
+    final, cost0, _ = _fused_minimize(
+        x0, program, solve_aux, resolved.max_num_iterations,
+        _fused_config(resolved, revert_on_tolerance=False),
+    )
+    term = int(final.termination)  # waits for the device
+    t2 = time.perf_counter()
+    summary.num_iterations = final.iteration
+    summary.initial_cost = float(cost0) + program.fixed_cost
+    summary.final_cost = float(final.cost) + program.fixed_cost
+    summary.num_successful_steps = int(final.successful_steps)
+    summary.num_unsuccessful_steps = int(final.unsuccessful_steps)
+    summary.num_linear_solver_iterations = int(final.linear_iterations)
+    if term == _CONVERGENCE:
+        summary.termination_type = TerminationType.CONVERGENCE
+        summary.message = "Fused minimizer converged."
+    elif term == _FAILURE:
+        summary.termination_type = TerminationType.FAILURE
+        summary.message = "Too many consecutive invalid steps."
+    else:
+        summary.termination_type = TerminationType.NO_CONVERGENCE
+        summary.message = f"Maximum iterations reached ({final.iteration})."
+    if summary.is_solution_usable():
+        problem.write_back(final.x.to(_F64).cpu().numpy())
+    summary.preprocessor_time_in_seconds = t1 - t0
+    summary.minimizer_time_in_seconds = t2 - t1
+    summary.total_time_in_seconds = time.perf_counter() - t0
+    return summary

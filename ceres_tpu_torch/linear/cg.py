@@ -20,6 +20,7 @@ from ceres_tpu_torch.types import LinearSolverTerminationType
 CG_NO_CONVERGENCE = LinearSolverTerminationType.NO_CONVERGENCE.value
 CG_SUCCESS = LinearSolverTerminationType.SUCCESS.value
 CG_FAILURE = LinearSolverTerminationType.FAILURE.value
+CG_FATAL_ERROR = LinearSolverTerminationType.FATAL_ERROR.value
 
 
 def direct_termination(y: torch.Tensor) -> torch.Tensor:

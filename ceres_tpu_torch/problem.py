@@ -131,6 +131,7 @@ def cast_program(program: "Program", dtype) -> "Program":
             )
         fam.loss = loss_to(fam.loss, program.device, dtype)
     program.eval_dtype = dtype
+    program._cast_bounds()
     program.solve_aux_cache.clear()
     program.schur_structure = None
     return program
@@ -801,10 +802,14 @@ class Program:
         return self._problem.state()
 
     def _build_bounds(self) -> None:
+        """The flat f64 bounds (host, ±inf where a coordinate is free) and,
+        with any bound, their copies on the device in the evaluation dtype
+        (``device_bounds``, what ``clamp`` reads)."""
         chunks = self._problem._chunks
         self.has_bounds = any(c.lower is not None or c.upper is not None for c in chunks)
         self.lower = np.full(self.num_ambient, -np.inf)
         self.upper = np.full(self.num_ambient, np.inf)
+        self.device_bounds = None
         if not self.has_bounds:
             return
         off = 0
@@ -816,6 +821,26 @@ class Program:
             if c.upper is not None:
                 self.upper[off : off + n] = c.upper[keep].reshape(-1)
             off += n
+        self._cast_bounds()
+
+    def _cast_bounds(self) -> None:
+        """Bounds in the evaluation dtype, each rounded toward the inside of
+        its box: a value clamped in float32 then meets the float64 bound too
+        (a bound float32 holds exactly, such as 1.0, is unchanged)."""
+        if not self.has_bounds:
+            return
+        dt = np.float32 if self.eval_dtype == torch.float32 else np.float64
+        lo, hi = self.lower.astype(dt), self.upper.astype(dt)
+        lo = np.where(lo < self.lower, np.nextafter(lo, dt(np.inf)), lo)
+        hi = np.where(hi > self.upper, np.nextafter(hi, dt(-np.inf)), hi)
+        self.device_bounds = tuple(torch.from_numpy(b).to(self.device) for b in (lo, hi))
+
+    def clamp(self, x: torch.Tensor) -> torch.Tensor:
+        """x projected onto the bounds box (x itself without bounds)."""
+        if not self.has_bounds:
+            return x
+        lo, hi = self.device_bounds
+        return torch.clamp(x, lo.to(x.dtype), hi.to(x.dtype))
 
     def is_feasible(self) -> bool:
         """Initial-point feasibility check (program.cc:194-236)."""

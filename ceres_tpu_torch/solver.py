@@ -1,22 +1,31 @@
 """Solver entry point: options, summary and ``solve`` (port of the
 TRUST_REGION subset of ``ceres_tpu/solver.py``).
 
-Every configuration runs the fused LM loop of ``fused_lm.py``, with a loss,
-manifolds and constant blocks, and one of the linear solvers DENSE_QR,
+``solve`` chooses between the loops as the JAX package's does: the fused LM
+loop of ``fused_lm.py`` with its per-iteration trace when no option needs
+host work inside the loop (``fused_lm.fused_traced_eligible``), the host
+loop ``trust_region.TrustRegionMinimizer`` otherwise — parameter bounds,
+iteration callbacks (with ``update_state_every_iteration``), an
+``EvaluationCallback``, progress output, non-monotonic steps, a time budget,
+trust-region problem dumps, or more than 2048 (or 0) iterations. Both run a
+loss, manifolds and constant blocks, and one of the linear solvers DENSE_QR,
 DENSE_NORMAL_CHOLESKY, CGNR (IDENTITY, JACOBI, SUBSET), DENSE_SCHUR and
 ITERATIVE_SCHUR (IDENTITY, JACOBI, SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION;
 explicit or implicit S), any of them with mixed-precision refinement and,
-for the Schur solvers, a user elimination ordering. Options that need
-another minimizer, host work inside the loop (bounds, callbacks, inner
-iterations) or a linear solver or preconditioner the port does not have yet
-raise ``NotImplementedError`` naming their ROADMAP item. A solve runs on the card unless the caller names
+for the Schur solvers, a user elimination ordering. The other minimizers,
+inner iterations, gradient checks and the linear solvers and
+preconditioners the port does not have yet raise ``NotImplementedError``
+naming their ROADMAP item. A solve runs on the card unless the caller names
 another device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, List, Optional, Union
+
+import torch
 
 from ceres_tpu_torch.ordered_groups import OrderedGroups
 from ceres_tpu_torch.types import (
@@ -27,12 +36,12 @@ from ceres_tpu_torch.types import (
     TrustRegionStrategyType,
 )
 
-_HOST_LOOP = "ROADMAP Queue 1 item 16a (the host-loop trust-region minimizer)"
 _MINIMIZERS = "ROADMAP Queue 1 item 16b (the other minimizers)"
 _SPARSE = (
     "ROADMAP Queue 1 item 14b (host-driven sparse solvers and the cluster "
     "preconditioners, after the port's ctypes loader)"
 )
+_CHECKS = "ROADMAP Queue 1 item 17 (gradient_checker.py)"
 
 
 @dataclasses.dataclass
@@ -57,7 +66,13 @@ class SolverOptions:
     max_lm_diagonal: float = 1e32
     max_num_consecutive_invalid_steps: int = 5
     use_nonmonotonic_steps: bool = False
+    max_consecutive_nonmonotonic_steps: int = 5
     jacobi_scaling: bool = True
+    # The projected line search of a bounded trust-region solve
+    # (solver.h:114-306).
+    min_line_search_step_size: float = 1e-9
+    line_search_sufficient_function_decrease: float = 1e-4
+    max_num_line_search_step_size_iterations: int = 20
     linear_solver_type: Optional[LinearSolverType] = None  # None = auto
     preconditioner_type: PreconditionerType = PreconditionerType.JACOBI
     min_linear_solver_iterations: int = 0
@@ -80,10 +95,22 @@ class SolverOptions:
     # None = automatic (greedy maximal independent set).
     linear_solver_ordering: Optional[Union[OrderedGroups, List[List[int]]]] = None
     use_inner_iterations: bool = False
+    # Trust region problem dumps (solver.h:725-735).
+    trust_region_problem_dump_directory: str = ""
+    trust_region_minimizer_iterations_to_dump: List[int] = dataclasses.field(
+        default_factory=list
+    )
     minimizer_progress_to_stdout: bool = False
     check_gradients: bool = False
-    update_state_every_iteration: bool = False
     callbacks: List[Callable] = dataclasses.field(default_factory=list)
+    # Write the current parameter values back into the Problem's blocks
+    # every iteration so IterationCallbacks can observe them
+    # (solver.h:786-815).
+    update_state_every_iteration: bool = False
+    # Pre-evaluation hook (evaluation_callback.h:63): called with
+    # (new_evaluation_point, evaluate_jacobians) before every residual /
+    # Jacobian evaluation the minimizer performs.
+    evaluation_callback: Optional[object] = None
 
     def validate(self, num_tangent: int = 0) -> Optional[str]:
         """Cross-validation analog of Solver::Options::IsValid
@@ -138,6 +165,8 @@ class SolverOptions:
             return "min_lm_diagonal > max_lm_diagonal"
         if self.max_num_consecutive_invalid_steps < 0:
             return "max_num_consecutive_invalid_steps must be >= 0"
+        if self.use_nonmonotonic_steps and self.max_consecutive_nonmonotonic_steps <= 0:
+            return "max_consecutive_nonmonotonic_steps must be > 0"
         if self.min_linear_solver_iterations < 0:
             return "min_linear_solver_iterations must be >= 0"
         if self.max_linear_solver_iterations < 0:
@@ -154,6 +183,11 @@ class SolverOptions:
                 "solvers; use LEVENBERG_MARQUARDT with iterative solvers "
                 "(solver.cc:431-438)"
             )
+        if (
+            self.trust_region_minimizer_iterations_to_dump
+            and not self.trust_region_problem_dump_directory
+        ):
+            return "trust_region_problem_dump_directory is empty"
         return self._validate_linear_solver()
 
     def _validate_linear_solver(self) -> Optional[str]:
@@ -215,35 +249,18 @@ _SUPPORTED_LINEAR = (
 )
 
 
-def check_supported(options: SolverOptions, program) -> None:
-    """Raise NotImplementedError for what the fused LM loop cannot run (the
-    conditions of fused_lm.fused_traced_eligible in the JAX package, which
-    there fall back to the host-loop minimizer) and for the linear solvers
-    and preconditioners the port does not have yet."""
+def check_supported(options: SolverOptions) -> None:
+    """Raise NotImplementedError for what neither loop of the port runs
+    yet: the other minimizers, inner iterations, gradient checks and the
+    linear solvers and preconditioners of later items."""
     if options.minimizer_type != MinimizerType.TRUST_REGION:
         raise NotImplementedError(f"LINE_SEARCH minimizer: {_MINIMIZERS}")
     if options.trust_region_strategy_type != TrustRegionStrategyType.LEVENBERG_MARQUARDT:
         raise NotImplementedError(f"DOGLEG: {_MINIMIZERS}")
-    for flag in (
-        "use_nonmonotonic_steps",
-        "use_inner_iterations",
-        "minimizer_progress_to_stdout",
-        "check_gradients",
-        "update_state_every_iteration",
-        "callbacks",
-    ):
-        if getattr(options, flag):
-            raise NotImplementedError(
-                f"{flag} needs the host-loop minimizer: {_HOST_LOOP}"
-            )
-    if options.max_solver_time_in_seconds < 1e6:
-        raise NotImplementedError(
-            f"max_solver_time_in_seconds needs the host-loop minimizer: {_HOST_LOOP}"
-        )
-    if program.has_bounds:
-        raise NotImplementedError(
-            f"parameter bounds need the host-loop minimizer: {_HOST_LOOP}"
-        )
+    if options.use_inner_iterations:
+        raise NotImplementedError(f"use_inner_iterations: {_MINIMIZERS}")
+    if options.check_gradients:
+        raise NotImplementedError(f"check_gradients: {_CHECKS}")
     if options.linear_solver_type not in _SUPPORTED_LINEAR:
         raise NotImplementedError(f"{options.linear_solver_type}: {_SPARSE}")
     if options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR and (
@@ -255,8 +272,7 @@ def check_supported(options: SolverOptions, program) -> None:
 
 @dataclasses.dataclass
 class SolverSummary:
-    """Analog of Solver::Summary (solver.h:818-1106): the fields the
-    fused solve fills."""
+    """Analog of Solver::Summary (solver.h:818-1106)."""
 
     termination_type: TerminationType = TerminationType.FAILURE
     message: str = ""
@@ -267,6 +283,7 @@ class SolverSummary:
     # ``solve`` fills them as the JAX package's solve does; ``fused_solve``
     # keeps only the count (``num_iterations``).
     iterations: List = dataclasses.field(default_factory=list)
+    # LM iterations that computed a step
     num_iterations: int = 0
     num_parameter_blocks: int = 0
     num_parameters: int = 0
@@ -275,12 +292,33 @@ class SolverSummary:
     num_residuals: int = 0
     num_successful_steps: int = 0
     num_unsuccessful_steps: int = 0
+    num_inner_iteration_steps: int = 0
+    # Linear solves that terminated with FAILURE (each becomes an invalid
+    # step), linear_solver.h:57-74.
+    num_linear_solver_failures: int = 0
     num_linear_solver_iterations: int = 0
     # host set-up (program, dtype cast, Schur and explicit-S plans) and the
     # LM loop itself, up to the last device result
     preprocessor_time_in_seconds: float = 0.0
     minimizer_time_in_seconds: float = 0.0
+    postprocessor_time_in_seconds: float = 0.0
     total_time_in_seconds: float = 0.0
+    # Per-phase minimizer times and counts (solver.h:967-1006, the
+    # FullReport time table), host seconds. The host loop's fused iteration
+    # and the traced loop evaluate inside the step computation, so their
+    # time is under the linear solver and the evaluation counters still
+    # tick.
+    residual_evaluation_time_in_seconds: float = 0.0
+    jacobian_evaluation_time_in_seconds: float = 0.0
+    linear_solver_time_in_seconds: float = 0.0
+    inner_iteration_time_in_seconds: float = 0.0
+    num_residual_evaluations: int = 0
+    num_jacobian_evaluations: int = 0
+    num_linear_solves: int = 0
+    # Phase log (EventLogger) and the host loop's Evaluator statistics
+    # (ExecutionSummary), attached by ``solve``.
+    event_log: Optional[object] = None
+    evaluator_statistics: Optional[object] = None
     linear_solver_type_used: Optional[LinearSolverType] = None
     preconditioner_type_used: Optional[PreconditionerType] = None
     trust_region_strategy_type_used: Optional[TrustRegionStrategyType] = None
@@ -303,10 +341,8 @@ class SolverSummary:
             f"Termination: {self.termination_type}"
         )
 
-
     def full_report(self) -> str:
-        """Analog of Summary::FullReport (solver.cc:890-960), with the
-        fields the fused solve fills."""
+        """Analog of Summary::FullReport (solver.cc:890-960)."""
         lines = [
             "",
             "Solver Summary (ceres_tpu_torch)",
@@ -332,12 +368,28 @@ class SolverSummary:
             f"{'Iterations':<30}{self.num_iterations:>12}",
             f"{'Successful steps':<30}{self.num_successful_steps:>12}",
             f"{'Unsuccessful steps':<30}{self.num_unsuccessful_steps:>12}",
+            f"{'Linear solver failures':<30}{self.num_linear_solver_failures:>12}",
             f"{'Linear solver iterations':<30}"
             f"{self.num_linear_solver_iterations:>12}",
             "",
             "Time (in seconds):",
             f"{'Preprocessor':<34}{self.preprocessor_time_in_seconds:>10.4f}",
+            "",
+            f"  {'Residual only evaluation':<28}"
+            f"{self.residual_evaluation_time_in_seconds:>14.4f}"
+            f" ({self.num_residual_evaluations})",
+            f"  {'Jacobian & residual evaluation':<28}"
+            f"{self.jacobian_evaluation_time_in_seconds:>14.4f}"
+            f" ({self.num_jacobian_evaluations})",
+            f"  {'Linear solver':<28}"
+            f"{self.linear_solver_time_in_seconds:>14.4f}"
+            f" ({self.num_linear_solves})",
+            f"  {'Inner iterations':<28}"
+            f"{self.inner_iteration_time_in_seconds:>14.4f}"
+            f" ({self.num_inner_iteration_steps})",
             f"{'Minimizer':<34}{self.minimizer_time_in_seconds:>10.4f}",
+            "",
+            f"{'Postprocessor':<34}{self.postprocessor_time_in_seconds:>10.4f}",
             f"{'Total':<34}{self.total_time_in_seconds:>10.4f}",
             "",
             f"Termination: {self.termination_type} ({self.message})",
@@ -345,12 +397,113 @@ class SolverSummary:
         return "\n".join(lines)
 
 
-def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
-    """Analog of ceres::Solve: solves on ``device`` (the card by default;
-    without one that raises, it does not move to the CPU) and writes the
-    solution back into the problem. Like the JAX package's ``solve`` on its fused
-    path, a step that meets the parameter or function tolerance ends the
-    solve at the iterate BEFORE that step (trust_region_minimizer.cc:720-766)."""
-    from ceres_tpu_torch.fused_lm import run_fused
+def preprocess(options: SolverOptions, problem, device, summary: SolverSummary):
+    """The preprocessor both entry points share (solver.cc:789-812): freeze
+    the program on ``device``, fill the summary's problem sizes, validate
+    the options, and end a solve that has nothing to do (invalid options, no
+    non-constant block, an infeasible start). Returns (program, resolved
+    options) with the program cast to the evaluation dtype, or None when
+    ``summary`` is final. Raises NotImplementedError for what the port does
+    not run yet."""
+    from ceres_tpu_torch.evaluator import _cost_impl
+    from ceres_tpu_torch.problem import cast_program
 
-    return run_fused(options, problem, device, host_loop_parity=True)
+    device = torch.device(device)
+    program = problem.program(device)
+    summary.minimizer_type = options.minimizer_type
+    summary.device = str(device)
+    summary.num_parameter_blocks = program.num_parameter_blocks()
+    summary.num_parameters = program.num_ambient
+    summary.num_effective_parameters = program.num_tangent
+    summary.num_residual_blocks = program.num_residual_blocks()
+    summary.num_residuals = program.num_residuals()
+    # Cost of the residual blocks the reduced program drops
+    # (program.cc:291-415): constant for the whole solve.
+    summary.fixed_cost = program.fixed_cost
+
+    err = options.validate(program.num_tangent)
+    if err is not None:
+        summary.termination_type = TerminationType.FAILURE
+        summary.message = f"Invalid options: {err}"
+        return None
+    if program.num_tangent == 0 or program.num_residuals() == 0:
+        # All blocks constant / no residual blocks: nothing to optimize
+        # (solver.cc:795-812).
+        c = program.fixed_cost
+        if program.families:
+            x = torch.from_numpy(program.initial_ambient()).to(device)
+            c += float(_cost_impl(x, program.families))
+        summary.initial_cost = summary.final_cost = c
+        summary.termination_type = TerminationType.CONVERGENCE
+        summary.message = "Function tolerance reached. No non-constant parameter blocks found."
+        return None
+    if not program.is_feasible():
+        summary.termination_type = TerminationType.FAILURE
+        summary.message = "Initial point infeasible (violates bounds)."
+        return None
+
+    resolved = dataclasses.replace(
+        options,
+        linear_solver_type=options.resolved_linear_solver_type(program.num_tangent),
+    )
+    check_supported(resolved)
+    summary.linear_solver_type_used = resolved.linear_solver_type
+    summary.preconditioner_type_used = resolved.preconditioner_type
+    summary.trust_region_strategy_type_used = resolved.trust_region_strategy_type
+    summary.evaluation_dtype = options.evaluation_dtype
+    if options.evaluation_dtype is not None:
+        cast_program(program, options.evaluation_dtype)
+    return program, resolved
+
+
+def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
+    """Analog of ceres::Solve (solver.cc:857, Solver::Solve solver.cc:734):
+    solves on ``device`` (the card by default; without one that raises, it
+    does not move to the CPU) and writes the solution back into the problem.
+    A step that meets the parameter or function tolerance ends the solve at
+    the iterate BEFORE that step (trust_region_minimizer.cc:720-766)."""
+    from ceres_tpu_torch.fused_lm import fused_traced_eligible, minimize_fused_traced
+    from ceres_tpu_torch.trust_region import TrustRegionMinimizer, _build_solve_aux
+    from ceres_tpu_torch.utils.observability import EventLogger
+
+    t0 = time.perf_counter()
+    summary = SolverSummary()
+    # Scoped phase log (event_logger.h:41-75).
+    event_logger = EventLogger("Solver::Solve")
+    summary.event_log = event_logger
+    prep = preprocess(options, problem, device, summary)
+    if prep is None:
+        summary.total_time_in_seconds = time.perf_counter() - t0
+        return summary
+    program, resolved = prep
+    _build_solve_aux(resolved, program)  # memoized on the program
+    x0 = torch.from_numpy(program.initial_ambient()).to(program.device, program.eval_dtype)
+    t1 = time.perf_counter()
+    summary.preprocessor_time_in_seconds = t1 - t0
+    event_logger.add_event("Preprocess")
+
+    if fused_traced_eligible(resolved, program):
+        x = minimize_fused_traced(resolved, program, x0, summary)
+    else:
+        minimizer = TrustRegionMinimizer(program, resolved, summary)
+        x = minimizer.minimize(x0)
+        summary.evaluator_statistics = minimizer.evaluator.statistics()
+    x = x.to(torch.float64).cpu().numpy()
+    t2 = time.perf_counter()
+    summary.minimizer_time_in_seconds = t2 - t1
+    event_logger.add_event("Minimize")
+
+    # Postprocess from the records (solver.cc:834-855).
+    records = summary.iterations
+    if records:
+        summary.initial_cost = records[0].cost
+        summary.final_cost = min(r.cost for r in records)
+        summary.num_successful_steps = sum(1 for r in records if r.step_is_successful)
+        summary.num_unsuccessful_steps = sum(1 for r in records if not r.step_is_successful)
+        summary.num_linear_solver_iterations = sum(r.linear_solver_iterations for r in records)
+    if summary.is_solution_usable():
+        problem.write_back(x)
+    summary.postprocessor_time_in_seconds = time.perf_counter() - t2
+    summary.total_time_in_seconds = time.perf_counter() - t0
+    event_logger.finish()
+    return summary

@@ -9,7 +9,9 @@ ITERATIVE_SCHUR + SCHUR_JACOBI on the implicit S; flagship: 16 / 22106 /
 83718, ITERATIVE_SCHUR; robust_large and robust_flagship: the large and
 flagship cases with HuberLoss(1.0); pose_graph: the 2500-pose sphere, CGNR +
 block Jacobi, cut to its first 6 LM iterations because the whole solve runs
-tens of thousands of CG iterations), after a 2-iteration warm-up solve:
+tens of thousands of CG iterations; host_loop_large: the large case through
+``ctt.solve`` with progress output and an iteration callback, i.e. the
+host-loop minimizer's fused iteration), after a 2-iteration warm-up solve:
 
 1. ``stages``: one solve with every stage bracketed by
    ``torch.cuda.synchronize()`` and timed on the host clock, so a stage's
@@ -24,6 +26,15 @@ tens of thousands of CG iterations), after a 2-iteration warm-up solve:
    a 0-iteration solve: the device's busy time (union of its kernels'
    intervals), its idle share of the LM loop, the number of device
    operations, and the ten kernels with the most time.
+3. ``host_reads``: the host reads of one plain solve on a problem set up
+   beforehand, as for ``device`` (every operation that waits for the
+   device, as ``torch.cuda.set_sync_debug_mode`` reports them: reads, and
+   copies from the host, which wait too), in all and per LM iteration, by
+   the line of the port that made them, and the device operations per LM
+   iteration; for host_loop_large
+   also the speculative evaluations the rejected steps wasted, with their
+   seconds (the full evaluation's synchronized time per call, from
+   ``stages``).
 
 One JSON line per result on standard output, each with the card's name and
 power limit. Needs a CUDA device.
@@ -32,15 +43,18 @@ power limit. Needs a CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import fused_lm
+from ceres_tpu_torch import evaluator, fused_lm, trust_region
 from ceres_tpu_torch.linear import cgnr, schur, schur_explicit
 from ceres_tpu_torch.models import bal, pose_graph
 from ceres_tpu_torch.ops import reduce
@@ -57,6 +71,7 @@ CASES = {
     "robust_large": (_LARGE, False, True, True),
     "robust_flagship": (_FLAGSHIP, True, True, True),
     "pose_graph": (None, None, False, True),
+    "host_loop_large": (_LARGE, False, False, False),
 }
 POSE_GRAPH_LM_ITERATIONS = 6
 
@@ -93,9 +108,12 @@ class _Stages:
         self._undo.append((owner, attr, make))
 
     def __enter__(self):
-        self.wrap(fused_lm, "_full_impl", "full evaluation (residuals, Jacobians, gradient)")
-        self.wrap(fused_lm, "_cost_impl", "cost-only evaluation")
-        self.wrap(fused_lm, "_linear_solve", "linear solve")
+        # the evaluations' call sites: the fused loop, the host loop's fused
+        # iteration and candidate, and the Evaluator
+        for mod in (fused_lm, trust_region, evaluator):
+            self.wrap(mod, "_full_impl", "full evaluation (residuals, Jacobians, gradient)")
+            self.wrap(mod, "_cost_impl", "cost-only evaluation")
+        self.wrap(trust_region, "_linear_solve", "linear solve")
         self.wrap(schur.SchurOperator, "rhs", "- reduced rhs")
         self.wrap(schur.SchurOperator, "back_substitute", "- back substitution")
         self.wrap(schur.SchurOperator, "s_times", "- S x (implicit, inside CG)")
@@ -154,6 +172,24 @@ def _device_profile(run):
     return summary, busy * 1e-6, len(spans), top
 
 
+def _host_reads(run):
+    """(run(), {"file:line": count}) of the operations in run() that waited
+    for the device, as torch.cuda.set_sync_debug_mode("warn") reports them
+    (it names the Python line that made each)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message)
+    )
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
@@ -196,8 +232,13 @@ def main(argv) -> int:
     def solve(dtype, max_iters=None, problem=None):
         if problem is None:
             problem = build()
-        max_iters = full if max_iters is None else max_iters
-        return ctt.fused_solve(options(dtype, max_iters), problem)
+        opts = options(dtype, full if max_iters is None else max_iters)
+        if case != "host_loop_large":
+            return ctt.fused_solve(opts, problem)
+        opts.minimizer_progress_to_stdout = True
+        opts.callbacks = [lambda it: ctt.CallbackReturnType.SOLVER_CONTINUE]
+        with contextlib.redirect_stdout(io.StringIO()):
+            return ctt.solve(opts, problem)
 
     for dtype in dtypes:
         solve(dtype, max_iters=2)
@@ -228,6 +269,28 @@ def main(argv) -> int:
             device_idle_share_of_loop=(1.0 - busy / loop) if busy else None,
             device_operations=ops,
             top_kernels=[{"name": n[:80], "seconds": s} for n, s in top],
+        )
+        prepared = build()
+        solve(dtype, max_iters=0, problem=prepared)  # set-up only, as above
+        summary, reads = _host_reads(lambda: solve(dtype, problem=prepared))
+        n = max(summary.num_iterations, 1)
+        fields = {}
+        if case == "host_loop_large":
+            wasted = sum(1 for r in summary.iterations[1:]
+                         if r.step_is_valid and not r.step_is_successful)
+            label = "full evaluation (residuals, Jacobians, gradient)"
+            per_eval = stages.seconds[label] / max(stages.calls[label], 1)
+            fields = dict(
+                records=len(summary.iterations), rejected_steps=summary.num_unsuccessful_steps,
+                wasted_speculative_evaluations=wasted,
+                full_evaluation_seconds_synchronized=per_eval, wasted_seconds=wasted * per_eval,
+            )
+        emit(
+            result="host_reads", dtype=dtype, lm_iterations=summary.num_iterations,
+            host_reads=sum(reads.values()), host_reads_per_lm_iteration=sum(reads.values()) / n,
+            host_reads_by_site=dict(reads.most_common(12)),
+            device_operations_per_lm_iteration=ops / n,
+            loop_seconds=summary.minimizer_time_in_seconds, **fields,
         )
     return 0
 

@@ -1,16 +1,35 @@
-"""Levenberg-Marquardt core shared by the solve loop (port of the LM part
-of ``ceres_tpu/trust_region.py``): the linear-solve configuration, the
-preprocessor-built solve structures, the LM damping and the linear-solve
-dispatch with its mixed-precision refinement."""
+"""Trust-region minimizer: the Levenberg-Marquardt core both loops share
+and the host loop (port of ``ceres_tpu/trust_region.py``; analog of
+``internal/ceres/trust_region_minimizer.{h,cc}:68-841``,
+``levenberg_marquardt_strategy.cc`` and ``trust_region_step_evaluator.{h,cc}``).
+
+The core: the linear-solve configuration, the preprocessor-built solve
+structures, the LM damping, the linear-solve dispatch with its
+mixed-precision refinement, and ``lm_step`` / ``candidate_point``, the step
+and candidate that the fused loop (``fused_lm._body``) and this host loop
+both take.
+
+The host loop (``TrustRegionMinimizer``) keeps the data-dependent control
+flow on the host as the reference does — accept or reject, the radius, the
+four convergence tests, non-monotonic steps, callbacks, progress output,
+bounds, the time budget — and reads the device where the JAX package's
+loop reads it: once per iteration on the fused-iteration branch (step,
+candidate and a speculative evaluation at the candidate, eight scalars in
+one read), two or three times on the step-by-step branch, and once more per
+trial of the bounds line search.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import List
 
 import numpy as np
 import torch
 
-from ceres_tpu_torch.linear.cg import direct_termination
+from ceres_tpu_torch.evaluator import Evaluator, _cost_impl, _full_impl
+from ceres_tpu_torch.linear.cg import CG_FAILURE, CG_FATAL_ERROR, direct_termination
 from ceres_tpu_torch.linear.cgnr import solve_cgnr
 from ceres_tpu_torch.linear.dense import solve_dense_normal_cholesky, solve_dense_qr
 from ceres_tpu_torch.linear.schur import (
@@ -20,7 +39,65 @@ from ceres_tpu_torch.linear.schur import (
 )
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
 from ceres_tpu_torch.ordered_groups import normalize_ordering, validate_ordering_partition
-from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
+from ceres_tpu_torch.problem import plus_apply
+from ceres_tpu_torch.types import (
+    CallbackReturnType,
+    LinearSolverType,
+    PreconditionerType,
+    TerminationType,
+    TrustRegionStrategyType,
+)
+
+_DBL_MAX = float(np.finfo(np.float64).max)
+_F64 = torch.float64
+_MINIMIZERS = "ROADMAP Queue 1 item 16b (the other minimizers)"
+_SPARSE = "ROADMAP Queue 1 item 14b (host-driven sparse solvers)"
+_CHECKS = "ROADMAP Queue 1 item 17 (gradient_checker.py)"
+
+
+class TrustRegionStepEvaluator:
+    """Non-monotonic step acceptance (trust_region_step_evaluator.cc,
+    Conn/Gould/Toint Algorithm 10.1.2)."""
+
+    def __init__(self, initial_cost: float, max_consecutive_nonmonotonic_steps: int):
+        self.max_nonmonotonic = max_consecutive_nonmonotonic_steps
+        self.minimum_cost = initial_cost
+        self.current_cost = initial_cost
+        self.reference_cost = initial_cost
+        self.candidate_cost = initial_cost
+        self.accumulated_reference_model_cost_change = 0.0
+        self.accumulated_candidate_model_cost_change = 0.0
+        self.num_consecutive_nonmonotonic_steps = 0
+
+    def step_quality(self, cost: float, model_cost_change: float) -> float:
+        if cost >= _DBL_MAX:
+            return -_DBL_MAX
+        relative_decrease = (self.current_cost - cost) / model_cost_change
+        historical = (self.reference_cost - cost) / (
+            self.accumulated_reference_model_cost_change + model_cost_change
+        )
+        return max(relative_decrease, historical)
+
+    def step_accepted(self, cost: float, model_cost_change: float) -> None:
+        self.current_cost = cost
+        self.accumulated_candidate_model_cost_change += model_cost_change
+        self.accumulated_reference_model_cost_change += model_cost_change
+        if self.current_cost < self.minimum_cost:
+            self.minimum_cost = self.current_cost
+            self.num_consecutive_nonmonotonic_steps = 0
+            self.candidate_cost = self.current_cost
+            self.accumulated_candidate_model_cost_change = 0.0
+        else:
+            self.num_consecutive_nonmonotonic_steps += 1
+            if self.current_cost > self.candidate_cost:
+                self.candidate_cost = self.current_cost
+                self.accumulated_candidate_model_cost_change = 0.0
+        if self.num_consecutive_nonmonotonic_steps == self.max_nonmonotonic:
+            self.reference_cost = self.candidate_cost
+            self.accumulated_reference_model_cost_change = (
+                self.accumulated_candidate_model_cost_change
+            )
+
 
 @dataclasses.dataclass
 class IterationSummary:
@@ -45,6 +122,29 @@ class IterationSummary:
     iteration_time_in_seconds: float = 0.0
     step_solver_time_in_seconds: float = 0.0
     cumulative_time_in_seconds: float = 0.0
+
+
+class LevenbergMarquardtStrategy:
+    """Radius/damping state machine (levenberg_marquardt_strategy.cc)."""
+
+    def __init__(self, options):
+        self.radius = options.initial_trust_region_radius
+        self.max_radius = options.max_trust_region_radius
+        self.decrease_factor = 2.0
+
+    def step_accepted(self, step_quality: float) -> None:
+        # levenberg_marquardt_strategy.cc:158-165
+        self.radius = self.radius / max(1.0 / 3.0, 1.0 - (2.0 * step_quality - 1.0) ** 3)
+        self.radius = min(self.max_radius, self.radius)
+        self.decrease_factor = 2.0
+
+    def step_rejected(self, step_quality: float) -> None:
+        # levenberg_marquardt_strategy.cc:167-171
+        del step_quality
+        self.radius = self.radius / self.decrease_factor
+        self.decrease_factor *= 2.0
+
+    step_is_invalid = step_rejected
 
 
 _SCHUR_TYPES = (
@@ -226,3 +326,565 @@ def _linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
         iters = iters + it
         term = torch.maximum(term, t)
     return y, iters, term
+
+
+# -- the step both loops take -------------------------------------------------
+
+
+def _model_cost_change(ctx, step: torch.Tensor) -> torch.Tensor:
+    """-(J step)'(f + J step / 2), accumulated in f64
+    (trust_region_minimizer.cc:424-438): f32 cancellation here makes tiny
+    steps near the optimum look invalid (mcc <= 0 noise)."""
+    Js = ctx.matvec(step)
+    mcc = torch.zeros((), dtype=_F64, device=step.device)
+    for fi in range(len(ctx.families)):
+        j64 = Js[fi].to(_F64)
+        mcc = mcc - torch.sum(j64 * (ctx.residuals[fi].to(_F64) + j64 / 2.0))
+    return mcc
+
+
+def lm_step(ctx, radius: torch.Tensor, solve_aux, config: _SolveConfig, scaling=None,
+            norms=None):
+    """One LM step (levenberg_marquardt_strategy.cc:78-95): the Jacobi
+    column scaling (``scaling``; None = none), the clipped LM diagonal, the
+    damping, the linear solve and the model cost change. ``norms``: diag(J'J)
+    of the unscaled ``ctx`` when the caller has it (the scaled norms are then
+    scaling^2 * norms, one column-norm pass). Returns (the context the step
+    was solved with, the scaled step, the model cost change f64, linear
+    iterations, linear termination)."""
+    if norms is None:
+        norms = ctx.squared_column_norms()
+    if scaling is not None:
+        ctx = ctx.scale_columns(scaling)
+        norms = scaling * scaling * norms
+    diag = torch.clamp(norms, config.min_lm_diagonal, config.max_lm_diagonal)
+    D = _lm_damping(diag, radius)
+    y, lin_iters, lin_term = _linear_solve(ctx, D, solve_aux, config)
+    # a mixed-precision solve returns an f64-refined y; the step is applied
+    # to the evaluation-dtype state
+    step_scaled = -y.to(diag.dtype)
+    return ctx, step_scaled, _model_cost_change(ctx, step_scaled), lin_iters, lin_term
+
+
+def candidate_point(plus_struct, x: torch.Tensor, step_scaled: torch.Tensor, scaling=None):
+    """x [+] (scaling * step_scaled): the candidate point of a step."""
+    delta = step_scaled if scaling is None else step_scaled * scaling
+    return plus_apply(plus_struct, x, delta)
+
+
+def _to_host(*scalars: torch.Tensor) -> List[float]:
+    """The scalars as Python floats in ONE device read (a stack of f64
+    scalars and one copy): each ``float()`` of a device tensor waits for the
+    device on its own."""
+    return torch.stack([s.to(_F64) for s in scalars]).cpu().tolist()
+
+
+def _grad_norms(grad: torch.Tensor):
+    """(max |g|, ||g||) in f64."""
+    g = grad.to(_F64)
+    gmax = torch.max(torch.abs(g)) if g.numel() else g.new_zeros(())
+    return gmax, torch.linalg.norm(g)
+
+
+def _candidate_impl(x, step_scaled, scaling, families, plus_struct, apply_loss: bool):
+    """Candidate point, its cost and the x / step norms (f64) without a
+    Jacobian: the step-by-step branch's candidate
+    (trust_region_minimizer.cc:775-793), read by the host in one read."""
+    cand = candidate_point(plus_struct, x, step_scaled, scaling)
+    cost = _cost_impl(cand, families, apply_loss)
+    step_norm = torch.linalg.norm((x - cand).to(_F64))
+    x_norm = torch.linalg.norm(x.to(_F64))
+    return cand, cost, step_norm, x_norm
+
+
+def _tr_iteration_impl(x, ctx, radius, scaling, program, solve_aux, config: _SolveConfig,
+                       apply_loss: bool):
+    """One COMPLETE trust-region iteration of device work: the LM step, the
+    candidate point and a *speculative* full evaluation (cost, gradient,
+    Jacobian) at the candidate, which the reference performs only on an
+    accepted step (HandleSuccessfulStep). A rejected step wastes that
+    evaluation; in return the host reads the device once per iteration.
+
+    Returns (candidate x, candidate context, candidate gradient, scalars),
+    ``scalars`` one f64 device vector (mcc, lin_iters, lin_term, cand_cost,
+    step_norm, x_norm, cand_gmax, cand_gnorm) for one host read."""
+    _, step_scaled, mcc, lin_iters, lin_term = lm_step(ctx, radius, solve_aux, config, scaling)
+    cand = candidate_point(program.plus_struct, x, step_scaled, scaling)
+    step_norm = torch.linalg.norm((x - cand).to(_F64))
+    x_norm = torch.linalg.norm(x.to(_F64))
+    cand_cost, cand_grad, cand_ctx = _full_impl(
+        cand, ctx.families, program.num_tangent, ctx.groups, apply_loss
+    )
+    gmax, gnorm = _grad_norms(cand_grad)
+    scalars = torch.stack([
+        mcc, lin_iters.to(_F64), lin_term.to(_F64), cand_cost, step_norm, x_norm, gmax, gnorm,
+    ])
+    return cand, cand_ctx, cand_grad, scalars
+
+
+def _lm_step_impl(ctx, radius, solve_aux, config: _SolveConfig):
+    """One LM step on an already scaled context: (step, mcc, lin_iters,
+    lin_term)."""
+    _, step, mcc, lin_iters, lin_term = lm_step(ctx, radius, solve_aux, config)
+    return step, mcc, lin_iters, lin_term
+
+
+def _make_linear_solve(options, program):
+    """(linear_solve(ctx, D, solve_aux, rhs=None), solve_aux) bound to this
+    options/program pair: the linear solve a strategy that damps for itself
+    calls (the JAX package's DOGLEG; ROADMAP Queue 1 item 16b)."""
+    config = _config_from_options(options)
+    solve_aux = _build_solve_aux(options, program)
+
+    def linear_solve(ctx, D, solve_aux, rhs=None):
+        return _linear_solve(ctx, D, solve_aux, config, rhs=rhs)
+
+    return linear_solve, solve_aux
+
+
+def _make_lm_step_fn(options, program):
+    """f(ctx, radius) -> (step, model_cost_change, lin_iters, lin_termination)."""
+    config = _config_from_options(options)
+    if config.linear_solver_type in (
+        LinearSolverType.SPARSE_NORMAL_CHOLESKY,
+        LinearSolverType.SPARSE_SCHUR,
+    ):
+        raise NotImplementedError(f"{config.linear_solver_type.name}: {_SPARSE}")
+    solve_aux = _build_solve_aux(options, program)
+    return lambda ctx, radius: _lm_step_impl(ctx, radius, solve_aux, config)
+
+
+# -- the host loop -------------------------------------------------------------
+
+
+class TrustRegionMinimizer:
+    """The outer loop (trust_region_minimizer.cc:68-136), Levenberg-Marquardt."""
+
+    def __init__(self, program, options, summary):
+        if options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG:
+            raise NotImplementedError(f"DOGLEG: {_MINIMIZERS}")
+        if options.use_inner_iterations:
+            raise NotImplementedError(f"use_inner_iterations: {_MINIMIZERS}")
+        if options.check_gradients:
+            raise NotImplementedError(f"check_gradients: {_CHECKS}")
+        self.program = program
+        self.options = options
+        self.summary = summary
+        self.evaluator = Evaluator(program, evaluation_callback=options.evaluation_callback)
+        self.step_fn = _make_lm_step_fn(options, program)
+        self._plus = program.plus
+
+        # The fused iteration (one host read per loop trip,
+        # _tr_iteration_impl) stands down whenever a feature needs host work
+        # between the step and the candidate evaluation: the bounds line
+        # search, dumps, callbacks that read the state or every evaluation.
+        self._fused_config = _config_from_options(options)
+        self._use_fused_iteration = (
+            not program.has_bounds
+            and options.evaluation_callback is None
+            and not options.update_state_every_iteration
+            and not (
+                options.trust_region_problem_dump_directory
+                and options.trust_region_minimizer_iterations_to_dump
+            )
+        )
+        self._fused_aux = _build_solve_aux(options, program) if self._use_fused_iteration else None
+        # A caller (a test) may swap self.step_fn; the fused path then
+        # stands down so the replacement is what runs.
+        self._default_step_fn = self.step_fn
+        self._scaled_ctx_memo = None
+
+    def minimize(self, x0: torch.Tensor) -> torch.Tensor:
+        opts = self.options
+        program = self.program
+        summary = self.summary
+        start_time = time.perf_counter()
+        dev = x0.device
+
+        def radius_tensor(r):
+            # a fill kernel, not a copy from the host (which would wait)
+            return torch.full((), r, dtype=_F64, device=dev)
+
+        x = program.clamp(x0)
+        strategy = LevenbergMarquardtStrategy(opts)
+
+        # Iteration zero (trust_region_minimizer.cc:196-283).
+        t0 = time.perf_counter()
+        full = self.evaluator.cost_gradient_jacobian(x)
+        grad = full.gradient
+        ctx = full.jacobian_context
+        x_cost, gmax0, gnorm0 = _to_host(full.cost, *_grad_norms(grad))
+        summary.jacobian_evaluation_time_in_seconds += time.perf_counter() - t0
+        summary.num_jacobian_evaluations += 1
+        if not np.isfinite(x_cost):
+            summary.termination_type = TerminationType.FAILURE
+            summary.message = "Initial cost evaluation failed (non-finite)."
+            return x
+
+        jacobi_scaling = None
+        if opts.jacobi_scaling:
+            # scale_i = 1 / (1 + sqrt(diag(J'J)_i)), fixed at iteration 0
+            # (trust_region_minimizer.cc:263-279)
+            jacobi_scaling = 1.0 / (1.0 + torch.sqrt(ctx.squared_column_norms()))
+
+        step_evaluator = TrustRegionStepEvaluator(
+            x_cost,
+            opts.max_consecutive_nonmonotonic_steps if opts.use_nonmonotonic_steps else 0,
+        )
+
+        it = IterationSummary(
+            iteration=0,
+            cost=x_cost + summary.fixed_cost,
+            gradient_max_norm=gmax0,
+            gradient_norm=gnorm0,
+            trust_region_radius=strategy.radius,
+            eta=opts.eta,
+            step_is_valid=True,
+            step_is_successful=True,
+            cumulative_time_in_seconds=time.perf_counter() - start_time,
+        )
+        summary.iterations.append(it)
+        self._log_progress(it)
+
+        if it.gradient_max_norm <= opts.gradient_tolerance:
+            summary.termination_type = TerminationType.CONVERGENCE
+            summary.message = (
+                f"Gradient tolerance reached. Gradient max norm: "
+                f"{it.gradient_max_norm:e} <= {opts.gradient_tolerance:e}"
+            )
+            return x
+
+        num_consecutive_invalid_steps = 0
+        atleast_one_successful_step = False
+
+        while True:
+            iter_start = time.perf_counter()
+            prev = summary.iterations[-1]
+            it = IterationSummary(
+                iteration=prev.iteration + 1,
+                trust_region_radius=strategy.radius,
+                eta=opts.eta,
+            )
+            if self._check_termination_pre(it):
+                return x
+            summary.num_iterations += 1
+
+            solver_t0 = time.perf_counter()
+            fused = self._use_fused_iteration and self.step_fn is self._default_step_fn
+            if fused:
+                # Step + candidate + speculative evaluation; one read.
+                cand_x_dev, cand_ctx, cand_grad, scalar_pack = _tr_iteration_impl(
+                    x, ctx, radius_tensor(strategy.radius), jacobi_scaling, program,
+                    self._fused_aux, self._fused_config, self.evaluator.apply_loss,
+                )
+                (model_cost_change, lin_iters, lin_term, f_cand_cost, f_step_norm,
+                 f_x_norm, f_gmax, f_gnorm) = scalar_pack.cpu().tolist()
+                step_scaled = True  # not None: validity checked below
+            else:
+                # Memoized column scaling: a rejected iteration keeps the
+                # same scaled context.
+                if jacobi_scaling is None:
+                    ctx_used = ctx
+                else:
+                    memo = self._scaled_ctx_memo
+                    if memo is None or memo[0] is not ctx or memo[1] is not jacobi_scaling:
+                        memo = (ctx, jacobi_scaling, ctx.scale_columns(jacobi_scaling))
+                        self._scaled_ctx_memo = memo
+                    ctx_used = memo[2]
+                step_scaled, mcc, lin_iters, lin_term = self.step_fn(
+                    ctx_used, radius_tensor(strategy.radius)
+                )
+                model_cost_change, lin_iters, lin_term = _to_host(mcc, lin_iters, lin_term)
+            lin_term = int(lin_term)
+            it.linear_solver_iterations = int(lin_iters)
+            it.step_solver_time_in_seconds = time.perf_counter() - solver_t0
+            # On the fused iteration one call covers step, candidate and
+            # re-evaluation: its whole time lands under "linear solver",
+            # and the evaluation counters still tick.
+            summary.linear_solver_time_in_seconds += it.step_solver_time_in_seconds
+            summary.num_linear_solves += 1
+            if fused:
+                summary.num_residual_evaluations += 1
+                summary.num_jacobian_evaluations += 1
+
+            # Problem dumps (solver.h:725-735, trust_region_minimizer.cc:386-396).
+            if (
+                not fused
+                and opts.trust_region_problem_dump_directory
+                and it.iteration in opts.trust_region_minimizer_iterations_to_dump
+            ):
+                from ceres_tpu_torch.utils.observability import dump_trust_region_problem
+
+                diag = torch.clamp(
+                    ctx_used.squared_column_norms(), opts.min_lm_diagonal, opts.max_lm_diagonal
+                )
+                dump_trust_region_problem(
+                    f"{opts.trust_region_problem_dump_directory}/lm_problem",
+                    it.iteration, ctx_used, torch.sqrt(diag / strategy.radius), step_scaled,
+                )
+
+            if lin_term >= CG_FATAL_ERROR:
+                # linear_solver.h:69-74: unrecoverable, abort the solve.
+                summary.termination_type = TerminationType.FAILURE
+                summary.message = "Terminating: linear solver reported FATAL_ERROR."
+                return x
+            # FAILURE -> invalid step (retry with a smaller trust region),
+            # the reference's HandleInvalidStep path.
+            it.step_is_valid = (
+                step_scaled is not None
+                and lin_term < CG_FAILURE
+                and bool(np.isfinite(model_cost_change))
+                and model_cost_change > 0.0
+            )
+            if lin_term >= CG_FAILURE:
+                summary.num_linear_solver_failures += 1
+
+            if not it.step_is_valid:
+                # HandleInvalidStep (trust_region_minimizer.cc:466-500)
+                num_consecutive_invalid_steps += 1
+                if num_consecutive_invalid_steps >= opts.max_num_consecutive_invalid_steps:
+                    summary.termination_type = TerminationType.FAILURE
+                    summary.message = (
+                        "Number of consecutive invalid steps more than "
+                        "Solver::Options::max_num_consecutive_invalid_steps: "
+                        f"{opts.max_num_consecutive_invalid_steps}"
+                    )
+                    return x
+                strategy.step_is_invalid(0.0)
+                it.cost = x_cost + summary.fixed_cost
+                it.gradient_max_norm = prev.gradient_max_norm
+                it.gradient_norm = prev.gradient_norm
+                it.iteration_time_in_seconds = time.perf_counter() - iter_start
+                it.cumulative_time_in_seconds = time.perf_counter() - start_time
+                summary.iterations.append(it)
+                self._log_progress(it)
+                if self._run_callbacks(it, x):
+                    return x
+                continue
+
+            num_consecutive_invalid_steps = 0
+
+            if fused:
+                candidate_x = cand_x_dev
+                candidate_cost = f_cand_cost
+                step_norm = f_step_norm
+                x_norm = f_x_norm
+            elif program.has_bounds:
+                # Projected line search for bounds
+                # (trust_region_minimizer.cc:103-108).
+                delta = step_scaled if jacobi_scaling is None else step_scaled * jacobi_scaling
+                delta = self._projected_line_search(x, x_cost, delta, grad)
+                candidate_x = program.clamp(self._plus(x, delta))
+                t0 = time.perf_counter()
+                cost = self.evaluator.cost(candidate_x)
+                candidate_cost, x_norm, step_norm = _to_host(
+                    cost, torch.linalg.norm(x.to(_F64)),
+                    torch.linalg.norm((x - candidate_x).to(_F64)),
+                )
+                summary.residual_evaluation_time_in_seconds += time.perf_counter() - t0
+                summary.num_residual_evaluations += 1
+            else:
+                # Candidate, its cost and the norms: one read.
+                t0 = time.perf_counter()
+                self.evaluator._notify(None, False)
+                candidate_x, cc, sn, xn = _candidate_impl(
+                    x, step_scaled, jacobi_scaling, program.families, program.plus_struct,
+                    self.evaluator.apply_loss,
+                )
+                candidate_cost, step_norm, x_norm = _to_host(cc, sn, xn)
+                summary.residual_evaluation_time_in_seconds += time.perf_counter() - t0
+                summary.num_residual_evaluations += 1
+            if not np.isfinite(candidate_cost):
+                candidate_cost = _DBL_MAX
+
+            it.step_norm = step_norm
+            it.cost_change = x_cost - candidate_cost
+
+            # Parameter tolerance (trust_region_minimizer.cc:720-742).
+            step_size_tolerance = opts.parameter_tolerance * (x_norm + opts.parameter_tolerance)
+            if atleast_one_successful_step and it.step_norm <= step_size_tolerance:
+                summary.termination_type = TerminationType.CONVERGENCE
+                summary.message = (
+                    f"Parameter tolerance reached. Relative step_norm: "
+                    f"{it.step_norm / (x_norm + opts.parameter_tolerance):e} <= "
+                    f"{opts.parameter_tolerance:e}."
+                )
+                return x
+
+            # Function tolerance (trust_region_minimizer.cc:744-766).
+            if abs(it.cost_change) <= opts.function_tolerance * x_cost:
+                summary.termination_type = TerminationType.CONVERGENCE
+                summary.message = (
+                    f"Function tolerance reached. |cost_change|/cost: "
+                    f"{abs(it.cost_change) / x_cost if x_cost else 0.0:e} <= "
+                    f"{opts.function_tolerance:e}"
+                )
+                return x
+
+            # Step quality (IsStepSuccessful, trust_region_minimizer.cc:795-821).
+            it.relative_decrease = step_evaluator.step_quality(candidate_cost, model_cost_change)
+            it.step_is_successful = it.relative_decrease > opts.min_relative_decrease
+            it.step_is_nonmonotonic = (
+                it.step_is_successful and candidate_cost > step_evaluator.minimum_cost
+            )
+
+            if it.step_is_successful:
+                atleast_one_successful_step = True
+                x = candidate_x
+                x_cost = candidate_cost
+                if fused:
+                    # The speculative evaluation is the reference's
+                    # HandleSuccessfulStep re-evaluation (:826), done already.
+                    grad, ctx = cand_grad, cand_ctx
+                    it.gradient_max_norm, it.gradient_norm = f_gmax, f_gnorm
+                else:
+                    t0 = time.perf_counter()
+                    full = self.evaluator.cost_gradient_jacobian(x)
+                    grad = full.gradient
+                    ctx = full.jacobian_context
+                    it.gradient_max_norm, it.gradient_norm = _to_host(*_grad_norms(grad))
+                    summary.jacobian_evaluation_time_in_seconds += time.perf_counter() - t0
+                    summary.num_jacobian_evaluations += 1
+                strategy.step_accepted(it.relative_decrease)
+                step_evaluator.step_accepted(candidate_cost, model_cost_change)
+            else:
+                strategy.step_rejected(it.relative_decrease)
+                it.gradient_max_norm = prev.gradient_max_norm
+                it.gradient_norm = prev.gradient_norm
+
+            it.cost = x_cost + summary.fixed_cost
+            it.trust_region_radius = strategy.radius
+            it.iteration_time_in_seconds = time.perf_counter() - iter_start
+            it.cumulative_time_in_seconds = time.perf_counter() - start_time
+            summary.iterations.append(it)
+            self._log_progress(it)
+            if self._run_callbacks(it, x):
+                return x
+
+            if it.step_is_successful and it.gradient_max_norm <= opts.gradient_tolerance:
+                summary.termination_type = TerminationType.CONVERGENCE
+                summary.message = (
+                    f"Gradient tolerance reached. Gradient max norm: "
+                    f"{it.gradient_max_norm:e} <= {opts.gradient_tolerance:e}"
+                )
+                return x
+
+            if strategy.radius <= opts.min_trust_region_radius:
+                summary.termination_type = TerminationType.CONVERGENCE
+                summary.message = (
+                    "Minimum trust region radius reached. Trust region radius: "
+                    f"{strategy.radius:e} <= {opts.min_trust_region_radius:e}"
+                )
+                return x
+
+    # -- helpers ------------------------------------------------------------
+
+    def _check_termination_pre(self, it: IterationSummary) -> bool:
+        opts = self.options
+        summary = self.summary
+        if it.iteration > opts.max_num_iterations:
+            summary.termination_type = TerminationType.NO_CONVERGENCE
+            summary.message = (
+                "Maximum number of iterations reached. "
+                f"Number of iterations: {it.iteration - 1}."
+            )
+            return True
+        total = it.cumulative_time_in_seconds = summary.iterations[-1].cumulative_time_in_seconds
+        if total >= opts.max_solver_time_in_seconds:
+            summary.termination_type = TerminationType.NO_CONVERGENCE
+            summary.message = "Maximum solver time reached."
+            return True
+        return False
+
+    def _projected_line_search(self, x, x_cost, delta, gradient):
+        """Projected Armijo backtracking with polynomial interpolation.
+
+        Analog of TrustRegionMinimizer::DoLineSearch
+        (trust_region_minimizer.cc:290-379,590-635): sufficient-decrease
+        condition phi(a) <= phi(0) + c*a*phi'(0) on the projected step,
+        with the next trial step chosen by quadratic (first backtrack) then
+        cubic (subsequent) interpolation of the sampled values, safeguarded
+        to [0.1a, 0.5a] like line_search.cc's min/max_relative_step_size_change
+        defaults. One host read per trial (its cost) and one for phi'(0).
+        """
+        from ceres_tpu_torch.ops.polynomial import (
+            cubic_minimizer_from_samples,
+            quadratic_minimizer,
+        )
+
+        program, opts = self.program, self.options
+        c1 = opts.line_search_sufficient_function_decrease
+        phi0 = x_cost
+        (dphi0,) = _to_host(torch.dot(gradient.to(_F64), delta.to(_F64)))
+        if not np.isfinite(dphi0) or dphi0 >= 0.0:
+            # Scaling/projection degraded descent: keep the full step and
+            # let the step-quality test reject it (the reference treats a
+            # non-descent direction as line search failure).
+            return delta
+        alpha = 1.0
+        prev = None  # (alpha, phi) of the previous trial
+        for _ in range(opts.max_num_line_search_step_size_iterations):
+            if alpha < opts.min_line_search_step_size:
+                # Degenerate step (ArmijoLineSearch's min_step_size abort): a
+                # rounding-level alpha can satisfy the sufficient-decrease
+                # test spuriously and trip the parameter-tolerance check.
+                break
+            cand = program.clamp(self._plus(x, alpha * delta))
+            (phi,) = _to_host(self.evaluator.cost(cand))
+            if np.isfinite(phi) and phi <= phi0 + c1 * alpha * dphi0:
+                return alpha * delta
+            if prev is None or not np.isfinite(phi):
+                # Quadratic through phi(0), phi'(0), (alpha, phi).
+                a_next = quadratic_minimizer(phi0, dphi0, alpha, phi)
+            else:
+                # Cubic through phi(0), phi'(0) and the last two samples
+                # (Nocedal & Wright eq. 3.43).
+                a0, f0 = prev
+                a_next = cubic_minimizer_from_samples(phi0, dphi0, a0, f0, alpha, phi)
+            if not np.isfinite(a_next):
+                a_next = 0.5 * alpha
+            a_next = min(max(a_next, 0.1 * alpha), 0.5 * alpha)
+            if np.isfinite(phi):
+                prev = (alpha, phi)
+            alpha = a_next
+        # Line search failed: keep the FULL step, like the reference
+        # (line_search_summary.success == false leaves delta unscaled,
+        # trust_region_minimizer.cc:633-635). The clamped candidate is then
+        # rejected by the step-quality test and the radius shrinks until the
+        # direction follows the projected gradient; returning the best tiny
+        # step instead would trip the parameter-tolerance test and report
+        # false convergence at an active bound.
+        return delta
+
+    def _run_callbacks(self, it: IterationSummary, x=None) -> bool:
+        """Returns True if minimization should stop (callbacks.h:45-75)."""
+        if self.options.update_state_every_iteration and x is not None and self.options.callbacks:
+            # solver.h:786-815: expose the current parameters to callbacks.
+            self.program._problem.write_back(x.to(_F64).cpu().numpy())
+        for cb in self.options.callbacks:
+            ret = cb(it)
+            if ret == CallbackReturnType.SOLVER_ABORT:
+                self.summary.termination_type = TerminationType.USER_FAILURE
+                self.summary.message = "User callback returned SOLVER_ABORT."
+                return True
+            if ret == CallbackReturnType.SOLVER_TERMINATE_SUCCESSFULLY:
+                self.summary.termination_type = TerminationType.USER_SUCCESS
+                self.summary.message = "User callback returned SOLVER_TERMINATE_SUCCESSFULLY."
+                return True
+        return False
+
+    def _log_progress(self, it: IterationSummary) -> None:
+        if not self.options.minimizer_progress_to_stdout:
+            return
+        if it.iteration == 0:
+            print(
+                "iter      cost      cost_change  |gradient|   |step|  "
+                "  tr_ratio  tr_radius  ls_iter  iter_time  total_time"
+            )
+        print(
+            f"{it.iteration:4d} {it.cost:.6e} {it.cost_change:.2e} "
+            f"{it.gradient_max_norm:.2e} {it.step_norm:.2e} "
+            f"{it.relative_decrease:.2e} {it.trust_region_radius:.2e} "
+            f"{it.linear_solver_iterations:7d} {it.iteration_time_in_seconds:.2e} "
+            f"{it.cumulative_time_in_seconds:.2e}"
+        )

@@ -1,7 +1,8 @@
 """Enums of the solver vocabulary the port uses.
 
 Port of the subset of ``ceres_tpu/types.py`` that the port's modules read
-(linear solvers, preconditioners, strategies, minimizers, terminations);
+(linear solvers, preconditioners, strategies, minimizers, terminations,
+callback returns);
 names and members match the JAX package.
 """
 
@@ -63,6 +64,14 @@ class TerminationType(_StrEnum):
     FAILURE = enum.auto()
     USER_SUCCESS = enum.auto()
     USER_FAILURE = enum.auto()
+
+
+class CallbackReturnType(_StrEnum):
+    """Analog of CallbackReturnType (types.h)."""
+
+    SOLVER_CONTINUE = enum.auto()
+    SOLVER_ABORT = enum.auto()
+    SOLVER_TERMINATE_SUCCESSFULLY = enum.auto()
 
 
 class LinearSolverTerminationType(_StrEnum):

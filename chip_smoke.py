@@ -48,8 +48,9 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    (the Jacobians and residuals the kernels reduce are the loss-corrected
    ones), DENSE_SCHUR, float32 and float64, a 2-iteration warm-up and two
    timed solves each: equal final costs to the bit, a usable termination,
-   the float32 cost within 1e-3 relative of the float64 one, and K1, K3 and
-   K4 each launched;
+   both within 1e-3 relative of the JAX package's float64 cost on the same
+   instance, the float32 cost within 1e-3 relative of the float64 one, and
+   K1, K3 and K4 each launched;
 7. solve, robust flagship: the flagship instance with ``HuberLoss(1.0)``,
    ITERATIVE_SCHUR + SCHUR_JACOBI at ``bal.default_options()``, float64,
    within 1e-3 relative of the JAX package's float64 final cost on the same
@@ -88,6 +89,30 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    atomics on the card), and the two solves' final costs and LM and CG
    iteration counts equal to the bit, the cost within 1e-3 of the JAX
    package's.
+13. solve, host loop, large (``host_loop_large``): the large instance at
+   ``bal.default_options(iterative=False)`` (DENSE_SCHUR) through
+   ``ctt.solve`` with ``minimizer_progress_to_stdout`` (the setting of
+   ``examples/bundle_adjuster.py``) and an iteration callback that keeps
+   each record, which send it to the host-loop minimizer and its fused
+   iteration (step, candidate and a speculative evaluation, one host read).
+   float32 and float64, a 2-iteration warm-up and LARGE_REPEATS timed
+   solves, equal to the bit; a usable termination within 1e-3 relative of
+   3587827.37; K1, K3 and K4 launched; the progress text one header and one
+   line per record (captured, not printed); and the records of a
+   ``ctt.solve`` of the same instance without those options (the traced
+   fused loop) in the same process: the same record count, success pattern
+   and linear iterations, costs within HOST_LOOP_COST_RTOL (whether the
+   costs are equal to the bit is printed: the two loops scale the Jacobian
+   differently, so they are not expected to be);
+14. solve, host loop, flagship (``flagship_host_loop``), float64, at
+   ``bal.default_options(iterative=True)``: (a) every point's z bounded to
+   [-1, 1] with the start clipped into the box (the step-by-step branch,
+   the projected line search and the clamp), (b) ``use_nonmonotonic_steps``
+   with an ``EvaluationCallback`` that counts its calls and a time budget of
+   1e5 s. Each against the JAX package's float64 result for the same
+   problem and options: the same record count, the cost within 1e-6
+   relative, (a) the final state inside the box with active bounds, (b) the
+   same number of evaluation-callback calls.
 
 ``solve_seconds`` is the LM loop on the device; the host set-up of each
 fresh problem is reported as ``setup_seconds``; ``seconds_per_cg_iteration``
@@ -107,6 +132,8 @@ above) and the card's name and power limit. The last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -143,7 +170,24 @@ POSE_GRAPH_REFERENCE_FINAL_COST = 0.377419867537356
 # ``scatter``): CONVERGENCE after 15 LM and 3837 CG iterations.
 POSE_GRAPH_REPEAT_POSES = 500
 POSE_GRAPH_REPEAT_REFERENCE_FINAL_COST = 0.058063696871759066
+# ceres_tpu.fused_lm.fused_solve on the large instance with HuberLoss(1.0)
+# and the large phase's options, float64, JAX on the CPU: CONVERGENCE after
+# 25 LM iterations (without the loss: 4 LM iterations, 3587827.41019063);
+# ``python tests/test_torch_references.py large`` computes it.
+ROBUST_LARGE_REFERENCE_FINAL_COST = 1938982.64885512
 SMALL_ROBUST = dict(num_cameras=8, num_points=500, num_observations=2000, seed=42)
+# The host loop's records against the traced loop's (host_loop_large).
+HOST_LOOP_COST_RTOL = {"float32": 1e-6, "float64": 1e-12}
+# ceres_tpu.solve on the flagship instance at bal.default_options(
+# iterative=True), float64, JAX on the CPU (host loop): (records, final
+# cost[, evaluation-callback calls]). Bounded: every point's z in [-1, 1],
+# the start clipped into the box (CONVERGENCE, 5645 bounds active at the
+# end); non-monotonic: with use_nonmonotonic_steps, an EvaluationCallback
+# and max_solver_time_in_seconds=1e5 (CONVERGENCE; no step raised the cost);
+# ``python tests/test_torch_references.py flagship_host_loop`` computes them.
+FLAGSHIP_BOUNDED_REFERENCE = (34, 4739293.539734491)
+FLAGSHIP_NONMONOTONIC_REFERENCE = (4, 202425.5312170272, 8)
+FLAGSHIP_HOST_LOOP_RTOL = 1e-6
 # The large iterative solve's float32 cost against its float64 one.
 LARGE_ITERATIVE_F32_RTOL = 1e-5
 # ceres_tpu.fused_lm.fused_solve on the flagship instance at
@@ -752,9 +796,8 @@ def solve_robust_large(device, dtype: str, inst):
         if i == 0:
             launches, by_width = _launches(), _launches_by_width()
             kinds = _plan_kinds(problem.program(device))
-            x = problem.state()
-            if x.shape != (runs[0].num_parameters,) or not np.all(np.isfinite(x)):
-                raise RuntimeError(f"robust large {dtype}: bad or non-finite solution")
+            rel = _checked(problem, runs[0], ROBUST_LARGE_REFERENCE_FINAL_COST,
+                           f"robust large {dtype}")
         if runs[-1].final_cost != runs[0].final_cost:
             raise RuntimeError(f"robust large {dtype} solve is not repeatable on the card")
         del problem
@@ -764,6 +807,7 @@ def solve_robust_large(device, dtype: str, inst):
     phase(
         "solve", case="robust_large", loss="HuberLoss(1.0)", dtype=dtype,
         initial_cost=summary.initial_cost, final_cost=summary.final_cost,
+        reference_final_cost=ROBUST_LARGE_REFERENCE_FINAL_COST, rel_err=rel,
         lm_iterations=summary.num_iterations,
         successful_steps=summary.num_successful_steps,
         termination=str(summary.termination_type), solve_seconds=seconds,
@@ -1048,6 +1092,175 @@ def solve_dense(device) -> None:
         raise RuntimeError(f"DENSE_QR {qr} and DENSE_NORMAL_CHOLESKY {chol} disagree")
 
 
+# ---- the host-loop minimizer --------------------------------------------------
+
+
+def _host_loop_options(dtype: str, records: list, max_iters: int = 50):
+    """The large phase's options with the flagship example's progress output
+    and an iteration callback that keeps each record: the host loop."""
+    opts = _options(dtype, False, max_iters)
+    opts.minimizer_progress_to_stdout = True
+
+    def keep(it):
+        records.append(it)
+        return ctt.CallbackReturnType.SOLVER_CONTINUE
+
+    opts.callbacks = [keep]
+    return opts
+
+
+def _record_key(summary):
+    return [(r.step_is_successful, r.step_is_valid, r.linear_solver_iterations)
+            for r in summary.iterations]
+
+
+def solve_host_loop_large(device, dtype: str, inst, smi: str):
+    """The large case through ctt.solve on the host loop (progress output
+    and a callback): a 2-iteration warm-up, LARGE_REPEATS timed solves equal
+    to the bit, then the traced fused loop on the same instance and options
+    without those two, held record by record. Returns the launches of the
+    first timed solve."""
+    warm, _, _ = bal.build_problem(inst)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ctt.solve(_host_loop_options(dtype, [], max_iters=2), warm, device=device)
+    del warm
+    runs = []
+    for i in range(LARGE_REPEATS):
+        problem, _, _ = bal.build_problem(inst)
+        kept, text = [], io.StringIO()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+        with contextlib.redirect_stdout(text):
+            runs.append(ctt.solve(_host_loop_options(dtype, kept), problem, device=device))
+        if i == 0:
+            launches, by_width = _launches(), _launches_by_width()
+            peak = torch.cuda.max_memory_allocated()
+            rel = _checked(problem, runs[0], LARGE_REFERENCE_FINAL_COST, f"host loop large {dtype}")
+            progress, callback_records = text.getvalue().splitlines(), len(kept)
+        if runs[-1].final_cost != runs[0].final_cost or _record_key(runs[-1]) != _record_key(runs[0]):
+            raise RuntimeError(f"host loop large {dtype} solve is not repeatable on the card")
+        del problem
+    host = runs[0]
+    _usable(host, f"host loop large {dtype}")
+    problem, _, _ = bal.build_problem(inst)
+    traced = ctt.solve(_options(dtype, False), problem, device=device)
+    del problem
+    costs = [(a.cost, b.cost) for a, b in zip(host.iterations, traced.iterations)]
+    max_rel = max(abs(a - b) / abs(b) for a, b in costs)
+    agree = (
+        len(host.iterations) == len(traced.iterations)
+        and _record_key(host) == _record_key(traced)
+        and max_rel <= HOST_LOOP_COST_RTOL[dtype]
+    )
+    seconds, traced_seconds = host.minimizer_time_in_seconds, traced.minimizer_time_in_seconds
+    phase(
+        "solve", case="host_loop_large", dtype=dtype, initial_cost=host.initial_cost,
+        final_cost=host.final_cost, reference_final_cost=LARGE_REFERENCE_FINAL_COST,
+        rel_err=rel, lm_iterations=host.num_iterations, records=len(host.iterations),
+        successful_steps=host.num_successful_steps,
+        rejected_steps=host.num_unsuccessful_steps,
+        linear_solver_iterations=host.num_linear_solver_iterations,
+        termination=str(host.termination_type), message=host.message,
+        solve_seconds=seconds, seconds_per_lm_iteration=seconds / max(host.num_iterations, 1),
+        solve_seconds_all=[s.minimizer_time_in_seconds for s in runs],
+        traced_solve_seconds=traced_seconds,
+        traced_seconds_per_lm_iteration=traced_seconds / max(traced.num_iterations, 1),
+        traced_lm_iterations=traced.num_iterations, traced_final_cost=traced.final_cost,
+        records_agree=agree, record_costs_max_rel_diff=max_rel,
+        record_costs_equal_to_the_bit=all(a == b for a, b in costs),
+        summary_times=dict(
+            residual_evaluation=[host.residual_evaluation_time_in_seconds,
+                                 host.num_residual_evaluations],
+            jacobian_evaluation=[host.jacobian_evaluation_time_in_seconds,
+                                 host.num_jacobian_evaluations],
+            linear_solver=[host.linear_solver_time_in_seconds, host.num_linear_solves],
+        ),
+        progress_lines=len(progress), callback_records=callback_records,
+        setup_seconds=host.preprocessor_time_in_seconds,
+        setup_seconds_all=[s.preprocessor_time_in_seconds for s in runs],
+        launches=launches, launches_by_width=by_width, peak_device_bytes=peak, card=smi,
+    )
+    if not agree:
+        raise RuntimeError(f"host loop large {dtype}: records differ from the traced loop's")
+    if not progress[0].startswith("iter ") or len(progress) != 1 + len(host.iterations):
+        raise RuntimeError(f"host loop large {dtype}: {len(progress)} progress lines")
+    if callback_records != len(host.iterations) - 1:
+        raise RuntimeError(f"host loop large {dtype}: the callback saw {callback_records} records")
+    for name, count in launches.items():
+        if count == 0:
+            raise RuntimeError(f"host loop large {dtype}: {name} was never launched")
+    return launches
+
+
+class _CountingCallback(ctt.EvaluationCallback):
+    def __init__(self):
+        self.calls = 0
+
+    def prepare_for_evaluation(self, new_evaluation_point, evaluate_jacobians):
+        self.calls += 1
+
+
+def solve_flagship_host_loop(device, smi: str) -> dict:
+    """The flagship instance through the host loop's step-by-step branch,
+    float64: bounded (the projected line search) and non-monotonic (with an
+    EvaluationCallback and a time budget), each against the JAX package's
+    float64 result. Returns the launches of each solve."""
+    paths = {}
+    boxed = flagship_instance()
+    boxed.points[:, 2] = np.clip(boxed.points[:, 2], -1.0, 1.0)
+    problem, _, pts = bal.build_problem(boxed)
+    for pid in pts:
+        problem.set_parameter_lower_bound(int(pid), 2, -1.0)
+        problem.set_parameter_upper_bound(int(pid), 2, 1.0)
+    counter = _CountingCallback()
+    nonmono, _, _ = bal.build_problem(flagship_instance())
+    opts_n = bal.default_options(iterative=True)
+    opts_n.use_nonmonotonic_steps = True
+    opts_n.evaluation_callback = counter
+    opts_n.max_solver_time_in_seconds = 1e5
+    for name, prob, opts, (records, reference) in (
+        ("bounded", problem, bal.default_options(iterative=True), FLAGSHIP_BOUNDED_REFERENCE),
+        ("nonmonotonic", nonmono, opts_n, FLAGSHIP_NONMONOTONIC_REFERENCE[:2]),
+    ):
+        _reset_launches()
+        summary = ctt.solve(opts, prob, device=device)
+        launches, by_width = _launches(), _launches_by_width()
+        _usable(summary, f"flagship host loop {name}")
+        rel = abs(summary.final_cost - reference) / reference
+        extra = {}
+        if name == "bounded":
+            z = prob.state()[-3 * len(pts) + 2::3]
+            extra = dict(inside_the_box=bool(np.all(np.abs(z) <= 1.0)),
+                         active_bounds=int(np.sum(np.abs(z) == 1.0)))
+        else:
+            extra = dict(evaluation_callback_calls=counter.calls,
+                         reference_evaluation_callback_calls=FLAGSHIP_NONMONOTONIC_REFERENCE[2],
+                         nonmonotonic_steps=sum(r.step_is_nonmonotonic for r in summary.iterations))
+        phase(
+            "solve", case="flagship_host_loop", variant=name, dtype="float64",
+            initial_cost=summary.initial_cost, final_cost=summary.final_cost,
+            reference_final_cost=reference, rel_err=rel, records=len(summary.iterations),
+            reference_records=records, lm_iterations=summary.num_iterations,
+            cg_iterations=summary.num_linear_solver_iterations,
+            termination=str(summary.termination_type), message=summary.message,
+            solve_seconds=summary.minimizer_time_in_seconds,
+            setup_seconds=summary.preprocessor_time_in_seconds,
+            launches=launches, launches_by_width=by_width, card=smi, **extra,
+        )
+        if len(summary.iterations) != records or not rel <= FLAGSHIP_HOST_LOOP_RTOL:
+            raise RuntimeError(f"flagship host loop {name}: records {len(summary.iterations)} "
+                               f"(JAX {records}), cost {summary.final_cost} (JAX {reference})")
+        if name == "bounded" and not (extra["inside_the_box"] and extra["active_bounds"] > 0):
+            raise RuntimeError(f"flagship host loop bounded: {extra}")
+        if name == "nonmonotonic" and counter.calls != FLAGSHIP_NONMONOTONIC_REFERENCE[2]:
+            raise RuntimeError(f"flagship host loop nonmonotonic: {counter.calls} callback calls")
+        if launches["sorted_segment_sum"] == 0:
+            raise RuntimeError(f"flagship host loop {name}: K1 was never launched")
+        paths[f"flagship_host_loop_{name}"] = launches
+    return paths
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = check_device()
@@ -1081,6 +1294,11 @@ def main() -> int:
     paths["pose_graph_3d_float64"] = solve_pose_graph(device)
     paths["pose_graph_repeat_float64"] = solve_pose_graph_twice(device)
     solve_dense(device)
+    inst = large_instance()
+    for dtype in ("float32", "float64"):
+        paths[f"host_loop_large_{dtype}"] = solve_host_loop_large(device, dtype, inst, smi)
+    del inst
+    paths.update(solve_flagship_host_loop(device, smi))
     for record in records:
         record["launches"] = launches[record["name"]]
         record["launches_by_path"] = {k: v[record["name"]] for k, v in paths.items()}

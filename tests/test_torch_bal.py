@@ -63,19 +63,31 @@ def test_residuals_and_jacobians_at_x0(dtype, rtol):
 
 
 def test_loss_and_constant_blocks_are_roadmap_items():
-    """A loss and constant blocks are in the port now; what is left to the
-    host-loop minimizer (parameter bounds) still raises, naming its ROADMAP
-    item, and an object that is no loss is refused when it is added."""
+    """A loss, constant blocks and parameter bounds are in the port: a
+    bounded solve (the host loop) converges with the focal-length bound
+    respected. What is left to a later item (inner iterations) still raises,
+    naming its ROADMAP item, and an object that is no loss is refused when
+    it is added."""
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.problem import Problem
 
     inst = tbal.synthesize_bal(**SIZES, seed=1)
-    problem = tbal.build_problem(inst, loss=ctt.loss.HuberLoss(1.0))[0]
+    problem, cams, _ = tbal.build_problem(inst, loss=ctt.loss.HuberLoss(1.0))
     assert problem.program("cpu").families[0].loss is not None
     ids = Problem().add_parameter_blocks(inst.cameras, constant=True)
     assert ids.shape == (inst.cameras.shape[0],)
-    problem.set_parameter_lower_bound(0, 6, 100.0)
+    # the second camera's focal length (index 6) may not rise above its
+    # start, and the solve would take it higher: the bound ends active
+    focal = float(problem.parameter_block_value(int(cams[1]))[6])
+    problem.set_parameter_upper_bound(int(cams[1]), 6, focal)
+    opts = tbal.default_options(iterative=False)
+    opts.max_num_iterations = 50
+    s = ctt.solve(opts, problem, device="cpu")
+    assert s.termination_type == ctt.TerminationType.CONVERGENCE
+    assert s.final_cost < 0.1 * s.initial_cost
+    assert problem.parameter_block_value(int(cams[1]))[6] == focal
+    opts.use_inner_iterations = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctt.solve(tbal.default_options(), problem, device="cpu")
+        ctt.solve(opts, problem, device="cpu")
     with pytest.raises(TypeError, match="LossFunction"):
         tbal.build_problem(inst, loss=object())

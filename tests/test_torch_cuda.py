@@ -4,8 +4,8 @@ plain versions on the card, the plan choice on a CUDA device, a
 DENSE_SCHUR solve whose plans reach all three kernels, an implicit-S
 ITERATIVE_SCHUR step that reaches K1 and K3 and not K4, and the modeling API
 on the card against the CPU (robust BAL with a constant camera, a pose
-graph, the dense solvers and CGNR, ``Problem.evaluate``). Skipped without a
-card.
+graph, the dense solvers and CGNR, ``Problem.evaluate``), and a bounded
+solve through the host-loop minimizer. Skipped without a card.
 
 This file imports neither jax nor ceres_tpu, so it also runs where only
 PyTorch is installed:
@@ -427,6 +427,35 @@ def test_implicit_schur_solve_reaches_k1_and_k3_not_k4(device):
     assert int(it_card) == int(it_cpu) > 1 and int(t_card) == int(t_cpu)
     scale = float(y_cpu.abs().max())
     assert float((y_card.cpu() - y_cpu).abs().max()) <= 1e-9 * scale
+
+
+def test_host_loop_bounded_solve_on_the_card(device):
+    """A bounded DENSE_SCHUR solve through ``ctt.solve`` (the host loop: LM
+    step, projected line search, clamp) on a CUDA tensor: K1 launches, every
+    point's z stays in [-1, 1] with some bounds active, and the records
+    equal the CPU's (plain versions; f64, costs to 1e-9 relative)."""
+    inst = bal.synthesize_bal(num_cameras=300, num_points=8000, num_observations=48000,
+                              noise=2.0, perturb=0.7, seed=5)
+    inst.points[:, 2] = np.clip(inst.points[:, 2], -1.0, 1.0)
+    summaries = []
+    for dev in ("cpu", device):
+        problem, _, pts = bal.build_problem(inst)
+        for pid in pts:
+            problem.set_parameter_lower_bound(int(pid), 2, -1.0)
+            problem.set_parameter_upper_bound(int(pid), 2, 1.0)
+        opts = bal.default_options(iterative=False)
+        opts.max_num_iterations = 5
+        before = ss.launches
+        summaries.append(ctt.solve(opts, problem, device=dev))
+        z = problem.state()[-3 * len(pts) + 2::3]
+        assert np.all(np.abs(z) <= 1.0) and np.sum(np.abs(z) == 1.0) > 0
+    assert ss.launches > before
+    on_cpu, on_card = summaries
+    assert on_card.is_solution_usable() and on_card.final_cost < 0.1 * on_card.initial_cost
+    assert len(on_card.iterations) == len(on_cpu.iterations)
+    for a, b in zip(on_card.iterations, on_cpu.iterations):
+        np.testing.assert_allclose(a.cost, b.cost, rtol=1e-9)
+        assert a.step_is_successful == b.step_is_successful
 
 
 # ---- the modeling API on the card ---------------------------------------------

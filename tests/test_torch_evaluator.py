@@ -216,3 +216,109 @@ def test_manifold_plus_apply_matches_jax():
     _close(ours, ref, 1e-13)
     f32 = plus_apply(tprog.plus_struct, torch.tensor(x, dtype=torch.float32), torch.from_numpy(d))
     assert f32.dtype == torch.float32
+
+
+# -- the Evaluator class -----------------------------------------------------
+
+
+def _evaluator_case(case):
+    """(JAX problem, port problem) for the small robust BAL or a small pose
+    graph (quaternion blocks on the Eigen-quaternion manifold)."""
+    import ceres_tpu as ct
+    import ceres_tpu_torch as ctt
+
+    if case == "robust_bal":
+        inst = jbal.synthesize_bal(num_cameras=8, num_points=500, num_observations=2000, seed=42)
+        return (jbal.build_problem(inst, loss=ct.loss.HuberLoss(1.0))[0],
+                tbal.build_problem(inst, loss=ctt.loss.HuberLoss(1.0))[0])
+    from ceres_tpu.models import pose_graph as jpg
+    from ceres_tpu_torch.models import pose_graph as tpg
+
+    graph = tpg.synthesize_sphere(40, seed=1)[:3]  # one loop closure: cost > 0
+    return jpg.build_problem_3d(*graph)[0], tpg.build_problem_3d(*graph)[0]
+
+
+@pytest.fixture(scope="module",
+                params=[(c, d) for c in ("robust_bal", "pose_graph") for d in ("float64", "float32")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def evaluators(request):
+    from ceres_tpu.evaluator import Evaluator as JaxEvaluator
+    from ceres_tpu_torch.evaluator import Evaluator
+
+    case, dtype = request.param
+    jp, tp = _evaluator_case(case)
+    jprog, tprog = jp.program(), tp.program("cpu")
+    jax_cast(jprog, dtype)
+    cast_program(tprog, dtype)
+    x0 = np.asarray(jprog.initial_ambient())
+    return dict(
+        j=JaxEvaluator(jprog), t=Evaluator(tprog), jprog=jprog, tprog=tprog,
+        xj=jnp.asarray(x0, dtype), xt=torch.tensor(x0, dtype=getattr(torch, dtype)),
+        dtype=getattr(torch, dtype), rtol=1e-10 if dtype == "float64" else 2e-4,
+    )
+
+
+def test_evaluator_methods_match_jax(evaluators):
+    e = evaluators
+    ej, et, xj, xt, rtol = e["j"], e["t"], e["xj"], e["xt"], e["rtol"]
+    _close(et.cost(xt), ej.cost(xj), rtol)
+    r = et.residuals(xt)
+    assert r.dtype == e["dtype"]
+    _close(r, ej.residuals(xj), rtol)
+    full_t, full_j = et.cost_gradient_jacobian(xt), ej.cost_gradient_jacobian(xj)
+    _close(full_t.cost, full_j.cost, rtol)
+    _close(full_t.gradient, full_j.gradient, rtol)
+    for fi in range(len(full_j.jacobian_context.jacs)):
+        _close(full_t.jacobian_context.residuals[fi], full_j.jacobian_context.residuals[fi], rtol)
+    d = 0.01 * np.random.default_rng(8).standard_normal(e["tprog"].num_tangent)
+    _close(et.plus(xt, torch.tensor(d, dtype=e["dtype"])), ej.plus(xj, jnp.asarray(d, xj.dtype)),
+           rtol)
+    assert et.statistics().calls == ej.statistics().calls == {
+        "Evaluator::Residual": 2, "Evaluator::Jacobian": 1,
+    }
+
+
+def test_cost_and_gradient_by_reverse_mode(evaluators):
+    """cost_and_gradient (autograd of cost(plus(x, delta)) at delta = 0)
+    against the full evaluation's gradient J'r and JAX's _cost_grad_impl;
+    the gradient comes out in the evaluation dtype, also under no_grad."""
+    e = evaluators
+    ej, et, xj, xt, rtol = e["j"], e["t"], e["xj"], e["xt"], e["rtol"]
+    with torch.no_grad():
+        cost, grad = et.cost_and_gradient(xt)
+    assert grad.dtype == e["dtype"] and cost.dtype == torch.float64
+    assert not grad.requires_grad and not cost.requires_grad
+    cost_j, grad_j = ej.cost_and_gradient(xj)
+    _close(cost, cost_j, rtol)
+    _close(grad, grad_j, 1e-12 if e["dtype"] == torch.float64 else rtol)
+    _close(grad, et.cost_gradient_jacobian(xt).gradient,
+           1e-12 if e["dtype"] == torch.float64 else rtol)
+    assert et.statistics().calls["Evaluator::Gradient"] >= 1
+
+
+def test_evaluation_callback_hook_follows_point_identity():
+    from ceres_tpu.evaluator import Evaluator as JaxEvaluator
+    from ceres_tpu_torch.evaluator import Evaluator
+
+    seqs = []
+    jp, tp = _evaluator_case("pose_graph")
+    for ev_cls, prog, as_x in ((JaxEvaluator, jp.program(), jnp.asarray),
+                               (Evaluator, tp.program("cpu"), torch.tensor)):
+        calls = []
+
+        class Hook:
+            def prepare_for_evaluation(self, new_point, jacobians):
+                calls.append((new_point, jacobians))
+
+        ev = ev_cls(prog, evaluation_callback=Hook())
+        x = as_x(np.asarray(prog.initial_ambient()))
+        y = as_x(np.asarray(prog.initial_ambient()) + 0.01)
+        ev.cost(x)
+        ev.cost_gradient_jacobian(x)
+        ev.cost_and_gradient(y)
+        ev.residuals(y)
+        ev._notify(None, False)
+        ev.cost(x)
+        seqs.append(calls)
+    assert seqs[0] == seqs[1] == [(True, False), (False, True), (True, False), (False, False),
+                                  (True, False), (True, False)]

@@ -43,6 +43,9 @@ print(len(cuda_build._loaded))  # kernels build at first launch, not at import
         "ceres_tpu_torch.linear.dense",
         "ceres_tpu_torch.linear.preconditioners",
         "ceres_tpu_torch.ordered_groups",
+        "ceres_tpu_torch.trust_region",
+        "ceres_tpu_torch.utils.observability",
+        "ceres_tpu_torch.ops.polynomial",
         "ceres_tpu_torch.ops.segment_sum",
         "ceres_tpu_torch.ops.unsorted_segment_sum",
         "ceres_tpu_torch.ops.outer_segment_sum",
