@@ -1,13 +1,16 @@
 """ceres_tpu_torch: the PyTorch/CUDA port of ceres_tpu.
 
 Nonlinear least squares on an NVIDIA H100 with the fused
-Levenberg-Marquardt loop: robust loss functions, manifolds and constant
-parameter blocks, solved with DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR
+Levenberg-Marquardt loop, or the host loop (DOGLEG, inner iterations,
+gradient checks, bounds, callbacks), or the line-search minimizer (L-BFGS,
+BFGS, nonlinear CG, steepest descent): robust loss functions, manifolds and
+constant parameter blocks, solved with DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR
 (IDENTITY, JACOBI, SUBSET), DENSE_SCHUR or ITERATIVE_SCHUR (IDENTITY, JACOBI,
 SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION; on an assembled reduced camera
 system up to 2048 camera coordinates, on the implicit one above), with
 optional mixed-precision refinement and a user elimination ordering
-(``OrderedGroups``). The
+(``OrderedGroups``); and general minimization of f(x)
+(``GradientProblem``, ``solve_gradient_problem``). The
 JAX package's Pallas kernels are rewritten as CUDA kernels (``csrc/``): the
 sorted segment sum (``ops/segment_sum.py``), the unsorted segment sum
 (``ops/unsorted_segment_sum.py``) and the fused pair-outer segment sum
@@ -24,6 +27,11 @@ the reference the tests hold it to.
 from ceres_tpu_torch import cost_functions, loss, manifold, rotation
 from ceres_tpu_torch.cost_functions import EvaluationCallback
 from ceres_tpu_torch.fused_lm import fused_solve
+from ceres_tpu_torch.gradient_problem import (
+    GradientProblem,
+    GradientProblemOptions,
+    solve_gradient_problem,
+)
 from ceres_tpu_torch.loss import (
     ArctanLoss,
     CauchyLoss,
@@ -53,9 +61,14 @@ from ceres_tpu_torch.solver import SolverOptions, SolverSummary, solve
 from ceres_tpu_torch.trust_region import IterationSummary
 from ceres_tpu_torch.types import (
     CallbackReturnType,
+    DoglegType,
     LinearSolverTerminationType,
     LinearSolverType,
+    LineSearchDirectionType,
+    LineSearchInterpolationType,
+    LineSearchType,
     MinimizerType,
+    NonlinearConjugateGradientType,
     PreconditionerType,
     TerminationType,
     TrustRegionStrategyType,
@@ -66,18 +79,25 @@ __all__ = [
     "CallbackReturnType",
     "CauchyLoss",
     "ComposedLoss",
+    "DoglegType",
     "EigenQuaternionManifold",
     "EuclideanManifold",
     "EvaluationCallback",
+    "GradientProblem",
+    "GradientProblemOptions",
     "HuberLoss",
     "IterationSummary",
     "LineManifold",
     "LinearSolverTerminationType",
     "LinearSolverType",
+    "LineSearchDirectionType",
+    "LineSearchInterpolationType",
+    "LineSearchType",
     "LossFunction",
     "LossFunctionWrapper",
     "Manifold",
     "MinimizerType",
+    "NonlinearConjugateGradientType",
     "OrderedGroups",
     "PreconditionerType",
     "Problem",
@@ -100,4 +120,5 @@ __all__ = [
     "manifold",
     "rotation",
     "solve",
+    "solve_gradient_problem",
 ]

@@ -376,10 +376,10 @@ def _residuals_impl(x: torch.Tensor, families, apply_loss: bool = True) -> torch
     return torch.cat(outs) if outs else x.new_zeros((0,))
 
 
-def _full_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
-               apply_loss: bool = True):
-    """(cost f64, gradient, JacobianContext) at x; residuals and Jacobian
-    blocks of the context are loss-corrected."""
+def _context_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
+                  apply_loss: bool = True):
+    """(cost f64, JacobianContext) at x; residuals and Jacobian blocks of the
+    context are loss-corrected."""
     cost = torch.zeros((), dtype=torch.float64, device=x.device)
     all_jacs, all_res = [], []
     for fam in families:
@@ -394,6 +394,13 @@ def _full_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
     ctx = JacobianContext(
         list(families), tuple(all_jacs), tuple(all_res), num_tangent, groups
     )
+    return cost, ctx
+
+
+def _full_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
+               apply_loss: bool = True):
+    """(cost f64, gradient, JacobianContext) at x (see _context_impl)."""
+    cost, ctx = _context_impl(x, families, num_tangent, groups, apply_loss)
     return cost, ctx.gradient(), ctx
 
 

@@ -412,7 +412,8 @@ def minimize_fused_traced(resolved, program, x0, summary) -> torch.Tensor:
 # What the fused loop cannot honour and fused_solve refuses rather than drop.
 _HOST_LOOP_OPTIONS = (
     "callbacks", "evaluation_callback", "minimizer_progress_to_stdout",
-    "update_state_every_iteration", "use_nonmonotonic_steps",
+    "update_state_every_iteration", "use_nonmonotonic_steps", "use_inner_iterations",
+    "check_gradients",
 )
 
 
@@ -422,8 +423,10 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
     and writes the solution back (the entry point bench.py drives in the
     JAX package). A step that meets the function/parameter tolerance is
     kept, as in the JAX package's fused_solve. Options only the host loop
-    honours (bounds, callbacks, progress output, non-monotonic steps, a time
-    budget, dumps) raise ``ValueError``: ``solve`` runs them."""
+    or the line search honours (DOGLEG, LINE_SEARCH, inner iterations,
+    gradient checks, bounds, callbacks, progress output, non-monotonic
+    steps, a time budget, dumps) raise ``ValueError``: ``solve`` runs
+    them."""
     t0 = time.perf_counter()
     summary = SolverSummary()
     prep = preprocess(options, problem, device, summary)
@@ -432,6 +435,10 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
         return summary
     program, resolved = prep
     refused = [f for f in _HOST_LOOP_OPTIONS if getattr(resolved, f)]
+    if resolved.minimizer_type != MinimizerType.TRUST_REGION:
+        refused.append(f"minimizer_type={resolved.minimizer_type}")
+    if resolved.trust_region_strategy_type != TrustRegionStrategyType.LEVENBERG_MARQUARDT:
+        refused.append(f"trust_region_strategy_type={resolved.trust_region_strategy_type}")
     if program.has_bounds:
         refused.append("parameter bounds")
     if resolved.max_solver_time_in_seconds < 1e6:
@@ -441,7 +448,7 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
     if refused:
         raise ValueError(
             f"fused_solve runs the fused loop, which cannot honour {', '.join(refused)}; "
-            "ctt.solve runs them on the host-loop minimizer"
+            "ctt.solve runs them on the host-loop or line-search minimizer"
         )
     solve_aux = _build_solve_aux(resolved, program)
     x0 = torch.from_numpy(program.initial_ambient()).to(program.device, program.eval_dtype)

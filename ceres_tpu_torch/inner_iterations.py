@@ -1,0 +1,244 @@
+"""Inner iterations: coordinate descent over independent sets (port of
+``ceres_tpu/inner_iterations.py``; analog of
+``internal/ceres/coordinate_descent_minimizer.{h,cc}`` and the independent
+sets of ``parameter_block_ordering.cc``).
+
+The reference partitions the parameter blocks into independent sets (no two
+blocks of a set share a residual) and runs a small trust-region solve for
+every block of a set. Because the blocks of a set are independent, all of
+them advance at once from one global evaluation: each residual sees at most
+one block of the set. A batched per-block LM step is then one evaluation,
+per-block gradients and J'J blocks through reduce plans, batched (T, T)
+solves, per-block cost segments and a masked update.
+
+Every per-block sum goes through a reduce plan built once per (set, family,
+arg) (``ops/reduce.py``), so it is summed in a fixed order: on the card a
+point set with its ids sorted takes the sorted segment-sum kernel, a camera
+set of a few hundred blocks the unsorted one. Arrays stay in the evaluation
+dtype; only the per-block costs the accept test compares are summed in f64.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ceres_tpu_torch.evaluator import _context_impl, _cost_impl, family_residuals
+from ceres_tpu_torch.ops.reduce import apply_reduce, build_reduce_plan, choose_plan_kind
+from ceres_tpu_torch.ordered_groups import normalize_ordering, validate_independent_set
+from ceres_tpu_torch.problem import _ragged_ranges
+
+
+def _block_graph(program):
+    """The block-sharing graph of the active blocks as CSR (ptr, nbr): nbr
+    of block p is nbr[ptr[p]:ptr[p + 1]], ascending and without repeats.
+    Two blocks are neighbours when one residual row holds both."""
+    n = program.num_pids
+    active = program.active
+    codes = []
+    for fam in program.families:
+        ids = np.asarray(fam.block_ids, dtype=np.int64)
+        live = active[ids]
+        for a in range(ids.shape[1]):
+            for b in range(ids.shape[1]):
+                if a != b:
+                    m = live[:, a] & live[:, b]
+                    codes.append(ids[m, a] * n + ids[m, b])
+    codes = np.unique(np.concatenate(codes)) if codes else np.zeros(0, np.int64)
+    src, nbr = codes // n, codes % n
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=ptr[1:])
+    return ptr, nbr
+
+
+def compute_independent_sets(program) -> List[List[int]]:
+    """Greedy coloring of the block-sharing graph into independent sets,
+    each set's ids ascending, the sets by size, largest first (stably).
+    The rule of the JAX package's native core
+    (``native/ceres_tpu_core.cpp``, ``independent_set_coloring``): blocks
+    are visited by degree, larger first, ties by smaller id, and each takes
+    the smallest color no neighbour visited before it has.
+
+    The visits are batched without changing the result: a block is colored
+    as soon as every neighbour that comes before it in the visiting order
+    is, so each round colors a set of blocks that no edge joins, each from
+    its earlier neighbours' colors alone, as the one-by-one visit would.
+    """
+    if not program.families:
+        return []
+    n = program.num_pids
+    ptr, nbr = _block_graph(program)
+    deg = np.diff(ptr)
+    pids = np.nonzero(program.active)[0]
+    order = pids[np.lexsort((pids, -deg[pids]))]
+    rank = np.full(n, n, dtype=np.int64)
+    rank[order] = np.arange(order.shape[0])
+    src = np.repeat(np.arange(n), deg)
+    earlier = rank[nbr] < rank[src]  # edge (v, u): u is visited before v
+    waiting = np.bincount(src[earlier], minlength=n)
+    color = np.full(n, -1, dtype=np.int64)
+    ready = pids[waiting[pids] == 0]
+    while ready.size:
+        edges = _ragged_ranges(ptr[ready], deg[ready])
+        v, u = src[edges], nbr[edges]
+        before = earlier[edges]
+        # smallest color not among the earlier neighbours' (their mex)
+        # (no ufunc.at: it is slow in older numpy)
+        pairs = np.unique(v[before] * (n + 1) + color[u[before]])
+        pv, pc = pairs // (n + 1), pairs % (n + 1)
+        pos = np.arange(pv.shape[0]) - np.searchsorted(pv, pv, side="left")
+        mex = np.bincount(pv, minlength=n)  # no gap below the largest color
+        gap = pc != pos  # ascending within each block: its first gap is the mex
+        gv, gpos = pv[gap], pos[gap]
+        first = np.flatnonzero(np.diff(gv, prepend=-1))
+        mex[gv[first]] = gpos[first]
+        color[ready] = mex[ready]
+        # the later neighbours of this round wait for one block fewer each
+        later = u[~before]
+        waiting -= np.bincount(later, minlength=n)
+        cand = np.unique(later)
+        ready = cand[(waiting[cand] == 0) & (color[cand] < 0)]
+    sets = [np.nonzero(color == c)[0].tolist() for c in range(int(color.max()) + 1)]
+    sets.sort(key=len, reverse=True)
+    return sets
+
+
+class CoordinateDescentMinimizer:
+    """Batched inner-iteration minimizer over one Program."""
+
+    def __init__(self, program, options, evaluator):
+        self.program = program
+        self.options = options
+        self.evaluator = evaluator
+        user = options.inner_iteration_ordering
+        if user is not None:
+            # User groups (Solver::Options::inner_iteration_ordering):
+            # validated as independent sets, visited in group order
+            # (coordinate_descent_minimizer.cc IsOrderingValid).
+            self.sets = []
+            for g in normalize_ordering(user):
+                g = [int(p) for p in g if program.active[int(p)]]
+                if not g:
+                    continue
+                validate_independent_set(program, g)
+                self.sets.append(g)
+        else:
+            self.sets = compute_independent_sets(program)
+        self.num_steps = 3  # batched LM steps per set per pass
+
+        # Per set, per tangent size T: the (G_T, T) tangent coordinates of
+        # its blocks, and per family and arg of size T the plan reducing
+        # the batch into the group's rows by the instance's block position
+        # in the group (G_T: not in the set), with those ids.
+        dev = program.device
+        tsizes = program.tangent_sizes
+        self._set_structs = []
+        self._segment_ids = []  # (set, T, G_T, ids) per plan
+        for si, s in enumerate(self.sets):
+            s = np.asarray(s, dtype=np.int64)
+            groups = {}
+            for T in dict.fromkeys(tsizes[s].tolist()):
+                members = s[tsizes[s] == T]
+                G = members.shape[0]
+                pos = np.full(program.num_pids, G, dtype=np.int64)
+                pos[members] = np.arange(G)
+                rows = program.tangent_offsets[members][:, None] + np.arange(T)
+                plans = []
+                for fam in program.families:
+                    fam_plans = []
+                    for j in range(fam.num_args):
+                        plan = None
+                        if fam.structure.tangent_sizes[j] == T:
+                            seg = pos[fam.block_ids[:, j]]
+                            plan = build_reduce_plan(seg, G, dev)
+                            self._segment_ids.append((si, T, G, seg))
+                        fam_plans.append(plan)
+                    plans.append(tuple(fam_plans))
+                groups[T] = (torch.from_numpy(rows).to(dev), tuple(plans))
+            self._set_structs.append(groups)
+
+    def plan_kinds(self, device_type=None) -> List[Tuple[int, int, int, str]]:
+        """(set, T, G_T, kind) of every plan: the kinds built, or those a
+        device of ``device_type`` ("cpu", "cuda") would get."""
+        if device_type is None:
+            built = [p for groups in self._set_structs for _, plans in groups.values()
+                     for fp in plans for p in fp if p is not None]
+            return [(si, T, G, p.kind)
+                    for (si, T, G, _), p in zip(self._segment_ids, built)]
+        return [(si, T, G, choose_plan_kind(seg, G, device_type))
+                for si, T, G, seg in self._segment_ids]
+
+    def _set_step(self, groups, x: torch.Tensor, radii: Dict[int, torch.Tensor]):
+        """One batched LM step for every block of a set: (new x, new radii,
+        cost at new x as an f64 device scalar)."""
+        program, opts = self.program, self.options
+        families = program.families
+        apply_loss = self.evaluator.apply_loss
+        _, ctx = _context_impl(x, families, program.num_tangent, program.groups, apply_loss)
+        delta = torch.zeros((program.num_tangent,), dtype=x.dtype, device=x.device)
+        for T, (rows, plans) in groups.items():
+            G = rows.shape[0]
+            g = torch.zeros((G + 1, T), dtype=x.dtype, device=x.device)
+            H = torch.zeros((G + 1, T, T), dtype=x.dtype, device=x.device)
+            for fi in range(len(families)):
+                for plan, J in zip(plans[fi], ctx.jacs[fi]):
+                    if plan is None:
+                        continue
+                    g = g + apply_reduce(plan, torch.einsum("brt,br->bt", J, ctx.residuals[fi]))
+                    H = H + apply_reduce(plan, torch.einsum("bri,brj->bij", J, J))
+            g, H = g[:G], H[:G]
+            diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1),
+                               opts.min_lm_diagonal, opts.max_lm_diagonal)
+            damped = H + torch.diag_embed(diag / radii[T][:, None])
+            step = -torch.linalg.solve(damped, g[..., None])[..., 0]
+            delta[rows.reshape(-1)] = step.reshape(-1)
+
+        # Per-block accept: each block's cost segments at x and at the
+        # candidate, summed in f64.
+        candidate = program.plus(x, delta)
+        sq = []
+        for fi, fam in enumerate(families):
+            r_new = family_residuals(fam, candidate)
+            sq_new = torch.sum(r_new * r_new, dim=-1)
+            if apply_loss and fam.loss is not None:
+                # ctx.residuals are corrected; use raw residuals for both
+                raw_old = family_residuals(fam, x)
+                sq_old = fam.loss.evaluate(torch.sum(raw_old * raw_old, dim=-1))[0]
+                sq_new = fam.loss.evaluate(sq_new)[0]
+            else:
+                sq_old = torch.sum(ctx.residuals[fi] * ctx.residuals[fi], dim=-1)
+            sq.append(((0.5 * sq_old).to(torch.float64), (0.5 * sq_new).to(torch.float64)))
+        new_radii = {}
+        for T, (rows, plans) in groups.items():
+            G = rows.shape[0]
+            c_old = torch.zeros((G + 1,), dtype=torch.float64, device=x.device)
+            c_new = torch.zeros((G + 1,), dtype=torch.float64, device=x.device)
+            for fi in range(len(families)):
+                for plan in plans[fi]:
+                    if plan is not None:
+                        c_old = c_old + apply_reduce(plan, sq[fi][0])
+                        c_new = c_new + apply_reduce(plan, sq[fi][1])
+            accept = c_new[:G] < c_old[:G]
+            new_radii[T] = torch.where(accept, radii[T] * 2.0, radii[T] * 0.25)
+            idx = rows.reshape(-1)
+            delta[idx] = torch.where(accept[:, None], delta[rows], 0.0).reshape(-1)
+        new_x = program.plus(x, delta)
+        return new_x, new_radii, _cost_impl(new_x, families, apply_loss)
+
+    def minimize(self, x: torch.Tensor) -> Tuple[torch.Tensor, float]:
+        """One inner-iteration pass: (x, final cost), one host read."""
+        from ceres_tpu_torch.trust_region import _to_host
+
+        cost = None
+        r0 = self.options.initial_trust_region_radius
+        for groups in self._set_structs:
+            radii = {
+                T: torch.full((rows.shape[0],), r0, dtype=x.dtype, device=x.device)
+                for T, (rows, _) in groups.items()
+            }
+            for _ in range(self.num_steps):
+                x, radii, cost = self._set_step(groups, x, radii)
+        (cost,) = _to_host(cost)
+        return x, cost

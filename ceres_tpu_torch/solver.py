@@ -1,20 +1,24 @@
-"""Solver entry point: options, summary and ``solve`` (port of the
-TRUST_REGION subset of ``ceres_tpu/solver.py``).
+"""Solver entry point: options, summary and ``solve`` (port of
+``ceres_tpu/solver.py``).
 
-``solve`` chooses between the loops as the JAX package's does: the fused LM
-loop of ``fused_lm.py`` with its per-iteration trace when no option needs
-host work inside the loop (``fused_lm.fused_traced_eligible``), the host
-loop ``trust_region.TrustRegionMinimizer`` otherwise — parameter bounds,
-iteration callbacks (with ``update_state_every_iteration``), an
-``EvaluationCallback``, progress output, non-monotonic steps, a time budget,
-trust-region problem dumps, or more than 2048 (or 0) iterations. Both run a
-loss, manifolds and constant blocks, and one of the linear solvers DENSE_QR,
+``solve`` chooses between the minimizers as the JAX package's does. A
+TRUST_REGION solve takes the fused LM loop of ``fused_lm.py`` with its
+per-iteration trace when no option needs host work inside the loop
+(``fused_lm.fused_traced_eligible``), the host loop
+``trust_region.TrustRegionMinimizer`` otherwise: DOGLEG (traditional or
+subspace), inner iterations, gradient checks, parameter bounds, iteration
+callbacks (with ``update_state_every_iteration``), an ``EvaluationCallback``,
+progress output, non-monotonic steps, a time budget, trust-region problem
+dumps, or more than 2048 (or 0) iterations. A LINE_SEARCH solve takes
+``line_search.LineSearchMinimizer`` (L-BFGS, BFGS, nonlinear CG, steepest
+descent; Armijo or Wolfe). ``check_gradients`` checks every family's
+Jacobian before the loop too. The trust-region loops run a loss, manifolds
+and constant blocks, and one of the linear solvers DENSE_QR,
 DENSE_NORMAL_CHOLESKY, CGNR (IDENTITY, JACOBI, SUBSET), DENSE_SCHUR and
 ITERATIVE_SCHUR (IDENTITY, JACOBI, SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION;
 explicit or implicit S), any of them with mixed-precision refinement and,
-for the Schur solvers, a user elimination ordering. The other minimizers,
-inner iterations, gradient checks and the linear solvers and
-preconditioners the port does not have yet raise ``NotImplementedError``
+for the Schur solvers, a user elimination ordering. The sparse linear
+solvers and the cluster preconditioners raise ``NotImplementedError``
 naming their ROADMAP item. A solve runs on the card unless the caller names
 another device.
 """
@@ -29,30 +33,51 @@ import torch
 
 from ceres_tpu_torch.ordered_groups import OrderedGroups
 from ceres_tpu_torch.types import (
+    DoglegType,
     LinearSolverType,
+    LineSearchDirectionType,
+    LineSearchType,
     MinimizerType,
+    NonlinearConjugateGradientType,
     PreconditionerType,
     TerminationType,
     TrustRegionStrategyType,
 )
 
-_MINIMIZERS = "ROADMAP Queue 1 item 16b (the other minimizers)"
 _SPARSE = (
     "ROADMAP Queue 1 item 14b (host-driven sparse solvers and the cluster "
     "preconditioners, after the port's ctypes loader)"
 )
-_CHECKS = "ROADMAP Queue 1 item 17 (gradient_checker.py)"
 
 
 @dataclasses.dataclass
 class SolverOptions:
-    """Analog of Solver::Options (solver.h:61-816): the fields this slice
+    """Analog of Solver::Options (solver.h:61-816): the fields the port
     reads, with the reference's defaults."""
 
     minimizer_type: MinimizerType = MinimizerType.TRUST_REGION
     trust_region_strategy_type: TrustRegionStrategyType = (
         TrustRegionStrategyType.LEVENBERG_MARQUARDT
     )
+    dogleg_type: DoglegType = DoglegType.TRADITIONAL_DOGLEG
+    # Line search options (solver.h:114-306): the LINE_SEARCH minimizer's,
+    # three of them also the projected search of a bounded trust-region
+    # solve.
+    line_search_direction_type: LineSearchDirectionType = LineSearchDirectionType.LBFGS
+    line_search_type: LineSearchType = LineSearchType.WOLFE
+    nonlinear_conjugate_gradient_type: NonlinearConjugateGradientType = (
+        NonlinearConjugateGradientType.FLETCHER_REEVES
+    )
+    max_lbfgs_rank: int = 20
+    use_approximate_eigenvalue_bfgs_scaling: bool = False
+    min_line_search_step_size: float = 1e-9
+    line_search_sufficient_function_decrease: float = 1e-4
+    max_line_search_step_contraction: float = 1e-3
+    min_line_search_step_contraction: float = 0.6
+    max_num_line_search_step_size_iterations: int = 20
+    max_num_line_search_direction_restarts: int = 5
+    line_search_sufficient_curvature_decrease: float = 0.9
+    max_line_search_step_expansion: float = 10.0
     max_num_iterations: int = 50
     max_solver_time_in_seconds: float = 1e6
     function_tolerance: float = 1e-6
@@ -68,11 +93,6 @@ class SolverOptions:
     use_nonmonotonic_steps: bool = False
     max_consecutive_nonmonotonic_steps: int = 5
     jacobi_scaling: bool = True
-    # The projected line search of a bounded trust-region solve
-    # (solver.h:114-306).
-    min_line_search_step_size: float = 1e-9
-    line_search_sufficient_function_decrease: float = 1e-4
-    max_num_line_search_step_size_iterations: int = 20
     linear_solver_type: Optional[LinearSolverType] = None  # None = auto
     preconditioner_type: PreconditionerType = PreconditionerType.JACOBI
     min_linear_solver_iterations: int = 0
@@ -94,7 +114,14 @@ class SolverOptions:
     # ids, group 0 eliminated first (the e-blocks of the Schur solvers).
     # None = automatic (greedy maximal independent set).
     linear_solver_ordering: Optional[Union[OrderedGroups, List[List[int]]]] = None
+    # Inner iterations (solver.h:560-600).
     use_inner_iterations: bool = False
+    inner_iteration_tolerance: float = 1e-3
+    # User coordinate-descent groups (Solver::Options::
+    # inner_iteration_ordering): each group must be an independent set;
+    # groups are optimized in increasing order. OrderedGroups or a list of
+    # lists of parameter block ids; None = automatic greedy coloring.
+    inner_iteration_ordering: Optional[Union[OrderedGroups, List[List[int]]]] = None
     # Trust region problem dumps (solver.h:725-735).
     trust_region_problem_dump_directory: str = ""
     trust_region_minimizer_iterations_to_dump: List[int] = dataclasses.field(
@@ -102,6 +129,8 @@ class SolverOptions:
     )
     minimizer_progress_to_stdout: bool = False
     check_gradients: bool = False
+    gradient_check_relative_precision: float = 1e-8
+    gradient_check_numeric_derivative_relative_step_size: float = 1e-6
     callbacks: List[Callable] = dataclasses.field(default_factory=list)
     # Write the current parameter values back into the Problem's blocks
     # every iteration so IterationCallbacks can observe them
@@ -115,8 +144,9 @@ class SolverOptions:
     def validate(self, num_tangent: int = 0) -> Optional[str]:
         """Cross-validation analog of Solver::Options::IsValid
         (solver.cc:714; CommonOptionsAreValid, TrustRegionOptionsAreValid,
-        OptionsAreValidForLinearSolver, solver.cc:99-452) for the options
-        the port has. Returns the first complaint, or None."""
+        LineSearchOptionsAreValid, OptionsAreValidForLinearSolver,
+        solver.cc:99-503) for the options the port has. Returns the first
+        complaint, or None."""
         for name, lo in (
             ("max_num_iterations", 0),
             ("max_solver_time_in_seconds", 0.0),
@@ -126,10 +156,21 @@ class SolverOptions:
         ):
             if getattr(self, name) < lo:
                 return f"{name} must be >= {lo}, got {getattr(self, name)}"
+        if self.check_gradients:
+            if self.gradient_check_relative_precision <= 0:
+                return "gradient_check_relative_precision must be > 0"
+            if self.gradient_check_numeric_derivative_relative_step_size <= 0:
+                return "gradient_check_numeric_derivative_relative_step_size must be > 0"
         if self.minimizer_type == MinimizerType.TRUST_REGION:
             err = self._validate_trust_region()
             if err is not None:
                 return err
+        # Line-search options are checked for BOTH minimizer types: a
+        # bounded trust-region solve projects through the line search
+        # (solver.cc:724-729).
+        err = self._validate_line_search()
+        if err is not None:
+            return err
         if self.evaluation_dtype is not None and self.evaluation_dtype not in (
             "float32",
             "float64",
@@ -165,14 +206,16 @@ class SolverOptions:
             return "min_lm_diagonal > max_lm_diagonal"
         if self.max_num_consecutive_invalid_steps < 0:
             return "max_num_consecutive_invalid_steps must be >= 0"
-        if self.use_nonmonotonic_steps and self.max_consecutive_nonmonotonic_steps <= 0:
-            return "max_consecutive_nonmonotonic_steps must be > 0"
         if self.min_linear_solver_iterations < 0:
             return "min_linear_solver_iterations must be >= 0"
         if self.max_linear_solver_iterations < 0:
             return "max_linear_solver_iterations must be >= 0"
         if self.min_linear_solver_iterations > self.max_linear_solver_iterations:
             return "min_linear_solver_iterations > max_linear_solver_iterations"
+        if self.use_inner_iterations and self.inner_iteration_tolerance < 0:
+            return "inner_iteration_tolerance must be >= 0"
+        if self.use_nonmonotonic_steps and self.max_consecutive_nonmonotonic_steps <= 0:
+            return "max_consecutive_nonmonotonic_steps must be > 0"
         lst = self.linear_solver_type
         if (
             self.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
@@ -231,6 +274,47 @@ class SolverOptions:
             )
         return None
 
+    def _validate_line_search(self) -> Optional[str]:
+        """LineSearchOptionsAreValid (solver.cc:454-503)."""
+        if self.max_lbfgs_rank <= 0:
+            return "max_lbfgs_rank must be > 0"
+        if self.min_line_search_step_size <= 0:
+            return "min_line_search_step_size must be > 0"
+        if not (0.0 < self.max_line_search_step_contraction < 1.0):
+            return "max_line_search_step_contraction must be in (0, 1)"
+        if not (
+            self.max_line_search_step_contraction
+            < self.min_line_search_step_contraction
+            <= 1.0
+        ):
+            return (
+                "require max_line_search_step_contraction < "
+                "min_line_search_step_contraction <= 1"
+            )
+        min_ls_iters = 0 if self.minimizer_type == MinimizerType.TRUST_REGION else 1
+        if self.max_num_line_search_step_size_iterations < min_ls_iters:
+            return f"max_num_line_search_step_size_iterations must be >= {min_ls_iters}"
+        if self.line_search_sufficient_function_decrease <= 0:
+            return "line_search_sufficient_function_decrease must be > 0"
+        if not (
+            self.line_search_sufficient_function_decrease
+            < self.line_search_sufficient_curvature_decrease
+            < 1.0
+        ):
+            return (
+                "require line_search_sufficient_function_decrease < "
+                "line_search_sufficient_curvature_decrease < 1"
+            )
+        if self.max_line_search_step_expansion <= 1.0:
+            return "max_line_search_step_expansion must be > 1"
+        if (
+            self.line_search_direction_type
+            in (LineSearchDirectionType.BFGS, LineSearchDirectionType.LBFGS)
+            and self.line_search_type != LineSearchType.WOLFE
+        ):
+            return "When using (L)BFGS, line_search_type must be WOLFE (solver.cc:471-484)"
+        return None
+
     def resolved_linear_solver_type(self, num_tangent: int) -> LinearSolverType:
         if self.linear_solver_type is not None:
             return self.linear_solver_type
@@ -250,17 +334,11 @@ _SUPPORTED_LINEAR = (
 
 
 def check_supported(options: SolverOptions) -> None:
-    """Raise NotImplementedError for what neither loop of the port runs
-    yet: the other minimizers, inner iterations, gradient checks and the
-    linear solvers and preconditioners of later items."""
+    """Raise NotImplementedError for what the port's trust-region loops do
+    not run yet: the sparse linear solvers and the cluster preconditioners.
+    A LINE_SEARCH solve runs no linear solver."""
     if options.minimizer_type != MinimizerType.TRUST_REGION:
-        raise NotImplementedError(f"LINE_SEARCH minimizer: {_MINIMIZERS}")
-    if options.trust_region_strategy_type != TrustRegionStrategyType.LEVENBERG_MARQUARDT:
-        raise NotImplementedError(f"DOGLEG: {_MINIMIZERS}")
-    if options.use_inner_iterations:
-        raise NotImplementedError(f"use_inner_iterations: {_MINIMIZERS}")
-    if options.check_gradients:
-        raise NotImplementedError(f"check_gradients: {_CHECKS}")
+        return
     if options.linear_solver_type not in _SUPPORTED_LINEAR:
         raise NotImplementedError(f"{options.linear_solver_type}: {_SPARSE}")
     if options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR and (
@@ -463,6 +541,7 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
     A step that meets the parameter or function tolerance ends the solve at
     the iterate BEFORE that step (trust_region_minimizer.cc:720-766)."""
     from ceres_tpu_torch.fused_lm import fused_traced_eligible, minimize_fused_traced
+    from ceres_tpu_torch.line_search import LineSearchMinimizer
     from ceres_tpu_torch.trust_region import TrustRegionMinimizer, _build_solve_aux
     from ceres_tpu_torch.utils.observability import EventLogger
 
@@ -476,18 +555,49 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
         summary.total_time_in_seconds = time.perf_counter() - t0
         return summary
     program, resolved = prep
-    _build_solve_aux(resolved, program)  # memoized on the program
+    trust_region = options.minimizer_type == MinimizerType.TRUST_REGION
+    if options.check_gradients:
+        from ceres_tpu_torch.gradient_checker import check_program_gradients_at
+
+        ok, msg = check_program_gradients_at(
+            program, program.initial_ambient(), options.gradient_check_relative_precision
+        )
+        if not ok:
+            summary.termination_type = TerminationType.FAILURE
+            summary.message = f"Gradient check failed: {msg}"
+            summary.total_time_in_seconds = time.perf_counter() - t0
+            return summary
+    if trust_region:
+        _build_solve_aux(resolved, program)  # memoized on the program
     x0 = torch.from_numpy(program.initial_ambient()).to(program.device, program.eval_dtype)
     t1 = time.perf_counter()
     summary.preprocessor_time_in_seconds = t1 - t0
     event_logger.add_event("Preprocess")
 
-    if fused_traced_eligible(resolved, program):
+    if trust_region and fused_traced_eligible(resolved, program):
         x = minimize_fused_traced(resolved, program, x0, summary)
     else:
-        minimizer = TrustRegionMinimizer(program, resolved, summary)
+        if trust_region:
+            minimizer = TrustRegionMinimizer(program, resolved, summary)
+        else:
+            minimizer = LineSearchMinimizer(program, resolved, summary)
         x = minimizer.minimize(x0)
-        summary.evaluator_statistics = minimizer.evaluator.statistics()
+        stats = minimizer.evaluator.statistics()
+        summary.evaluator_statistics = stats
+        if not trust_region:
+            # The line search evaluates through the Evaluator alone
+            # (program_evaluator.h:143-147): its counts are the summary's.
+            summary.num_residual_evaluations += stats.calls.get("Evaluator::Residual", 0)
+            summary.residual_evaluation_time_in_seconds += stats.times.get(
+                "Evaluator::Residual", 0.0
+            )
+            summary.num_jacobian_evaluations += stats.calls.get(
+                "Evaluator::Gradient", 0
+            ) + stats.calls.get("Evaluator::Jacobian", 0)
+            summary.jacobian_evaluation_time_in_seconds += stats.times.get(
+                "Evaluator::Gradient", 0.0
+            ) + stats.times.get("Evaluator::Jacobian", 0.0)
+            summary.num_iterations = max(len(summary.iterations) - 1, 0)
     x = x.to(torch.float64).cpu().numpy()
     t2 = time.perf_counter()
     summary.minimizer_time_in_seconds = t2 - t1

@@ -12,11 +12,14 @@ both take.
 The host loop (``TrustRegionMinimizer``) keeps the data-dependent control
 flow on the host as the reference does — accept or reject, the radius, the
 four convergence tests, non-monotonic steps, callbacks, progress output,
-bounds, the time budget — and reads the device where the JAX package's
-loop reads it: once per iteration on the fused-iteration branch (step,
-candidate and a speculative evaluation at the candidate, eight scalars in
-one read), two or three times on the step-by-step branch, and once more per
-trial of the bounds line search.
+bounds, the time budget, the DOGLEG strategy (``dogleg.py``), inner
+iterations (``inner_iterations.py``) and the gradient check at each accepted
+iterate (``gradient_checker.py``) — and reads the device where the JAX
+package's loop reads it: once per iteration on the fused-iteration branch
+(step, candidate and a speculative evaluation at the candidate, eight
+scalars in one read), two or three times on the step-by-step branch, once
+more per trial of the bounds line search, and, under DOGLEG, once per
+Gauss-Newton solve and once for the step (twice more for a subspace step).
 """
 
 from __future__ import annotations
@@ -50,9 +53,7 @@ from ceres_tpu_torch.types import (
 
 _DBL_MAX = float(np.finfo(np.float64).max)
 _F64 = torch.float64
-_MINIMIZERS = "ROADMAP Queue 1 item 16b (the other minimizers)"
 _SPARSE = "ROADMAP Queue 1 item 14b (host-driven sparse solvers)"
-_CHECKS = "ROADMAP Queue 1 item 17 (gradient_checker.py)"
 
 
 class TrustRegionStepEvaluator:
@@ -432,7 +433,7 @@ def _lm_step_impl(ctx, radius, solve_aux, config: _SolveConfig):
 def _make_linear_solve(options, program):
     """(linear_solve(ctx, D, solve_aux, rhs=None), solve_aux) bound to this
     options/program pair: the linear solve a strategy that damps for itself
-    calls (the JAX package's DOGLEG; ROADMAP Queue 1 item 16b)."""
+    calls (DOGLEG, ``dogleg.py``)."""
     config = _config_from_options(options)
     solve_aux = _build_solve_aux(options, program)
 
@@ -458,29 +459,35 @@ def _make_lm_step_fn(options, program):
 
 
 class TrustRegionMinimizer:
-    """The outer loop (trust_region_minimizer.cc:68-136), Levenberg-Marquardt."""
+    """The outer loop (trust_region_minimizer.cc:68-136), Levenberg-Marquardt
+    or DOGLEG, with inner iterations and gradient checks."""
 
     def __init__(self, program, options, summary):
-        if options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG:
-            raise NotImplementedError(f"DOGLEG: {_MINIMIZERS}")
-        if options.use_inner_iterations:
-            raise NotImplementedError(f"use_inner_iterations: {_MINIMIZERS}")
-        if options.check_gradients:
-            raise NotImplementedError(f"check_gradients: {_CHECKS}")
         self.program = program
         self.options = options
         self.summary = summary
         self.evaluator = Evaluator(program, evaluation_callback=options.evaluation_callback)
-        self.step_fn = _make_lm_step_fn(options, program)
+        self.use_dogleg = options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
+        if self.use_dogleg:
+            from ceres_tpu_torch.dogleg import DoglegStrategy
+
+            self.dogleg = DoglegStrategy(options, *_make_linear_solve(options, program))
+            self.step_fn = None
+        else:
+            self.step_fn = _make_lm_step_fn(options, program)
         self._plus = program.plus
 
         # The fused iteration (one host read per loop trip,
         # _tr_iteration_impl) stands down whenever a feature needs host work
-        # between the step and the candidate evaluation: the bounds line
-        # search, dumps, callbacks that read the state or every evaluation.
+        # between the step and the candidate evaluation: DOGLEG, the bounds
+        # line search, inner iterations, gradient checks, dumps, callbacks
+        # that read the state or every evaluation.
         self._fused_config = _config_from_options(options)
         self._use_fused_iteration = (
-            not program.has_bounds
+            not self.use_dogleg
+            and not program.has_bounds
+            and not options.use_inner_iterations
+            and not options.check_gradients
             and options.evaluation_callback is None
             and not options.update_state_every_iteration
             and not (
@@ -494,6 +501,14 @@ class TrustRegionMinimizer:
         self._default_step_fn = self.step_fn
         self._scaled_ctx_memo = None
 
+        # Inner iterations (solver.h:560-600, coordinate descent).
+        self.inner_minimizer = None
+        self._inner_enabled = options.use_inner_iterations
+        if options.use_inner_iterations:
+            from ceres_tpu_torch.inner_iterations import CoordinateDescentMinimizer
+
+            self.inner_minimizer = CoordinateDescentMinimizer(program, options, self.evaluator)
+
     def minimize(self, x0: torch.Tensor) -> torch.Tensor:
         opts = self.options
         program = self.program
@@ -506,7 +521,7 @@ class TrustRegionMinimizer:
             return torch.full((), r, dtype=_F64, device=dev)
 
         x = program.clamp(x0)
-        strategy = LevenbergMarquardtStrategy(opts)
+        strategy = self.dogleg if self.use_dogleg else LevenbergMarquardtStrategy(opts)
 
         # Iteration zero (trust_region_minimizer.cc:196-283).
         t0 = time.perf_counter()
@@ -591,10 +606,16 @@ class TrustRegionMinimizer:
                         memo = (ctx, jacobi_scaling, ctx.scale_columns(jacobi_scaling))
                         self._scaled_ctx_memo = memo
                     ctx_used = memo[2]
-                step_scaled, mcc, lin_iters, lin_term = self.step_fn(
-                    ctx_used, radius_tensor(strategy.radius)
-                )
-                model_cost_change, lin_iters, lin_term = _to_host(mcc, lin_iters, lin_term)
+                if self.use_dogleg:
+                    # host numbers, read by the strategy
+                    step_scaled, model_cost_change, lin_iters, lin_term = (
+                        strategy.compute_step(ctx_used)
+                    )
+                else:
+                    step_scaled, mcc, lin_iters, lin_term = self.step_fn(
+                        ctx_used, radius_tensor(strategy.radius)
+                    )
+                    model_cost_change, lin_iters, lin_term = _to_host(mcc, lin_iters, lin_term)
             lin_term = int(lin_term)
             it.linear_solver_iterations = int(lin_iters)
             it.step_solver_time_in_seconds = time.perf_counter() - solver_t0
@@ -697,6 +718,23 @@ class TrustRegionMinimizer:
             if not np.isfinite(candidate_cost):
                 candidate_cost = _DBL_MAX
 
+            # DoInnerIterationsIfNeeded (trust_region_minimizer.cc:509-581):
+            # polish the candidate by coordinate descent, and switch that
+            # off once its relative progress falls to the tolerance.
+            if self._inner_enabled and np.isfinite(candidate_cost) and candidate_cost > 0.0:
+                t0 = time.perf_counter()
+                inner_x, inner_cost = self.inner_minimizer.minimize(candidate_x)
+                summary.inner_iteration_time_in_seconds += time.perf_counter() - t0
+                summary.num_inner_iteration_steps += 1
+                if np.isfinite(inner_cost) and inner_cost < candidate_cost:
+                    rel_progress = (candidate_cost - inner_cost) / candidate_cost
+                    candidate_x = program.clamp(inner_x)
+                    (candidate_cost,) = _to_host(self.evaluator.cost(candidate_x))
+                    if rel_progress <= opts.inner_iteration_tolerance:
+                        self._inner_enabled = False
+                else:
+                    self._inner_enabled = False
+
             it.step_norm = step_norm
             it.cost_change = x_cost - candidate_cost
 
@@ -738,6 +776,21 @@ class TrustRegionMinimizer:
                     grad, ctx = cand_grad, cand_ctx
                     it.gradient_max_norm, it.gradient_norm = f_gmax, f_gnorm
                 else:
+                    if opts.check_gradients:
+                        # The reference checks every evaluation and aborts
+                        # at the first mismatch, at any iterate
+                        # (gradient_checking_cost_function.h:105).
+                        from ceres_tpu_torch.gradient_checker import check_program_gradients_at
+
+                        ok, msg = check_program_gradients_at(
+                            program, x, opts.gradient_check_relative_precision
+                        )
+                        if not ok:
+                            summary.termination_type = TerminationType.FAILURE
+                            summary.message = (
+                                f"Gradient check failed at iteration {it.iteration}: {msg}"
+                            )
+                            return x
                     t0 = time.perf_counter()
                     full = self.evaluator.cost_gradient_jacobian(x)
                     grad = full.gradient

@@ -1,8 +1,8 @@
 """Enums of the solver vocabulary the port uses.
 
 Port of the subset of ``ceres_tpu/types.py`` that the port's modules read
-(linear solvers, preconditioners, strategies, minimizers, terminations,
-callback returns);
+(linear solvers, preconditioners, strategies, dogleg types, minimizers,
+line-search directions and searches, terminations, callback returns);
 names and members match the JAX package.
 """
 
@@ -53,9 +53,42 @@ class TrustRegionStrategyType(_StrEnum):
     DOGLEG = enum.auto()
 
 
+class DoglegType(_StrEnum):
+    """Analog of DoglegType (types.h): traditional vs 2D subspace dogleg."""
+
+    TRADITIONAL_DOGLEG = enum.auto()
+    SUBSPACE_DOGLEG = enum.auto()
+
+
 class MinimizerType(_StrEnum):
     TRUST_REGION = enum.auto()
     LINE_SEARCH = enum.auto()
+
+
+class LineSearchDirectionType(_StrEnum):
+    """Analog of LineSearchDirectionType (types.h)."""
+
+    STEEPEST_DESCENT = enum.auto()
+    NONLINEAR_CONJUGATE_GRADIENT = enum.auto()
+    LBFGS = enum.auto()
+    BFGS = enum.auto()
+
+
+class NonlinearConjugateGradientType(_StrEnum):
+    FLETCHER_REEVES = enum.auto()
+    POLAK_RIBIERE = enum.auto()
+    HESTENES_STIEFEL = enum.auto()
+
+
+class LineSearchType(_StrEnum):
+    ARMIJO = enum.auto()
+    WOLFE = enum.auto()
+
+
+class LineSearchInterpolationType(_StrEnum):
+    BISECTION = enum.auto()
+    QUADRATIC = enum.auto()
+    CUBIC = enum.auto()
 
 
 class TerminationType(_StrEnum):

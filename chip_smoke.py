@@ -112,7 +112,42 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    1e5 s. Each against the JAX package's float64 result for the same
    problem and options: the same record count, the cost within 1e-6
    relative, (a) the final state inside the box with active bounds, (b) the
-   same number of evaluation-callback calls.
+   same number of evaluation-callback calls;
+15. solve, DOGLEG, large (``dogleg_large_traditional`` in float32 and
+   float64, ``dogleg_large_subspace`` in float64): the large instance at
+   DENSE_SCHUR through ``ctt.solve`` with ``trust_region_strategy_type``
+   DOGLEG (the host loop's step-by-step branch), a 2-iteration warm-up and
+   LARGE_REPEATS solves equal to the bit, the second with its host reads
+   counted (``torch.cuda.set_sync_debug_mode``, after a 0-iteration solve
+   did the set-up). float64 against the JAX package's float64 record count
+   and cost (1e-9), float32 within 1e-6 of float64; K1, K3 and K4 launched;
+   the Gauss-Newton retries at a larger mu reported;
+16. solve, inner iterations, large (``inner_iterations_large``): the same
+   with LM and ``use_inner_iterations``, float32 and float64: the
+   independent sets, their plan kinds, the inner steps and seconds, the set
+   construction's seconds, and the launches of the inner passes apart from
+   the LM step's (both K1 and K3 launched inside them); float64 against
+   JAX's records, cost and inner steps, float32 within 1e-5 of float64 (ten
+   function tolerances: the f32 end is set by rounding noise, INNER_F32_RTOL);
+17. solve, flagship line search (``flagship_line_search``): the flagship
+   through ``ctt.solve`` with the LINE_SEARCH minimizer (L-BFGS, Wolfe,
+   100 iterations), float64 twice (every record's cost equal to the bit;
+   the second with its host reads counted) against JAX: the record count
+   and termination, and the final cost and the costs of records 25, 50 and
+   75 each within 1e-6 relative, or within ten times the reference's own
+   change under a one-ulp change of the start where that is larger (1.1e-5
+   at record 100); float32 reported; two reverse-mode gradients at the
+   start equal to the bit (autograd adds the gather's rows back on the
+   card);
+18. solve, gradient problem (``gradient_problem``): ``examples/
+   rosenbrock.py``'s problem through ``ctt.solve_gradient_problem`` once
+   per direction type against JAX: the termination, and x within 1e-8 with
+   the record count where the reference's trajectory is steady (L-BFGS,
+   BFGS), within ten times its one-ulp spread where it is not (nonlinear
+   CG, steepest descent);
+19. solve, gradient checks (``check_gradients``): the flagship with
+   ``check_gradients`` for 3 iterations (usable), and a residual whose
+   hand-written Jacobian is wrong: FAILURE with the JAX package's message.
 
 ``solve_seconds`` is the LM loop on the device; the host set-up of each
 fresh problem is reported as ``setup_seconds``; ``seconds_per_cg_iteration``
@@ -132,6 +167,7 @@ above) and the card's name and power limit. The last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -143,6 +179,7 @@ import numpy as np
 import torch
 
 import ceres_tpu_torch as ctt
+from ceres_tpu_torch import dogleg, evaluator, inner_iterations
 from ceres_tpu_torch.linear import schur as schur_mod
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
 from ceres_tpu_torch.models import bal, pose_graph
@@ -150,6 +187,7 @@ from ceres_tpu_torch.ops import cuda_build
 from ceres_tpu_torch.ops import outer_segment_sum as osum
 from ceres_tpu_torch.ops import segment_sum as ss
 from ceres_tpu_torch.ops import unsorted_segment_sum as us
+from ceres_tpu_torch.tools.profile_solve import _host_reads
 
 NUM_CAMERAS, NUM_POINTS, NUM_OBS, SEED = 16, 22106, 83718, 16
 LARGE = dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7)
@@ -213,6 +251,66 @@ FLAGSHIP_PRECONDITIONERS = {
     ),
 }
 DENSE_RTOL = 1e-6
+# ceres_tpu.solve of the large instance at the large phase's options
+# (DENSE_SCHUR, 50 iterations), float64, JAX on the CPU: (records, final
+# cost); CONVERGENCE, no inner iterations. ``python
+# tests/test_torch_references.py large_dogleg large_inner`` computes them.
+LARGE_DOGLEG_REFERENCE = {
+    "TRADITIONAL_DOGLEG": (6, 3587828.136066581),
+    "SUBSPACE_DOGLEG": (5, 3587828.2958576186),
+}
+# The same with use_inner_iterations (LM): (records, final cost, inner
+# iteration steps); in float32 JAX ends at 3587824.5405506883 in 3 records,
+# 9.1e-7 from its float64 cost.
+LARGE_INNER_REFERENCE = (3, 3587827.7881201766, 2)
+MINIMIZER_F64_RTOL = 1e-9  # the port's f64 against JAX f64
+MINIMIZER_F32_RTOL = 1e-6  # the port's f32 against its own f64 (DOGLEG)
+# With inner iterations in f32 the end is set by f32 noise: each inner
+# pass keeps, block by block, the steps whose f32 cost came out lower, so
+# the point it returns sits in a dip of the rounding, and the next LM
+# steps of any length raise the cost by about 1e-6 of it, the function
+# tolerance. Whether a solve stops there or goes on depends on that noise
+# (JAX f32 stops, 9.1e-7 from its f64; the port's f32 goes on and ends
+# lower, PERF.md §6): held to ten function tolerances.
+INNER_F32_RTOL = 1e-5
+# ceres_tpu.solve of the flagship instance at bal.default_options(
+# iterative=True) with the LINE_SEARCH minimizer (L-BFGS, Wolfe, 100
+# iterations), float64, JAX on the CPU: 101 records, NO_CONVERGENCE, 105
+# line-search evaluations; the costs of records 25, 50, 75 and 100; and how
+# far the reference's own costs move when one coordinate of the start moves
+# one ulp either way (the larger relative change of the two, for the final
+# cost and those records). ``python tests/test_torch_references.py
+# flagship_line_search``.
+FLAGSHIP_LINE_SEARCH_REFERENCE = dict(
+    records=101, termination="NO_CONVERGENCE", evaluations=105,
+    final_cost=7484664.97285633, checked_records=(25, 50, 75, 100),
+    checked_costs=(38771243.462369174, 9673571.268538622, 8581058.010247126,
+                   7484664.97285633),
+    spread=(1.0986929732932618e-06, 1.6910757406211712e-14, 3.628987904573444e-12,
+            2.8534593057405817e-09, 1.0986929732932618e-06),
+)
+# A cost is held to 1e-6 relative, or to ten times the reference's own
+# one-ulp spread where that is larger (the final cost: 1.1e-5).
+LINE_SEARCH_COST_RTOL = 1e-6
+# ceres_tpu.solve_gradient_problem of examples/rosenbrock.py's problem
+# (max_num_iterations=200) per direction type, JAX on the CPU: (records,
+# termination, final x, the largest change of x when the start moves one
+# ulp either way); ``python tests/test_torch_references.py rosenbrock``.
+ROSENBROCK_REFERENCE = {
+    "LBFGS": (39, "CONVERGENCE", (1.0000000006592433, 1.0000000012066341), 2.220446049250313e-16),
+    "BFGS": (39, "CONVERGENCE", (0.9999999999998593, 0.9999999999996787), 0.0),
+    "NONLINEAR_CONJUGATE_GRADIENT": (109, "CONVERGENCE", (1.0000045216437425, 1.0000090715450483),
+                                     2.3024588142295244e-05),
+    "STEEPEST_DESCENT": (201, "NO_CONVERGENCE", (0.5039254785402206, 0.24947119985608857),
+                         1.713376922271581e-05),
+}
+ROSENBROCK_X_ATOL = 1e-8  # or ten times the reference's one-ulp spread of x
+# The message of a solve with check_gradients of r = x^2 - 2 at x = 1.5
+# whose hand-written Jacobian is 3x, from ceres_tpu.solve (``python
+# tests/test_torch_references.py check_gradients``).
+WRONG_JACOBIAN_MESSAGE = (
+    "Gradient check failed: family fn instance 0 arg 0: relative error 3.333333e-01"
+)
 # Timed flagship solves per dtype (each on a fresh problem); the first is
 # the run whose K1 launches are counted.
 REPEATS = 3
@@ -254,6 +352,7 @@ def check_device() -> str:
         raise RuntimeError("float32 matmul precision is not 'highest'")
     phase(
         "device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+        numpy=np.__version__,
         allow_tf32=False, float32_matmul_precision="highest",
     )
     return smi
@@ -1261,6 +1360,364 @@ def solve_flagship_host_loop(device, smi: str) -> dict:
     return paths
 
 
+# ---- the other minimizers ---------------------------------------------------
+
+
+@contextlib.contextmanager
+def _instances(cls):
+    """Every instance of ``cls`` made in the block, and the seconds each
+    took to make (``made_seconds``)."""
+    made = []
+    init = cls.__init__
+
+    def spy(self, *args, **kw):
+        t0 = time.perf_counter()
+        init(self, *args, **kw)
+        self.made_seconds = time.perf_counter() - t0
+        made.append(self)
+
+    cls.__init__ = spy
+    try:
+        yield made
+    finally:
+        cls.__init__ = init
+
+
+@contextlib.contextmanager
+def _timed_calls(module, name: str):
+    """The seconds of each call of ``module.name`` made in the block."""
+    seconds = []
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def _inner_launches():
+    """The kernel launches made inside the inner passes, apart from the LM
+    step's."""
+    counts = collections.Counter()
+    real = inner_iterations.CoordinateDescentMinimizer.minimize
+
+    def counted(self, x):
+        before = _launches()
+        out = real(self, x)
+        counts.update({k: v - before[k] for k, v in _launches().items()})
+        return out
+
+    inner_iterations.CoordinateDescentMinimizer.minimize = counted
+    try:
+        yield counts
+    finally:
+        inner_iterations.CoordinateDescentMinimizer.minimize = real
+
+
+def _reads(run, prepare):
+    """(summary, host reads by site) of run() on a problem whose set-up
+    ``prepare()`` (a 0-iteration solve) did beforehand."""
+    prepare()
+    return _host_reads(run)
+
+
+def solve_large_minimizer(device, label: str, dtype: str, inst, changes: dict, smi: str):
+    """The large case through ctt.solve (DENSE_SCHUR) with the minimizer
+    options ``changes``: a 2-iteration warm-up, then LARGE_REPEATS solves
+    equal to the bit; the first timed and counted, the second with its host
+    reads counted. Returns (summary, launches of the first, extra fields)."""
+
+    def options(max_iters=50):
+        opts = _options(dtype, False, max_iters)
+        for k, v in changes.items():
+            setattr(opts, k, v)
+        return opts
+
+    warm, _, _ = bal.build_problem(inst)
+    ctt.solve(options(2), warm, device=device)
+    del warm
+    runs = []
+    with _instances(dogleg.DoglegStrategy) as strategies, _instances(
+        inner_iterations.CoordinateDescentMinimizer
+    ) as inner, _inner_launches() as inner_counts, _timed_calls(
+        inner_iterations, "compute_independent_sets"
+    ) as coloring:
+        for i in range(LARGE_REPEATS):
+            problem, _, _ = bal.build_problem(inst)
+            if i == 0:
+                torch.cuda.reset_peak_memory_stats()
+                _reset_launches()
+                inner_counts.clear()
+                runs.append(ctt.solve(options(), problem, device=device))
+                launches, by_width = _launches(), _launches_by_width()
+                inner_only = {k: inner_counts[k] for k in launches}
+                peak = torch.cuda.max_memory_allocated()
+                _checked(problem, runs[0], LARGE_REFERENCE_FINAL_COST, f"{label} {dtype}")
+            else:
+                summary, reads = _reads(
+                    lambda: ctt.solve(options(), problem, device=device),
+                    lambda: ctt.solve(options(0), problem, device=device),
+                )
+                runs.append(summary)
+            if runs[-1].final_cost != runs[0].final_cost or _record_key(runs[-1]) != _record_key(
+                runs[0]
+            ):
+                raise RuntimeError(f"{label} {dtype} solve is not repeatable on the card")
+            del problem
+    summary = runs[0]
+    _usable(summary, f"{label} {dtype}")
+    n = max(summary.num_iterations, 1)
+    seconds = summary.minimizer_time_in_seconds
+    extra = {}
+    if strategies:
+        extra["mu_retries"] = strategies[0].mu_retries
+    if inner:
+        cd = inner[0]
+        extra.update(
+            sets=[len(s) for s in cd.sets], plans=cd.plan_kinds(),
+            inner_iteration_steps=summary.num_inner_iteration_steps,
+            inner_iteration_seconds=summary.inner_iteration_time_in_seconds,
+            inner_setup_seconds=[c.made_seconds for c in inner],
+            coloring_seconds=coloring,
+            inner_launches=inner_only,
+            lm_step_launches={k: launches[k] - inner_only[k] for k in launches},
+        )
+    phase(
+        "solve", case=label, dtype=dtype, initial_cost=summary.initial_cost,
+        final_cost=summary.final_cost, records=len(summary.iterations),
+        lm_iterations=summary.num_iterations,
+        successful_steps=summary.num_successful_steps,
+        rejected_steps=summary.num_unsuccessful_steps,
+        termination=str(summary.termination_type), message=summary.message,
+        solve_seconds=seconds, seconds_per_iteration=seconds / n,
+        solve_seconds_all=[s.minimizer_time_in_seconds for s in runs],
+        setup_seconds=summary.preprocessor_time_in_seconds,
+        setup_seconds_all=[s.preprocessor_time_in_seconds for s in runs],
+        host_reads_second_solve=sum(reads.values()),
+        host_reads_per_iteration=sum(reads.values()) / max(runs[-1].num_iterations, 1),
+        host_reads_by_site=dict(reads.most_common(12)),
+        launches=launches, launches_by_width=by_width, peak_device_bytes=peak, card=smi,
+        **extra,
+    )
+    for name, count in launches.items():
+        if count == 0:
+            raise RuntimeError(f"{label} {dtype}: {name} was never launched")
+    if inner and not (inner_only["sorted_segment_sum"] and inner_only["unsorted_segment_sum"]):
+        raise RuntimeError(f"{label} {dtype}: the inner pass launched {inner_only}")
+    return summary, launches, extra
+
+
+def _held_to_jax(summary, records: int, reference: float, label: str) -> float:
+    rel = abs(summary.final_cost - reference) / reference
+    phase("compare", case=label, records=len(summary.iterations), reference_records=records,
+          final_cost=summary.final_cost, reference_final_cost=reference, rel=rel)
+    if len(summary.iterations) != records or not rel <= MINIMIZER_F64_RTOL:
+        raise RuntimeError(f"{label}: {len(summary.iterations)} records (JAX {records}), "
+                           f"cost {summary.final_cost} (JAX {reference})")
+    return rel
+
+
+def _held_to_f64(s32, s64, label: str, rtol: float = MINIMIZER_F32_RTOL) -> float:
+    rel = abs(s32.final_cost - s64.final_cost) / s64.final_cost
+    phase("compare", case=label, float32_vs_float64_rel=rel, rtol=rtol)
+    if not rel <= rtol:
+        raise RuntimeError(f"{label}: float32 {s32.final_cost} vs float64 {s64.final_cost}")
+    return rel
+
+
+def solve_dogleg_large(device, inst, smi: str) -> dict:
+    """The large case under DOGLEG: traditional in f32 and f64, subspace in
+    f64, each f64 solve against JAX f64, f32 against f64."""
+    paths, out = {}, {}
+    for kind, dtype in (("TRADITIONAL_DOGLEG", "float32"), ("TRADITIONAL_DOGLEG", "float64"),
+                        ("SUBSPACE_DOGLEG", "float64")):
+        changes = dict(trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG,
+                       dogleg_type=ctt.DoglegType[kind])
+        label = f"dogleg_large_{kind.split('_')[0].lower()}"
+        out[kind, dtype], paths[f"{label}_{dtype}"], _ = solve_large_minimizer(
+            device, label, dtype, inst, changes, smi)
+        if dtype == "float64":
+            _held_to_jax(out[kind, dtype], *LARGE_DOGLEG_REFERENCE[kind], f"{label} float64")
+    _held_to_f64(out["TRADITIONAL_DOGLEG", "float32"], out["TRADITIONAL_DOGLEG", "float64"],
+                 "dogleg_large_traditional")
+    return paths
+
+
+def solve_inner_iterations_large(device, inst, smi: str) -> dict:
+    """The large case, LM at DENSE_SCHUR with inner iterations, f32 and f64."""
+    paths, out = {}, {}
+    for dtype in ("float32", "float64"):
+        out[dtype], paths[f"inner_iterations_large_{dtype}"], extra = solve_large_minimizer(
+            device, "inner_iterations_large", dtype, inst, dict(use_inner_iterations=True), smi)
+        paths[f"inner_iterations_large_{dtype}_inner_pass"] = extra["inner_launches"]
+    records, reference, steps = LARGE_INNER_REFERENCE
+    _held_to_jax(out["float64"], records, reference, "inner_iterations_large float64")
+    if out["float64"].num_inner_iteration_steps != steps:
+        raise RuntimeError(f"inner iterations large: {out['float64'].num_inner_iteration_steps} "
+                           f"inner steps (JAX {steps})")
+    _held_to_f64(out["float32"], out["float64"], "inner_iterations_large", INNER_F32_RTOL)
+    return paths
+
+
+def _line_search_options(dtype: str, max_iters: int = 100):
+    opts = bal.default_options(iterative=True)
+    opts.minimizer_type = ctt.MinimizerType.LINE_SEARCH
+    opts.line_search_direction_type = ctt.LineSearchDirectionType.LBFGS
+    opts.line_search_type = ctt.LineSearchType.WOLFE
+    opts.max_num_iterations = max_iters
+    opts.evaluation_dtype = dtype
+    return opts
+
+
+def _gradient_repeats(program, device) -> bool:
+    """Whether two reverse-mode gradients at the start are equal to the bit
+    (autograd sums the row gather's backward, many rows into each point)."""
+    x = torch.from_numpy(program.initial_ambient()).to(device, program.eval_dtype)
+    ev = evaluator.Evaluator(program)
+    return bool(torch.equal(ev.cost_and_gradient(x)[1], ev.cost_and_gradient(x)[1]))
+
+
+def solve_flagship_line_search(device, smi: str) -> dict:
+    """The flagship through ctt.solve with the LINE_SEARCH minimizer: f64
+    twice (equal to the bit; the second with its host reads counted)
+    against JAX f64, f32 once; and whether two gradients repeat. Returns
+    the launches of the first f64 solve (none: the reverse-mode gradient
+    runs no kernel of the port)."""
+    inst = flagship_instance()
+    warm, _, _ = bal.build_problem(inst)
+    ctt.solve(_line_search_options("float64", 2), warm, device=device)
+    runs = []
+    for i in range(2):
+        problem, _, _ = bal.build_problem(inst)
+        if i == 0:
+            _reset_launches()
+            runs.append(ctt.solve(_line_search_options("float64"), problem, device=device))
+            launches, by_width = _launches(), _launches_by_width()
+            _checked(problem, runs[0], FLAGSHIP_LINE_SEARCH_REFERENCE["final_cost"],
+                     "flagship line search float64")
+        else:
+            summary, reads = _reads(
+                lambda: ctt.solve(_line_search_options("float64"), problem, device=device),
+                lambda: ctt.solve(_line_search_options("float64", 0), problem, device=device),
+            )
+            runs.append(summary)
+    costs = [[r.cost for r in s.iterations] for s in runs]
+    repeats = costs[0] == costs[1] and runs[0].final_cost == runs[1].final_cost
+    gradient_repeats = _gradient_repeats(bal.build_problem(inst)[0].program(device), device)
+    p32, _, _ = bal.build_problem(inst)
+    s32 = ctt.solve(_line_search_options("float32"), p32, device=device)
+    ref = FLAGSHIP_LINE_SEARCH_REFERENCE
+    s = runs[0]
+    n = max(s.num_iterations, 1)
+    evals = sum(r.line_search_function_evaluations for r in s.iterations)
+    got = [s.final_cost] + [costs[0][i] for i in ref["checked_records"]
+                            if i < len(costs[0])]
+    want = [ref["final_cost"], *ref["checked_costs"]]
+    rels = [abs(a - b) / b for a, b in zip(got, want)]
+    tols = [max(LINE_SEARCH_COST_RTOL, 10 * sp) for sp in ref["spread"]]
+    phase(
+        "solve", case="flagship_line_search", dtype="float64", initial_cost=s.initial_cost,
+        final_cost=s.final_cost, reference_final_cost=ref["final_cost"], records=len(s.iterations),
+        reference_records=ref["records"], termination=str(s.termination_type),
+        message=s.message, evaluations=evals, reference_evaluations=ref["evaluations"],
+        evaluations_per_iteration=evals / n,
+        checked_records=ref["checked_records"], rel_final_and_checked=rels,
+        tolerances=tols, within_1e_6=[r <= LINE_SEARCH_COST_RTOL for r in rels],
+        repeats_equal_to_the_bit=repeats, gradient_repeats_equal_to_the_bit=gradient_repeats,
+        solve_seconds=s.minimizer_time_in_seconds,
+        seconds_per_iteration=s.minimizer_time_in_seconds / n,
+        solve_seconds_all=[r.minimizer_time_in_seconds for r in runs],
+        setup_seconds=s.preprocessor_time_in_seconds,
+        host_reads_second_solve=sum(reads.values()),
+        host_reads_per_iteration=sum(reads.values()) / max(runs[1].num_iterations, 1),
+        host_reads_by_site=dict(reads.most_common(12)),
+        float32=dict(final_cost=s32.final_cost, records=len(s32.iterations),
+                     termination=str(s32.termination_type),
+                     solve_seconds=s32.minimizer_time_in_seconds),
+        launches=launches, launches_by_width=by_width, card=smi,
+    )
+    if not (repeats and gradient_repeats):
+        raise RuntimeError("flagship line search: two float64 solves or gradients differ")
+    if (len(s.iterations), s.termination_type.name) != (ref["records"], ref["termination"]):
+        raise RuntimeError(f"flagship line search: {len(s.iterations)} records, "
+                           f"{s.termination_type} (JAX {ref['records']}, {ref['termination']})")
+    if not all(r <= t for r, t in zip(rels, tols)):
+        raise RuntimeError(f"flagship line search: costs {got} vs JAX {want}")
+    return launches
+
+
+def _rosenbrock(x):
+    return (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] ** 2) ** 2
+
+
+def solve_gradient_problems(device, smi: str) -> None:
+    """examples/rosenbrock.py's problem through ctt.solve_gradient_problem,
+    once per direction type, against JAX f64, after a 2-iteration warm-up
+    (the first reverse-mode pass on the card takes seconds)."""
+    t0 = time.perf_counter()
+    ctt.solve_gradient_problem(ctt.GradientProblemOptions(max_num_iterations=2),
+                               ctt.GradientProblem(_rosenbrock, 2), np.array([-1.2, 1.0]),
+                               device=device)
+    phase("warm_up", case="gradient_problem", seconds=time.perf_counter() - t0)
+    for direction, (records, termination, x_ref, spread) in ROSENBROCK_REFERENCE.items():
+        opts = ctt.GradientProblemOptions(
+            max_num_iterations=200,
+            line_search_direction_type=ctt.LineSearchDirectionType[direction])
+        x = np.array([-1.2, 1.0])
+        s = ctt.solve_gradient_problem(opts, ctt.GradientProblem(_rosenbrock, 2), x,
+                                       device=device)
+        dx = float(np.max(np.abs(x - np.asarray(x_ref))))
+        tol = max(ROSENBROCK_X_ATOL, 10 * spread)
+        phase("solve", case="gradient_problem", direction=direction,
+              records=len(s.iterations), reference_records=records,
+              termination=str(s.termination_type), x=x.tolist(), reference_x=list(x_ref),
+              max_abs_x_diff=dx, tolerance=tol, solve_seconds=s.minimizer_time_in_seconds,
+              card=smi)
+        steady = spread <= ROSENBROCK_X_ATOL
+        if s.termination_type.name != termination or dx > tol or (
+            steady and len(s.iterations) != records
+        ):
+            raise RuntimeError(f"gradient problem {direction}: {len(s.iterations)} records, "
+                               f"{s.termination_type}, x {x} (JAX {records}, {x_ref})")
+
+
+def solve_check_gradients(device, smi: str) -> dict:
+    """The flagship with check_gradients for 3 iterations (passes), and a
+    residual whose hand-written Jacobian is wrong (FAILURE, JAX's message).
+    Returns the launches of the flagship solve."""
+    opts = bal.default_options(iterative=True)
+    opts.check_gradients = True
+    opts.max_num_iterations = 3
+    problem, _, _ = bal.build_problem(flagship_instance())
+    _reset_launches()
+    s = ctt.solve(opts, problem, device=device)
+    launches = _launches()
+    _usable(s, "check_gradients flagship")
+    fn = ctt.cost_functions.analytic_cost(
+        lambda x: x * x - 2.0, lambda x: (torch.stack([3.0 * x[0]]).reshape(1, 1),))
+    wrong = ctt.Problem()
+    wrong.add_residual_block(fn, None, [wrong.add_parameter_block(np.array([1.5]))])
+    bad = ctt.solve(ctt.SolverOptions(linear_solver_type=ctt.LinearSolverType.DENSE_QR,
+                                      check_gradients=True), wrong, device=device)
+    phase("solve", case="check_gradients", flagship_records=len(s.iterations),
+          flagship_termination=str(s.termination_type), flagship_final_cost=s.final_cost,
+          flagship_solve_seconds=s.minimizer_time_in_seconds,
+          wrong_jacobian_termination=str(bad.termination_type),
+          wrong_jacobian_message=bad.message, reference_message=WRONG_JACOBIAN_MESSAGE,
+          launches=launches, card=smi)
+    if bad.termination_type != ctt.TerminationType.FAILURE or bad.message != WRONG_JACOBIAN_MESSAGE:
+        raise RuntimeError(f"check_gradients: {bad.termination_type} ({bad.message})")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = check_device()
@@ -1297,8 +1754,13 @@ def main() -> int:
     inst = large_instance()
     for dtype in ("float32", "float64"):
         paths[f"host_loop_large_{dtype}"] = solve_host_loop_large(device, dtype, inst, smi)
+    paths.update(solve_dogleg_large(device, inst, smi))
+    paths.update(solve_inner_iterations_large(device, inst, smi))
     del inst
     paths.update(solve_flagship_host_loop(device, smi))
+    paths["flagship_line_search_float64"] = solve_flagship_line_search(device, smi)
+    solve_gradient_problems(device, smi)
+    paths["check_gradients_flagship_float64"] = solve_check_gradients(device, smi)
     for record in records:
         record["launches"] = launches[record["name"]]
         record["launches_by_path"] = {k: v[record["name"]] for k, v in paths.items()}

@@ -44,6 +44,11 @@ print(len(cuda_build._loaded))  # kernels build at first launch, not at import
         "ceres_tpu_torch.linear.preconditioners",
         "ceres_tpu_torch.ordered_groups",
         "ceres_tpu_torch.trust_region",
+        "ceres_tpu_torch.dogleg",
+        "ceres_tpu_torch.inner_iterations",
+        "ceres_tpu_torch.line_search",
+        "ceres_tpu_torch.gradient_problem",
+        "ceres_tpu_torch.gradient_checker",
         "ceres_tpu_torch.utils.observability",
         "ceres_tpu_torch.ops.polynomial",
         "ceres_tpu_torch.ops.segment_sum",
@@ -108,13 +113,47 @@ def test_every_not_implemented_error_names_a_roadmap_item():
                      if isinstance(n, ast.Constant) and isinstance(n.value, str)]
             texts += [constants.get(n.id, "") for n in ast.walk(node.exc) if isinstance(n, ast.Name)]
             assert any("ROADMAP" in t for t in texts), f"{path}:{node.lineno}"
-    assert found >= 8
+    # what still raises: the sparse solvers and the cluster preconditioners
+    # (solver.check_supported, two; linear/schur.solve_schur, two;
+    # trust_region's linear-solve dispatch and LM step factory, two)
+    assert found >= 6
     # ... and the items the messages name are in ROADMAP.md's Queue 1
     roadmap = (REPO / "ROADMAP.md").read_text()
     named = set()
     for path in _port_sources():
         named.update(re.findall(r"Queue 1 item (\d+[a-z]?)", path.read_text()))
     assert named and all(re.search(rf"^\*\*{n}\. ", roadmap, re.M) for n in named), named
+
+
+def test_only_the_sparse_solvers_and_cluster_preconditioners_raise():
+    """Every minimizer option runs; what raises names item 14b."""
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.solver import check_supported
+
+    runs = [
+        dict(trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG),
+        dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH),
+        dict(use_inner_iterations=True),
+        dict(check_gradients=True),
+        dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH,
+             linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR),
+    ]
+    for changes in runs:
+        opts = ctt.SolverOptions(linear_solver_type=ctt.LinearSolverType.DENSE_QR)
+        for k, v in changes.items():
+            setattr(opts, k, v)
+        check_supported(opts)
+    raises = [
+        dict(linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY),
+        dict(linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR),
+        dict(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
+             preconditioner_type=ctt.PreconditionerType.CLUSTER_JACOBI),
+        dict(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
+             preconditioner_type=ctt.PreconditionerType.CLUSTER_TRIDIAGONAL),
+    ]
+    for changes in raises:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
+            check_supported(ctt.SolverOptions(**changes))
 
 
 def test_default_device_is_the_card_and_a_missing_card_raises():

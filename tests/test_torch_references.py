@@ -1,25 +1,44 @@
 """The JAX package's results that ``chip_smoke.py`` holds the port to, and
 the parity test of the solves that make them.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_references.py [large] [flagship_host_loop]
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_references.py [WHAT ...]
 
 prints one JSON line per reference, computed by ``ceres_tpu`` in float64 on
-the CPU: ``large`` runs ``ceres_tpu.fused_solve`` of the large instance
-(464 / 200 000 / 1 200 000, seed 7, the large phase's options) with and
-without ``HuberLoss(1.0)`` (ROBUST_LARGE_REFERENCE_FINAL_COST; about six
-minutes); ``flagship_host_loop`` runs ``ceres_tpu.solve`` of the flagship
-instance bounded and non-monotonic (FLAGSHIP_BOUNDED_REFERENCE,
-FLAGSHIP_NONMONOTONIC_REFERENCE; about half a minute). The test runs the
-flagship function through both packages at a small size: the same records,
-costs (rtol 1e-10), active bounds and evaluation-callback calls (the large
-one is ``fused_solve``, held to the JAX package by test_torch_solve.py).
+the CPU, WHAT one of:
+
+- ``large``: ``ceres_tpu.fused_solve`` of the large instance (464 / 200 000
+  / 1 200 000, seed 7, the large phase's options) with and without
+  ``HuberLoss(1.0)`` (ROBUST_LARGE_REFERENCE_FINAL_COST; about six minutes);
+- ``flagship_host_loop``: ``ceres_tpu.solve`` of the flagship instance
+  bounded and non-monotonic (FLAGSHIP_BOUNDED_REFERENCE,
+  FLAGSHIP_NONMONOTONIC_REFERENCE; about half a minute);
+- ``large_dogleg`` and ``large_inner``: ``ceres_tpu.solve`` of the large
+  instance at the large phase's options under DOGLEG (traditional and
+  subspace) and with inner iterations, the latter in float32 too
+  (LARGE_DOGLEG_REFERENCE, LARGE_INNER_REFERENCE);
+- ``flagship_line_search``: ``ceres_tpu.solve`` of the flagship instance
+  with the LINE_SEARCH minimizer (L-BFGS, Wolfe, 100 iterations), and the
+  same from a start one ulp away in one coordinate, either way: how far the
+  reference's own trajectory moves (FLAGSHIP_LINE_SEARCH_REFERENCE);
+- ``rosenbrock``: ``examples/rosenbrock.py``'s problem through
+  ``ceres_tpu.solve_gradient_problem`` once per direction type, and again
+  from starts one ulp away (ROSENBROCK_REFERENCE);
+- ``check_gradients``: the message of a solve with ``check_gradients`` of a
+  residual whose hand-written Jacobian is wrong (WRONG_JACOBIAN_MESSAGE).
+
+The tests run each function through both packages at a small size: the
+same records and costs (rtol 1e-10; the line search's 1e-9), active bounds
+and evaluation-callback calls (the large one is ``fused_solve``, held to the
+JAX package by test_torch_solve.py).
 """
 
 import json
 import sys
 import time
 
+import jax.numpy as jnp
 import numpy as np
+import torch
 
 import ceres_tpu as ct
 import ceres_tpu_torch as ctt
@@ -30,6 +49,14 @@ from ceres_tpu_torch.models import bal as tbal
 LARGE = dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7)
 FLAGSHIP = dict(num_cameras=16, num_points=22106, num_observations=83718, seed=16)
 SMALL = dict(num_cameras=4, num_points=200, num_observations=800, seed=3)
+LARGE_MINIMIZERS = {
+    "dogleg_traditional": dict(trust_region_strategy_type="DOGLEG",
+                               dogleg_type="TRADITIONAL_DOGLEG"),
+    "dogleg_subspace": dict(trust_region_strategy_type="DOGLEG", dogleg_type="SUBSPACE_DOGLEG"),
+    "inner_iterations": dict(use_inner_iterations=True),
+}
+DIRECTIONS = ("LBFGS", "BFGS", "NONLINEAR_CONJUGATE_GRADIENT", "STEEPEST_DESCENT")
+RECORDS_CHECKED = (25, 50, 75, 100)  # flagship line search records kept
 
 
 def _package(mod):
@@ -91,6 +118,125 @@ def flagship_host_loop_references(mod, sizes=FLAGSHIP):
     return bounded, (len(s.iterations), s.final_cost, counter.calls)
 
 
+def _set_options(mod, opts, changes):
+    enums = {"trust_region_strategy_type": mod.TrustRegionStrategyType,
+             "dogleg_type": mod.DoglegType, "minimizer_type": mod.MinimizerType,
+             "line_search_direction_type": mod.LineSearchDirectionType,
+             "line_search_type": mod.LineSearchType}
+    for k, v in changes.items():
+        setattr(opts, k, enums[k][v] if k in enums else v)
+    return opts
+
+
+def large_minimizer_references(mod, names, sizes=LARGE, dtype="float64"):
+    """``solve`` of the instance at the large phase's options (DENSE_SCHUR,
+    50 iterations, ``dtype``) with each named change of LARGE_MINIMIZERS:
+    {name: (records, final cost, termination, inner-iteration steps,
+    seconds)}."""
+    bm, kw = _package(mod)
+    inst = bm.synthesize_bal(noise=2.0, perturb=0.7, **sizes)
+    out = {}
+    for name in names:
+        t0 = time.time()
+        opts = bm.default_options(iterative=False)
+        opts.max_num_iterations = 50
+        opts.evaluation_dtype = dtype
+        _set_options(mod, opts, LARGE_MINIMIZERS[name])
+        s = mod.solve(opts, bm.build_problem(inst)[0], **kw)
+        out[name] = (len(s.iterations), s.final_cost, s.termination_type.name,
+                     s.num_inner_iteration_steps, time.time() - t0)
+    return out
+
+
+def _nudged(problem, pid, direction):
+    """The block's first value moved one ulp toward +inf or -inf."""
+    v = np.array(problem.parameter_block_value(pid), dtype=np.float64)
+    v[0] = np.nextafter(v[0], direction * np.inf)
+    problem.set_parameter_block_value(pid, v)
+
+
+def flagship_line_search_references(mod, sizes=FLAGSHIP, max_iters=100, nudge=0):
+    """``solve`` of the instance with the LINE_SEARCH minimizer (L-BFGS,
+    Wolfe, ``max_iters`` iterations) at bal.default_options(iterative=True),
+    f64, the first point's first coordinate moved ``nudge`` ulps: (records,
+    final cost, termination, line-search evaluations, costs of the records
+    RECORDS_CHECKED that exist)."""
+    bm, kw = _package(mod)
+    p, _, pts = bm.build_problem(bm.synthesize_bal(noise=2.0, perturb=0.7, **sizes))
+    if nudge:
+        _nudged(p, int(pts[0]), nudge)
+    opts = _set_options(mod, bm.default_options(iterative=True), dict(
+        minimizer_type="LINE_SEARCH", line_search_direction_type="LBFGS",
+        line_search_type="WOLFE", max_num_iterations=max_iters))
+    s = mod.solve(opts, p, **kw)
+    costs = [s.iterations[i].cost for i in RECORDS_CHECKED if i < len(s.iterations)]
+    evals = sum(r.line_search_function_evaluations for r in s.iterations)
+    return len(s.iterations), s.final_cost, s.termination_type.name, evals, costs
+
+
+def rosenbrock(x):
+    return (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] ** 2) ** 2
+
+
+def rosenbrock_references(mod, nudge=0):
+    """examples/rosenbrock.py's problem (max_num_iterations=200) once per
+    direction type from (-1.2, 1) with its first coordinate moved ``nudge``
+    ulps: {direction: (records, termination, final x)}."""
+    out = {}
+    for d in DIRECTIONS:
+        x = np.array([-1.2, 1.0])
+        x[0] = np.nextafter(x[0], nudge * np.inf) if nudge else x[0]
+        opts = mod.GradientProblemOptions(
+            max_num_iterations=200, line_search_direction_type=mod.LineSearchDirectionType[d])
+        gp = mod.GradientProblem(rosenbrock, num_parameters=2)
+        kw = {} if mod is ct else dict(device="cpu")
+        s = mod.solve_gradient_problem(opts, gp, x, **kw)
+        out[d] = (len(s.iterations), s.termination_type.name, x.tolist())
+    return out
+
+
+def wrong_jacobian_message(mod):
+    """The message of a solve with check_gradients of r = x^2 - 2 at 1.5
+    whose analytic Jacobian is 3x."""
+    stack = jnp.stack if mod is ct else torch.stack
+    fn = mod.cost_functions.analytic_cost(
+        lambda x: x * x - 2.0, lambda x: (stack([3.0 * x[0]]).reshape(1, 1),))
+    p = mod.Problem()
+    p.add_residual_block(fn, None, [p.add_parameter_block(np.array([1.5]))])
+    opts = mod.SolverOptions(linear_solver_type=mod.LinearSolverType.DENSE_QR,
+                             check_gradients=True)
+    return (mod.solve(opts, p, device="cpu") if mod is ctt else mod.solve(opts, p)).message
+
+
+def test_wrong_jacobian_message_matches_jax():
+    assert wrong_jacobian_message(ctt) == wrong_jacobian_message(ct)
+
+
+def test_large_minimizer_solves_match_jax():
+    js = large_minimizer_references(ct, list(LARGE_MINIMIZERS), SMALL)
+    ts = large_minimizer_references(ctt, list(LARGE_MINIMIZERS), SMALL)
+    for name in LARGE_MINIMIZERS:
+        assert ts[name][0] == js[name][0] > 3 and ts[name][2:4] == js[name][2:4], name
+        np.testing.assert_allclose(ts[name][1], js[name][1], rtol=1e-10)
+    assert ts["inner_iterations"][3] > 0
+
+
+def test_flagship_line_search_matches_jax():
+    j = flagship_line_search_references(ct, SMALL, max_iters=30)
+    t = flagship_line_search_references(ctt, SMALL, max_iters=30)
+    assert t[0] == j[0] == 31 and t[2:4] == j[2:4]
+    np.testing.assert_allclose([t[1], *t[4]], [j[1], *j[4]], rtol=1e-9)
+
+
+def test_rosenbrock_matches_jax():
+    """The directions whose reference trajectory does not move under a
+    one-ulp change of the start take the same records and x."""
+    j, t = rosenbrock_references(ct), rosenbrock_references(ctt)
+    for d in ("LBFGS", "BFGS"):
+        assert t[d][:2] == j[d][:2] == (t[d][0], "CONVERGENCE"), d
+        np.testing.assert_allclose(t[d][2], j[d][2], rtol=1e-8, atol=1e-12)
+
+
 def test_flagship_host_loop_solves_match_jax():
     (bj, nj), (bt, nt) = (flagship_host_loop_references(m, SMALL) for m in (ct, ctt))
     assert bt[0] == bj[0] and bt[2] == bj[2] > 0
@@ -98,13 +244,42 @@ def test_flagship_host_loop_solves_match_jax():
     np.testing.assert_allclose([bt[1], nt[1]], [bj[1], nj[1]], rtol=1e-10)
 
 
+def _spread(runs):
+    """Largest relative difference of each number of the nudged runs from
+    the first run's."""
+    base = np.asarray(runs[0], dtype=np.float64)
+    return np.max([np.abs(np.asarray(r, dtype=np.float64) - base) / np.maximum(np.abs(base), 1e-300)
+                   for r in runs[1:]], axis=0).tolist()
+
+
 if __name__ == "__main__":
     for what in sys.argv[1:] or ["large", "flagship_host_loop"]:
+        t0 = time.time()
         if what == "large":
             for loss, count, cost, seconds in large_references(ct):
                 print(json.dumps(dict(reference="large", loss=loss, lm_iterations=count,
                                       final_cost=cost, seconds=seconds)), flush=True)
-        else:
+        elif what == "flagship_host_loop":
             bounded, nonmono = flagship_host_loop_references(ct)
             print(json.dumps(dict(reference="flagship_host_loop", bounded=bounded,
                                   nonmonotonic=nonmono)), flush=True)
+        elif what in ("large_dogleg", "large_inner"):
+            names = [n for n in LARGE_MINIMIZERS if n.startswith(what[6:])]
+            for dtype in ("float64", "float32") if what == "large_inner" else ("float64",):
+                for name, result in large_minimizer_references(ct, names, dtype=dtype).items():
+                    print(json.dumps(dict(reference=name, dtype=dtype, result=result)), flush=True)
+        elif what == "flagship_line_search":
+            runs = [flagship_line_search_references(ct, nudge=n) for n in (0, 1, -1)]
+            print(json.dumps(dict(
+                reference=what, result=runs[0], nudged=runs[1:],
+                spread_of_final_and_checked_costs=_spread([[r[1], *r[4]] for r in runs]),
+                seconds=time.time() - t0)), flush=True)
+        elif what == "check_gradients":
+            print(json.dumps(dict(reference=what, message=wrong_jacobian_message(ct))), flush=True)
+        elif what == "rosenbrock":
+            runs = [rosenbrock_references(ct, nudge=n) for n in (0, 1, -1)]
+            print(json.dumps(dict(
+                reference=what, result=runs[0], nudged=runs[1:],
+                x_spread={d: float(np.max(np.abs(np.subtract(
+                    [r[d][2] for r in runs[1:]], runs[0][d][2])))) for d in DIRECTIONS},
+                seconds=time.time() - t0)), flush=True)

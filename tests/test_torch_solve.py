@@ -93,9 +93,7 @@ def test_interop_round_trips_initial_ambient():
 
 def test_unsupported_options_are_roadmap_items():
     tp = tbal.build_problem(tbal.synthesize_bal(**SIZES, seed=1))[0]
-    for changes in (dict(trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG,
-                         linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
-                    dict(linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY),
+    for changes in (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY),
                     dict(preconditioner_type=ctt.PreconditionerType.CLUSTER_JACOBI),
                     dict(preconditioner_type=ctt.PreconditionerType.CLUSTER_TRIDIAGONAL),
                     dict(linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR)):
@@ -104,11 +102,19 @@ def test_unsupported_options_are_roadmap_items():
             setattr(opts, field, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ctt.fused_solve(opts, tp, device="cpu")
-    # what only the host loop honours: fused_solve refuses it and names solve
-    opts = _options(tbal, None)
-    opts.callbacks = [lambda it: None]
-    with pytest.raises(ValueError, match="ctt.solve"):
-        ctt.fused_solve(opts, tp, device="cpu")
+    # what only the host loop or the line search honours: fused_solve
+    # refuses it and names solve
+    for changes in (dict(callbacks=[lambda it: None]),
+                    dict(trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG,
+                         linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR),
+                    dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH),
+                    dict(use_inner_iterations=True),
+                    dict(check_gradients=True)):
+        opts = _options(tbal, None)
+        for field, value in changes.items():
+            setattr(opts, field, value)
+        with pytest.raises(ValueError, match="ctt.solve"):
+            ctt.fused_solve(opts, tp, device="cpu")
 
 
 # -- robust bundle adjustment through solve ----------------------------------
