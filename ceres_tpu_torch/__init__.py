@@ -4,12 +4,15 @@ Nonlinear least squares on an NVIDIA H100 with the fused
 Levenberg-Marquardt loop, or the host loop (DOGLEG, inner iterations,
 gradient checks, bounds, callbacks), or the line-search minimizer (L-BFGS,
 BFGS, nonlinear CG, steepest descent): robust loss functions, manifolds and
-constant parameter blocks, solved with DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR
-(IDENTITY, JACOBI, SUBSET), DENSE_SCHUR or ITERATIVE_SCHUR (IDENTITY, JACOBI,
-SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION; on an assembled reduced camera
-system up to 2048 camera coordinates, on the implicit one above), with
-optional mixed-precision refinement and a user elimination ordering
-(``OrderedGroups``); and general minimization of f(x)
+constant parameter blocks, solved with DENSE_QR, DENSE_NORMAL_CHOLESKY,
+SPARSE_NORMAL_CHOLESKY, CGNR (IDENTITY, JACOBI, SUBSET), DENSE_SCHUR,
+SPARSE_SCHUR or ITERATIVE_SCHUR (IDENTITY, JACOBI, SCHUR_JACOBI,
+SCHUR_POWER_SERIES_EXPANSION, CLUSTER_JACOBI, CLUSTER_TRIDIAGONAL; on an
+assembled reduced camera system up to 2048 camera coordinates, on the
+implicit one above), with optional mixed-precision refinement and a user
+elimination ordering (``OrderedGroups``); the sparse solvers factor on the
+host through the native core (``native/ceres_tpu_core.cpp``, built with g++
+at first use); and general minimization of f(x)
 (``GradientProblem``, ``solve_gradient_problem``). The
 JAX package's Pallas kernels are rewritten as CUDA kernels (``csrc/``): the
 sorted segment sum (``ops/segment_sum.py``), the unsorted segment sum
@@ -62,11 +65,13 @@ from ceres_tpu_torch.trust_region import IterationSummary
 from ceres_tpu_torch.types import (
     CallbackReturnType,
     DoglegType,
+    LinearSolverOrderingType,
     LinearSolverTerminationType,
     LinearSolverType,
     LineSearchDirectionType,
     LineSearchInterpolationType,
     LineSearchType,
+    LoggingType,
     MinimizerType,
     NonlinearConjugateGradientType,
     PreconditionerType,
@@ -88,11 +93,13 @@ __all__ = [
     "HuberLoss",
     "IterationSummary",
     "LineManifold",
+    "LinearSolverOrderingType",
     "LinearSolverTerminationType",
     "LinearSolverType",
     "LineSearchDirectionType",
     "LineSearchInterpolationType",
     "LineSearchType",
+    "LoggingType",
     "LossFunction",
     "LossFunctionWrapper",
     "Manifold",

@@ -38,6 +38,7 @@ from ceres_tpu_torch.loss import (
     corrector_coefficients,
 )
 from ceres_tpu_torch.ops.reduce import apply_reduce
+from ceres_tpu_torch.ops.small_linalg import contract
 from ceres_tpu_torch.problem import BlockGroups, Family, plus_apply
 
 
@@ -161,11 +162,11 @@ class JacobianContext:
             out[T] = torch.cat([rows, pad], dim=0)
         return out
 
-    def _ungroup_add(self, acc: dict, dtype: torch.dtype) -> torch.Tensor:
-        """{T: (G_T+1, T)} group sums -> flat tangent vector (rows are
-        disjoint coordinate sets; the dummy row is dropped)."""
+    def _ungroup_add(self, acc: dict, dtype: torch.dtype, cols: tuple = ()) -> torch.Tensor:
+        """{T: (G_T+1, T, *cols)} group sums -> tangent vector (n, *cols)
+        (rows are disjoint coordinate sets; the dummy row is dropped)."""
         g = torch.zeros(
-            (self.num_tangent,), dtype=dtype, device=self.residuals[0].device
+            (self.num_tangent, *cols), dtype=dtype, device=self.residuals[0].device
         )
         for T, a in acc.items():
             idx = self.groups[T]
@@ -173,9 +174,9 @@ class JacobianContext:
             sl = self.groups.slice_of(T)
             if sl is not None:
                 start, _ = sl
-                g[start : start + G * T] += a[:G].to(dtype).reshape(G * T)
+                g[start : start + G * T] += a[:G].to(dtype).reshape(G * T, *cols)
             else:
-                g.index_add_(0, idx.reshape(-1), a[:G].to(dtype).reshape(-1))
+                g.index_add_(0, idx.reshape(-1), a[:G].to(dtype).reshape(-1, *cols))
         return g
 
     def matvec(
@@ -219,6 +220,26 @@ class JacobianContext:
                 red = apply_reduce(fam.reduce_plans[j], contrib)
                 acc[T] = red if T not in acc else acc[T] + red
         return self._ungroup_add(acc, w[0].dtype)
+
+    def rmatmat(
+        self, W: Sequence[torch.Tensor], skip: Optional[Sequence[int]] = None
+    ) -> torch.Tensor:
+        """J' W for per-family (B, r, k) blocks -> (n, k) (the column form
+        of :meth:`rmatvec`, through the same plans; the short axis r summed
+        term by term, not as 1.2 M tiny matrix products)."""
+        acc: dict = {}
+        k = W[0].shape[2]
+        for fi, fam in enumerate(self.families):
+            for j in range(fam.num_args):
+                if skip is not None and j == skip[fi]:
+                    continue
+                T = fam.structure.tangent_sizes[j]
+                if T not in self.groups:
+                    continue
+                contrib = contract(self.jacs[fi][j].transpose(1, 2), W[fi])
+                red = apply_reduce(fam.reduce_plans[j], contrib)
+                acc[T] = red if T not in acc else acc[T] + red
+        return self._ungroup_add(acc, W[0].dtype, (k,))
 
     def normal_matvec(self, v: torch.Tensor) -> torch.Tensor:
         """J'J v in one pass (the CGNR product)."""

@@ -14,8 +14,13 @@ solves, per-block cost segments and a masked update.
 Every per-block sum goes through a reduce plan built once per (set, family,
 arg) (``ops/reduce.py``), so it is summed in a fixed order: on the card a
 point set with its ids sorted takes the sorted segment-sum kernel, a camera
-set of a few hundred blocks the unsorted one. Arrays stay in the evaluation
-dtype; only the per-block costs the accept test compares are summed in f64.
+set of a few hundred blocks the unsorted one. As in the JAX package, the
+step is built in f64 whatever the evaluation dtype: the per-observation
+products are formed in the evaluation dtype and summed into f64 per-block
+gradients and J'J blocks, the trust radii, the damped (T, T) solves and the
+delta are f64, and ``program.plus`` adds the delta to x in x's own dtype, so
+an f32 x stays f32. The per-block costs the accept test compares are summed
+in f64 too.
 """
 
 from __future__ import annotations
@@ -177,17 +182,19 @@ class CoordinateDescentMinimizer:
         families = program.families
         apply_loss = self.evaluator.apply_loss
         _, ctx = _context_impl(x, families, program.num_tangent, program.groups, apply_loss)
-        delta = torch.zeros((program.num_tangent,), dtype=x.dtype, device=x.device)
+        f64 = torch.float64
+        delta = torch.zeros((program.num_tangent,), dtype=f64, device=x.device)
         for T, (rows, plans) in groups.items():
             G = rows.shape[0]
-            g = torch.zeros((G + 1, T), dtype=x.dtype, device=x.device)
-            H = torch.zeros((G + 1, T, T), dtype=x.dtype, device=x.device)
+            g = torch.zeros((G + 1, T), dtype=f64, device=x.device)
+            H = torch.zeros((G + 1, T, T), dtype=f64, device=x.device)
             for fi in range(len(families)):
                 for plan, J in zip(plans[fi], ctx.jacs[fi]):
                     if plan is None:
                         continue
-                    g = g + apply_reduce(plan, torch.einsum("brt,br->bt", J, ctx.residuals[fi]))
-                    H = H + apply_reduce(plan, torch.einsum("bri,brj->bij", J, J))
+                    gj = torch.einsum("brt,br->bt", J, ctx.residuals[fi])
+                    g = g + apply_reduce(plan, gj.to(f64))
+                    H = H + apply_reduce(plan, torch.einsum("bri,brj->bij", J, J).to(f64))
             g, H = g[:G], H[:G]
             diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1),
                                opts.min_lm_diagonal, opts.max_lm_diagonal)
@@ -235,7 +242,7 @@ class CoordinateDescentMinimizer:
         r0 = self.options.initial_trust_region_radius
         for groups in self._set_structs:
             radii = {
-                T: torch.full((rows.shape[0],), r0, dtype=x.dtype, device=x.device)
+                T: torch.full((rows.shape[0],), r0, dtype=torch.float64, device=x.device)
                 for T, (rows, _) in groups.items()
             }
             for _ in range(self.num_steps):

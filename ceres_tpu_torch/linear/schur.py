@@ -6,15 +6,20 @@ The e-blocks (points) are found by a greedy maximal independent set
 
     S x = (F'F + D_f^2) x - F'E (E'E + D_e^2)^{-1} E'F x
 
-DENSE_SCHUR factors an explicitly assembled S (``schur_explicit.py``).
+DENSE_SCHUR factors an explicitly assembled S (``schur_explicit.py``), and
+so does SPARSE_SCHUR here, for the callers that hold a (ctx, D) pair
+(DOGLEG, mixed-precision refinement, the fused loop); the host loop's
+SPARSE_SCHUR step factors the sparse S on the host (``sparse_schur.py``).
 ITERATIVE_SCHUR runs PCG on the assembled S when the reduced camera system
 is small (nf <= EXPLICIT_S_AUTO_MAX_NF, or ``use_explicit_schur_complement``)
 and on the implicit product ``SchurOperator.s_times`` above that, with the
-IDENTITY, JACOBI / SCHUR_JACOBI (block diagonal of S) or
-SCHUR_POWER_SERIES_EXPANSION preconditioner and, optionally, a power-series
-initial guess. Both take an explicit tangent right-hand side (the
-mixed-precision refinement of ``trust_region._linear_solve``). SPARSE_SCHUR
-and the cluster preconditioners are a ROADMAP item.
+IDENTITY, JACOBI / SCHUR_JACOBI (block diagonal of S),
+SCHUR_POWER_SERIES_EXPANSION, CLUSTER_JACOBI (block diagonal of S over
+camera clusters) or CLUSTER_TRIDIAGONAL (block tridiagonal along chains of
+clusters) preconditioner and, optionally, a power-series initial guess. The
+camera clusters and their chains come from the native core
+(``utils/native.py``). Both solvers take an explicit tangent right-hand side
+(the mixed-precision refinement of ``trust_region._linear_solve``).
 """
 
 from __future__ import annotations
@@ -34,17 +39,19 @@ from ceres_tpu_torch.linear.schur_explicit import (
 )
 from ceres_tpu_torch.ops.outer_segment_sum import flat_outer
 from ceres_tpu_torch.ops.reduce import apply_reduce, build_reduce_plan
-from ceres_tpu_torch.ops.small_linalg import spd_inverse, spd_solve
+from ceres_tpu_torch.ops.small_linalg import contract, spd_inverse, spd_solve
 from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
 
 # Below this many f coordinates ITERATIVE_SCHUR materializes S once per
 # linear solve and runs CG on the dense matrix (the JAX package's policy).
 EXPLICIT_S_AUTO_MAX_NF = 2048
 
-_ITEM_14B = (
-    "ROADMAP Queue 1 item 14b (host-driven sparse solvers and the cluster "
-    "preconditioners, after the port's ctypes loader)"
-)
+# The cluster preconditioners read their blocks of an implicit S from
+# probes S e_i, computed in chunks of columns: each per-observation
+# intermediate of a chunk, (B, max(r, T), k) over all families, takes at most
+# this many bytes (a chunk holds about six of them at once). The JAX package
+# computes every probe at once, about 80 GB at the 464-camera case.
+PROBE_CHUNK_BYTES = 1 << 30
 
 
 def compute_schur_ordering(program) -> List[int]:
@@ -118,7 +125,15 @@ class SchurStructure:
     # (schur_explicit.build_explicit_plan reads them)
     host_e_pos: Tuple[Optional[np.ndarray], ...]
     host_f_pos: Tuple[Tuple[Optional[np.ndarray], ...], ...]
+    host_e_pids: np.ndarray  # (P,) the e-block ids, in point order
     explicit: Optional[object] = None  # schur_explicit.ExplicitSchurPlan
+    # CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL (attach_clusters): (C, m) tangent
+    # coordinates of each camera cluster padded with num_tangent, and the
+    # (num_chains, L) cluster ids of each chain padded with C
+    cluster_groups: Optional[torch.Tensor] = None
+    chain_clusters: Optional[torch.Tensor] = None
+    # SPARSE_SCHUR's CSC assembly of upper(S) (sparse_schur.py)
+    sparse_assembly: Optional[object] = None
 
     def to_dtype(self, dtype: torch.dtype) -> "SchurStructure":
         """The structure with its one floating array, ``f_mask``, in
@@ -257,7 +272,93 @@ def build_schur_structure(program, ordering: Optional[List[int]] = None) -> Schu
         e_slice=e_slice,
         host_e_pos=tuple(e_pos),
         host_f_pos=tuple(f_pos),
+        host_e_pids=e_pids,
     )
+
+
+def attach_clusters(program, ss: SchurStructure, with_forest: bool = False) -> None:
+    """Cluster the f blocks (the cameras) by visibility and set
+    ``ss.cluster_groups`` and, ``with_forest``, ``ss.chain_clusters``
+    (``_build_cluster_groups`` of the JAX package's ``linear/schur.py``).
+
+    Canonical views (canonical_views_clustering.h:98, the clustering
+    visibility_based_preconditioner.cc uses) in the native core over the
+    (camera, point) pairs of the observations; with ``with_forest`` the
+    core's maximum-weight linear forest over the cluster visibility graph
+    (paths: degree at most 2), walked into chains from their ends, a
+    cluster outside every edge a chain of its own. Nothing is set when no
+    observation joins an f block and an e block."""
+    from ceres_tpu_torch.utils import native
+
+    n = program.num_pids
+    e_pids = ss.host_e_pids
+    in_e = np.zeros(n, dtype=bool)
+    in_e[e_pids] = True
+    f_pids = np.nonzero(program.active & ~in_e)[0]  # ascending
+    cam_lut = np.full(n, -1, dtype=np.int64)
+    cam_lut[f_pids] = np.arange(f_pids.shape[0])
+    pt_lut = np.zeros(n, dtype=np.int64)  # a non-e block in the e slot: point 0
+    pt_lut[e_pids] = np.arange(e_pids.shape[0])
+    cam_idx, pt_idx = [], []
+    for fam in program.families:
+        ids = np.asarray(fam.block_ids, dtype=np.int64)
+        e_cols = [j for j in range(ids.shape[1]) if in_e[ids[0, j]]]
+        if not e_cols:
+            continue
+        ej = e_cols[0]
+        for j in range(ids.shape[1]):
+            if j == ej:
+                continue
+            cams = cam_lut[ids[:, j]]
+            keep = cams >= 0
+            cam_idx.append(cams[keep])
+            pt_idx.append(pt_lut[ids[keep, ej]])
+    cam_arr = np.concatenate(cam_idx) if cam_idx else np.zeros(0, np.int64)
+    if not cam_arr.size:
+        return
+    pt_arr = np.concatenate(pt_idx)
+    n_pt = int(pt_arr.max()) + 1
+    nclusters, cluster = native.canonical_views_clusters(f_pids.shape[0], n_pt, cam_arr, pt_arr)
+    # tangent coordinates per cluster (its blocks ascending), padded
+    sizes, offsets = program.tangent_sizes, program.tangent_offsets
+    rows = [[] for _ in range(nclusters)]
+    for pid, c in zip(f_pids.tolist(), cluster.tolist()):
+        rows[c].extend(range(int(offsets[pid]), int(offsets[pid] + sizes[pid])))
+    m = max(len(r) for r in rows)
+    mat = np.full((nclusters, m), program.num_tangent, dtype=np.int64)
+    for i, r in enumerate(rows):
+        mat[i, : len(r)] = r
+    ss.cluster_groups = torch.from_numpy(mat).to(program.device)
+    ss.chain_clusters = None
+    if not (with_forest and nclusters > 1):
+        return
+    ea, eb = native.cluster_linear_forest(
+        nclusters, n_pt, np.asarray(cluster, dtype=np.int64)[cam_arr], pt_arr)
+    adj = [[] for _ in range(nclusters)]
+    for a, b in zip(ea.tolist(), eb.tolist()):
+        adj[a].append(b)
+        adj[b].append(a)
+    visited = [False] * nclusters
+    chains = []
+    for c in range(nclusters):  # walk every path from an end
+        if visited[c] or len(adj[c]) > 1:
+            continue
+        path, cur = [c], c
+        visited[c] = True
+        while True:
+            nxt = [v for v in adj[cur] if not visited[v]]
+            if not nxt:
+                break
+            cur = nxt[0]
+            visited[cur] = True
+            path.append(cur)
+        chains.append(path)
+    chains += [[c] for c in range(nclusters) if not visited[c]]  # none: the forest is acyclic
+    L = max(len(ch) for ch in chains)
+    chain_mat = np.full((len(chains), L), nclusters, dtype=np.int64)
+    for i, ch in enumerate(chains):
+        chain_mat[i, : len(ch)] = ch
+    ss.chain_clusters = torch.from_numpy(chain_mat).to(program.device)
 
 
 class SchurOperator:
@@ -281,6 +382,7 @@ class SchurOperator:
         De = self._gather_e(D)
         ete = ete.reshape(P, Te, Te) + torch.diag_embed(De * De)
         self._ete_inv = spd_inverse(ete)
+        self._coordinates = None  # s_columns' coordinate tables, made at first use
 
     def _gather_e(self, v: torch.Tensor) -> torch.Tensor:
         """(P, Te) view of the e coordinates of a tangent vector."""
@@ -348,6 +450,202 @@ class SchurOperator:
         diff = tuple(a - b for a, b in zip(w1, w2))
         out = ctx.rmatvec(diff, skip=ss.e_arg) + (D * D) * x
         return out * ss.f_mask
+
+    def s_columns(self, cols: torch.Tensor) -> torch.Tensor:
+        """S[:, cols] (n, k): :meth:`s_times` of the k unit vectors e_cols
+        (a column of num_tangent, or of an e coordinate, is zero), every
+        per-observation product a (B, r, k) one. F e_i is column i of F's
+        block on the observations of i's block, so it is gathered, not
+        multiplied; the other products contract their short axis (r, Te) one
+        term at a time, where a batched matmul of 1.2 M tiny matrices would
+        spend most of its time on them."""
+        ctx, ss, D = self.ctx, self.ss, self.D
+        n, k = ctx.num_tangent, cols.shape[0]
+        dev = cols.device
+        colc = torch.clamp(cols, max=n - 1)
+        live = (cols < n) & (ss.f_mask[colc] > 0)
+        if self._coordinates is None:
+            # each tangent coordinate's block size, block row in its size
+            # group and offset in the block
+            size = torch.zeros((n,), dtype=torch.int64, device=dev)
+            row, off = torch.zeros_like(size), torch.zeros_like(size)
+            for T, idx in ctx.groups.items():
+                flat = idx.reshape(-1)
+                size[flat] = T
+                row[flat] = torch.arange(idx.shape[0], device=dev).repeat_interleave(T)
+                off[flat] = torch.arange(T, device=dev).repeat(idx.shape[0])
+            self._coordinates = (size, row, off)
+        c_size, c_row, c_off = (a[colc] for a in self._coordinates)
+        w1 = []  # F e_cols per family: (B, r, k)
+        for fi, fam in enumerate(ctx.families):
+            acc = torch.zeros((fam.batch, fam.residual_size, k), dtype=self.dtype, device=dev)
+            for j in range(fam.num_args):
+                T = fam.structure.tangent_sizes[j]
+                if j == ss.e_arg[fi] or T not in ctx.groups:
+                    continue
+                hit = live & (c_size == T)
+                match = (fam.bd_pos[j][:, None] == c_row[None, :]) & hit[None, :]
+                acc = acc + ctx.jacs[fi][j][:, :, torch.where(hit, c_off, 0)] * match[:, None, :]
+            w1.append(acc)
+        t = torch.zeros((ss.num_points, ss.e_tangent_size, k), dtype=self.dtype, device=dev)
+        for fi in range(len(ctx.families)):
+            ea = ss.e_arg[fi]
+            if ea >= 0:  # E' F e_cols per point
+                t = t + self._reduce_e(fi, contract(ctx.jacs[fi][ea].transpose(1, 2), w1[fi]))
+        u = contract(self._ete_inv, t)  # (E'E + D_e^2)^{-1} E'F e_cols
+        u_pad = torch.cat([u, u.new_zeros((1, *u.shape[1:]))], dim=0)
+        diff = []
+        for fi in range(len(ctx.families)):
+            ea = ss.e_arg[fi]
+            diff.append(w1[fi] if ea < 0 else
+                        w1[fi] - contract(ctx.jacs[fi][ea], u_pad[ss.e_pos[fi]]))
+        out = ctx.rmatmat(diff, skip=ss.e_arg)
+        lanes = torch.arange(k, device=dev)
+        out[colc, lanes] += torch.where(live, D[colc] * D[colc], 0.0)  # D^2 e_cols
+        return out * ss.f_mask[:, None]
+
+    def probe(self, cols: torch.Tensor, rows, chunk: Optional[int] = None):
+        """Entries of S's columns: for each probed tangent coordinate
+        ``cols[p]`` (num_tangent = none) and each (N, m) coordinate table of
+        ``rows``, out[p, b] = (S e_cols[p])[rows[p, b]] (0 where either is
+        none). The columns come from :meth:`s_columns` in chunks of
+        ``chunk`` (default: as many as PROBE_CHUNK_BYTES allows)."""
+        ctx = self.ctx
+        n = ctx.num_tangent
+        N = cols.shape[0]
+        if chunk is None:
+            width = max(max(fam.residual_size, *fam.structure.tangent_sizes)
+                        for fam in ctx.families)
+            per_column = sum(fam.batch for fam in ctx.families) * width * self.D.element_size()
+            chunk = max(1, PROBE_CHUNK_BYTES // per_column)
+        outs = [torch.zeros(tuple(r.shape), dtype=self.dtype, device=self.D.device) for r in rows]
+        for start in range(0, N, chunk):
+            c = cols[start : start + chunk]
+            k = c.shape[0]
+            lanes = torch.arange(k, device=c.device)
+            SX = self.s_columns(c)
+            SX = torch.cat([SX, SX.new_zeros((1, k))], dim=0)
+            for out, r in zip(outs, rows):
+                out[start : start + k] = SX[r[start : start + k], lanes[:, None]]
+        return outs
+
+    def _cluster_reads(self, cluster_groups: torch.Tensor, targets, S=None, chunk=None):
+        """For every cluster c and its coordinate slot a, the entries
+        S[t[c, b], coords[c, a]] for each (C, m) target table t of
+        ``targets``: (C, m, m) per target, [c, a, b]. From the assembled
+        reduced S when given, else from probes of the implicit S (the JAX
+        package's vmapped S e_i, here in chunks)."""
+        n = self.ctx.num_tangent
+        C, m = cluster_groups.shape
+        if S is not None:
+            fr = self.ss.explicit.f_reduced  # (n+1,) reduced coordinate, nf = none
+            S_pad = torch.nn.functional.pad(S, (0, 1, 0, 1))
+            rc = fr[cluster_groups]
+            return [S_pad[fr[t][:, None, :], rc[:, :, None]] for t in targets]
+        ca = torch.nonzero(cluster_groups < n)  # (cluster, slot) of every real coordinate
+        out = []
+        for o in self.probe(cluster_groups[ca[:, 0], ca[:, 1]], [t[ca[:, 0]] for t in targets],
+                            chunk):
+            full = o.new_zeros((C, m, m))
+            full[ca[:, 0], ca[:, 1]] = o
+            out.append(full)
+        return out
+
+    def cluster_blocks(self, cluster_groups: torch.Tensor, S=None, chunk=None) -> torch.Tensor:
+        """The (C, m, m) diagonal blocks of S over the camera clusters,
+        identity on the padding ([c, a, b] = S[coords_b, coords_a], the
+        probe's orientation)."""
+        n = self.ctx.num_tangent
+        (sub,) = self._cluster_reads(cluster_groups, [cluster_groups], S, chunk)
+        dummy = cluster_groups >= n
+        eye = torch.eye(sub.shape[-1], dtype=sub.dtype, device=sub.device)
+        return torch.where(dummy[:, :, None] | dummy[:, None, :], eye, sub)
+
+    def clustered_preconditioner(self, cluster_groups: torch.Tensor, S=None):
+        """CLUSTER_JACOBI (visibility_based_preconditioner.h:127): the
+        inverse of S's block diagonal over camera clusters."""
+        n = self.ctx.num_tangent
+        inverses = spd_inverse(self.cluster_blocks(cluster_groups, S))
+        f_mask = self.ss.f_mask
+
+        def apply(v: torch.Tensor) -> torch.Tensor:
+            v_pad = torch.cat([v, v.new_zeros((1,))])
+            sol = torch.einsum("cij,cj->ci", inverses, v_pad[cluster_groups])
+            out = v.new_zeros((n + 1,))
+            out[cluster_groups] = sol
+            return out[:n] * f_mask
+
+        return apply
+
+    def cluster_tridiagonal_preconditioner(self, cluster_groups: torch.Tensor,
+                                           chain_clusters: torch.Tensor, S=None, chunk=None):
+        """CLUSTER_TRIDIAGONAL (visibility_based_preconditioner.h:127): the
+        block-tridiagonal part of S along the chains of clusters (the paths
+        of the maximum-weight linear forest), factored per chain as a block
+        LDL' and applied by forward and backward block-Thomas sweeps. The
+        JAX package's ``lax.scan`` over a chain is a host loop over the
+        levels, each a batched (K, m, m) product across the K chains.
+
+        The tridiagonal part of an SPD matrix need not be SPD: where a
+        chain's Schur complement D_k stops being SPD (non-finite inverse or a
+        non-positive diagonal), that link's coupling is dropped and the
+        chain restarts from its diagonal block, as in the JAX package."""
+        n = self.ctx.num_tangent
+        C, m = cluster_groups.shape
+        K, L = chain_clusters.shape
+        dev, dt = cluster_groups.device, self.dtype
+        # the next cluster of each cluster along its chain (C: none)
+        nxt = torch.full((C + 1,), C, dtype=torch.int64, device=dev)
+        if L > 1:
+            nxt[chain_clusters[:, :-1].reshape(-1)] = chain_clusters[:, 1:].reshape(-1)
+        coords_pad = torch.cat([cluster_groups, cluster_groups.new_full((1, m), n)])
+        diag, off = self._cluster_reads(
+            cluster_groups, [cluster_groups, coords_pad[nxt[:C]]], S, chunk)
+        dummy = coords_pad >= n  # (C+1, m)
+        eye = torch.eye(m, dtype=dt, device=dev)
+        diag = torch.where(dummy[:C, :, None] | dummy[:C, None, :], eye, diag)
+        diag = torch.cat([diag, eye[None]])  # the padding cluster C: identity
+        # off[c][a, b] = S[coords_nxt(c)_b, coords_c_a]: the link from c to
+        # nxt(c) has B = off[c]' (zero on padding)
+        off = torch.where(dummy[:C, :, None] | dummy[nxt[:C]][:, None, :], 0.0, off)
+        off = torch.cat([off, off.new_zeros((1, m, m))])
+        A_seq = diag[chain_clusters]  # (K, L, m, m)
+        B_seq = torch.cat([A_seq.new_zeros((K, 1, m, m)),
+                           off[chain_clusters[:, :-1]].transpose(-1, -2)], dim=1)
+
+        # D_1 = A_1, W_k = B_k D_{k-1}^{-1}, D_k = A_k - W_k B_k'
+        Dinv = spd_inverse(A_seq[:, 0])
+        Dinvs, Ws = [Dinv], [A_seq.new_zeros((K, m, m))]
+        for lvl in range(1, L):
+            A, B = A_seq[:, lvl], B_seq[:, lvl]
+            W = B @ Dinv
+            Dk = A - W @ B.transpose(-1, -2)
+            Dinv_k = spd_inverse(Dk)
+            bad = ~torch.isfinite(Dinv_k).all(dim=2).all(dim=1) | (
+                torch.diagonal(Dk, dim1=-2, dim2=-1) <= 0.0).any(dim=1)
+            Dinv = torch.where(bad[:, None, None], spd_inverse(A), Dinv_k)
+            Dinvs.append(Dinv)
+            Ws.append(torch.where(bad[:, None, None], 0.0, W))
+        Dinvs, Ws = torch.stack(Dinvs, dim=1), torch.stack(Ws, dim=1)  # (K, L, m, m)
+        flat_coords = coords_pad[chain_clusters].reshape(-1)
+        f_mask = self.ss.f_mask
+
+        def apply(v: torch.Tensor) -> torch.Tensor:
+            v_pad = torch.cat([v, v.new_zeros((1,))])
+            vk = v_pad[coords_pad][chain_clusters]  # (K, L, m)
+            ys = [vk[:, 0]]
+            for lvl in range(1, L):  # forward: y_k = v_k - W_k y_{k-1}
+                ys.append(vk[:, lvl] - torch.einsum("kij,kj->ki", Ws[:, lvl], ys[-1]))
+            zs = torch.einsum("klij,klj->kli", Dinvs, torch.stack(ys, dim=1))
+            xs = [zs[:, L - 1]]
+            for lvl in range(L - 2, -1, -1):  # backward: x_k = z_k - W_{k+1}' x_{k+1}
+                xs.append(zs[:, lvl] - torch.einsum("kji,kj->ki", Ws[:, lvl + 1], xs[-1]))
+            xk = torch.stack(xs[::-1], dim=1)
+            out = v.new_zeros((n + 1,))
+            out[flat_coords] = xk.reshape(-1)  # every real cluster appears once
+            return out[:n] * f_mask
+
+        return apply
 
     def rhs(self) -> torch.Tensor:
         """Reduced rhs F'f - F'E (E'E)^{-1} E'f (implicit_schur_complement.cc:160)."""
@@ -489,15 +787,14 @@ class SchurOperator:
 def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructure,
                 rhs: Optional[torch.Tensor] = None):
     """Solve min ||J y - f||^2 + ||D y||^2 by eliminating the e-blocks, or,
-    with ``rhs``, (J'J + D^2) y = rhs for a tangent-space rhs. DENSE_SCHUR
-    factors the assembled S (schur_complement_solver.cc); ITERATIVE_SCHUR
+    with ``rhs``, (J'J + D^2) y = rhs for a tangent-space rhs. DENSE_SCHUR and
+    SPARSE_SCHUR factor the assembled S (schur_complement_solver.cc; the host
+    loop's SPARSE_SCHUR step is ``sparse_schur.py``'s); ITERATIVE_SCHUR
     runs PCG (iterative_schur_complement_solver.cc:64-155) on the assembled
     S when the reduced system is small or ``use_explicit_schur_complement``
     asks for it, else on the implicit S x. Returns (y, linear_iterations,
     termination) with linear/cg.py codes."""
     lst = config.linear_solver_type
-    if lst not in (LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR):
-        raise NotImplementedError(f"{lst.name}: {_ITEM_14B}")
     op = SchurOperator(ctx, D, ss)
     nt = ctx.num_tangent
     f_idx = ss.f_idx
@@ -510,7 +807,7 @@ def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructur
     def reduced_rhs():
         return op.rhs() if rhs is None else op.rhs_from_tangent(rhs)
 
-    if lst == LinearSolverType.DENSE_SCHUR:
+    if lst in (LinearSolverType.DENSE_SCHUR, LinearSolverType.SPARSE_SCHUR):
         # Cholesky of S as assembled (its lower triangle; no symmetrizing,
         # as in the JAX package). An indefinite S gives a non-finite step
         # and FAILURE, which the LM loop answers by shrinking the radius.
@@ -552,10 +849,19 @@ def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructur
         # belongs to the initialization below. It runs the implicit S x even
         # when S is assembled, as the JAX package does.
         M = op.power_series_preconditioner(config.max_num_spse_iterations, 0.0)
-    elif pt == PreconditionerType.IDENTITY:
+    elif pt in (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL):
+        # The blocks from S when it is assembled, else from probes of the
+        # implicit S. Without clusters (no observation joins an f and an e
+        # block) SCHUR_JACOBI, and without chains CLUSTER_JACOBI, as in the
+        # JAX package.
+        if ss.cluster_groups is None:
+            M = op.schur_jacobi_preconditioner()
+        elif pt == PreconditionerType.CLUSTER_TRIDIAGONAL and ss.chain_clusters is not None:
+            M = op.cluster_tridiagonal_preconditioner(ss.cluster_groups, ss.chain_clusters, S)
+        else:
+            M = op.clustered_preconditioner(ss.cluster_groups, S)
+    else:  # IDENTITY
         M = None
-    else:
-        raise NotImplementedError(f"preconditioner {pt.name}: {_ITEM_14B}")
 
     b = reduced_rhs()
     x0 = None

@@ -1,0 +1,145 @@
+"""SPARSE_SCHUR: the block-sparse reduced camera system factored on the host
+(port of ``ceres_tpu/linear/sparse_schur.py``; the reference's
+SparseSchurComplementSolver, ``schur_complement_solver.h:169-183``).
+
+The reduced camera system S has a cell only for the camera pairs that
+observe a common point. A dense S costs O(nf^2) memory (1.9 GB in f64 at
+nf = 15 507); the sparse path scales with the visibility instead. The work
+is split as follows:
+
+- the card computes every reduced cell block in one pass
+  (``schur_explicit.compute_cell_blocks``: F'F and self-pair cells through
+  the unsorted segment sum K3 or one-hot matmuls, the W'M^-1 W correction
+  through the fused pair-outer kernel K4, the point side through K1);
+- the host places the cell values into the upper-triangular CSC pattern
+  with one ``np.bincount`` (the pattern is built once per structure), adds
+  the damping and factors with the native core's simplicial Cholesky,
+  analyzed once and refactored every iteration (``sparse_cholesky.py``);
+- the card back-substitutes the points (implicit_schur_complement.cc:208)
+  and forms the step.
+
+Per iteration the host receives O(nnz(S cells)) values, what the
+reference's eliminator writes, not the Jacobian. This is the host loop's
+step; a caller of ``linear/schur.solve_schur`` (DOGLEG, mixed-precision
+refinement, the fused loop) takes the dense-S route, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ceres_tpu_torch.linear.cg import CG_SUCCESS
+from ceres_tpu_torch.linear.inner_product import CscAssembly, csc_assembly, host_normal_factor_solve
+from ceres_tpu_torch.linear.schur import SchurOperator
+from ceres_tpu_torch.linear.schur_explicit import compute_cell_blocks
+
+
+def build_sparse_schur_assembly(plan) -> CscAssembly:
+    """The CSC pattern of upper(S) and the place of every cell value, from
+    the explicit plan's cells (``schur_explicit.build_explicit_plan``
+    enumerates the camera-pair cells that ARE S's block pattern; this only
+    scalarizes it). Values are listed in ``compute_cell_blocks`` order; the
+    strict lower triangle of a diagonal cell goes to the trash slot (block
+    symmetry repeats it), an off-diagonal cell to its upper-triangle
+    place."""
+    nf = plan.nf
+    keys_parts, valid_parts = [], []
+    for site in (*plan.ftf, *plan.corr):
+        rows = site.rows.cpu().numpy().astype(np.int64)
+        cols = site.cols.cpu().numpy().astype(np.int64)
+        C, T1 = rows.shape
+        T2 = cols.shape[1]
+        r = np.broadcast_to(rows[:, :, None], (C, T1, T2))
+        c = np.broadcast_to(cols[:, None, :], (C, T1, T2))
+        if site.diagonal:
+            valid = r <= c
+            key = c * nf + r
+        else:
+            valid = np.ones((C, T1, T2), dtype=bool)
+            key = np.maximum(r, c) * nf + np.minimum(r, c)
+        keys_parts.append(key.reshape(-1))
+        valid_parts.append(valid.reshape(-1))
+    return csc_assembly(nf, keys_parts, valid_parts)
+
+
+def _sparse_schur_prep_impl(ctx, radius: torch.Tensor, ss, config):
+    """The card's half before the factorization: the LM damping, the point
+    blocks, every reduced cell and the reduced rhs (the eliminator pass,
+    schur_eliminator_impl.h:177-330). Returns (op, cells, rhs_red, df)."""
+    from ceres_tpu_torch.trust_region import _lm_damping
+
+    diag = torch.clamp(ctx.squared_column_norms(), config.min_lm_diagonal,
+                       config.max_lm_diagonal)
+    op = SchurOperator(ctx, _lm_damping(diag, radius), ss)
+    cells = [blocks for _, blocks in compute_cell_blocks(op, ss.explicit)]
+    return op, cells, op.rhs()[ss.f_idx], op.D[ss.f_idx]
+
+
+def _sparse_schur_finish_impl(op: SchurOperator, xf_red: torch.Tensor):
+    """The card's half after the solve: the points back-substituted, the step
+    and its model cost change."""
+    from ceres_tpu_torch.trust_region import _model_cost_change
+
+    x_f = torch.zeros((op.ctx.num_tangent,), dtype=op.dtype, device=xf_red.device)
+    x_f[op.ss.f_idx] = xf_red
+    step = -op.back_substitute(x_f)
+    return step, _model_cost_change(op.ctx, step)
+
+
+class SparseSchurStep:
+    """The host-driven SPARSE_SCHUR LM step for the trust-region loop:
+    f(ctx, radius) -> (step, model cost change, linear iterations,
+    termination). The CSC assembly and the factor's symbolic analysis live
+    on the Schur structure across solves (sparse_cholesky.h:71-112).
+
+    Unlike J'J, S's cells depend on the radius (the eliminated point blocks
+    carry D_e^2), so a rejected step cannot reuse the transfer. Inside a
+    reject streak the step instead enqueues the card's work for the
+    predicted next radius after reading this step's cells and before
+    factoring them: the card computes the next system while the host
+    factors this one."""
+
+    def __init__(self, config, solve_aux):
+        ss = solve_aux["ss"]
+        if ss.explicit is None:
+            raise ValueError("SPARSE_SCHUR needs the explicit cell plan")
+        if ss.sparse_assembly is None:
+            ss.sparse_assembly = build_sparse_schur_assembly(ss.explicit)
+        self.config, self.ss, self.assembly = config, ss, ss.sparse_assembly
+        self._state: dict = {"ctx": None}
+
+    def __call__(self, ctx, radius: float):
+        from ceres_tpu_torch.trust_region import _failed_step, _step_result, to_host_arrays
+
+        state, ss, c = self._state, self.ss, self.config
+        dev = ctx.residuals[0].device
+        in_streak = state["ctx"] is ctx
+        if in_streak:
+            prev = state.get("prev_radius")
+            if prev and radius < prev:
+                state["pred_factor"] = (prev / radius) * 2.0
+        else:
+            state.update(ctx=ctx, pred_factor=2.0, prev_radius=None, spec=None)
+        spec = state.pop("spec", None)
+        if spec is not None and abs(spec[0] - radius) <= 1e-9 * max(radius, 1.0):
+            op, cells, rhs_red, df = spec[1]  # enqueued during the last factorization
+        else:
+            op, cells, rhs_red, df = _sparse_schur_prep_impl(
+                ctx, torch.full((), radius, dtype=torch.float64, device=dev), ss, c)
+        rhs_h, df_h, *cells_h = to_host_arrays(rhs_red, df, *cells)
+        if in_streak:
+            r_pred = radius / state["pred_factor"]
+            state["spec"] = (r_pred, _sparse_schur_prep_impl(
+                ctx, torch.full((), r_pred, dtype=torch.float64, device=dev), ss, c))
+        state["prev_radius"] = radius
+        # the host half: the normal equations' with the reduced system's damping
+        xf, term = host_normal_factor_solve(
+            self.assembly, cells_h, df_h, rhs_h, ordering=c.ordering_type,
+            use_postordering=c.use_postordering, mixed_precision=c.use_mixed_precision_solves,
+            num_refinement_iterations=c.num_refinement_iterations,
+        )
+        if term != CG_SUCCESS:
+            return _failed_step(ctx.num_tangent, ctx.dtype, dev, term)
+        xf_dev = torch.from_numpy(xf).to(dev, op.dtype)
+        return _step_result(*_sparse_schur_finish_impl(op, xf_dev), term)

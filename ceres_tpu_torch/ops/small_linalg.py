@@ -6,7 +6,8 @@ bundle adjustment, what InvertPSDMatrix<3,3> does) and a batched Cholesky
 above that (the 9x9 camera blocks of SCHUR_JACOBI). The JAX package unrolls
 the Cholesky up to n = 32 so XLA can fuse it on the TPU; eagerly that would
 be hundreds of tiny launches, so the port calls the batched library
-factorization instead.
+factorization instead. ``contract`` multiplies batches of tiny matrices
+term by term over their short axis.
 """
 
 from __future__ import annotations
@@ -64,3 +65,14 @@ def spd_inverse(m: torch.Tensor) -> torch.Tensor:
 def spd_solve(inv_m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Apply precomputed inverses: (..., n, n) x (..., n) -> (..., n)."""
     return torch.einsum("...ij,...j->...i", inv_m, b)
+
+
+def contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., i, j) x (..., j, k) -> (..., i, k) over a short axis j, one
+    term at a time: for a batch of a million tiny matrices, elementwise
+    passes run at the memory's rate where a batched matrix product does not
+    (the cluster preconditioners' probes, ``linear/schur.py``)."""
+    out = a[..., :, 0, None] * b[..., None, 0, :]
+    for j in range(1, a.shape[-1]):
+        out = out + a[..., :, j, None] * b[..., None, j, :]
+    return out

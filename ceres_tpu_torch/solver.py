@@ -14,13 +14,16 @@ dumps, or more than 2048 (or 0) iterations. A LINE_SEARCH solve takes
 descent; Armijo or Wolfe). ``check_gradients`` checks every family's
 Jacobian before the loop too. The trust-region loops run a loss, manifolds
 and constant blocks, and one of the linear solvers DENSE_QR,
-DENSE_NORMAL_CHOLESKY, CGNR (IDENTITY, JACOBI, SUBSET), DENSE_SCHUR and
-ITERATIVE_SCHUR (IDENTITY, JACOBI, SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION;
-explicit or implicit S), any of them with mixed-precision refinement and,
-for the Schur solvers, a user elimination ordering. The sparse linear
-solvers and the cluster preconditioners raise ``NotImplementedError``
-naming their ROADMAP item. A solve runs on the card unless the caller names
-another device.
+DENSE_NORMAL_CHOLESKY, SPARSE_NORMAL_CHOLESKY, CGNR (IDENTITY, JACOBI,
+SUBSET), DENSE_SCHUR, SPARSE_SCHUR and ITERATIVE_SCHUR (IDENTITY, JACOBI,
+SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION, CLUSTER_JACOBI,
+CLUSTER_TRIDIAGONAL; explicit or implicit S), any of them with
+mixed-precision refinement and, for the Schur solvers, a user elimination
+ordering. The two sparse solvers factor on the host (the native core,
+``utils/native.py``) and run in the host loop, as in the JAX package. A
+sharded evaluation (``mesh``) raises ``NotImplementedError`` naming its
+ROADMAP item. A solve runs on the card unless the caller names another
+device.
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ import torch
 from ceres_tpu_torch.ordered_groups import OrderedGroups
 from ceres_tpu_torch.types import (
     DoglegType,
+    LinearSolverOrderingType,
     LinearSolverType,
     LineSearchDirectionType,
+    LoggingType,
     LineSearchType,
     MinimizerType,
     NonlinearConjugateGradientType,
@@ -44,10 +49,7 @@ from ceres_tpu_torch.types import (
     TrustRegionStrategyType,
 )
 
-_SPARSE = (
-    "ROADMAP Queue 1 item 14b (host-driven sparse solvers and the cluster "
-    "preconditioners, after the port's ctypes loader)"
-)
+_SHARDING = "ROADMAP Queue 1 item 19 (parallel/sharding.py on torch.distributed)"
 
 
 @dataclasses.dataclass
@@ -102,8 +104,16 @@ class SolverOptions:
     # (subset_preconditioner.h:44-80).
     residual_blocks_for_subset_preconditioner: Optional[List[int]] = None
     use_explicit_schur_complement: bool = False
+    # Drop numerically zero Jacobian entries and analyze the pattern of J'J
+    # anew every iteration (solver.h:365-383; SPARSE_NORMAL_CHOLESKY only).
+    dynamic_sparsity: bool = False
     use_mixed_precision_solves: bool = False
     max_num_refinement_iterations: int = 0
+    # Fill-reducing ordering of the host sparse factorizations
+    # (SPARSE_NORMAL_CHOLESKY, SPARSE_SCHUR; solver.h:410-455), and whether
+    # to post-order the elimination tree after it (reorder_program.cc:114-180).
+    linear_solver_ordering_type: LinearSolverOrderingType = LinearSolverOrderingType.AMD
+    use_postordering: bool = False
     # None keeps float64; "float32" evaluates residuals/Jacobians and runs
     # the linear solves in f32 (cost sums and LM scalars stay f64).
     evaluation_dtype: Optional[str] = None
@@ -127,6 +137,7 @@ class SolverOptions:
     trust_region_minimizer_iterations_to_dump: List[int] = dataclasses.field(
         default_factory=list
     )
+    logging_type: LoggingType = LoggingType.PER_MINIMIZER_ITERATION
     minimizer_progress_to_stdout: bool = False
     check_gradients: bool = False
     gradient_check_relative_precision: float = 1e-8
@@ -140,6 +151,11 @@ class SolverOptions:
     # (new_evaluation_point, evaluate_jacobians) before every residual /
     # Jacobian evaluation the minimizer performs.
     evaluation_callback: Optional[object] = None
+    # Multi-device execution: ``mesh`` (a sharded evaluation) is not ported;
+    # ``num_threads`` is accepted and ignored, as in the JAX package (the
+    # card runs the evaluation).
+    mesh: Optional[object] = None
+    num_threads: int = 1
 
     def validate(self, num_tangent: int = 0) -> Optional[str]:
         """Cross-validation analog of Solver::Options::IsValid
@@ -156,6 +172,8 @@ class SolverOptions:
         ):
             if getattr(self, name) < lo:
                 return f"{name} must be >= {lo}, got {getattr(self, name)}"
+        if self.num_threads <= 0:
+            return "num_threads must be > 0"
         if self.check_gradients:
             if self.gradient_check_relative_precision <= 0:
                 return "gradient_check_relative_precision must be > 0"
@@ -237,6 +255,8 @@ class SolverOptions:
         """OptionsAreValidForLinearSolver (solver.cc:377-403)."""
         lst = self.linear_solver_type
         pt = self.preconditioner_type
+        if self.dynamic_sparsity and lst not in (None, LinearSolverType.SPARSE_NORMAL_CHOLESKY):
+            return "dynamic sparsity is only supported with SPARSE_NORMAL_CHOLESKY"
         if lst == LinearSolverType.CGNR and pt not in (
             PreconditionerType.IDENTITY,
             PreconditionerType.JACOBI,
@@ -324,28 +344,11 @@ class SolverOptions:
         return LinearSolverType.CGNR
 
 
-_SUPPORTED_LINEAR = (
-    LinearSolverType.DENSE_QR,
-    LinearSolverType.DENSE_NORMAL_CHOLESKY,
-    LinearSolverType.CGNR,
-    LinearSolverType.DENSE_SCHUR,
-    LinearSolverType.ITERATIVE_SCHUR,
-)
-
-
 def check_supported(options: SolverOptions) -> None:
-    """Raise NotImplementedError for what the port's trust-region loops do
-    not run yet: the sparse linear solvers and the cluster preconditioners.
-    A LINE_SEARCH solve runs no linear solver."""
-    if options.minimizer_type != MinimizerType.TRUST_REGION:
-        return
-    if options.linear_solver_type not in _SUPPORTED_LINEAR:
-        raise NotImplementedError(f"{options.linear_solver_type}: {_SPARSE}")
-    if options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR and (
-        options.preconditioner_type
-        in (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
-    ):
-        raise NotImplementedError(f"{options.preconditioner_type}: {_SPARSE}")
+    """Raise NotImplementedError for what the port does not run yet: a
+    sharded evaluation."""
+    if options.mesh is not None:
+        raise NotImplementedError(f"mesh: {_SHARDING}")
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """Sweep the launch parameters of the hand-written kernels on the card.
 
-    python3 -m ceres_tpu_torch.tools.sweep_kernels [k1] [k3] [k4]
+    python3 -m ceres_tpu_torch.tools.sweep_kernels [k1] [k3] [k4] [probes]
 
-(no argument: all three). One JSON line per cell on standard output, each
+(no argument: the three kernels). One JSON line per cell on standard output, each
 with the card's name and power limit and a ``table``:
 
 - ``k1_threads``: the sorted segment sum (K1) at the point-side shapes of
@@ -31,10 +31,15 @@ with the card's name and power limit and a ``table``:
   strict-lower pair lists (3.0 M pairs, 107 416 cells, K = 3, 9 x 9; random
   slabs; f32 and f64): the compile-time form at every (threads, pairs per
   staging buffer), and the run-time form at the same shape.
-  ``ops/outer_segment_sum.THREADS`` and ``STAGE_PAIRS`` are set from it.
+  ``ops/outer_segment_sum.THREADS`` and ``STAGE_PAIRS`` are set from it;
+- ``probes``: not a kernel: the CLUSTER_JACOBI blocks of the large case's
+  implicit S (464 cameras in canonical-views clusters, 4176 probes S e_i at
+  the start, f32 and f64) for growing probe chunks, synchronized seconds and
+  peak memory, each against the first chunk size's blocks.
+  ``linear/schur.PROBE_CHUNK_BYTES`` is set from it.
 
-All times are of the call replayed from a CUDA graph (the host's enqueue
-left out). Needs a CUDA device.
+The kernels' times are of the call replayed from a CUDA graph (the host's
+enqueue left out). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -258,9 +263,50 @@ def sweep_k4(dev, emit) -> None:
         del W, Y
 
 
+def sweep_probes(dev, emit) -> None:
+    """The cluster blocks of the large case's implicit S by chunk size."""
+    import time
+
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.linear.schur import SchurOperator
+    from ceres_tpu_torch.models import bal
+    from ceres_tpu_torch.problem import cast_program
+    from ceres_tpu_torch.trust_region import _build_solve_aux, _lm_damping
+    from ceres_tpu_torch.types import PreconditionerType
+
+    inst = bal.synthesize_bal(num_cameras=464, num_points=200_000,
+                              num_observations=1_200_000, noise=2.0, perturb=0.7, seed=7)
+    for dtype in (torch.float32, torch.float64):
+        program = bal.build_problem(inst)[0].program(dev)
+        cast_program(program, dtype)
+        opts = bal.default_options(iterative=True)
+        opts.preconditioner_type = PreconditionerType.CLUSTER_JACOBI
+        ss = _build_solve_aux(opts, program)["ss"]
+        x = torch.from_numpy(program.initial_ambient()).to(dev, dtype)
+        ctx = Evaluator(program).cost_gradient_jacobian(x).jacobian_context
+        diag = torch.clamp(ctx.squared_column_norms(), 1e-6, 1e32)
+        op = SchurOperator(ctx, _lm_damping(diag, torch.tensor(1e4, device=dev)), ss)
+        groups = ss.cluster_groups
+        first = None
+        for chunk in (6, 24, 96):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            blocks = op.cluster_blocks(groups, chunk=chunk)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            first = blocks if first is None else first
+            emit(table="probes", dtype=str(dtype).split(".")[-1], clusters=list(groups.shape),
+                 probes=int((groups < program.num_tangent).sum()), chunk=chunk,
+                 seconds=seconds,
+                 peak_device_bytes=torch.cuda.max_memory_allocated(),
+                 max_rel_diff=float((blocks - first).abs().max() / first.abs().max()))
+        del program, ctx, op, blocks, first
+
+
 def main(argv) -> int:
-    sweeps = {"k1": sweep_k1, "k3": sweep_k3, "k4": sweep_k4}
-    chosen = argv or list(sweeps)
+    sweeps = {"k1": sweep_k1, "k3": sweep_k3, "k4": sweep_k4, "probes": sweep_probes}
+    chosen = argv or ["k1", "k3", "k4"]
     for name in chosen:
         if name not in sweeps:
             raise SystemExit(f"unknown sweep {name!r}; choose from {sorted(sweeps)}")

@@ -32,15 +32,17 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.evaluator import Evaluator, _cost_impl, _full_impl
-from ceres_tpu_torch.linear.cg import CG_FAILURE, CG_FATAL_ERROR, direct_termination
+from ceres_tpu_torch.linear.cg import CG_FAILURE, CG_FATAL_ERROR, CG_SUCCESS, direct_termination
 from ceres_tpu_torch.linear.cgnr import solve_cgnr
 from ceres_tpu_torch.linear.dense import solve_dense_normal_cholesky, solve_dense_qr
 from ceres_tpu_torch.linear.schur import (
     EXPLICIT_S_AUTO_MAX_NF,
+    attach_clusters,
     build_schur_structure,
     solve_schur,
 )
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
+from ceres_tpu_torch.linear.sparse_cholesky import solve_sparse_normal_cholesky
 from ceres_tpu_torch.ordered_groups import normalize_ordering, validate_ordering_partition
 from ceres_tpu_torch.problem import plus_apply
 from ceres_tpu_torch.types import (
@@ -53,7 +55,6 @@ from ceres_tpu_torch.types import (
 
 _DBL_MAX = float(np.finfo(np.float64).max)
 _F64 = torch.float64
-_SPARSE = "ROADMAP Queue 1 item 14b (host-driven sparse solvers)"
 
 
 class TrustRegionStepEvaluator:
@@ -155,6 +156,10 @@ _SCHUR_TYPES = (
 )
 
 
+_CLUSTER_TYPES = (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
+_SPARSE_TYPES = (LinearSolverType.SPARSE_NORMAL_CHOLESKY, LinearSolverType.SPARSE_SCHUR)
+
+
 @dataclasses.dataclass(frozen=True)
 class _SolveConfig:
     """The scalar/enum subset of SolverOptions the linear solve reads."""
@@ -172,6 +177,10 @@ class _SolveConfig:
     max_lm_diagonal: float
     use_mixed_precision_solves: bool
     num_refinement_iterations: int
+    # the host sparse factorizations (SPARSE_NORMAL_CHOLESKY, SPARSE_SCHUR)
+    dynamic_sparsity: bool = False
+    ordering_type: str = "AMD"  # LinearSolverOrderingType name
+    use_postordering: bool = False
 
 
 def _config_from_options(options) -> _SolveConfig:
@@ -189,6 +198,9 @@ def _config_from_options(options) -> _SolveConfig:
         max_lm_diagonal=options.max_lm_diagonal,
         use_mixed_precision_solves=options.use_mixed_precision_solves,
         num_refinement_iterations=max(options.max_num_refinement_iterations, 1),
+        dynamic_sparsity=options.dynamic_sparsity,
+        ordering_type=options.linear_solver_ordering_type.name,
+        use_postordering=options.use_postordering,
     )
 
 
@@ -223,6 +235,13 @@ def _build_solve_aux(options, program) -> dict:
         if ss is None or ordering is not None:
             ss = build_schur_structure(program, ordering=ordering)
             program.schur_structure = ss
+        # The cluster preconditioners' camera clusters (and, for
+        # CLUSTER_TRIDIAGONAL, their chains), computed by the native core.
+        with_forest = options.preconditioner_type == PreconditionerType.CLUSTER_TRIDIAGONAL
+        if options.preconditioner_type in _CLUSTER_TYPES and (
+            ss.cluster_groups is None or (with_forest and ss.chain_clusters is None)
+        ):
+            attach_clusters(program, ss, with_forest=with_forest)
         # DENSE/SPARSE_SCHUR always assemble S; ITERATIVE_SCHUR does when
         # the reduced camera system is small (EXPLICIT_S_AUTO_MAX_NF).
         if ss.explicit is None and (
@@ -287,10 +306,16 @@ def _base_linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
             subset_masks=solve_aux.get("subset_masks"),
         )
         return res.x, res.num_iterations, res.termination
-    raise NotImplementedError(
-        f"linear solver {lst.name}: ROADMAP Queue 1 item 14b (host-driven "
-        "sparse solvers)"
-    )
+    if lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
+        # The exact host factorization, with the Jacobian sent to the host:
+        # the solve of every caller but the host loop's own sparse step
+        # (DOGLEG, refinement corrections, the fused loop), what the JAX
+        # package computes in its graph through a host callback.
+        return solve_sparse_normal_cholesky(
+            ctx, D, rhs=rhs, dynamic=config.dynamic_sparsity, ordering=config.ordering_type,
+            use_postordering=config.use_postordering,
+        )
+    raise ValueError(f"unsupported linear solver {lst}")
 
 
 def _solve_aux_as(solve_aux: dict, dtype: torch.dtype) -> dict:
@@ -443,16 +468,195 @@ def _make_linear_solve(options, program):
     return linear_solve, solve_aux
 
 
+# -- the host-driven sparse steps ------------------------------------------------
+
+
+def _sparse_prep_impl(ctx, radius: torch.Tensor, config: _SolveConfig):
+    """The card's half before a host factorization: the LM damping and the
+    right-hand side J'f (levenberg_marquardt_strategy.cc:78-95)."""
+    diag = torch.clamp(ctx.squared_column_norms(), config.min_lm_diagonal,
+                       config.max_lm_diagonal)
+    return _lm_damping(diag, radius), ctx.gradient()
+
+
+def _sparse_prep_radius_free_impl(ctx, config: _SolveConfig):
+    """The radius-free half: the clipped LM diagonal and J'f. The damping
+    is applied on the host (:func:`_damping_np`), so a rejected step damps
+    the same host copy again."""
+    diag = torch.clamp(ctx.squared_column_norms(), config.min_lm_diagonal,
+                       config.max_lm_diagonal)
+    return diag, ctx.gradient()
+
+
+def _sparse_finish_impl(ctx, y: torch.Tensor):
+    """The card's half after the host solve: the step and its model cost
+    change (trust_region_minimizer.cc:424-438)."""
+    step = -y
+    return step, _model_cost_change(ctx, step)
+
+
+def _damping_np(diag_h: np.ndarray, radius: float) -> np.ndarray:
+    """:func:`_lm_damping` on host arrays, in their dtype (with the f32
+    floor)."""
+    D = np.sqrt(diag_h / radius)
+    if diag_h.dtype == np.float32:
+        D = np.maximum(D, np.sqrt(diag_h) * np.float32(3.5e-4))
+    return D.astype(diag_h.dtype)
+
+
+def to_host_arrays(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Device tensors as host arrays in ONE read: flattened, joined in the
+    first one's dtype, copied, split again."""
+    dtype = tensors[0].dtype
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors]).cpu().numpy()
+    out, k = [], 0
+    for t in tensors:
+        out.append(flat[k : k + t.numel()].reshape(tuple(t.shape)))
+        k += t.numel()
+    return out
+
+
+def _step_result(step: torch.Tensor, mcc: torch.Tensor, term: int):
+    dev = step.device
+    return (step, mcc, torch.ones((), dtype=torch.int32, device=dev),
+            torch.full((), term, dtype=torch.int32, device=dev))
+
+
+def _failed_step(nt: int, dtype, dev, term: int):
+    return _step_result(torch.zeros((nt,), dtype=dtype, device=dev),
+                        torch.zeros((), dtype=_F64, device=dev), term)
+
+
+class _SparseNormalStep:
+    """The host-driven SPARSE_NORMAL_CHOLESKY LM step (trust_region.py:689 of
+    the JAX package; sparse_normal_cholesky_solver.cc:51-120):
+    f(ctx, radius) -> (step, model cost change, linear iterations,
+    termination), J'J factored on the host between two pieces of card work,
+    its symbolic analysis kept across iterations (sparse_cholesky.h:71-112).
+
+    Static sparsity (the default): J'J is reduced on the card into block
+    cells (``linear/inner_product.py``) and only the cells, the diagonal and
+    J'f cross to the host, in one read. Those are radius-free, so a rejected
+    step (the same context, a smaller radius) skips the card's work and the
+    transfer and only damps again on the host; inside a reject streak a
+    one-worker thread pre-factors at the predicted next radius (the
+    strategy's doubling decrease) while the card finishes the step.
+    ``dynamic_sparsity`` sends the Jacobian instead and analyzes its pattern
+    every iteration (dynamic_sparse_normal_cholesky_solver.cc)."""
+
+    def __init__(self, config: _SolveConfig, program):
+        import concurrent.futures
+
+        from ceres_tpu_torch.linear.inner_product import (
+            build_normal_assembly,
+            build_normal_plan,
+        )
+
+        self.config = config
+        self.program = program
+        self.plan = self.assembly = self._executor = None
+        self._state: dict = {"ctx": None}
+        if not config.dynamic_sparsity:
+            cached = program.solve_aux_cache.get("normal_assembly")
+            if cached is None:
+                plan = build_normal_plan(program)
+                cached = program.solve_aux_cache["normal_assembly"] = (
+                    plan, build_normal_assembly(plan))
+            self.plan, self.assembly = cached
+            self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+
+    def close(self) -> None:
+        if self._executor is not None:
+            self._executor.shutdown(wait=True, cancel_futures=True)
+            self._executor = None
+
+    def _host_solve(self, D_h, cells_h, rhs_h):
+        from ceres_tpu_torch.linear.inner_product import host_normal_factor_solve
+
+        c = self.config
+        return host_normal_factor_solve(
+            self.assembly, cells_h, D_h, rhs_h, ordering=c.ordering_type,
+            use_postordering=c.use_postordering, mixed_precision=c.use_mixed_precision_solves,
+            num_refinement_iterations=c.num_refinement_iterations,
+        )
+
+    def __call__(self, ctx, radius: float):
+        if self.config.dynamic_sparsity:
+            return self._dynamic(ctx, radius)
+        from ceres_tpu_torch.linear.inner_product import compute_normal_cells
+
+        state, executor = self._state, self._executor
+        in_streak = state["ctx"] is ctx
+        if not in_streak:
+            diag, rhs = _sparse_prep_radius_free_impl(ctx, self.config)
+            cells = compute_normal_cells(ctx, self.plan)
+            diag_h, rhs_h, *cells_h = to_host_arrays(diag, rhs, *cells)
+            spec = state.pop("spec", None)
+            if spec is not None:
+                spec[1].cancel()
+            state.update(ctx=ctx, cells=cells_h, diag=diag_h, rhs=rhs_h, pred_factor=2.0,
+                         prev_radius=None)
+        else:
+            prev = state.get("prev_radius")
+            if prev and radius < prev:
+                state["pred_factor"] = (prev / radius) * 2.0  # the doubling decrease
+        diag_h, cells_h, rhs_h = state["diag"], state["cells"], state["rhs"]
+        spec = state.pop("spec", None)
+        if spec is not None and abs(spec[0] - radius) <= 1e-9 * max(radius, 1.0):
+            y, term = spec[1].result()  # factored during the last step's finish
+        else:
+            if spec is not None:
+                spec[1].cancel()
+            y, term = executor.submit(
+                self._host_solve, _damping_np(diag_h, radius), cells_h, rhs_h).result()
+        if in_streak:
+            r_pred = radius / state["pred_factor"]
+            state["spec"] = (r_pred, executor.submit(
+                self._host_solve, _damping_np(diag_h, r_pred), cells_h, rhs_h))
+        state["prev_radius"] = radius
+        dev = ctx.residuals[0].device
+        if term != CG_SUCCESS:
+            return _failed_step(ctx.num_tangent, ctx.dtype, dev, term)
+        y_dev = torch.from_numpy(np.asarray(y)).to(dev, ctx.dtype)
+        return _step_result(*_sparse_finish_impl(ctx, y_dev), term)
+
+    def _dynamic(self, ctx, radius: float):
+        from ceres_tpu_torch.evaluator import to_crs
+        from ceres_tpu_torch.linear.sparse_cholesky import host_sparse_normal_solve
+
+        c = self.config
+        dev = ctx.residuals[0].device
+        D, rhs = _sparse_prep_impl(ctx, torch.full((), radius, dtype=_F64, device=dev), c)
+        D_h, rhs_h = to_host_arrays(D, rhs)
+        y, term = host_sparse_normal_solve(
+            to_crs(ctx), True, D_h, rhs_h, ordering=c.ordering_type,
+            use_postordering=c.use_postordering, mixed_precision=c.use_mixed_precision_solves,
+            num_refinement_iterations=c.num_refinement_iterations,
+        )
+        if term != CG_SUCCESS:
+            return _failed_step(ctx.num_tangent, ctx.dtype, dev, term)
+        y_dev = torch.from_numpy(y).to(dev, ctx.dtype)
+        return _step_result(*_sparse_finish_impl(ctx, y_dev), term)
+
+
 def _make_lm_step_fn(options, program):
-    """f(ctx, radius) -> (step, model_cost_change, lin_iters, lin_termination)."""
+    """f(ctx, radius) -> (step, model_cost_change, lin_iters, lin_termination)
+    for a host radius: the host-driven sparse steps for SPARSE_NORMAL_CHOLESKY
+    and SPARSE_SCHUR, the card's step for every other solver."""
     config = _config_from_options(options)
-    if config.linear_solver_type in (
-        LinearSolverType.SPARSE_NORMAL_CHOLESKY,
-        LinearSolverType.SPARSE_SCHUR,
-    ):
-        raise NotImplementedError(f"{config.linear_solver_type.name}: {_SPARSE}")
+    if config.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
+        return _SparseNormalStep(config, program)
     solve_aux = _build_solve_aux(options, program)
-    return lambda ctx, radius: _lm_step_impl(ctx, radius, solve_aux, config)
+    if config.linear_solver_type == LinearSolverType.SPARSE_SCHUR:
+        from ceres_tpu_torch.linear.sparse_schur import SparseSchurStep
+
+        return SparseSchurStep(config, solve_aux)
+
+    def step_fn(ctx, radius: float):
+        r = torch.full((), radius, dtype=_F64, device=ctx.residuals[0].device)
+        return _lm_step_impl(ctx, r, solve_aux, config)
+
+    return step_fn
 
 
 # -- the host loop -------------------------------------------------------------
@@ -481,10 +685,12 @@ class TrustRegionMinimizer:
         # _tr_iteration_impl) stands down whenever a feature needs host work
         # between the step and the candidate evaluation: DOGLEG, the bounds
         # line search, inner iterations, gradient checks, dumps, callbacks
-        # that read the state or every evaluation.
+        # that read the state or every evaluation, a host-driven sparse
+        # factorization.
         self._fused_config = _config_from_options(options)
         self._use_fused_iteration = (
             not self.use_dogleg
+            and options.linear_solver_type not in _SPARSE_TYPES
             and not program.has_bounds
             and not options.use_inner_iterations
             and not options.check_gradients
@@ -510,6 +716,14 @@ class TrustRegionMinimizer:
             self.inner_minimizer = CoordinateDescentMinimizer(program, options, self.evaluator)
 
     def minimize(self, x0: torch.Tensor) -> torch.Tensor:
+        try:
+            return self._minimize(x0)
+        finally:
+            close = getattr(self._default_step_fn, "close", None)
+            if close is not None:
+                close()  # the sparse step's factoring thread
+
+    def _minimize(self, x0: torch.Tensor) -> torch.Tensor:
         opts = self.options
         program = self.program
         summary = self.summary
@@ -613,7 +827,7 @@ class TrustRegionMinimizer:
                     )
                 else:
                     step_scaled, mcc, lin_iters, lin_term = self.step_fn(
-                        ctx_used, radius_tensor(strategy.radius)
+                        ctx_used, strategy.radius
                     )
                     model_cost_change, lin_iters, lin_term = _to_host(mcc, lin_iters, lin_term)
             lin_term = int(lin_term)

@@ -1,8 +1,9 @@
 """Enums of the solver vocabulary the port uses.
 
 Port of the subset of ``ceres_tpu/types.py`` that the port's modules read
-(linear solvers, preconditioners, strategies, dogleg types, minimizers,
-line-search directions and searches, terminations, callback returns);
+(linear solvers, preconditioners, sparse orderings, strategies, dogleg
+types, minimizers, line-search directions and searches, terminations,
+callback returns, logging);
 names and members match the JAX package.
 """
 
@@ -46,6 +47,15 @@ class PreconditionerType(_StrEnum):
     CLUSTER_JACOBI = enum.auto()
     CLUSTER_TRIDIAGONAL = enum.auto()
     SUBSET = enum.auto()
+
+
+class LinearSolverOrderingType(_StrEnum):
+    """Fill-reducing ordering of the host sparse factorization
+    (types.h:204-209): AMD (the native core's minimum degree) or NESDIS
+    (nested dissection by BFS level-set separators)."""
+
+    AMD = enum.auto()
+    NESDIS = enum.auto()
 
 
 class TrustRegionStrategyType(_StrEnum):
@@ -105,6 +115,11 @@ class CallbackReturnType(_StrEnum):
     SOLVER_CONTINUE = enum.auto()
     SOLVER_ABORT = enum.auto()
     SOLVER_TERMINATE_SUCCESSFULLY = enum.auto()
+
+
+class LoggingType(_StrEnum):
+    SILENT = enum.auto()
+    PER_MINIMIZER_ITERATION = enum.auto()
 
 
 class LinearSolverTerminationType(_StrEnum):

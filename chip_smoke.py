@@ -147,7 +147,40 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    CG, steepest descent);
 19. solve, gradient checks (``check_gradients``): the flagship with
    ``check_gradients`` for 3 iterations (usable), and a residual whose
-   hand-written Jacobian is wrong: FAILURE with the JAX package's message.
+   hand-written Jacobian is wrong: FAILURE with the JAX package's message;
+20. solve, large, CLUSTER_JACOBI (``large_iterative_cluster_jacobi``, after
+   the inner iterations): the large instance under ITERATIVE_SCHUR with
+   CLUSTER_JACOBI on the implicit S, float32, after a 2-iteration warm-up:
+   the cost within 1e-3 of the JAX package's float64 cost at the large
+   phase's options (LARGE_F64_FINAL_COST), the preconditioner's build
+   seconds (the cluster blocks from probes S e_i in chunks of columns,
+   ``linear/schur.PROBE_CHUNK_BYTES``) and the peak memory;
+21. solve, pose graph, SPARSE_NORMAL_CHOLESKY
+   (``pose_graph_sparse_cholesky``): the 2500-pose sphere through
+   ``ctt.solve`` (the host loop's sparse step: J'J cells reduced on the card,
+   factored on the host by the native core, AMD), float64, twice: JAX's
+   record count and cost within 1e-9, the two solves equal to the bit, the
+   CGNR phase's seconds beside it;
+22. solve, sequential bundle adjustment, SPARSE_SCHUR
+   (``sequential_ba_sparse_schur``): ``sequential_instance`` (1723 cameras,
+   156 502 points, 678 718 observations, the shape of BAL's Ladybug
+   problem-1723-156502; nf = 15 507), the host loop's SPARSE_SCHUR step (the
+   reduced cells on the card: K1, K3, K4; the banded S factored on the
+   host), float32 and float64 after a 2-iteration warm-up: float64 against
+   JAX's record count and cost (1e-9), float32 within 1e-5 of float64, K1,
+   K3 and K4 each launched;
+23. solve, flagship clusters (``flagship_cluster_jacobi``,
+   ``flagship_cluster_tridiagonal``): the flagship under ITERATIVE_SCHUR
+   with each cluster preconditioner (the fused loop; the clusters by
+   canonical views and their chains by the linear forest, in the native
+   core), float32 and float64: float64 against JAX's LM and CG counts and
+   cost (1e-9), float32 within 1e-5 of float64.
+
+Every sparse phase (21, 22) also prints the host's seconds of symbolic
+analysis, numeric factorization and solve, the bytes copied to the host per
+iteration, the nnz of the factored matrix and of L, and the host reads per
+iteration (a short solve's, its set-up done beforehand). The native core is
+compiled with g++ at its first use (``ceres_tpu_torch/utils/native.py``).
 
 ``solve_seconds`` is the LM loop on the device; the host set-up of each
 fresh problem is reported as ``setup_seconds``; ``seconds_per_cg_iteration``
@@ -179,8 +212,9 @@ import numpy as np
 import torch
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import dogleg, evaluator, inner_iterations
+from ceres_tpu_torch import dogleg, evaluator, inner_iterations, trust_region
 from ceres_tpu_torch.linear import schur as schur_mod
+from ceres_tpu_torch.linear import sparse_cholesky
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
 from ceres_tpu_torch.models import bal, pose_graph
 from ceres_tpu_torch.ops import cuda_build
@@ -311,6 +345,29 @@ ROSENBROCK_X_ATOL = 1e-8  # or ten times the reference's one-ulp spread of x
 WRONG_JACOBIAN_MESSAGE = (
     "Gradient check failed: family fn instance 0 arg 0: relative error 3.333333e-01"
 )
+# The sequential bundle adjustment of the SPARSE_SCHUR phase
+# (sequential_instance): 678 718 observations.
+SEQUENTIAL = dict(num_cameras=1723, num_points=156502, fifth=52710, seed=11)
+# ceres_tpu.solve, float64, JAX on the CPU (``python
+# tests/test_torch_references.py sparse_pose_graph sparse_sequential
+# sparse_flagship_clusters``): the 2500-pose graph at
+# pose_graph.default_options() with SPARSE_NORMAL_CHOLESKY (AMD): (records,
+# final cost); the sequential bundle adjustment at bal.default_options(
+# iterative=False) with SPARSE_SCHUR (AMD): (records, final cost); the
+# flagship at bal.default_options(iterative=True) with each cluster
+# preconditioner: (records, CG iterations, final cost).
+POSE_GRAPH_SPARSE_REFERENCE = (15, 0.3774149708801168)
+SEQUENTIAL_SPARSE_SCHUR_REFERENCE = (10, 10.92539723105676)
+FLAGSHIP_CLUSTER_REFERENCE = {
+    "CLUSTER_JACOBI": (4, 9, 202425.49037236028),
+    "CLUSTER_TRIDIAGONAL": (4, 7, 202425.46639867526),
+}
+SPARSE_F32_RTOL = 1e-5  # the sparse and cluster phases' float32 against float64
+# ceres_tpu.fused_solve of the large instance at the large phase's options,
+# float64, JAX on the CPU (the large ITERATIVE_SCHUR + CLUSTER_JACOBI phase
+# is held to it: its own JAX f64 reference would probe the implicit S at
+# every column at once, about 80 GB).
+LARGE_F64_FINAL_COST = 3587827.41019063
 # Timed flagship solves per dtype (each on a fresh problem); the first is
 # the run whose K1 launches are counted.
 REPEATS = 3
@@ -377,6 +434,54 @@ def flagship_instance():
 
 def large_instance():
     return bal.synthesize_bal(noise=NOISE, perturb=PERTURB, **LARGE)
+
+
+def sequential_instance(num_cameras=SEQUENTIAL["num_cameras"],
+                        num_points=SEQUENTIAL["num_points"], fifth=SEQUENTIAL["fifth"],
+                        seed=SEQUENTIAL["seed"]) -> bal.BALProblem:
+    """A bundle adjustment with the visibility of BAL's problem-1723-156502
+    (Ladybug, a sequential video): point p is seen by the 4 consecutive
+    cameras from c0 = p (C - 5) // P, the first ``fifth`` points by a fifth,
+    so S is banded (tests/test_sparse_schur.py:142-175's pattern). Camera
+    intrinsics (focal 1, the rest 0.02 N(0, 1)), the points' perturbation
+    (0.02) and the pixel noise (0.005) are drawn as that test draws them.
+    The geometry is not the test's: there every camera sits within 0.02 of
+    one pose, so at this size a point's depth is barely observable (JAX f64
+    crawls for 50 iterations without converging, and the port's CPU records
+    part from JAX's after 11), and a straight path long enough to give the
+    4 views a baseline puts world coordinates of several hundred units
+    beside a pixel noise of 0.005, which float32 cannot resolve (2e-4 to
+    2e-3 from float64, in both packages, measured on the CPU). So the cameras
+    stand on a ring of radius 12 facing the cloud, as bal.synthesize_bal
+    places them, in golden-angle order: consecutive cameras, which share
+    points, are far apart on the ring. The points are a normal cloud of
+    scale 2 at the ring's center. Plain numpy, so that the JAX reference
+    (tests/test_torch_references.py sparse_sequential) gets the same float64
+    arrays."""
+    rng = np.random.default_rng(seed)
+    cams = 0.02 * rng.standard_normal((num_cameras, 9))
+    cams[:, 6] = 1.0  # focal
+    pts = 2.0 * rng.standard_normal((num_points, 3))
+    for c in range(num_cameras):  # the pose of synthesize_bal's ring cameras
+        angle = c * np.pi * (3.0 - np.sqrt(5.0))
+        pos = np.array([12.0 * np.cos(angle), 12.0 * np.sin(angle), 6.0])
+        z = pos / np.linalg.norm(pos)
+        x = np.cross([0.0, 0.0, 1.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        cams[c, :3] = bal._rotation_matrix_to_angle_axis_np(R)
+        cams[c, 3:6] += -R @ pos
+    p = np.arange(num_points, dtype=np.int64)
+    views = np.where(p < fifth, 5, 4)
+    obs_pt = np.repeat(p, views)
+    obs_cam = (np.repeat(p * (num_cameras - 5) // num_points, views)
+               + np.arange(obs_pt.shape[0]) - np.repeat(np.cumsum(views) - views, views))
+    uv = bal._project_np(cams[obs_cam], pts[obs_pt])
+    return bal.BALProblem(
+        cameras=cams, points=pts + 0.02 * rng.standard_normal(pts.shape),
+        camera_index=obs_cam, point_index=obs_pt,
+        observations=uv + 0.005 * rng.standard_normal(uv.shape),
+    )
 
 
 def _time_ms(fn, reps: int = 200) -> float:
@@ -953,9 +1058,10 @@ def solve_robust_flagship(device) -> dict:
     return launches
 
 
-def solve_pose_graph(device) -> dict:
+def solve_pose_graph(device):
     """The 2500-pose sphere through ``ctt.solve`` with CGNR + block Jacobi,
-    float64, against the JAX package's final cost."""
+    float64, against the JAX package's final cost. Returns (launches, the
+    loop's seconds)."""
     t0 = time.perf_counter()
     positions, quats, constraints, _ = pose_graph.synthesize_sphere(
         POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED
@@ -996,7 +1102,7 @@ def solve_pose_graph(device) -> dict:
     # kernel is on this path.
     if any(k != "scatter" for fam in kinds for k in fam) or any(launches.values()):
         raise RuntimeError(f"pose graph: plan kinds {kinds}, launches {launches}")
-    return launches
+    return launches, summary.minimizer_time_in_seconds
 
 
 def _iterative_options(dtype: str, max_iters: int = 50):
@@ -1718,6 +1824,292 @@ def solve_check_gradients(device, smi: str) -> dict:
     return launches
 
 
+# ---- the host-driven sparse solvers and the cluster preconditioners ----------
+
+
+@contextlib.contextmanager
+def _sparse_host_clock():
+    """The host's seconds in the sparse factor's symbolic analysis (the
+    ``SparseCholesky`` construction: ordering and analysis), numeric
+    factorization and solve, the bytes the sparse steps copy to the host
+    (``trust_region.to_host_arrays``) and the factors made."""
+    seconds = collections.Counter()
+    host_bytes = []
+    made = []
+    cls = sparse_cholesky.SparseCholesky
+    real = {name: getattr(cls, name) for name in ("__init__", "factorize", "solve")}
+    real_copy = trust_region.to_host_arrays
+
+    def timed(name):
+        def call(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = real[name](self, *args, **kw)
+            seconds[name] += time.perf_counter() - t0
+            if name == "__init__":
+                made.append(self)
+            return out
+        return call
+
+    def copied(*tensors):
+        host_bytes.append(sum(t.numel() * t.element_size() for t in tensors))
+        return real_copy(*tensors)
+
+    for name in real:
+        setattr(cls, name, timed(name))
+    trust_region.to_host_arrays = copied
+    try:
+        yield dict(seconds=seconds, host_bytes=host_bytes, factors=made)
+    finally:
+        for name, fn in real.items():
+            setattr(cls, name, fn)
+        trust_region.to_host_arrays = real_copy
+
+
+def _sparse_fields(clock, summary) -> dict:
+    n = max(summary.num_iterations, 1)
+    s = clock["seconds"]
+    factor = clock["factors"][0] if clock["factors"] else None
+    return dict(
+        host_symbolic_seconds=s["__init__"], host_numeric_seconds=s["factorize"],
+        host_solve_seconds=s["solve"],
+        host_factor_share=(s["__init__"] + s["factorize"] + s["solve"])
+        / max(summary.minimizer_time_in_seconds, 1e-12),
+        bytes_to_host_per_iteration=sum(clock["host_bytes"]) / n,
+        transfers=len(clock["host_bytes"]),
+        factored_n=None if factor is None else factor.n,
+        factored_nnz=None if factor is None else int(factor.Ap[-1]),
+        nnz_L=None if factor is None else factor.nnz_L,
+    )
+
+
+def _record_costs(summary) -> list:
+    return [r.cost for r in summary.iterations]
+
+
+def solve_pose_graph_sparse(device, smi: str, cgnr_seconds: float) -> dict:
+    """The 2500-pose sphere through ctt.solve with SPARSE_NORMAL_CHOLESKY
+    (AMD), float64, twice: JAX's record count and final cost within 1e-9,
+    and whether the two solves are equal to the bit (its J'J cells reduce
+    through ``index_add_``, 2598 rows into 4998 blocks). The second solve's
+    host reads are counted."""
+    graph = pose_graph.synthesize_sphere(POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED)[:3]
+
+    def options(max_iters=None):
+        opts = pose_graph.default_options()
+        opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+        if max_iters is not None:
+            opts.max_num_iterations = max_iters
+        return opts
+
+    ctt.solve(options(2), pose_graph.build_problem_3d(*graph)[0], device=device)  # warm-up
+    problem = pose_graph.build_problem_3d(*graph)[0]
+    _reset_launches()
+    with _sparse_host_clock() as clock:
+        first = ctt.solve(options(), problem, device=device)
+    launches = _launches()
+    again = pose_graph.build_problem_3d(*graph)[0]
+    second, reads = _reads(lambda: ctt.solve(options(), again, device=device),
+                           lambda: ctt.solve(options(0), again, device=device))
+    program = problem.program(device)
+    plan = program.solve_aux_cache["normal_assembly"][0]
+    kinds = sorted({s.plan.kind for s in plan.sites})
+    records, reference = POSE_GRAPH_SPARSE_REFERENCE
+    bits = _record_costs(first) == _record_costs(second) and first.final_cost == second.final_cost
+    rel = abs(first.final_cost - reference) / reference
+    phase(
+        "solve", case="pose_graph_sparse_cholesky", dtype="float64", poses=POSE_GRAPH_POSES,
+        initial_cost=first.initial_cost, final_cost=first.final_cost,
+        reference_final_cost=reference, rel_err=rel, records=len(first.iterations),
+        reference_records=records, lm_iterations=first.num_iterations,
+        linear_iterations=first.num_linear_solver_iterations,
+        termination=str(first.termination_type), message=first.message,
+        solve_seconds=first.minimizer_time_in_seconds,
+        seconds_per_iteration=first.minimizer_time_in_seconds / max(first.num_iterations, 1),
+        setup_seconds=first.preprocessor_time_in_seconds,
+        cgnr_solve_seconds=cgnr_seconds, repeats_equal_to_the_bit=bits,
+        second_final_cost=second.final_cost,
+        host_reads_per_iteration=sum(reads.values()) / max(second.num_iterations, 1),
+        host_reads_by_site=dict(reads.most_common(8)), cell_plan_kinds=kinds,
+        launches=launches, card=smi, **_sparse_fields(clock, first),
+    )
+    if len(first.iterations) != records or not rel <= MINIMIZER_F64_RTOL:
+        raise RuntimeError(f"pose graph sparse: {len(first.iterations)} records, cost "
+                           f"{first.final_cost} (JAX {records}, {reference})")
+    if not bits:
+        raise RuntimeError("pose graph sparse: two solves differ")
+    return launches
+
+
+def _sequential_options(dtype: str, max_iters: int = 50):
+    opts = bal.default_options(iterative=False)
+    opts.linear_solver_type = ctt.LinearSolverType.SPARSE_SCHUR
+    opts.max_num_iterations = max_iters
+    opts.evaluation_dtype = dtype
+    return opts
+
+
+def solve_sequential_sparse_schur(device, smi: str) -> dict:
+    """The sequential bundle adjustment (sequential_instance) through ctt.solve
+    with SPARSE_SCHUR (AMD) in the host loop, float32 and float64, each after
+    a 2-iteration warm-up: float64 against JAX's record count and cost
+    (1e-9), float32 within 1e-5 of float64, K1, K3 and K4 launched."""
+    inst = sequential_instance()
+    paths, out = {}, {}
+    for dtype in ("float32", "float64"):
+        ctt.solve(_sequential_options(dtype, 2), bal.build_problem(inst)[0], device=device)
+        problem = bal.build_problem(inst)[0]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with _sparse_host_clock() as clock:
+            s = ctt.solve(_sequential_options(dtype), problem, device=device)
+        launches, by_width = _launches(), _launches_by_width()
+        peak = torch.cuda.max_memory_allocated()
+        again = bal.build_problem(inst)[0]
+        short, reads = _reads(
+            lambda: ctt.solve(_sequential_options(dtype, 3), again, device=device),
+            lambda: ctt.solve(_sequential_options(dtype, 0), again, device=device))
+        ss_ = problem.program(device).schur_structure
+        _usable(s, f"sequential sparse schur {dtype}")
+        phase(
+            "solve", case="sequential_ba_sparse_schur", dtype=dtype,
+            cameras=inst.num_cameras, points=inst.num_points,
+            observations=inst.num_observations, nf=int(ss_.f_idx.shape[0]),
+            initial_cost=s.initial_cost, final_cost=s.final_cost,
+            records=len(s.iterations), lm_iterations=s.num_iterations,
+            rejected_steps=s.num_unsuccessful_steps,
+            termination=str(s.termination_type), message=s.message,
+            solve_seconds=s.minimizer_time_in_seconds,
+            seconds_per_iteration=s.minimizer_time_in_seconds / max(s.num_iterations, 1),
+            setup_seconds=s.preprocessor_time_in_seconds,
+            host_reads_per_iteration=sum(reads.values()) / max(short.num_iterations, 1),
+            host_reads_by_site=dict(reads.most_common(8)),
+            s_cells_nnz=ss_.sparse_assembly.nnz, launches=launches,
+            launches_by_width=by_width, peak_device_bytes=peak, card=smi,
+            **_sparse_fields(clock, s),
+        )
+        if any(n == 0 for n in launches.values()):
+            raise RuntimeError(f"sequential sparse schur {dtype}: launches {launches}")
+        out[dtype], paths[f"sequential_ba_sparse_schur_{dtype}"] = s, launches
+    _held_to_jax(out["float64"], *SEQUENTIAL_SPARSE_SCHUR_REFERENCE, "sequential_ba_sparse_schur")
+    _held_to_f64(out["float32"], out["float64"], "sequential_ba_sparse_schur",
+                 SPARSE_F32_RTOL)
+    return paths
+
+
+def _cluster_options(pt: str, dtype: str):
+    opts = bal.default_options(iterative=True)
+    opts.preconditioner_type = ctt.PreconditionerType[pt]
+    opts.evaluation_dtype = dtype
+    return opts
+
+
+def solve_flagship_clusters(device, smi: str) -> dict:
+    """The flagship under ITERATIVE_SCHUR with CLUSTER_JACOBI and with
+    CLUSTER_TRIDIAGONAL (ctt.solve, the fused loop; S assembled, nf = 144),
+    float32 and float64: float64 against JAX's LM and CG counts and cost
+    (1e-9), float32 within 1e-5 of float64; the clusters and chains."""
+    inst = flagship_instance()
+    paths = {}
+    for pt in ("CLUSTER_JACOBI", "CLUSTER_TRIDIAGONAL"):
+        out = {}
+        for dtype in ("float32", "float64"):
+            problem = bal.build_problem(inst)[0]
+            _reset_launches()
+            s = ctt.solve(_cluster_options(pt, dtype), problem, device=device)
+            launches = _launches()
+            again = bal.build_problem(inst)[0]
+            zero = _cluster_options(pt, dtype)
+            zero.max_num_iterations = 0
+            _, reads = _reads(lambda: ctt.solve(_cluster_options(pt, dtype), again, device=device),
+                              lambda: ctt.solve(zero, again, device=device))
+            ss_ = problem.program(device).schur_structure
+            _usable(s, f"flagship {pt} {dtype}")
+            chains = None if ss_.chain_clusters is None else ss_.chain_clusters.cpu().numpy()
+            C = int(ss_.cluster_groups.shape[0])
+            phase(
+                "solve", case=f"flagship_{pt.lower()}", dtype=dtype,
+                initial_cost=s.initial_cost, final_cost=s.final_cost,
+                lm_iterations=s.num_iterations, records=len(s.iterations),
+                cg_iterations=s.num_linear_solver_iterations,
+                termination=str(s.termination_type),
+                solve_seconds=s.minimizer_time_in_seconds,
+                setup_seconds=s.preprocessor_time_in_seconds,
+                clusters=C, cluster_width=int(ss_.cluster_groups.shape[1]),
+                chains=None if chains is None else [[int(c) for c in ch if c < C]
+                                                    for ch in chains],
+                host_reads_per_iteration=sum(reads.values()) / max(s.num_iterations, 1),
+                launches=launches, card=smi,
+            )
+            out[dtype], paths[f"flagship_{pt.lower()}_{dtype}"] = s, launches
+        records, cg, reference = FLAGSHIP_CLUSTER_REFERENCE[pt]
+        s64 = out["float64"]
+        _held_to_jax(s64, records, reference, f"flagship_{pt.lower()} float64")
+        if s64.num_linear_solver_iterations != cg:
+            raise RuntimeError(f"flagship {pt}: {s64.num_linear_solver_iterations} CG "
+                               f"iterations (JAX {cg})")
+        _held_to_f64(out["float32"], s64, f"flagship_{pt.lower()}", SPARSE_F32_RTOL)
+    return paths
+
+
+def solve_large_cluster_jacobi(device, inst, smi: str) -> dict:
+    """The large instance under ITERATIVE_SCHUR + CLUSTER_JACOBI on the
+    implicit S (nf = 4176), float32, after a 2-iteration warm-up: the cost
+    within 1e-3 of the JAX f64 cost at the large phase's options; the
+    preconditioner's build seconds (synchronized) and the peak memory, the
+    probes' chunks at full width."""
+    builds = []
+    real = schur_mod.SchurOperator.clustered_preconditioner
+
+    def timed(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *args, **kw)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return out
+
+    opts = _cluster_options("CLUSTER_JACOBI", "float32")
+    warm_opts = _cluster_options("CLUSTER_JACOBI", "float32")
+    warm_opts.max_num_iterations = 2
+    ctt.solve(warm_opts, bal.build_problem(inst)[0], device=device)
+    problem = bal.build_problem(inst)[0]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    schur_mod.SchurOperator.clustered_preconditioner = timed
+    try:
+        s = ctt.solve(opts, problem, device=device)
+    finally:
+        schur_mod.SchurOperator.clustered_preconditioner = real
+    launches, peak = _launches(), torch.cuda.max_memory_allocated()
+    again = bal.build_problem(inst)[0]
+    zero = _cluster_options("CLUSTER_JACOBI", "float32")
+    zero.max_num_iterations = 0
+    short, reads = _reads(lambda: ctt.solve(warm_opts, again, device=device),
+                          lambda: ctt.solve(zero, again, device=device))
+    rel = _checked(problem, s, LARGE_F64_FINAL_COST, "large iterative cluster jacobi float32")
+    _usable(s, "large iterative cluster jacobi float32")
+    ss_ = problem.program(device).schur_structure
+    groups = ss_.cluster_groups
+    probe_chunk = max(1, schur_mod.PROBE_CHUNK_BYTES // (inst.num_observations * 9 * 4))
+    phase(
+        "solve", case="large_iterative_cluster_jacobi", dtype="float32",
+        initial_cost=s.initial_cost, final_cost=s.final_cost,
+        reference_final_cost=LARGE_F64_FINAL_COST, rel_err=rel,
+        lm_iterations=s.num_iterations, cg_iterations=s.num_linear_solver_iterations,
+        termination=str(s.termination_type), solve_seconds=s.minimizer_time_in_seconds,
+        setup_seconds=s.preprocessor_time_in_seconds,
+        explicit_s=ss_.explicit is not None, clusters=int(groups.shape[0]),
+        cluster_width=int(groups.shape[1]), probe_columns=int((groups < ss_.f_mask.numel()).sum()),
+        probe_chunk_columns=probe_chunk, probe_chunk_bytes=schur_mod.PROBE_CHUNK_BYTES,
+        preconditioner_build_seconds=builds, peak_device_bytes=peak, launches=launches,
+        host_reads_per_iteration=sum(reads.values()) / max(short.num_iterations, 1),
+        card=smi,
+    )
+    if ss_.explicit is not None or not builds:
+        raise RuntimeError("large cluster jacobi: not the implicit S's probes")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = check_device()
@@ -1748,7 +2140,7 @@ def main() -> int:
     del inst
     paths["robust_flagship_float64"] = solve_robust_flagship(device)
     paths.update(solve_flagship_preconditioners(device))
-    paths["pose_graph_3d_float64"] = solve_pose_graph(device)
+    paths["pose_graph_3d_float64"], cgnr_seconds = solve_pose_graph(device)
     paths["pose_graph_repeat_float64"] = solve_pose_graph_twice(device)
     solve_dense(device)
     inst = large_instance()
@@ -1756,11 +2148,17 @@ def main() -> int:
         paths[f"host_loop_large_{dtype}"] = solve_host_loop_large(device, dtype, inst, smi)
     paths.update(solve_dogleg_large(device, inst, smi))
     paths.update(solve_inner_iterations_large(device, inst, smi))
+    paths["large_iterative_cluster_jacobi_float32"] = solve_large_cluster_jacobi(
+        device, inst, smi)
     del inst
     paths.update(solve_flagship_host_loop(device, smi))
     paths["flagship_line_search_float64"] = solve_flagship_line_search(device, smi)
     solve_gradient_problems(device, smi)
     paths["check_gradients_flagship_float64"] = solve_check_gradients(device, smi)
+    paths["pose_graph_sparse_cholesky_float64"] = solve_pose_graph_sparse(
+        device, smi, cgnr_seconds)
+    paths.update(solve_sequential_sparse_schur(device, smi))
+    paths.update(solve_flagship_clusters(device, smi))
     for record in records:
         record["launches"] = launches[record["name"]]
         record["launches_by_path"] = {k: v[record["name"]] for k, v in paths.items()}

@@ -65,9 +65,10 @@ def test_residuals_and_jacobians_at_x0(dtype, rtol):
 def test_loss_and_constant_blocks_are_roadmap_items():
     """A loss, constant blocks and parameter bounds are in the port: a
     bounded solve (the host loop) converges with the focal-length bound
-    respected, with inner iterations too. What is left to a later item (a
-    sparse solver) still raises, naming its ROADMAP item, and an object that
-    is no loss is refused when it is added."""
+    respected, with inner iterations too, and with SPARSE_SCHUR. What is
+    left to a later item (a sharded evaluation) still raises, naming its
+    ROADMAP item, and an object that is no loss is refused when it is
+    added."""
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.problem import Problem
 
@@ -91,6 +92,10 @@ def test_loss_and_constant_blocks_are_roadmap_items():
     assert s.is_solution_usable() and s.num_inner_iteration_steps > 0
     assert problem.parameter_block_value(int(cams[1]))[6] <= focal
     opts.linear_solver_type = ctt.LinearSolverType.SPARSE_SCHUR
+    s = ctt.solve(opts, problem, device="cpu")
+    assert s.is_solution_usable() and s.linear_solver_type_used == opts.linear_solver_type
+    assert problem.parameter_block_value(int(cams[1]))[6] <= focal
+    opts.mesh = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ctt.solve(opts, problem, device="cpu")
     with pytest.raises(TypeError, match="LossFunction"):

@@ -4,8 +4,9 @@ plain versions on the card, the plan choice on a CUDA device, a
 DENSE_SCHUR solve whose plans reach all three kernels, an implicit-S
 ITERATIVE_SCHUR step that reaches K1 and K3 and not K4, and the modeling API
 on the card against the CPU (robust BAL with a constant camera, a pose
-graph, the dense solvers and CGNR, ``Problem.evaluate``), and a bounded
-solve through the host-loop minimizer. Skipped without a card.
+graph, the dense solvers and CGNR, ``Problem.evaluate``), a bounded solve
+through the host-loop minimizer, and the sparse solvers and cluster
+preconditioners on the card against the CPU. Skipped without a card.
 
 This file imports neither jax nor ceres_tpu, so it also runs where only
 PyTorch is installed:
@@ -513,6 +514,36 @@ def test_dense_and_cgnr_solvers_on_the_card(device, solver):
         assert s.is_solution_usable()
         costs.append(s.final_cost)
     np.testing.assert_allclose(costs[1], costs[0], rtol=1e-6)
+
+
+@pytest.mark.parametrize("changes", [
+    dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY"),
+    dict(linear_solver_type="SPARSE_SCHUR"),
+    dict(linear_solver_type="SPARSE_SCHUR", use_mixed_precision_solves=True,
+         max_num_refinement_iterations=3),
+    dict(linear_solver_type="ITERATIVE_SCHUR", preconditioner_type="CLUSTER_JACOBI"),
+    dict(linear_solver_type="ITERATIVE_SCHUR", preconditioner_type="CLUSTER_TRIDIAGONAL"),
+], ids=["sparse_normal_cholesky", "sparse_schur", "sparse_schur_mixed", "cluster_jacobi",
+        "cluster_tridiagonal"])
+def test_sparse_solvers_and_clusters_on_the_card(device, changes):
+    """The host-factored sparse solvers (cells reduced on the card, factored
+    by the native core) and the cluster preconditioners take the CPU's
+    records on the card (f64, costs to 1e-9 relative)."""
+    inst = bal.synthesize_bal(num_cameras=12, num_points=400, num_observations=1600,
+                              noise=2.0, perturb=0.7, seed=5)
+    summaries = []
+    for dev in ("cpu", device):
+        opts = bal.default_options(iterative=True)
+        for k, v in changes.items():
+            enum = {"linear_solver_type": ctt.LinearSolverType,
+                    "preconditioner_type": ctt.PreconditionerType}.get(k)
+            setattr(opts, k, enum[v] if enum else v)
+        summaries.append(ctt.solve(opts, bal.build_problem(inst)[0], device=dev))
+    on_cpu, on_card = summaries
+    assert on_card.device.startswith("cuda") and on_card.is_solution_usable()
+    assert len(on_card.iterations) == len(on_cpu.iterations) > 2
+    for a, b in zip(on_card.iterations, on_cpu.iterations):
+        np.testing.assert_allclose(a.cost, b.cost, rtol=1e-9)
 
 
 def test_evaluate_on_the_card_matches_the_cpu(device):

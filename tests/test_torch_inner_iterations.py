@@ -139,25 +139,34 @@ def test_solve_matches_jax_record_by_record(user_ordering):
 
 
 def test_float32_keeps_the_evaluation_dtype(monkeypatch):
-    """Every array of the inner pass stays f32 under evaluation_dtype
-    "float32" (the JAX package builds its step in f64: the x it returns is
-    still f32, its plus casting the delta), and the solve ends within 1e-4
-    of f64."""
+    """Under evaluation_dtype "float32" the inner pass keeps the reference's
+    dtypes (ceres_tpu/inner_iterations.py builds the step in f64): x is f32
+    in and out, the per-block radii and the delta handed to plus are f64,
+    the JAX package's pass returns an f32 x too, and the solve ends within
+    1e-4 of f64."""
     seen = []
     real = tii.CoordinateDescentMinimizer._set_step
 
     def spy(self, groups, x, radii):
-        new_x, new_radii, cost = real(self, groups, x, radii)
-        seen.append((x.dtype, new_x.dtype, *(r.dtype for r in new_radii.values())))
+        deltas = []
+        plus = self.program.plus
+        self.program.plus = lambda x_, d: (deltas.append(d.dtype), plus(x_, d))[1]
+        try:
+            new_x, new_radii, cost = real(self, groups, x, radii)
+        finally:
+            del self.program.plus
+        seen.append((x.dtype, new_x.dtype, {r.dtype for r in new_radii.values()},
+                     set(deltas), cost.dtype))
         return new_x, new_radii, cost
 
     monkeypatch.setattr(tii.CoordinateDescentMinimizer, "_set_step", spy)
     s32 = _solve(ctt, dtype="float32")
-    assert seen and all(set(d) == {torch.float32} for d in seen)
+    f32, f64 = torch.float32, torch.float64
+    assert seen and all(s == (f32, f32, {f64}, {f64}, f64) for s in seen), seen[:2]
     assert s32.num_inner_iteration_steps > 0
     np.testing.assert_allclose(s32.final_cost, _both(False)[1].final_cost, rtol=1e-4)
 
-    # the reference's dtype after its pass, for the record
+    # the reference's dtype after its pass
     program = _program(ct, _bal(ct, TINY, constant_cameras=2)[0])
     from ceres_tpu.problem import cast_program
 

@@ -25,6 +25,8 @@ import {module}
 from ceres_tpu_torch.ops import cuda_build
 print(','.join(sorted(jaxy() - before)))
 print(len(cuda_build._loaded))  # kernels build at first launch, not at import
+from ceres_tpu_torch.utils import native
+assert native._lib is None  # nor the native core
 """
 
 
@@ -50,6 +52,11 @@ print(len(cuda_build._loaded))  # kernels build at first launch, not at import
         "ceres_tpu_torch.gradient_problem",
         "ceres_tpu_torch.gradient_checker",
         "ceres_tpu_torch.utils.observability",
+        "ceres_tpu_torch.utils.native",
+        "ceres_tpu_torch.linear.schur",
+        "ceres_tpu_torch.linear.sparse_cholesky",
+        "ceres_tpu_torch.linear.inner_product",
+        "ceres_tpu_torch.linear.sparse_schur",
         "ceres_tpu_torch.ops.polynomial",
         "ceres_tpu_torch.ops.segment_sum",
         "ceres_tpu_torch.ops.unsorted_segment_sum",
@@ -113,10 +120,8 @@ def test_every_not_implemented_error_names_a_roadmap_item():
                      if isinstance(n, ast.Constant) and isinstance(n.value, str)]
             texts += [constants.get(n.id, "") for n in ast.walk(node.exc) if isinstance(n, ast.Name)]
             assert any("ROADMAP" in t for t in texts), f"{path}:{node.lineno}"
-    # what still raises: the sparse solvers and the cluster preconditioners
-    # (solver.check_supported, two; linear/schur.solve_schur, two;
-    # trust_region's linear-solve dispatch and LM step factory, two)
-    assert found >= 6
+    # what still raises: a sharded evaluation (solver.check_supported)
+    assert found >= 1
     # ... and the items the messages name are in ROADMAP.md's Queue 1
     roadmap = (REPO / "ROADMAP.md").read_text()
     named = set()
@@ -126,7 +131,9 @@ def test_every_not_implemented_error_names_a_roadmap_item():
 
 
 def test_only_the_sparse_solvers_and_cluster_preconditioners_raise():
-    """Every minimizer option runs; what raises names item 14b."""
+    """Every minimizer option, both sparse solvers and both cluster
+    preconditioners run (item 14b is ported); what raises, a sharded
+    evaluation, names item 19."""
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.solver import check_supported
 
@@ -137,23 +144,21 @@ def test_only_the_sparse_solvers_and_cluster_preconditioners_raise():
         dict(check_gradients=True),
         dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH,
              linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR),
-    ]
-    for changes in runs:
-        opts = ctt.SolverOptions(linear_solver_type=ctt.LinearSolverType.DENSE_QR)
-        for k, v in changes.items():
-            setattr(opts, k, v)
-        check_supported(opts)
-    raises = [
         dict(linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY),
         dict(linear_solver_type=ctt.LinearSolverType.SPARSE_SCHUR),
         dict(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
              preconditioner_type=ctt.PreconditionerType.CLUSTER_JACOBI),
         dict(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
              preconditioner_type=ctt.PreconditionerType.CLUSTER_TRIDIAGONAL),
+        dict(num_threads=8),
     ]
-    for changes in raises:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
-            check_supported(ctt.SolverOptions(**changes))
+    for changes in runs:
+        opts = ctt.SolverOptions(linear_solver_type=ctt.LinearSolverType.DENSE_QR)
+        for k, v in changes.items():
+            setattr(opts, k, v)
+        check_supported(opts)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
+        check_supported(ctt.SolverOptions(mesh=object()))
 
 
 def test_default_device_is_the_card_and_a_missing_card_raises():

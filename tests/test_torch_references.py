@@ -24,7 +24,13 @@ the CPU, WHAT one of:
   ``ceres_tpu.solve_gradient_problem`` once per direction type, and again
   from starts one ulp away (ROSENBROCK_REFERENCE);
 - ``check_gradients``: the message of a solve with ``check_gradients`` of a
-  residual whose hand-written Jacobian is wrong (WRONG_JACOBIAN_MESSAGE).
+  residual whose hand-written Jacobian is wrong (WRONG_JACOBIAN_MESSAGE);
+- ``sparse`` (or one of its parts): ``ceres_tpu.solve`` of the 2500-pose
+  graph with SPARSE_NORMAL_CHOLESKY (``sparse_pose_graph``,
+  POSE_GRAPH_SPARSE_REFERENCE, 5 s), of chip_smoke.sequential_instance with
+  SPARSE_SCHUR (``sparse_sequential``, SEQUENTIAL_SPARSE_SCHUR_REFERENCE,
+  about 35 s and 3 GB) and of the flagship with each cluster preconditioner
+  (``sparse_flagship_clusters``, FLAGSHIP_CLUSTER_REFERENCE, 20 s).
 
 The tests run each function through both packages at a small size: the
 same records and costs (rtol 1e-10; the line search's 1e-9), active bounds
@@ -32,19 +38,23 @@ and evaluation-callback calls (the large one is ``fused_solve``, held to the
 JAX package by test_torch_solve.py).
 """
 
+import dataclasses
 import json
 import sys
 import time
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import ceres_tpu as ct
 import ceres_tpu_torch as ctt
 from ceres_tpu.fused_lm import fused_solve as jax_fused_solve
 from ceres_tpu.models import bal as jbal
+from ceres_tpu.models import pose_graph as jpg
 from ceres_tpu_torch.models import bal as tbal
+from ceres_tpu_torch.models import pose_graph as tpg
 
 LARGE = dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7)
 FLAGSHIP = dict(num_cameras=16, num_points=22106, num_observations=83718, seed=16)
@@ -148,6 +158,57 @@ def large_minimizer_references(mod, names, sizes=LARGE, dtype="float64"):
     return out
 
 
+def _cg_records(s):
+    return [r.linear_solver_iterations for r in s.iterations]
+
+
+def pose_graph_sparse_references(mod, poses=2500, seed=0):
+    """``solve`` of ``pose_graph.synthesize_sphere(poses, seed)`` at
+    ``pose_graph.default_options()`` with SPARSE_NORMAL_CHOLESKY (AMD), f64:
+    (records, final cost, termination, seconds)."""
+    pg = jpg if mod is ct else tpg
+    kw = {} if mod is ct else dict(device="cpu")
+    t0 = time.time()
+    problem = pg.build_problem_3d(*pg.synthesize_sphere(poses, seed=seed)[:3])[0]
+    opts = pg.default_options()
+    opts.linear_solver_type = mod.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+    s = mod.solve(opts, problem, **kw)
+    return len(s.iterations), s.final_cost, s.termination_type.name, time.time() - t0
+
+
+def sequential_sparse_schur_references(mod, sizes=None, dtype="float64"):
+    """``solve`` of chip_smoke.sequential_instance (``sizes`` its
+    arguments) at bal.default_options(iterative=False) with SPARSE_SCHUR
+    (AMD): (records, final cost, termination, seconds)."""
+    import chip_smoke
+
+    bm, kw = _package(mod)
+    t0 = time.time()
+    inst = chip_smoke.sequential_instance(**(sizes or {}))
+    opts = bm.default_options(iterative=False)
+    opts.linear_solver_type = mod.LinearSolverType.SPARSE_SCHUR
+    opts.evaluation_dtype = dtype
+    s = mod.solve(opts, bm.build_problem(bm.BALProblem(*dataclasses.astuple(inst)))[0], **kw)
+    return len(s.iterations), s.final_cost, s.termination_type.name, time.time() - t0
+
+
+def flagship_cluster_references(mod, sizes=FLAGSHIP):
+    """``solve`` of the flagship instance at bal.default_options(
+    iterative=True) with CLUSTER_JACOBI and with CLUSTER_TRIDIAGONAL, f64:
+    {preconditioner: (records, CG iterations per record, final cost,
+    seconds)}."""
+    bm, kw = _package(mod)
+    inst = bm.synthesize_bal(noise=2.0, perturb=0.7, **sizes)
+    out = {}
+    for pt in ("CLUSTER_JACOBI", "CLUSTER_TRIDIAGONAL"):
+        t0 = time.time()
+        opts = bm.default_options(iterative=True)
+        opts.preconditioner_type = mod.PreconditionerType[pt]
+        s = mod.solve(opts, bm.build_problem(inst)[0], **kw)
+        out[pt] = (len(s.iterations), _cg_records(s), s.final_cost, time.time() - t0)
+    return out
+
+
 def _nudged(problem, pid, direction):
     """The block's first value moved one ulp toward +inf or -inf."""
     v = np.array(problem.parameter_block_value(pid), dtype=np.float64)
@@ -237,6 +298,26 @@ def test_rosenbrock_matches_jax():
         np.testing.assert_allclose(t[d][2], j[d][2], rtol=1e-8, atol=1e-12)
 
 
+@pytest.mark.parametrize("what", ["pose_graph", "sequential", "flagship_clusters"])
+def test_sparse_references_match_jax(what):
+    """The sparse phases' solves at a small size: the same records,
+    termination and costs (rtol 1e-10) and, for the clusters, CG
+    iterations."""
+    if what == "pose_graph":
+        j, t = (pose_graph_sparse_references(m, poses=60, seed=1) for m in (ct, ctt))
+    elif what == "sequential":
+        tiny = dict(num_cameras=20, num_points=150, fifth=50)
+        j, t = (sequential_sparse_schur_references(m, tiny) for m in (ct, ctt))
+    else:
+        cj, ctr = (flagship_cluster_references(m, SMALL) for m in (ct, ctt))
+        for name in cj:
+            assert ctr[name][:2] == cj[name][:2]
+            np.testing.assert_allclose(ctr[name][2], cj[name][2], rtol=1e-10)
+        return
+    assert t[0] == j[0] > 2 and t[2] == j[2]
+    np.testing.assert_allclose(t[1], j[1], rtol=1e-10)
+
+
 def test_flagship_host_loop_solves_match_jax():
     (bj, nj), (bt, nt) = (flagship_host_loop_references(m, SMALL) for m in (ct, ctt))
     assert bt[0] == bj[0] and bt[2] == bj[2] > 0
@@ -253,7 +334,9 @@ def _spread(runs):
 
 
 if __name__ == "__main__":
-    for what in sys.argv[1:] or ["large", "flagship_host_loop"]:
+    sparse = ["sparse_pose_graph", "sparse_sequential", "sparse_flagship_clusters"]
+    for what in [w for a in sys.argv[1:] or ["large", "flagship_host_loop"]
+                 for w in (sparse if a == "sparse" else [a])]:
         t0 = time.time()
         if what == "large":
             for loss, count, cost, seconds in large_references(ct):
@@ -274,6 +357,15 @@ if __name__ == "__main__":
                 reference=what, result=runs[0], nudged=runs[1:],
                 spread_of_final_and_checked_costs=_spread([[r[1], *r[4]] for r in runs]),
                 seconds=time.time() - t0)), flush=True)
+        elif what == "sparse_pose_graph":
+            print(json.dumps(dict(reference=what, result=pose_graph_sparse_references(ct))),
+                  flush=True)
+        elif what == "sparse_sequential":
+            print(json.dumps(dict(reference=what, result=sequential_sparse_schur_references(ct))),
+                  flush=True)
+        elif what == "sparse_flagship_clusters":
+            print(json.dumps(dict(reference=what, result=flagship_cluster_references(ct))),
+                  flush=True)
         elif what == "check_gradients":
             print(json.dumps(dict(reference=what, message=wrong_jacobian_message(ct))), flush=True)
         elif what == "rosenbrock":

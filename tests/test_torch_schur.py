@@ -125,11 +125,29 @@ def test_solve_schur_step(both):
 
 
 def test_other_solvers_are_roadmap_items(both):
+    """SPARSE_SCHUR (the dense route a caller of solve_schur takes), and the
+    cluster preconditioners, once ROADMAP items, give JAX's step."""
+    from ceres_tpu.types import LinearSolverType as JL
+    from ceres_tpu.types import PreconditionerType as JP
     from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
 
-    for change in (dict(linear_solver_type=LinearSolverType.SPARSE_SCHUR),
-                   dict(preconditioner_type=PreconditionerType.CLUSTER_JACOBI),
-                   dict(preconditioner_type=PreconditionerType.CLUSTER_TRIDIAGONAL)):
-        cfg = dataclasses.replace(both["cfg_t"], **change)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14b"):
-            tschur.solve_schur(both["ctx_t"], torch.tensor(both["D"]), cfg, both["ss_t"])
+    ss_j = jschur.build_schur_structure(both["jprog"], with_explicit=True, with_clusters=True,
+                                        with_forest=True)
+    tschur.attach_clusters(both["tprog"], both["ss_t"], with_forest=True)
+    assert np.array_equal(both["ss_t"].chain_clusters.numpy(), np.asarray(ss_j.chain_clusters))
+    for tchange, jchange in (
+        (dict(linear_solver_type=LinearSolverType.SPARSE_SCHUR),
+         dict(linear_solver_type=JL.SPARSE_SCHUR)),
+        (dict(preconditioner_type=PreconditionerType.CLUSTER_JACOBI),
+         dict(preconditioner_type=JP.CLUSTER_JACOBI)),
+        (dict(preconditioner_type=PreconditionerType.CLUSTER_TRIDIAGONAL),
+         dict(preconditioner_type=JP.CLUSTER_TRIDIAGONAL)),
+    ):
+        cfg = dataclasses.replace(both["cfg_t"], **tchange)
+        y_t, it_t, term_t = tschur.solve_schur(both["ctx_t"], torch.tensor(both["D"]), cfg,
+                                               both["ss_t"])
+        y_j, it_j, term_j = jschur.solve_schur(
+            both["ctx_j"], jnp.asarray(both["D"]), both["jprog"],
+            dataclasses.replace(both["cfg_j"], **jchange), ss=ss_j)
+        assert int(it_t) == int(it_j) and int(term_t) == int(term_j)
+        _close(y_t, y_j, rtol=1e-9)
