@@ -13,7 +13,11 @@ implicit one above), with optional mixed-precision refinement and a user
 elimination ordering (``OrderedGroups``); the sparse solvers factor on the
 host through the native core (``native/ceres_tpu_core.cpp``, built with g++
 at first use); and general minimization of f(x)
-(``GradientProblem``, ``solve_gradient_problem``). The
+(``GradientProblem``, ``solve_gradient_problem``); covariance at a solution
+(``Covariance``: Schur marginals, matrix-free CG, dense SVD or QR); numeric
+differentiation (``numeric_diff``); cubic interpolation of grids; a batched
+dense LM for many small problems (``tiny_solve``); the flat C API
+(``c_api``); and the NIST, libmv and denoising models. The
 JAX package's Pallas kernels are rewritten as CUDA kernels (``csrc/``): the
 sorted segment sum (``ops/segment_sum.py``), the unsorted segment sum
 (``ops/unsorted_segment_sum.py``) and the fused pair-outer segment sum
@@ -28,12 +32,19 @@ the reference the tests hold it to.
 """
 
 from ceres_tpu_torch import cost_functions, loss, manifold, rotation
-from ceres_tpu_torch.cost_functions import EvaluationCallback
+from ceres_tpu_torch.cost_functions import EvaluationCallback, analytic_cost
+from ceres_tpu_torch.covariance import Covariance, CovarianceOptions
 from ceres_tpu_torch.fused_lm import fused_solve
 from ceres_tpu_torch.gradient_problem import (
     GradientProblem,
     GradientProblemOptions,
     solve_gradient_problem,
+)
+from ceres_tpu_torch.interpolation import (
+    BiCubicInterpolator,
+    CubicInterpolator,
+    Grid1D,
+    Grid2D,
 )
 from ceres_tpu_torch.loss import (
     ArctanLoss,
@@ -58,12 +69,19 @@ from ceres_tpu_torch.manifold import (
     SphereManifold,
     SubsetManifold,
 )
+from ceres_tpu_torch.numeric_diff import (
+    NumericDiffOptions,
+    numeric_diff,
+    numeric_diff_jacobian,
+)
 from ceres_tpu_torch.ordered_groups import OrderedGroups
 from ceres_tpu_torch.problem import Problem
 from ceres_tpu_torch.solver import SolverOptions, SolverSummary, solve
+from ceres_tpu_torch.tiny_solver import TinySolver, tiny_solve
 from ceres_tpu_torch.trust_region import IterationSummary
 from ceres_tpu_torch.types import (
     CallbackReturnType,
+    CovarianceAlgorithmType,
     DoglegType,
     LinearSolverOrderingType,
     LinearSolverTerminationType,
@@ -74,6 +92,7 @@ from ceres_tpu_torch.types import (
     LoggingType,
     MinimizerType,
     NonlinearConjugateGradientType,
+    NumericDiffMethodType,
     PreconditionerType,
     TerminationType,
     TrustRegionStrategyType,
@@ -81,15 +100,22 @@ from ceres_tpu_torch.types import (
 
 __all__ = [
     "ArctanLoss",
+    "BiCubicInterpolator",
     "CallbackReturnType",
     "CauchyLoss",
     "ComposedLoss",
+    "Covariance",
+    "CovarianceAlgorithmType",
+    "CovarianceOptions",
+    "CubicInterpolator",
     "DoglegType",
     "EigenQuaternionManifold",
     "EuclideanManifold",
     "EvaluationCallback",
     "GradientProblem",
     "GradientProblemOptions",
+    "Grid1D",
+    "Grid2D",
     "HuberLoss",
     "IterationSummary",
     "LineManifold",
@@ -105,6 +131,8 @@ __all__ = [
     "Manifold",
     "MinimizerType",
     "NonlinearConjugateGradientType",
+    "NumericDiffMethodType",
+    "NumericDiffOptions",
     "OrderedGroups",
     "PreconditionerType",
     "Problem",
@@ -117,15 +145,20 @@ __all__ = [
     "SphereManifold",
     "SubsetManifold",
     "TerminationType",
+    "TinySolver",
     "TolerantLoss",
     "TrivialLoss",
     "TrustRegionStrategyType",
     "TukeyLoss",
+    "analytic_cost",
     "cost_functions",
     "fused_solve",
     "loss",
     "manifold",
+    "numeric_diff",
+    "numeric_diff_jacobian",
     "rotation",
     "solve",
     "solve_gradient_problem",
+    "tiny_solve",
 ]

@@ -241,9 +241,31 @@ class JacobianContext:
                 acc[T] = red if T not in acc else acc[T] + red
         return self._ungroup_add(acc, W[0].dtype, (k,))
 
+    def matmat(self, V: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """J V for an (n, k) block of tangent columns -> per-family (B, r, k)
+        (the column form of :meth:`matvec`)."""
+        k = V.shape[1]
+        Vg = {
+            T: torch.cat([V[idx], V.new_zeros((1, T, k))], dim=0)
+            for T, idx in self.groups.items()
+        }
+        out = []
+        for fi, fam in enumerate(self.families):
+            acc = V.new_zeros((fam.batch, fam.residual_size, k))
+            for j in range(fam.num_args):
+                T = fam.structure.tangent_sizes[j]
+                if T in Vg:
+                    acc = acc + torch.einsum("brt,btk->brk", self.jacs[fi][j], Vg[T][fam.bd_pos[j]])
+            out.append(acc)
+        return tuple(out)
+
     def normal_matvec(self, v: torch.Tensor) -> torch.Tensor:
         """J'J v in one pass (the CGNR product)."""
         return self.rmatvec(self.matvec(v))
+
+    def normal_matmat(self, V: torch.Tensor) -> torch.Tensor:
+        """J'J V for (n, k) columns."""
+        return self.rmatmat(self.matmat(V))
 
     def gradient(self) -> torch.Tensor:
         """g = J' r (with corrected arrays this equals rho' J' r)."""

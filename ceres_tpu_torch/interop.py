@@ -48,10 +48,15 @@ def state_from_numpy(
 
 def loss_from(other):
     """The port's loss for a loss object of the JAX package (same class
-    name, same parameters); None stays None."""
+    name, same parameters; ``FieldsOfExpertsLoss`` of the denoising model
+    too); None stays None."""
     if other is None:
         return None
     name = type(other).__name__
+    if name == "FieldsOfExpertsLoss":
+        from ceres_tpu_torch.models.denoising import FieldsOfExpertsLoss
+
+        return FieldsOfExpertsLoss(np.asarray(other.alpha))
     cls = getattr(_loss, name, None)
     if cls is None or not issubclass(cls, _loss.LossFunction):
         raise ValueError(f"no loss named {name} in ceres_tpu_torch.loss")

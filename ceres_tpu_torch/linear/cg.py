@@ -21,6 +21,8 @@ CG_NO_CONVERGENCE = LinearSolverTerminationType.NO_CONVERGENCE.value
 CG_SUCCESS = LinearSolverTerminationType.SUCCESS.value
 CG_FAILURE = LinearSolverTerminationType.FAILURE.value
 CG_FATAL_ERROR = LinearSolverTerminationType.FATAL_ERROR.value
+# conjugate_gradients_columns: CG iterations between two host reads.
+COLUMNS_CHECK_EVERY = 10
 
 
 def direct_termination(y: torch.Tensor) -> torch.Tensor:
@@ -126,3 +128,91 @@ def conjugate_gradients(
         termination=termination,
         final_norm_r=norm_r,
     )
+
+
+def conjugate_gradients_columns(
+    operator: Callable[[torch.Tensor], torch.Tensor],
+    rhs: torch.Tensor,
+    preconditioner: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    max_num_iterations: int = 50,
+    min_num_iterations: int = 1,
+    q_tolerance: float = 0.0,
+    r_tolerance: float = 1e-6,
+    residual_reset_period: int = 10,
+) -> CGResult:
+    """:func:`conjugate_gradients` on the k columns of rhs (n, k) at once,
+    from x0 = 0, the analog of the JAX package's ``vmap`` of its
+    ``while_loop``: every column runs the same update with its own scalars
+    and stops on its own test; a finished column's state is frozen while
+    the others go on. ``operator`` and ``preconditioner`` map (n, k) to
+    (n, k) column by column. The host reads whether every column is done
+    once every COLUMNS_CHECK_EVERY iterations (a frozen column does not
+    move, so the results do not depend on it). Returns x (n, k) and (k,)
+    iteration counts, terminations and residual norms."""
+    M = preconditioner if preconditioner is not None else (lambda v: v)
+    dev, dt = rhs.device, rhs.dtype
+    k = rhs.shape[1]
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=0)
+
+    x = torch.zeros_like(rhs)
+    norm_rhs = torch.linalg.vector_norm(rhs, dim=0)
+    tol_r = r_tolerance * norm_rhs
+    r = rhs - operator(x)
+    norm_r = torch.linalg.vector_norm(r, dim=0)
+    Q0 = -dot(x, rhs + r)
+    # Columns done before the loop (a zero rhs, or min_num_iterations = 0
+    # with x0 already good enough).
+    done = (norm_rhs == 0.0) | ((min_num_iterations == 0) & (norm_r <= tol_r))
+    termination = torch.where(done, CG_SUCCESS, CG_NO_CONVERGENCE).to(torch.int32)
+    iterations = torch.zeros((k,), dtype=torch.int32, device=dev)
+    p = torch.zeros_like(rhs)
+    rho = torch.ones((k,), dtype=dt, device=dev)
+    i = 0
+    while i < max_num_iterations and (i % COLUMNS_CHECK_EVERY or not bool(done.all())):
+        i += 1
+        active = ~done
+        z = M(r)
+        last_rho = rho
+        rho_new = dot(r, z)
+        fail_rho = _is_zero_or_inf(rho_new)
+        beta = rho_new / last_rho
+        fail_beta = _is_zero_or_inf(beta) & (i > 1)
+        p_new = z if i == 1 else z + beta * p
+
+        q = operator(p_new)
+        pq = dot(p_new, q)
+        indefinite = (pq <= 0.0) | torch.isinf(pq)
+        alpha = rho_new / torch.where(indefinite, torch.ones_like(pq), pq)
+        fail_alpha = torch.isinf(alpha)
+
+        x_new = x + alpha * p_new
+        if i % residual_reset_period == 0:
+            r_new = rhs - operator(x_new)
+        else:
+            r_new = r - alpha * q
+
+        Q1 = -dot(x_new, rhs + r_new)
+        zeta = i * (Q1 - Q0) / torch.where(Q1 == 0.0, torch.ones_like(Q1), Q1)
+        norm_r_new = torch.linalg.vector_norm(r_new, dim=0)
+
+        converged = ((zeta < q_tolerance) | (norm_r_new <= tol_r)) & (i >= min_num_iterations)
+        failed = fail_rho | fail_beta | fail_alpha
+        stop = failed | indefinite | converged
+        term = torch.where(
+            failed | indefinite, CG_FAILURE, torch.where(converged, CG_SUCCESS, CG_NO_CONVERGENCE)
+        ).to(torch.int32)
+        keep_old = fail_rho | fail_beta | indefinite
+        # The batched while_loop's select: only active columns move.
+        move = active & ~keep_old
+        x = torch.where(move, x_new, x)
+        r = torch.where(move, r_new, r)
+        p = torch.where(active, p_new, p)
+        rho = torch.where(active, rho_new, rho)
+        Q0 = torch.where(active & ~stop, Q1, Q0)
+        norm_r = torch.where(active, norm_r_new, norm_r)
+        termination = torch.where(active, term, termination)
+        iterations = iterations + active.to(torch.int32)
+        done = done | stop
+    return CGResult(x=x, num_iterations=iterations, termination=termination, final_norm_r=norm_r)

@@ -103,6 +103,8 @@ def build_explicit_plan(program, ss) -> ExplicitSchurPlan:
     f_groups = {T: g.cpu().numpy() for T, g in ss.f_groups.items()}
 
     def coords(T, pos):  # (n,) block positions -> (n, T) reduced coords
+        if T not in f_groups:  # every block of size T is constant: no position
+            return np.zeros((0, T), dtype=np.int64)
         return f_reduced[f_groups[T][pos]]
 
     def to_dev(a):

@@ -3,7 +3,7 @@
 Port of the subset of ``ceres_tpu/types.py`` that the port's modules read
 (linear solvers, preconditioners, sparse orderings, strategies, dogleg
 types, minimizers, line-search directions and searches, terminations,
-callback returns, logging);
+callback returns, logging, numeric differentiation, covariance);
 names and members match the JAX package.
 """
 
@@ -130,3 +130,18 @@ class LinearSolverTerminationType(_StrEnum):
     SUCCESS = 1
     FAILURE = 2
     FATAL_ERROR = 3
+
+
+class NumericDiffMethodType(_StrEnum):
+    """Analog of NumericDiffMethodType (types.h)."""
+
+    CENTRAL = enum.auto()
+    FORWARD = enum.auto()
+    RIDDERS = enum.auto()
+
+
+class CovarianceAlgorithmType(_StrEnum):
+    """Analog of CovarianceAlgorithmType (covariance.h)."""
+
+    DENSE_SVD = enum.auto()
+    SPARSE_QR = enum.auto()

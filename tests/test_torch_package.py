@@ -63,6 +63,14 @@ assert native._lib is None  # nor the native core
         "ceres_tpu_torch.ops.outer_segment_sum",
         "ceres_tpu_torch.tools.sweep_kernels",
         "ceres_tpu_torch.tools.profile_solve",
+        "ceres_tpu_torch.covariance",
+        "ceres_tpu_torch.tiny_solver",
+        "ceres_tpu_torch.numeric_diff",
+        "ceres_tpu_torch.interpolation",
+        "ceres_tpu_torch.c_api",
+        "ceres_tpu_torch.models.nist",
+        "ceres_tpu_torch.models.libmv",
+        "ceres_tpu_torch.models.denoising",
     ],
 )
 def test_import_leaves_jax_out(module):
@@ -95,6 +103,39 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
         for name in names:
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "ceres_tpu", "flax"), f"{path}: imports {name}"
+
+
+def _jax_package_exports():
+    """The names ceres_tpu/__init__.py imports from its modules or lists in
+    __all__ (read from the source: the port's test does not need them
+    imported)."""
+    tree = ast.parse((REPO / "ceres_tpu" / "__init__.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("ceres_tpu"):
+            names.update(a.asname or a.name for a in node.names)
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", "") == "__all__" for t in node.targets):
+            names.update(e.value for e in node.value.elts)
+    return names
+
+
+def test_the_port_exports_every_name_of_the_jax_package():
+    """Every public name of ceres_tpu's top level is the port's too (item
+    19, the sharded evaluation, exports none there), and every module of the
+    JAX package but parallel/ (item 19) has a counterpart."""
+    import ceres_tpu_torch as ctt
+
+    names = _jax_package_exports()
+    assert len(names) > 50
+    assert sorted(n for n in names if not hasattr(ctt, n)) == []
+    assert set(ctt.__all__) <= set(dir(ctt))
+    jax_modules = {p.relative_to(REPO / "ceres_tpu").as_posix()
+                   for p in (REPO / "ceres_tpu").rglob("*.py")}
+    port_modules = {p.relative_to(REPO / "ceres_tpu_torch").as_posix()
+                    for p in (REPO / "ceres_tpu_torch").rglob("*.py")}
+    missing = sorted(m for m in jax_modules - port_modules
+                     if not m.startswith("parallel/") and m != "ops/pallas_segment.py")
+    assert missing == []
 
 
 def test_every_not_implemented_error_names_a_roadmap_item():

@@ -39,10 +39,12 @@ JAX package by test_torch_solve.py).
 """
 
 import dataclasses
+import importlib
 import json
 import sys
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +52,7 @@ import torch
 
 import ceres_tpu as ct
 import ceres_tpu_torch as ctt
+import chip_smoke
 from ceres_tpu.fused_lm import fused_solve as jax_fused_solve
 from ceres_tpu.models import bal as jbal
 from ceres_tpu.models import pose_graph as jpg
@@ -269,6 +272,237 @@ def wrong_jacobian_message(mod):
     return (mod.solve(opts, p, device="cpu") if mod is ctt else mod.solve(opts, p)).message
 
 
+# ---- slice 10 (item 17 and item 18's models) --------------------------------
+
+
+def _kw(mod, **extra):
+    return {} if mod is ct else dict(device="cpu", **extra)
+
+
+def _module(mod, name):
+    return importlib.import_module(f"{mod.__name__}.{name}")
+
+
+def covariance_references(mod, sizes=LARGE, dtype="float64"):
+    """``Covariance().compute`` of the BAL instance at its own values (no
+    solve), camera 0 and the last point constant (the gauge), every
+    camera's diagonal block and 4 cross pairs: (the 4 named tangent blocks,
+    trace(S^-1) over the cameras, the path, seconds)."""
+    bm, _ = _package(mod)
+    t0 = time.time()
+    p, cams, pts = bm.build_problem(bm.synthesize_bal(noise=2.0, perturb=0.7, **sizes))
+    p.set_parameter_block_constant(int(cams[0]))
+    p.set_parameter_block_constant(int(pts[-1]))
+    pairs, named = chip_smoke.covariance_pairs(cams)
+    cov = mod.Covariance()
+    assert cov.compute(pairs, p, **_kw(mod, evaluation_dtype=dtype))
+    blocks = {k: cov.get_covariance_block_in_tangent_space(*v).tolist() for k, v in named.items()}
+    trace = float(sum(np.trace(cov.get_covariance_block_in_tangent_space(int(c), int(c)))
+                      for c in cams[1:]))
+    path = "schur" if cov._schur_cov is not None else "other"
+    return blocks, trace, path, time.time() - t0
+
+
+def covariance_matrix_free_references(mod, poses=2500, seed=0):
+    """``Covariance().compute`` of ``pose_graph.synthesize_sphere(poses,
+    seed)`` at its own values: the quaternion blocks of poses 1, poses/2 and
+    poses-1, their diagonal blocks and (1, last), in ambient space: (the 4
+    blocks, the path, CG iterations per column, seconds). JAX's batched CG
+    does not return its counts; they are taken as those of its unbatched
+    solves of the same columns (jax_unbatched_cg_iterations; at 2500 poses
+    the batched loop's counts, read out with jax.debug.callback, are the
+    same numbers in another order)."""
+    pg = jpg if mod is ct else tpg
+    t0 = time.time()
+    problem, _, quat_id = pg.build_problem_3d(*pg.synthesize_sphere(poses, seed=seed)[:3])
+    q = [quat_id[v] for v in (1, poses // 2, poses - 1)]
+    pairs = [(q[0], q[0]), (q[1], q[1]), (q[2], q[2]), (q[0], q[2])]
+    cov = mod.Covariance()
+    assert cov.compute(pairs, problem, **_kw(mod))
+    if mod is ct:
+        iterations = jax_unbatched_cg_iterations(poses, seed)
+    else:
+        iterations = cov.statistics["cg_iterations"]
+    blocks = [cov.get_covariance_block(*pair).tolist() for pair in pairs]
+    path = "matrix_free" if cov._mf_Z is not None else "other"
+    return blocks, path, iterations, time.time() - t0
+
+
+def _numeric_bal(mod, inst, method, options=None):
+    """The BAL problem with the Snavely residual wrapped in numeric_diff."""
+    bm, _ = _package(mod)
+    p = mod.Problem()
+    cams = p.add_parameter_blocks(inst.cameras)
+    pts = p.add_parameter_blocks(inst.points)
+    order = np.argsort(inst.point_index, kind="stable")
+    p.add_residual_blocks(
+        mod.numeric_diff(bm.snavely_reprojection_residual, method, options), None,
+        [cams[inst.camera_index[order]], pts[inst.point_index[order]]],
+        data=inst.observations[order])
+    return p
+
+
+def _records(s):
+    return [(r.cost, r.linear_solver_iterations) for r in s.iterations]
+
+
+def numeric_diff_references(mod, sizes=FLAGSHIP, ridders_extrapolations=10):
+    """``solve`` of the BAL instance at bal.default_options(iterative=True)
+    with the residual under numeric_diff: CENTRAL to the end and RIDDERS
+    (``ridders_extrapolations``) for 3 iterations, f64: {method: (records
+    (cost, CG iterations), final cost, termination, seconds)}."""
+    bm, kw = _package(mod)
+    inst = bm.synthesize_bal(noise=2.0, perturb=0.7, **sizes)
+    options = mod.NumericDiffOptions(max_num_ridders_extrapolations=ridders_extrapolations)
+    out = {}
+    for method, iters in (("CENTRAL", 50), ("RIDDERS", 3)):
+        t0 = time.time()
+        opts = bm.default_options(iterative=True)
+        opts.max_num_iterations = iters
+        s = mod.solve(opts, _numeric_bal(mod, inst, method, options), **kw)
+        out[method] = (_records(s), s.final_cost, s.termination_type.name, time.time() - t0)
+    return out
+
+
+def denoising_references(mod, directory, dtype="float64", max_iters=10, **sizes):
+    """The denoising model on chip_smoke.write_denoising_inputs(directory,
+    **sizes) at default_options() with ``max_iters`` iterations: (records,
+    final cost, termination, seconds)."""
+    dn = _module(mod, "models.denoising")
+    paths = chip_smoke.write_denoising_inputs(directory, **sizes)
+    t0 = time.time()
+    p, _ = dn.build_problem(dn.read_pgm(paths[0]), dn.load_foe_file(paths[1]),
+                            sigma=chip_smoke.DENOISING["sigma"])
+    opts = dn.default_options()
+    opts.max_num_iterations = max_iters
+    opts.evaluation_dtype = dtype
+    s = mod.solve(opts, p, **_kw(mod))
+    return _records(s), s.final_cost, s.termination_type.name, time.time() - t0
+
+
+def libmv_references(mod, directory, **sizes):
+    """The libmv model on chip_smoke.write_libmv_shot(**sizes) at
+    default_options(), f64, intrinsics fixed and refined: {refine: (records,
+    final cost, termination, seconds)}."""
+    lm = _module(mod, "models.libmv")
+    path = f"{directory}/shot.bin"
+    chip_smoke.write_libmv_shot(path, **sizes)
+    out = {}
+    for refine in (False, True):
+        t0 = time.time()
+        p = lm.build_problem(lm.load_libmv_file(path), refine_intrinsics=refine)[0]
+        s = mod.solve(lm.default_options(), p, **_kw(mod))
+        out[refine] = (_records(s), s.final_cost, s.termination_type.name, time.time() - t0)
+    return out
+
+
+def nist_references(mod, directory):
+    """run_suite over chip_smoke.write_nist_files(directory): [(name,
+    start, LRE, final cost, records, termination)]."""
+    nm = _module(mod, "models.nist")
+    chip_smoke.write_nist_files(directory)
+    return [(r["name"], r["start"], r["lre"], r["final_cost"], r["iterations"], r["termination"])
+            for r in nm.run_suite(directory, **_kw(mod))]
+
+
+def _jax_tiny_residual(y):
+    t, yy = jnp.asarray(chip_smoke.TINY_SAMPLES), jnp.asarray(y)
+
+    def fn(x):
+        rosen = jnp.concatenate([jnp.stack([10.0 * (x[1] - x[0] * x[0]), 1.0 - x[0]]),
+                                 jnp.zeros(yy.shape[0] - 2)])
+        fit = x[0] * jnp.exp(x[1] * t) + x[2] - yy
+        return jnp.where(x[3] > 0, rosen, fit)
+
+    return fn
+
+
+def tiny_references(mod, problems=None):
+    """One batched tiny_solve of chip_smoke.tiny_batch(problems): (x,
+    iterations, status, final costs) as numpy, and the checksums the phase
+    compares (chip_smoke.tiny_checksums)."""
+    cs = chip_smoke
+    x0, y = cs.tiny_batch(**({} if problems is None else dict(problems=problems)))
+    t0 = time.time()
+    if mod is ct:
+        solve_one = importlib.import_module("ceres_tpu.tiny_solver").tiny_solve
+        fn = _jax_tiny_residual(y)
+        r = jax.vmap(lambda z: solve_one(fn, z))(jnp.asarray(x0))
+        out = [np.asarray(a) for a in (r.x, r.iterations, r.converged, r.cost)]
+    else:
+        r = mod.tiny_solve(cs.tiny_residual(y), x0, device="cpu")
+        out = [a.cpu().numpy() for a in (r.x, r.iterations, r.converged, r.cost)]
+    return out, chip_smoke.tiny_checksums(*out[:3]), time.time() - t0
+
+
+def block_fingerprint(block):
+    """What the phases hold a covariance block to: its diagonal, largest
+    |entry|, Frobenius norm and sum of entries."""
+    b = np.asarray(block, dtype=np.float64)
+    return dict(diag=np.diag(b).tolist(), max_abs=float(np.max(np.abs(b))),
+                norm=float(np.linalg.norm(b)), sum=float(np.sum(b)))
+
+
+def jax_unbatched_cg_iterations(poses=2500, seed=0):
+    """The CG iterations of each column of covariance_matrix_free_references
+    solved one at a time by the JAX package's CG, with the settings of its
+    matrix-free covariance (ceres_tpu/covariance.py:283-296): how far the
+    counts of a column move between a batched and an unbatched solve."""
+    from ceres_tpu.evaluator import Evaluator
+
+    jcg = importlib.import_module("ceres_tpu.linear.cg")
+    problem, _, quat_id = jpg.build_problem_3d(*jpg.synthesize_sphere(poses, seed=seed)[:3])
+    program = problem.program()
+    ctx = Evaluator(program).cost_gradient_jacobian(program.initial_ambient()).jacobian_context
+    n = program.num_tangent
+    inv_d = jnp.asarray(1.0 / np.asarray(ctx.squared_column_norms()))
+    solve = jax.jit(lambda e: jcg.conjugate_gradients(
+        ctx.normal_matvec, e, preconditioner=lambda v: v * inv_d,
+        max_num_iterations=int(min(10 * n, 20_000)), min_num_iterations=1,
+        r_tolerance=1e-10, residual_reset_period=100).num_iterations)
+    out = []
+    for v in (1, poses // 2, poses - 1):
+        off = program.tangent_offset[quat_id[v]]
+        for c in range(off, off + 3):
+            out.append(int(solve(jnp.zeros(n).at[c].set(1.0))))
+    return out
+
+
+def c_api_references(mod, points=None):
+    """The C API's curve fit (chip_smoke.curve_fit_c_api): (m, c, final
+    cost, records, whether the report was printed)."""
+    capi = _module(mod, "c_api")
+    sizes = {} if points is None else dict(points=points)
+    m, c, s, text = chip_smoke.curve_fit_c_api(capi, **sizes, **_kw(mod))
+    return float(m[0]), float(c[0]), s.final_cost, len(s.iterations), "Solver Summary" in text
+
+
+def interpolation_references(mod, **sizes):
+    """The translation recovery of examples/bicubic_interpolation.py on
+    chip_smoke.interpolation_instance(**sizes), default SolverOptions, f64:
+    (records, final cost, shift, termination, seconds)."""
+    values, pts, vals = chip_smoke.interpolation_instance(**sizes)
+    t0 = time.time()
+    interp = mod.BiCubicInterpolator(mod.Grid2D(values, row_begin=-2, col_begin=-2))
+    if mod is ct:
+        def residual(shift, data):
+            q, v = data
+            return jax.vmap(lambda a: interp.evaluate(a[0] + shift[0], a[1] + shift[1])[0][0])(q) - v
+        data = (jnp.asarray(pts), jnp.asarray(vals))
+    else:
+        def residual(shift, data):
+            q, v = data
+            f = torch.func.vmap(lambda a: interp.evaluate(a[0:1] + shift[0:1], a[1:2] + shift[1:2])[0])
+            return f(q).reshape(-1) - v
+        data = (pts, vals)
+    p = mod.Problem()
+    b = p.add_parameter_block(np.zeros(2))
+    p.add_residual_block(residual, None, [b], data=data)
+    s = mod.solve(mod.SolverOptions(max_num_iterations=50), p, **_kw(mod))
+    return (_records(s), s.final_cost, p.parameter_block_value(b).tolist(),
+            s.termination_type.name, time.time() - t0)
+
+
 def test_wrong_jacobian_message_matches_jax():
     assert wrong_jacobian_message(ctt) == wrong_jacobian_message(ct)
 
@@ -325,6 +559,43 @@ def test_flagship_host_loop_solves_match_jax():
     np.testing.assert_allclose([bt[1], nt[1]], [bj[1], nj[1]], rtol=1e-10)
 
 
+def test_covariance_references_match_jax(monkeypatch):
+    """The covariance phase's Schur-marginal computation at a small size
+    (the path forced by lowering DENSE_COVARIANCE_MAX_TANGENT in both
+    packages): the named blocks within 1e-8 of their largest entry and
+    trace(S^-1) within 1e-10."""
+    for name in ("ceres_tpu.covariance", "ceres_tpu_torch.covariance"):
+        monkeypatch.setattr(importlib.import_module(name), "DENSE_COVARIANCE_MAX_TANGENT", 1)
+    j, t = (covariance_references(m, SMALL) for m in (ct, ctt))
+    assert j[2] == t[2] == "schur"
+    for k in j[0]:
+        a, b = np.asarray(t[0][k]), np.asarray(j[0][k])
+        assert np.max(np.abs(a - b)) <= 1e-8 * np.max(np.abs(b)), k
+    np.testing.assert_allclose(t[1], j[1], rtol=1e-10)
+
+
+def test_numeric_diff_references_match_jax():
+    """The numeric-diff phase's solves at a small size with a short
+    Ridders tableau: JAX's records and CG iterations, costs within 1e-8
+    (a finite difference turns last-bit differences of the residual into
+    1e-10 of the Jacobian), the final cost within 1e-10."""
+    j, t = (numeric_diff_references(m, SMALL, ridders_extrapolations=3) for m in (ct, ctt))
+    for method in ("CENTRAL", "RIDDERS"):
+        assert [r[1] for r in t[method][0]] == [r[1] for r in j[method][0]], method
+        assert t[method][2] == j[method][2]
+        np.testing.assert_allclose([r[0] for r in t[method][0]], [r[0] for r in j[method][0]],
+                                   rtol=1e-8)
+        np.testing.assert_allclose(t[method][1], j[method][1], rtol=1e-10)
+
+
+def test_c_api_references_match_jax():
+    """The C API phase's curve fit on 10 points: m, c and the final cost
+    within 1e-10, the same record count, the report printed."""
+    j, t = (c_api_references(m, points=10) for m in (ct, ctt))
+    assert t[3:] == j[3:] and t[4]
+    np.testing.assert_allclose(t[:3], j[:3], rtol=1e-10)
+
+
 def _spread(runs):
     """Largest relative difference of each number of the nudged runs from
     the first run's."""
@@ -368,6 +639,35 @@ if __name__ == "__main__":
                   flush=True)
         elif what == "check_gradients":
             print(json.dumps(dict(reference=what, message=wrong_jacobian_message(ct))), flush=True)
+        elif what == "covariance":
+            for dtype in ("float64",):
+                blocks, trace, path, seconds = covariance_references(ct, dtype=dtype)
+                print(json.dumps(dict(reference=what, dtype=dtype, path=path, trace=trace,
+                                      blocks={k: block_fingerprint(v) for k, v in blocks.items()},
+                                      seconds=seconds)), flush=True)
+        elif what == "covariance_matrix_free":
+            blocks, path, iterations, seconds = covariance_matrix_free_references(ct)
+            print(json.dumps(dict(reference=what, path=path, cg_iterations=iterations,
+                                  blocks=[block_fingerprint(b) for b in blocks],
+                                  seconds=seconds)), flush=True)
+        elif what == "numeric_diff":
+            print(json.dumps(dict(reference=what, result=numeric_diff_references(ct))), flush=True)
+        elif what in ("denoising", "libmv", "nist"):
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as d:  # the inputs, written as the phase does
+                fn = dict(denoising=denoising_references, libmv=libmv_references,
+                          nist=nist_references)[what]
+                print(json.dumps(dict(reference=what, result=fn(ct, d))), flush=True)
+        elif what == "tiny":
+            _, checksums, seconds = tiny_references(ct)
+            print(json.dumps(dict(reference=what, checksums=checksums, seconds=seconds)),
+                  flush=True)
+        elif what == "c_api":
+            print(json.dumps(dict(reference=what, result=c_api_references(ct))), flush=True)
+        elif what == "interpolation":
+            print(json.dumps(dict(reference=what, result=interpolation_references(ct))),
+                  flush=True)
         elif what == "rosenbrock":
             runs = [rosenbrock_references(ct, nudge=n) for n in (0, 1, -1)]
             print(json.dumps(dict(
