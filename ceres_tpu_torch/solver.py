@@ -416,7 +416,10 @@ class SolverSummary:
 
     def brief_report(self) -> str:
         return (
-            f"Ceres-TPU-torch Solver Report: Iterations: {self.num_iterations}, "
+            # the records, start included, as the JAX package counts them
+            # (fused_solve keeps only the count of steps)
+            f"Ceres-TPU-torch Solver Report: Iterations: "
+            f"{len(self.iterations) if self.iterations else self.num_iterations}, "
             f"Initial cost: {self.initial_cost:e}, "
             f"Final cost: {self.final_cost:e}, "
             f"Termination: {self.termination_type}"

@@ -205,7 +205,10 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
 28. libmv (``libmv_{fixed,refined}_intrinsics``, float64): a 300-frame,
    2000-track shot (100 000 markers in frame order) written as a libmv .bin
    and loaded, ITERATIVE_SCHUR + SCHUR_JACOBI: JAX's records and CG
-   iterations, costs within LIBMV_RTOL; the plan kinds; K3 launched;
+   iterations, costs within LIBMV_RTOL; the plan kinds; K3 launched; and
+   the refined shot with the gauge fixed (``libmv_refined_gauge_fixed``,
+   camera 0 and the last point constant) against JAX within ten times the
+   reference's own one-ulp spread (LIBMV_GAUGE_FIXED_SPREAD);
 29. NIST (``nist``): ``nist.run_suite`` over Misra1a, Thurber and BoxBOD
    written as .dat files, float64: final costs (1e-10) and LREs (1e-6)
    against JAX's, the record counts printed beside JAX's;
@@ -219,7 +222,18 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    back, m and the final cost within 1e-10 of JAX's, the report printed;
 32. interpolation (``interpolation``): examples/bicubic_interpolation.py's
    translation recovery on a 512 x 512 grid with 65 536 samples: JAX's
-   records (1e-10) and the shift (1e-9).
+   records (1e-10) and the shift (1e-9);
+33. the example programs (``examples``): each of the 26 programs of
+   ``ceres_tpu_torch/examples/`` once through its ``main`` with ``--device
+   cuda`` at the reference's defaults (EXAMPLES; the cuts of EXAMPLE_CUTS
+   are printed), their inputs written by the writers above (the NIST
+   models, the libmv shot, the denoising image and experts, and a 2-D pose
+   graph the size of Manhattan M3500 by ``write_g2o_2d``): per program its
+   seconds, solves, records, final costs, relative error against the JAX
+   package's f64 results (EXAMPLES_REFERENCE, held by ``held_to_example``)
+   and K1 / K3 / K4 launches; bundle_adjuster, simple_bundle_adjuster,
+   libmv_bundle_adjuster and denoising must launch the kernels of
+   EXAMPLE_KERNELS.
 
 Every sparse phase (21, 22) also prints the host's seconds of symbolic
 analysis, numeric factorization and solve, the bytes copied to the host per
@@ -508,6 +522,22 @@ LIBMV_REFERENCE = {
 # 1e-5, the final cost within 1e-6, the CG iterations printed.
 LIBMV_RTOL = {False: 1e-10, True: 1e-5}
 LIBMV_REFINED_FINAL_RTOL = 1e-6
+# The refined shot with the gauge fixed (camera 0 and the last point
+# constant, libmv_problem's "gauge_fixed"): JAX f64 on a CPU, and how far
+# JAX's own records and final cost move when the first point's first
+# coordinate moves one ulp either way (the largest relative change of a
+# record, of the final cost; 12 records instead of 13 one way): the phase
+# holds the common records and the final cost to ten times that spread and
+# prints the record count beside JAX's (ROADMAP "Facts about the
+# reference": the refined records are rounding's in the reference itself).
+LIBMV_GAUGE_FIXED_REFERENCE = (
+    [(5458768.288521015, 0), (15651.589538156642, 2), (8830.999283081306, 3),
+     (8719.161384419886, 9), (8682.346337674573, 78), (8669.025216164915, 86),
+     (8667.771964451998, 42), (8667.148531508117, 79), (8666.390244454302, 87),
+     (8666.273530994862, 87), (8666.21949200578, 43), (8666.183257075645, 91),
+     (8666.152323471628, 39)],
+    8666.152323471628, "CONVERGENCE")
+LIBMV_GAUGE_FIXED_SPREAD = (6.350813417665724e-06, 9.737033844950498e-08)
 # run_suite: (name, start, LRE, final cost, records, termination). With
 # tolerances of 1e-18 the stop comes after the cost has settled, on a step
 # that rounding decides (tests/test_torch_nist.py): the records and the
@@ -541,6 +571,147 @@ INTERPOLATION_REFERENCE = (
     "CONVERGENCE")
 INTERPOLATION_RTOL = 1e-10
 INTERPOLATION_SHIFT_ATOL = 1e-9
+# The example programs (ceres_tpu_torch/examples/), each run once through its
+# main at the reference's defaults but where EXAMPLE_CUTS says; inputs are
+# written by the writers above at the phases' sizes ({dir}: a temporary
+# directory). Held to the JAX package's f64 results (EXAMPLES_REFERENCE, from
+# ``tests/test_torch_references.py examples``) with the tolerances of the CPU
+# parity tests (tests/test_torch_examples.py imports them from here): the
+# records and the final cost within EXAMPLE_COST_RTOL; CGNR's final cost
+# within EXAMPLE_CGNR_RTOL (tests/test_torch_pose_graph.py's measure); a line
+# search's first EXAMPLE_LINE_SEARCH_RECORDS records and final cost within
+# EXAMPLE_LINE_SEARCH_RTOL, its record count not held (the reference's own
+# trajectory moves under a one-ulp change); NIST by its LREs
+# (EXAMPLE_NIST_LRE_ATOL) and costs, its records not held (ROADMAP Queue 3
+# item 14). Costs below EXAMPLE_COST_ATOL are rounding's (residuals of 1e-11
+# to 1e-13 at a minimum of zero).
+EXAMPLES = [
+    ("helloworld", []),
+    ("helloworld_analytic_diff", []),
+    ("helloworld_numeric_diff", []),
+    ("rosenbrock", []),
+    ("rosenbrock_analytic_diff", []),
+    ("rosenbrock_numeric_diff", []),
+    ("powell", []),
+    ("curve_fitting", []),
+    ("robust_curve_fitting", []),
+    ("circle_fit", []),
+    ("sampled_function", []),
+    ("bicubic_interpolation", []),
+    ("bicubic_interpolation_analytic", []),
+    ("robot_pose_mle", []),
+    ("ellipse_approximation", []),
+    ("iteration_callback_example", []),
+    ("evaluation_callback_example", []),
+    ("more_garbow_hillstrom", []),
+    ("libmv_homography", []),
+    ("bundle_adjuster", []),
+    ("simple_bundle_adjuster", []),
+    ("pose_graph_2d", ["--input", "{dir}/m3500.g2o"]),
+    ("pose_graph_3d", []),
+    ("nist", ["--nist_data_dir", "{dir}", "--num_iterations", "200"]),
+    ("libmv_bundle_adjuster", ["--input", "{dir}/shot.bin"]),
+    ("denoising", ["--input", "{dir}/noisy.pgm", "--foe_file", "{dir}/model.foe",
+                   "--num_iterations", "2"]),
+]
+EXAMPLE_CUTS = {
+    "nist": "--num_iterations 200 (default 10 000): Misra1a from its first start runs to "
+            "the limit on the card, where JAX stops after 28 records at the same cost and "
+            "LRE (ROADMAP Queue 3 item 14); the nist phase runs the same models",
+    "denoising": "--num_iterations 2 (default 100): 2.4-2.8 s an LM iteration on the card "
+                 "(PERF.md section 5, PR 10); the denoising_foe phase runs 10 iterations of "
+                 "the same model in float64 and float32",
+}
+EXAMPLE_COST_RTOL = 1e-9
+EXAMPLE_CGNR_RTOL = 1e-6
+EXAMPLE_LINE_SEARCH_RTOL = 1e-6
+EXAMPLE_LINE_SEARCH_RECORDS = 10
+EXAMPLE_NIST_LRE_ATOL = 1e-6
+EXAMPLE_COST_ATOL = 1e-20
+# programs whose solves must launch the port's kernels on the card
+EXAMPLE_KERNELS = {
+    "bundle_adjuster": ("sorted_segment_sum",),
+    "simple_bundle_adjuster": ("sorted_segment_sum",),
+    "libmv_bundle_adjuster": ("sorted_segment_sum", "unsorted_segment_sum"),
+    "denoising": ("sorted_segment_sum",),
+}
+EXAMPLES_REFERENCE = {  # tests/test_torch_references.py examples (JAX f64, a CPU)
+    "helloworld": [
+        [3, 1.3885184769629575e-16, "CONVERGENCE", "records", []]],
+    "helloworld_analytic_diff": [
+        [3, 5.012552151786674e-16, "CONVERGENCE", "records", []]],
+    "helloworld_numeric_diff": [
+        [3, 5.012464411841187e-16, "CONVERGENCE", "records", []]],
+    "rosenbrock": [
+        [39, 1.6857005583872668e-18, "CONVERGENCE", "line_search",
+         [24.199999999999992, 4.280493213706965, 4.128693836242194, 4.120150212898577,
+         4.115862962201498, 4.081447900264375, 4.018355819059072, 3.8943582627498237,
+         3.744944516735803, 3.37353877267042]]],
+    "rosenbrock_analytic_diff": [
+        [39, 1.6857005583872668e-18, "CONVERGENCE", "line_search",
+         [24.199999999999992, 4.280493213706968, 4.128693836242194, 4.120150212898577,
+         4.115862962201498, 4.081447900264375, 4.018355819059072, 3.8943582627498206,
+         3.7449445167358006, 3.37353877267042]]],
+    "rosenbrock_numeric_diff": [
+        [39, 1.4603201044666013e-18, "CONVERGENCE", "line_search",
+         [24.199999999999992, 4.280493213785431, 4.128693836237959, 4.120150212889778,
+         4.115862962190155, 4.081447900268854, 4.018355819378553, 3.8943582626817825,
+         3.7449445170655795, 3.373538769647366]]],
+    "powell": [
+        [15, 1.1200286980751753e-15, "CONVERGENCE", "records", []]],
+    "curve_fitting": [
+        [14, 1.0567513278335596, "CONVERGENCE", "records", []]],
+    "robust_curve_fitting": [
+        [13, 0.7160031440700868, "CONVERGENCE", "records", []]],
+    "circle_fit": [
+        [3, 1570.7317883842575, "CONVERGENCE", "records", []]],
+    "sampled_function": [
+        [15, 1.041892696315879e-15, "CONVERGENCE", "records", []]],
+    "bicubic_interpolation": [
+        [5, 0.0014082967151700493, "CONVERGENCE", "records", []]],
+    "bicubic_interpolation_analytic": [
+        [5, 0.0014082967151700493, "CONVERGENCE", "records", []]],
+    "robot_pose_mle": [
+        [3, 25.05778668362445, "CONVERGENCE", "records", []]],
+    "ellipse_approximation": [
+        [26, 0.009768027754775269, "CONVERGENCE", "records", []],
+        [1, 0.009768027754775269, "CONVERGENCE", "records", []]],
+    "iteration_callback_example": [
+        [16, 1.0921546617737612, "USER_SUCCESS", "records", []]],
+    "evaluation_callback_example": [
+        [14, 0.9417445359300156, "CONVERGENCE", "records", []]],
+    "more_garbow_hillstrom": [
+        [14, 6.152072488862449e-22, "CONVERGENCE", "records", []],
+        [6, 2.7941320569853584e-19, "CONVERGENCE", "records", []],
+        [20, 1.0048455076315238e-08, "CONVERGENCE", "records", []],
+        [15, 24.492137881966382, "CONVERGENCE", "records", []],
+        [3, 5.639663848095504e-09, "CONVERGENCE", "records", []],
+        [13, 4.96852588639305e-19, "CONVERGENCE", "records", []],
+        [65, 2.470186544558896e-26, "CONVERGENCE", "records", []],
+        [36, 8.679148938457943e-19, "CONVERGENCE", "records", []],
+        [6, 3.938480418470388, "CONVERGENCE", "records", []]],
+    "libmv_homography": [
+        [2, 1.5565726295319423e-23, "USER_SUCCESS", "records", []]],
+    "bundle_adjuster": [
+        [4, 50625.0039850676, "CONVERGENCE", "records", []]],
+    "simple_bundle_adjuster": [
+        [3, 4991.291512136715, "CONVERGENCE", "records", []]],
+    "pose_graph_2d": [
+        [13, 2917.532466485134, "CONVERGENCE", "cgnr", []]],
+    "pose_graph_3d": [
+        [11, 0.012604659229333796, "CONVERGENCE", "cgnr", []]],
+    "nist": [
+        ["BoxBOD", 0, 0.0, 7859.4047730814655],
+        ["BoxBOD", 1, 0.9258268878109133, 493.67467314324796],
+        ["Misra1a", 0, 1.7675638597623289, 0.04044879168105487],
+        ["Misra1a", 1, 1.767563859762364, 0.04044879168105487],
+        ["Thurber", 0, 1.5042457639772786, 1366.5200713967206],
+        ["Thurber", 1, 1.5042457639773126, 1366.5200713967206]],
+    "libmv_bundle_adjuster": [
+        [6, 8666.296543378807, "CONVERGENCE", "records", []]],
+    "denoising": [
+        [3, 54651.90377200466, "NO_CONVERGENCE", "cgnr", []]],
+}
 # Timed flagship solves per dtype (each on a fresh problem); the first is
 # the run whose K1 launches are counted.
 REPEATS = 3
@@ -749,6 +920,18 @@ def write_libmv_shot(path, frames=LIBMV["frames"], tracks=LIBMV["tracks"],
     return m_xy.shape[0]
 
 
+def libmv_problem(model, shot, variant):
+    """The libmv problem of a loaded shot through ``model`` (either
+    package's models.libmv): the intrinsics fixed (False), refined (True),
+    or refined with BA's 7-dof gauge fixed ("gauge_fixed": camera 0 and the
+    last point constant, as the covariance phase fixes it)."""
+    problem, _, cams, pts = model.build_problem(shot, refine_intrinsics=variant is not False)
+    if variant == "gauge_fixed":
+        problem.set_parameter_block_constant(int(cams[0]))
+        problem.set_parameter_block_constant(int(pts[-1]))
+    return problem
+
+
 DENOISING = dict(height=321, width=481, experts=24, size=5, sigma=20.0, seed=3)
 
 
@@ -774,6 +957,70 @@ def write_denoising_inputs(directory, height=DENOISING["height"], width=DENOISIN
     denoising.write_pgm(paths[0], noisy)
     denoising.write_foe_file(paths[1], foe)
     return paths
+
+
+# A 2-D pose graph the size of the Manhattan M3500 dataset (Olson, Leonard
+# and Teller 2006): 3 500 poses and 5 453 edges, odometry plus loop closures.
+M3500 = dict(poses=3500, edges=5453, seed=6)
+G2O_2D_INFORMATION = (400.0, 400.0, 10000.0)  # x, y (1 / m^2), yaw (1 / rad^2)
+
+
+def write_g2o_2d(path, poses=M3500["poses"], edges=M3500["edges"], seed=M3500["seed"]):
+    """A Manhattan-world SE2 pose graph written as g2o VERTEX_SE2 / EDGE_SE2
+    lines (what ``pose_graph.read_g2o_2d`` parses): a robot steps 1 m at a
+    time on a grid about sqrt(poses) / 3 m wide (20 m at M3500's size),
+    turning by +-90 degrees at random and at the walls; ``poses - 1``
+    odometry edges join consecutive poses, and the other ``edges - poses +
+    1`` edges close loops between poses at the same grid point. Each edge
+    is the true relative pose plus Gaussian noise of the information
+    G2O_2D_INFORMATION (0.05 m, 0.01 rad); the vertices hold the
+    dead-reckoned start (the noisy odometry composed), as M3500's file does.
+    Returns the number of loop closures."""
+    rng = np.random.default_rng(seed)
+    half = max(2, int(round(np.sqrt(poses) / 6.0)))
+    truth = np.zeros((poses, 3))
+    for i in range(1, poses):
+        x, y, yaw = truth[i - 1]
+        if rng.random() < 0.2:
+            yaw += rng.choice([-0.5, 0.5]) * np.pi
+        for _ in range(4):  # turn away from a wall
+            nx, ny = np.rint([x + np.cos(yaw), y + np.sin(yaw)])
+            if max(abs(nx), abs(ny)) <= half:
+                break
+            yaw += 0.5 * np.pi
+        truth[i] = nx, ny, np.arctan2(np.sin(yaw), np.cos(yaw))
+    cells = {}
+    for i, (x, y, _) in enumerate(truth):
+        cells.setdefault((int(x), int(y)), []).append(i)
+    pairs = np.array([(a, b) for ids in cells.values() for k, b in enumerate(ids)
+                      for a in ids[:k] if b - a > 1])
+    loops = pairs[np.sort(rng.choice(len(pairs), edges - poses + 1, replace=False))]
+    ab = np.concatenate([np.stack([np.arange(poses - 1), np.arange(1, poses)], axis=1), loops])
+
+    def relative(a, b):
+        c, s = np.cos(truth[a, 2]), np.sin(truth[a, 2])
+        d = truth[b, :2] - truth[a, :2]
+        dyaw = truth[b, 2] - truth[a, 2]
+        return np.stack([c * d[:, 0] + s * d[:, 1], c * d[:, 1] - s * d[:, 0],
+                         np.arctan2(np.sin(dyaw), np.cos(dyaw))], axis=1)
+
+    sigmas = 1.0 / np.sqrt(G2O_2D_INFORMATION)
+    meas = relative(ab[:, 0], ab[:, 1]) + sigmas * rng.standard_normal((len(ab), 3))
+    start = np.zeros((poses, 3))
+    for i in range(1, poses):  # dead reckoning along the odometry edges
+        x, y, yaw = start[i - 1]
+        dx, dy, dyaw = meas[i - 1]
+        c, s = np.cos(yaw), np.sin(yaw)
+        start[i] = (x + c * dx - s * dy, y + s * dx + c * dy,
+                    np.arctan2(np.sin(yaw + dyaw), np.cos(yaw + dyaw)))
+    info = " ".join(repr(v) for v in (G2O_2D_INFORMATION[0], 0.0, 0.0, G2O_2D_INFORMATION[1],
+                                      0.0, G2O_2D_INFORMATION[2]))
+    with open(path, "w") as out:
+        for i, (x, y, yaw) in enumerate(start):
+            out.write(f"VERTEX_SE2 {i} {float(x)!r} {float(y)!r} {float(yaw)!r}\n")
+        for (a, b), m in zip(ab, meas):
+            out.write(f"EDGE_SE2 {a} {b} {float(m[0])!r} {float(m[1])!r} {float(m[2])!r} {info}\n")
+    return len(loops)
 
 
 TINY = dict(problems=65_536, seed=9)
@@ -942,6 +1189,95 @@ def _record(name: str, max_err: float, **times) -> dict:
         "source": f"ceres_tpu_torch/csrc/{mod._SOURCE}",
         "replaces": replaces, "max_abs_err": max_err, **times,
     }
+
+
+def write_example_inputs(directory) -> None:
+    """The inputs of EXAMPLES' programs at the phases' sizes."""
+    write_g2o_2d(f"{directory}/m3500.g2o")
+    write_nist_files(directory)
+    write_libmv_shot(f"{directory}/shot.bin")
+    write_denoising_inputs(directory)
+
+
+def example_argv(argv, directory) -> list:
+    return [a.replace("{dir}", str(directory)) for a in argv]
+
+
+@contextlib.contextmanager
+def recording_solves(package, nist_module):
+    """Record what a program's solves return: every summary of
+    ``package.solve`` and ``package.solve_gradient_problem`` (the names the
+    programs call) with whether it came from a line search, and every result
+    list of ``nist_module.run_suite``. The functions are put back on exit."""
+    summaries, suites = [], []
+    saved = [(package, n, getattr(package, n)) for n in ("solve", "solve_gradient_problem")]
+    saved.append((nist_module, "run_suite", nist_module.run_suite))
+
+    def keeping(name, fn):
+        def kept(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if name == "run_suite":
+                suites.append(out)
+            else:
+                gradient = name == "solve_gradient_problem"
+                summaries.append((out, gradient or out.minimizer_type.name == "LINE_SEARCH"))
+            return out
+
+        return kept
+
+    for owner, name, fn in saved:
+        setattr(owner, name, keeping(name, fn))
+    try:
+        yield summaries, suites
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def example_result(summaries, suites) -> list:
+    """What the examples phase holds a program to: per solve, [records,
+    final cost, termination, how it is held ("line_search", "cgnr" or
+    "records"), the costs of a line search's first
+    EXAMPLE_LINE_SEARCH_RECORDS records]; for NIST, per problem and start,
+    [name, start, LRE, final cost]."""
+    if suites:
+        return [[r["name"], r["start"], r["lre"], r["final_cost"]] for rs in suites for r in rs]
+    out = []
+    for s, line_search in summaries:
+        cgnr = getattr(s.linear_solver_type_used, "name", "") == "CGNR"
+        kind = "line_search" if line_search else "cgnr" if cgnr else "records"
+        costs = [r.cost for r in s.iterations[:EXAMPLE_LINE_SEARCH_RECORDS]] if line_search else []
+        out.append([len(s.iterations), s.final_cost, s.termination_type.name, kind, costs])
+    return out
+
+
+def _cost_err(a: float, b: float, rtol: float) -> tuple:
+    """(relative difference, whether it is within rtol or EXAMPLE_COST_ATOL)."""
+    return abs(a - b) / max(abs(b), 1e-300), abs(a - b) <= rtol * abs(b) + EXAMPLE_COST_ATOL
+
+
+def held_to_example(name: str, got, ref) -> float:
+    """The checks of EXAMPLES' comment, of a program's example_result
+    against the reference's; returns the largest relative difference of the
+    costs compared, raises where a check fails."""
+    if len(got) != len(ref):
+        raise RuntimeError(f"example {name}: {len(got)} solves against {len(ref)}")
+    worst = 0.0
+    for g, r in zip(got, ref):
+        if name == "nist":
+            rel, ok = _cost_err(g[3], r[3], EXAMPLE_COST_RTOL)
+            ok = ok and g[:2] == r[:2] and abs(g[2] - r[2]) <= EXAMPLE_NIST_LRE_ATOL
+            worst = max(worst, rel)
+        else:
+            rtol = dict(line_search=EXAMPLE_LINE_SEARCH_RTOL, cgnr=EXAMPLE_CGNR_RTOL,
+                        records=EXAMPLE_COST_RTOL)[r[3]]
+            checks = [_cost_err(a, b, rtol) for a, b in zip([g[1], *g[4]], [r[1], *r[4]])]
+            worst = max([worst] + [c[0] for c in checks])
+            ok = (all(c[1] for c in checks) and g[2:4] == r[2:4]
+                  and len(g[4]) == len(r[4]) and (r[3] == "line_search" or g[0] == r[0]))
+        if not ok:
+            raise RuntimeError(f"example {name}: {g} against {r}")
+    return worst
 
 
 # ---- K1 ---------------------------------------------------------------------
@@ -2647,6 +2983,21 @@ def _held_to_costs(summary, reference, rtol: float, final_rtol: float, label: st
     return rel
 
 
+def _held_to_spread(summary, reference, spread, label: str) -> float:
+    """The records the reference and the summary share and the final cost
+    within ten times the reference's own one-ulp spread (records, final),
+    the same termination; the record count is printed, not held. Returns
+    the largest relative difference of the shared records."""
+    records, ref = _records(summary), reference[0]
+    rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(records, ref))
+    final = abs(summary.final_cost - reference[1]) / reference[1]
+    if (rel > 10 * spread[0] or final > 10 * spread[1]
+            or summary.termination_type.name != reference[2]):
+        raise RuntimeError(f"{label}: records {rel:.3e}, final {final:.3e} from JAX's "
+                           f"(ten times its own spread {spread}), {summary.termination_type.name}")
+    return rel
+
+
 def solve_numeric_diff_flagship(device, smi: str) -> dict:
     """The flagship at bal.default_options(iterative=True) with its residual
     under numeric_diff: CENTRAL to convergence and RIDDERS for 3 iterations,
@@ -2749,19 +3100,24 @@ def solve_libmv(device, smi: str) -> dict:
         markers = write_libmv_shot(f"{d}/shot.bin")
         shot = libmv.load_libmv_file(f"{d}/shot.bin")
     paths = {}
-    for refine in (False, True):
-        label = f"libmv_{'refined' if refine else 'fixed'}_intrinsics_float64"
-        problem = libmv.build_problem(shot, refine_intrinsics=refine)[0]
+    for variant in (False, True, "gauge_fixed"):
+        label = {False: "libmv_fixed_intrinsics_float64", True: "libmv_refined_intrinsics_float64",
+                 "gauge_fixed": "libmv_refined_gauge_fixed_float64"}[variant]
+        problem = libmv_problem(libmv, shot, variant)
         _reset_launches()
         t0 = time.perf_counter()
         s = ctt.solve(libmv.default_options(), problem, device=device)
         seconds = time.perf_counter() - t0
         paths[label] = _launches()
-        reference = LIBMV_REFERENCE[refine]
-        if refine:
-            rel = _held_to_costs(s, reference, LIBMV_RTOL[refine], LIBMV_REFINED_FINAL_RTOL, label)
+        if variant == "gauge_fixed":
+            reference = LIBMV_GAUGE_FIXED_REFERENCE
+            rel = _held_to_spread(s, reference, LIBMV_GAUGE_FIXED_SPREAD, label)
+        elif variant:
+            reference = LIBMV_REFERENCE[True]
+            rel = _held_to_costs(s, reference, LIBMV_RTOL[True], LIBMV_REFINED_FINAL_RTOL, label)
         else:
-            rel = _held_to_records(s, reference, LIBMV_RTOL[refine], label)
+            reference = LIBMV_REFERENCE[False]
+            rel = _held_to_records(s, reference, LIBMV_RTOL[False], label)
         phase("solve", case=label, nvidia_smi=smi, markers=markers,
               plan=_schur_plans(problem.program(device)),
               camera_plans=[p.kind for p in problem.program(device).families[0].reduce_plans],
@@ -2903,6 +3259,50 @@ def solve_interpolation(device, smi: str) -> dict:
     return _launches()
 
 
+def solve_examples(device, smi: str) -> dict:
+    """Every program of ceres_tpu_torch/examples/ once through its main on
+    the card (EXAMPLES, EXAMPLE_CUTS), against the JAX package's f64
+    results: per program its seconds, solves, records, final cost, relative
+    error and K1 / K3 / K4 launches."""
+    import importlib
+    import tempfile
+
+    paths, total = {}, 0.0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_example_inputs(d)
+        phase("examples_inputs", seconds=time.perf_counter() - t0,
+              cuts=EXAMPLE_CUTS, m3500=M3500, libmv=LIBMV, denoising=DENOISING,
+              nist=list(NIST_MODELS))
+        for name, argv in EXAMPLES:
+            module = importlib.import_module(f"ceres_tpu_torch.examples.{name}")
+            argv = example_argv(argv, d) + ["--device", str(device)]
+            text = io.StringIO()
+            _reset_launches()
+            t0 = time.perf_counter()
+            with recording_solves(ctt, nist) as (summaries, suites), \
+                    contextlib.redirect_stdout(text):
+                module.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            total += seconds
+            launches = paths[f"examples_{name}"] = _launches()
+            got = example_result(summaries, suites)
+            rel = held_to_example(name, got, EXAMPLES_REFERENCE[name])
+            lines = text.getvalue().splitlines()
+            phase("solve", case="examples", program=name, nvidia_smi=smi, argv=argv,
+                  cut=EXAMPLE_CUTS.get(name), seconds=seconds, solves=len(got),
+                  records=[g[0] for g in got] if name != "nist" else None,
+                  final_costs=[g[3] if name == "nist" else g[1] for g in got],
+                  rel_err=rel, launches=launches, output_lines=len(lines),
+                  last_line=lines[-1][:200] if lines else "")
+            missing = [k for k in EXAMPLE_KERNELS.get(name, ()) if launches[k] == 0]
+            if missing:
+                raise RuntimeError(f"example {name}: {missing} never launched")
+    phase("examples", programs=len(EXAMPLES), seconds=total, cuts=sorted(EXAMPLE_CUTS))
+    return paths
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = check_device()
@@ -2962,6 +3362,7 @@ def main() -> int:
     paths["tiny_solver_batch_float64"] = solve_tiny(device, smi)
     paths["c_api_float64"] = solve_c_api(device, smi)
     paths["interpolation_float64"] = solve_interpolation(device, smi)
+    paths.update(solve_examples(device, smi))
     for record in records:
         record["launches"] = launches[record["name"]]
         record["launches_by_path"] = {k: v[record["name"]] for k, v in paths.items()}

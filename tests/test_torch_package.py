@@ -71,7 +71,11 @@ assert native._lib is None  # nor the native core
         "ceres_tpu_torch.models.nist",
         "ceres_tpu_torch.models.libmv",
         "ceres_tpu_torch.models.denoising",
+        # the example programs, all in one interpreter
+        ", ".join(f"ceres_tpu_torch.examples.{p.stem}"
+                  for p in sorted((REPO / "ceres_tpu_torch" / "examples").glob("[!_]*.py"))),
     ],
+    ids=lambda m: "ceres_tpu_torch.examples.*" if "," in m else m,
 )
 def test_import_leaves_jax_out(module):
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -121,8 +125,9 @@ def _jax_package_exports():
 
 def test_the_port_exports_every_name_of_the_jax_package():
     """Every public name of ceres_tpu's top level is the port's too (item
-    19, the sharded evaluation, exports none there), and every module of the
-    JAX package but parallel/ (item 19) has a counterpart."""
+    19, the sharded evaluation, exports none there), every module of the
+    JAX package but parallel/ (item 19) has a counterpart, and so has every
+    example program of examples/ in ceres_tpu_torch/examples/."""
     import ceres_tpu_torch as ctt
 
     names = _jax_package_exports()
@@ -136,6 +141,9 @@ def test_the_port_exports_every_name_of_the_jax_package():
     missing = sorted(m for m in jax_modules - port_modules
                      if not m.startswith("parallel/") and m != "ops/pallas_segment.py")
     assert missing == []
+    programs = sorted(p.name for p in (REPO / "examples").glob("*.py"))
+    assert len(programs) == 26
+    assert [p for p in programs if not (REPO / "ceres_tpu_torch" / "examples" / p).exists()] == []
 
 
 def test_every_not_implemented_error_names_a_roadmap_item():

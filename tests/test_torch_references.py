@@ -25,6 +25,17 @@ the CPU, WHAT one of:
   from starts one ulp away (ROSENBROCK_REFERENCE);
 - ``check_gradients``: the message of a solve with ``check_gradients`` of a
   residual whose hand-written Jacobian is wrong (WRONG_JACOBIAN_MESSAGE);
+- ``libmv_gauge_fixed``: the libmv phase's refined, gauge-fixed solve and
+  its spread under one-ulp changes of the start (LIBMV_GAUGE_FIXED_*), and
+  at the libmv tests' size the port's distance from JAX beside that spread,
+  refined and gauge-fixed (about three minutes);
+- ``cg_column`` and ``inner_f32``: ROADMAP Queue 3's checks of items 13
+  (the covariance CG's counts and stopping test in both packages, about
+  20 minutes) and 10 (the f32 large solve with inner iterations from nudged
+  starts and restarted from one point, both packages, about 25 minutes);
+- ``examples``: every program of chip_smoke.EXAMPLES at the examples
+  phase's argv (EXAMPLES_REFERENCE; about six minutes, five of them the
+  denoising program's two iterations on the 481 x 321 image);
 - ``sparse`` (or one of its parts): ``ceres_tpu.solve`` of the 2500-pose
   graph with SPARSE_NORMAL_CHOLESKY (``sparse_pose_graph``,
   POSE_GRAPH_SPARSE_REFERENCE, 5 s), of chip_smoke.sequential_instance with
@@ -38,8 +49,10 @@ and evaluation-callback calls (the large one is ``fused_solve``, held to the
 JAX package by test_torch_solve.py).
 """
 
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
 import sys
 import time
@@ -380,19 +393,25 @@ def denoising_references(mod, directory, dtype="float64", max_iters=10, **sizes)
     return _records(s), s.final_cost, s.termination_type.name, time.time() - t0
 
 
-def libmv_references(mod, directory, **sizes):
+def libmv_references(mod, directory, variants=(False, True), nudge=0, **sizes):
     """The libmv model on chip_smoke.write_libmv_shot(**sizes) at
-    default_options(), f64, intrinsics fixed and refined: {refine: (records,
-    final cost, termination, seconds)}."""
+    default_options(), f64, intrinsics fixed (False), refined (True) and
+    refined with the gauge fixed ("gauge_fixed": camera 0 and the last
+    point constant, chip_smoke.libmv_problem), the first point's first
+    coordinate moved ``nudge`` ulps: {variant: (records, final cost,
+    termination, seconds)}."""
     lm = _module(mod, "models.libmv")
     path = f"{directory}/shot.bin"
     chip_smoke.write_libmv_shot(path, **sizes)
     out = {}
-    for refine in (False, True):
+    for variant in variants:
         t0 = time.time()
-        p = lm.build_problem(lm.load_libmv_file(path), refine_intrinsics=refine)[0]
+        shot = lm.load_libmv_file(path)
+        p = chip_smoke.libmv_problem(lm, shot, variant)
+        if nudge:
+            _nudged(p, 1 + shot.cameras_Rt.shape[0], nudge)  # ids: intrinsics, cameras, points
         s = mod.solve(lm.default_options(), p, **_kw(mod))
-        out[refine] = (_records(s), s.final_cost, s.termination_type.name, time.time() - t0)
+        out[variant] = (_records(s), s.final_cost, s.termination_type.name, time.time() - t0)
     return out
 
 
@@ -503,6 +522,197 @@ def interpolation_references(mod, **sizes):
             s.termination_type.name, time.time() - t0)
 
 
+def libmv_spread(directory, variant="gauge_fixed", **sizes):
+    """JAX's libmv solve of ``variant`` from its start and from starts one
+    ulp away in the first point's first coordinate, either way: (records,
+    final cost, termination of the start's solve; the largest relative
+    change of a shared record and of the final cost; the record counts)."""
+    runs = [libmv_references(ct, directory, (variant,), n, **sizes)[variant] for n in (0, 1, -1)]
+    base = runs[0]
+    records = max(abs(a[0] - b[0]) / b[0] for r in runs[1:] for a, b in zip(r[0], base[0]))
+    final = max(abs(r[1] - base[1]) / base[1] for r in runs[1:])
+    return base[:3], (records, final), [len(r[0]) for r in runs]
+
+
+def libmv_test_size_spread(directory, **sizes):
+    """At ``sizes`` (tests/test_torch_libmv.py's): for the refined and the
+    gauge-fixed solve, the largest relative difference of the port's
+    records from JAX's, and of JAX's own records under one-ulp changes of
+    the first point either way."""
+    out = {}
+    for variant in (True, "gauge_fixed"):
+        j, t = (libmv_references(m, directory, (variant,), **sizes)[variant][0] for m in (ct, ctt))
+        nudged = [libmv_references(ct, directory, (variant,), n, **sizes)[variant][0]
+                  for n in (1, -1)]
+        out[str(variant)] = dict(
+            port=max(abs(a[0] - b[0]) / b[0] for a, b in zip(t, j)),
+            jax_nudged=[max(abs(a[0] - b[0]) / b[0] for a, b in zip(r, j)) for r in nudged],
+            records=[len(t), len(j)] + [len(r) for r in nudged])
+    return out
+
+
+def cg_column_counts(mod, poses=2500, seed=0):
+    """The single-vector CG of the matrix-free covariance on the first
+    coordinate of pose 1's quaternion of synthesize_sphere(poses, seed),
+    with its settings (r_tolerance 1e-10, residual reset every 100, Jacobi
+    on J'J): the iterations with the preconditioner as computed and moved
+    one ulp up and down, which test stopped the first solve ("r": |r| at
+    the r tolerance, else "q": the quadratic-model test), and the
+    iterations when only the r test may stop it (q_tolerance -inf)."""
+    pg = jpg if mod is ct else tpg
+    problem, _, quat_id = pg.build_problem_3d(*pg.synthesize_sphere(poses, seed=seed)[:3])
+    if mod is ct:
+        from ceres_tpu.evaluator import Evaluator
+
+        cg = importlib.import_module("ceres_tpu.linear.cg")
+        program = problem.program()
+        ctx = Evaluator(program).cost_gradient_jacobian(program.initial_ambient()).jacobian_context
+        col = int(program.tangent_offset[quat_id[1]])
+        d = np.asarray(ctx.squared_column_norms(), dtype=np.float64)
+        e = jnp.zeros(program.num_tangent).at[col].set(1.0)
+
+        def solve(inv, q_tolerance=0.0):
+            inv = jnp.asarray(inv)
+            r = jax.jit(lambda b: cg.conjugate_gradients(
+                ctx.normal_matvec, b, preconditioner=lambda v: v * inv,
+                max_num_iterations=20_000, r_tolerance=1e-10, residual_reset_period=100,
+                q_tolerance=q_tolerance))(e)
+            return int(r.num_iterations), float(r.final_norm_r)
+    else:
+        from ceres_tpu_torch.evaluator import Evaluator
+        from ceres_tpu_torch.linear import cg
+
+        program = problem.program("cpu")
+        x = torch.from_numpy(program.initial_ambient())
+        ctx = Evaluator(program).cost_gradient_jacobian(x).jacobian_context
+        col = int(program.tangent_offsets[quat_id[1]])
+        d = ctx.squared_column_norms().numpy()
+        e = torch.zeros(program.num_tangent, dtype=torch.float64)
+        e[col] = 1.0
+
+        def solve(inv, q_tolerance=0.0):
+            inv = torch.from_numpy(inv)
+            r = cg.conjugate_gradients(
+                ctx.normal_matvec, e, preconditioner=lambda v: v * inv,
+                max_num_iterations=20_000, r_tolerance=1e-10, residual_reset_period=100,
+                q_tolerance=q_tolerance)
+            return int(r.num_iterations), float(r.final_norm_r)
+
+    inv = 1.0 / d
+    base = solve(inv)
+    return dict(iterations=base[0], up=solve(np.nextafter(inv, np.inf))[0],
+                down=solve(np.nextafter(inv, -np.inf))[0], final_norm_r=base[1],
+                stopped_by="r" if base[1] <= 1e-10 else "q",
+                r_test_only=solve(inv, -np.inf)[0])
+
+
+def _inner_f32_problem(bm, nudge=0, which="point", state=None):
+    """The large instance at LARGE_MINIMIZERS' inner-iterations options in
+    float32, the first point's or camera's first coordinate moved ``nudge``
+    float32 ulps, or started from ``state`` (cameras, points)."""
+    inst = bm.synthesize_bal(noise=2.0, perturb=0.7, **LARGE)
+    if state is not None:
+        inst.cameras[:], inst.points[:] = state
+    p, cams, pts = bm.build_problem(inst)
+    if nudge:
+        pid = int(pts[0] if which == "point" else cams[0])
+        v = np.array(p.parameter_block_value(pid), dtype=np.float64)
+        v[0] = float(np.nextafter(np.float32(v[0]), np.float32(nudge * np.inf)))
+        p.set_parameter_block_value(pid, v)
+    return p, cams, pts
+
+
+def inner_f32_references(mod, starts=((0, "point"), (1, "point"), (-1, "point"),
+                                      (1, "camera"), (-1, "camera"))):
+    """The large solve with inner iterations in float32 from its start and
+    from starts one float32 ulp away: [(nudge, block, records, final cost,
+    relative distance from the float64 cost LARGE_INNER_REFERENCE)]."""
+    bm, kw = _package(mod)
+    out = []
+    for nudge, which in starts:
+        opts = _set_options(mod, bm.default_options(iterative=False), dict(
+            max_num_iterations=50, evaluation_dtype="float32", use_inner_iterations=True))
+        s = mod.solve(opts, _inner_f32_problem(bm, nudge, which)[0], **kw)
+        f64 = chip_smoke.LARGE_INNER_REFERENCE[1]
+        out.append((nudge, which, len(s.iterations), s.final_cost, abs(s.final_cost - f64) / f64))
+    return out
+
+
+def inner_f32_restart():
+    """Both packages' float32 solves with inner iterations restarted from
+    JAX's state after 2 iterations (records: cost, success), and at that
+    state each package's float32 costs (full evaluation, cost only, the
+    exact sum of its own float32 residuals) against the float64 cost."""
+    from ceres_tpu.evaluator import Evaluator as JEv, family_residuals as jres
+    from ceres_tpu.problem import cast_program as jcast
+    from ceres_tpu_torch.evaluator import Evaluator as TEv, family_residuals as tres
+    from ceres_tpu_torch.problem import cast_program as tcast
+
+    opts = dict(evaluation_dtype="float32", use_inner_iterations=True)
+    p, cams, pts = _inner_f32_problem(jbal)
+    ct.solve(_set_options(ct, jbal.default_options(iterative=False),
+                          dict(max_num_iterations=2, **opts)), p)
+    state = (np.stack([p.parameter_block_value(int(c)) for c in cams]),
+             np.stack([p.parameter_block_value(int(q)) for q in pts]))
+    out = {}
+    for mod in (ct, ctt):
+        bm, kw = _package(mod)
+        s = mod.solve(_set_options(mod, bm.default_options(iterative=False),
+                                   dict(max_num_iterations=10, **opts)),
+                      _inner_f32_problem(bm, state=state)[0], **kw)
+        out[mod.__name__] = dict(records=[(r.cost, r.step_is_successful) for r in s.iterations],
+                                 message=s.message)
+    f64 = None
+    for mod, dtype in ((ct, "float64"), (ct, "float32"), (ctt, "float32")):
+        q = _inner_f32_problem(_package(mod)[0], state=state)[0]
+        if mod is ct:
+            program = jcast(q.program(), dtype)
+            ev, x = JEv(program), jnp.asarray(program.initial_ambient(), dtype=dtype)
+            r = [np.asarray(jres(f, x), dtype=np.float64) for f in program.families]
+        else:
+            program = tcast(q.program("cpu"), dtype)
+            ev = TEv(program)
+            x = torch.from_numpy(program.initial_ambient()).to(program.eval_dtype)
+            r = [tres(f, x).to(torch.float64).numpy() for f in program.families]
+        costs = dict(full=float(ev.cost_gradient_jacobian(x).cost), cost_only=float(ev.cost(x)),
+                     residual_sum=float(sum(0.5 * np.sum(a * a) for a in r)))
+        f64 = f64 or costs["full"]
+        out[f"{mod.__name__}_{dtype}_costs"] = {k: (v, (v - f64) / f64) for k, v in costs.items()}
+    return out
+
+
+def examples_references(mod, directory, names=None):
+    """The example programs of chip_smoke.EXAMPLES (``names`` of them, or
+    all) at the examples phase's argv, their inputs written into
+    ``directory`` by chip_smoke.write_example_inputs: {program:
+    chip_smoke.example_result}. The JAX package's programs are
+    ``examples.<name>.main`` with sys.argv set, the port's
+    ``ceres_tpu_torch.examples.<name>.main`` on the CPU."""
+    programs = [(n, a) for n, a in chip_smoke.EXAMPLES if names is None or n in names]
+    if any("{dir}" in a for _, argv in programs for a in argv):
+        chip_smoke.write_example_inputs(directory)
+    nist_module = _module(mod, "models.nist")
+    out = {}
+    for name, argv in programs:
+        argv = chip_smoke.example_argv(argv, directory)
+        t0 = time.time()
+        with chip_smoke.recording_solves(mod, nist_module) as (summaries, suites), \
+                contextlib.redirect_stdout(io.StringIO()):
+            if mod is ct:
+                saved, sys.argv = sys.argv, ["x"] + argv
+                try:
+                    importlib.import_module(f"examples.{name}").main()
+                finally:
+                    sys.argv = saved
+            else:
+                importlib.import_module(f"ceres_tpu_torch.examples.{name}").main(
+                    argv + ["--device", "cpu"])
+        out[name] = chip_smoke.example_result(summaries, suites)
+        print(json.dumps(dict(program=name, seconds=time.time() - t0)), file=sys.stderr,
+              flush=True)
+    return out
+
+
 def test_wrong_jacobian_message_matches_jax():
     assert wrong_jacobian_message(ctt) == wrong_jacobian_message(ct)
 
@@ -596,6 +806,18 @@ def test_c_api_references_match_jax():
     np.testing.assert_allclose(t[:3], j[:3], rtol=1e-10)
 
 
+def test_examples_references_match_jax(tmp_path):
+    """The examples entry at the phase's argv, through both packages, for
+    programs that need no input: the port's results held to JAX's by the
+    phase's own check."""
+    names = ("helloworld", "powell", "rosenbrock", "robot_pose_mle")
+    j = examples_references(ct, tmp_path, names)
+    t = examples_references(ctt, tmp_path, names)
+    assert sorted(t) == sorted(j) == sorted(names)
+    for name in names:
+        chip_smoke.held_to_example(name, t[name], j[name])
+
+
 def _spread(runs):
     """Largest relative difference of each number of the nudged runs from
     the first run's."""
@@ -668,6 +890,29 @@ if __name__ == "__main__":
         elif what == "interpolation":
             print(json.dumps(dict(reference=what, result=interpolation_references(ct))),
                   flush=True)
+        elif what == "libmv_gauge_fixed":
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as d:
+                print(json.dumps(dict(reference=what, result=libmv_spread(d),
+                                      test_size=libmv_test_size_spread(
+                                          d, frames=12, tracks=40, window=6),
+                                      seconds=time.time() - t0)), flush=True)
+        elif what == "cg_column":
+            print(json.dumps(dict(reference=what, jax=cg_column_counts(ct),
+                                  port=cg_column_counts(ctt), seconds=time.time() - t0)),
+                  flush=True)
+        elif what == "inner_f32":
+            print(json.dumps(dict(reference=what, jax=inner_f32_references(ct),
+                                  port=inner_f32_references(ctt),
+                                  restart=inner_f32_restart(), seconds=time.time() - t0)),
+                  flush=True)
+        elif what == "examples":
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as d:
+                print(json.dumps(dict(reference=what, result=examples_references(ct, d),
+                                      seconds=time.time() - t0)), flush=True)
         elif what == "rosenbrock":
             runs = [rosenbrock_references(ct, nudge=n) for n in (0, 1, -1)]
             print(json.dumps(dict(
