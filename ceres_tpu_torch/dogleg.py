@@ -42,7 +42,7 @@ def precompute(ctx, mu: float, linear_solve, solve_aux, min_diagonal: float,
     diagonal = torch.sqrt(torch.clamp(ctx.squared_column_norms(), min_diagonal, max_diagonal))
     gradient = ctx.gradient() / diagonal
     jg = ctx.matvec(gradient / diagonal)
-    jg_sq = sum(torch.sum(w * w) for w in jg)
+    jg_sq = ctx._sum(sum(torch.sum(w * w) for w in jg))
     alpha = torch.sum(gradient * gradient) / jg_sq
     y, lin_iters, lin_term = linear_solve(ctx, diagonal * math.sqrt(mu), solve_aux)
     # a mixed-precision solve returns an f64-refined y
@@ -89,6 +89,7 @@ def subspace_model(ctx, diagonal, gradient, gn_step):
     b00 = sum(torch.sum(a * a) for a in jb0)
     b01 = sum(torch.sum(a * b) for a, b in zip(jb0, jb1))
     b11 = sum(torch.sum(b * b) for b in jb1)
+    b00, b01, b11 = ctx._sum(torch.stack([b00, b01, b11])).unbind()
     B = torch.stack([torch.stack([b00, b01]), torch.stack([b01, b11])])
     g2 = Q.T @ gradient
     rdiag = torch.abs(torch.diagonal(R))

@@ -17,6 +17,14 @@ corrects its residuals and Jacobian blocks (the Triggs correction of
 corrector.cc) before any solver sees them: the model cost change and rho
 use the corrected arrays, the cost uses rho(s).
 
+On a sharded program (``parallel/sharding.py``) each rank holds its share
+of every family's rows, and every sum over rows is finished by one
+all-reduce over the ranks: the cost, the products J' w and J' W, the column
+norms and the J'J blocks. ``JacobianContext.comm`` and the ``comm`` argument
+of the functions below carry the collectives (None: one process). The
+residual vector and the dense Jacobian are gathered whole, in the user's
+row order. Padding rows (``Family.mask`` 0) are zeroed before the loss.
+
 ``Evaluator`` wraps these functions for the host-loop minimizer
 (evaluator.h / program_evaluator.h): the entry points, the
 ``EvaluationCallback`` hook, call statistics, and ``cost_and_gradient``, the
@@ -62,10 +70,18 @@ def _gather_blocks(family: Family, x: torch.Tensor):
     )
 
 
+def _mask_rows(family: Family, a: torch.Tensor) -> torch.Tensor:
+    """``a`` (B, ...) with the padding rows zeroed; the mask is taken in
+    a's dtype, so an f64 mask cannot promote an f32 evaluation."""
+    if family.mask is None:
+        return a
+    return a * family.mask.to(a.dtype).reshape((-1,) + (1,) * (a.ndim - 1))
+
+
 def family_residuals(family: Family, x: torch.Tensor) -> torch.Tensor:
-    """Raw residuals (B, r)."""
+    """Raw residuals (B, r), zero on padding rows."""
     data = (family.data,) if family.structure.has_data else ()
-    return vmap(family.structure.fn)(*_gather_blocks(family, x), *data)
+    return _mask_rows(family, vmap(family.structure.fn)(*_gather_blocks(family, x), *data))
 
 
 def family_residuals_and_jacobians(
@@ -104,7 +120,7 @@ def family_residuals_and_jacobians(
     # A residual written with Python floats on 0-dim tensors gets float64
     # tangents under vmap(jacfwd) (see models/bal.py); keep the blocks in
     # the evaluation dtype.
-    return r, tuple(J.to(r.dtype) for J in jacs)
+    return _mask_rows(family, r), tuple(_mask_rows(family, J.to(r.dtype)) for J in jacs)
 
 
 def _apply_loss(family: Family, r: torch.Tensor, jacs):
@@ -129,13 +145,36 @@ class JacobianContext:
     """The problem Jacobian as batched per-family blocks.
 
     ``jacs[fi][j]`` is (B, r, T_j); ``residuals[fi]`` is (B, r); ``groups``
-    are the block-diagonal tangent groups every product reduces into."""
+    are the block-diagonal tangent groups every product reduces into.
+    ``comm``: on a sharded program the collectives (the blocks are this
+    rank's rows, and every reduction over rows is all-reduced), else None."""
 
     families: List[Family]
     jacs: Tuple[Tuple[torch.Tensor, ...], ...]
     residuals: Tuple[torch.Tensor, ...]
     num_tangent: int
     groups: BlockGroups
+    comm: Optional[object] = None
+
+    def _sum(self, a: torch.Tensor) -> torch.Tensor:
+        """``a`` summed over the ranks (itself in one process)."""
+        return a if self.comm is None else self.comm.sum(a)
+
+    def gathered(self) -> "JacobianContext":
+        """The context of the whole problem on every rank: each family's
+        rows put back in the user's order (itself in one process). One
+        all-reduce of the rows, each of which one rank holds; memoized."""
+        if self.comm is None:
+            return self
+        # kept outside the fields, so that dataclasses.replace (to_dtype,
+        # scale_columns) does not hand it to a context of other values
+        g = self.__dict__.get("_gathered")
+        if g is None:
+            full = self.comm.full_families
+            res, jacs = self.comm.gather_rows(self.families, full, self.residuals, self.jacs)
+            g = JacobianContext(list(full), jacs, res, self.num_tangent, self.groups)
+            self.__dict__["_gathered"] = g
+        return g
 
     @property
     def dtype(self) -> torch.dtype:
@@ -219,7 +258,7 @@ class JacobianContext:
                 contrib = torch.einsum("brt,br->bt", self.jacs[fi][j], w[fi])
                 red = apply_reduce(fam.reduce_plans[j], contrib)
                 acc[T] = red if T not in acc else acc[T] + red
-        return self._ungroup_add(acc, w[0].dtype)
+        return self._sum(self._ungroup_add(acc, w[0].dtype))
 
     def rmatmat(
         self, W: Sequence[torch.Tensor], skip: Optional[Sequence[int]] = None
@@ -239,7 +278,7 @@ class JacobianContext:
                 contrib = contract(self.jacs[fi][j].transpose(1, 2), W[fi])
                 red = apply_reduce(fam.reduce_plans[j], contrib)
                 acc[T] = red if T not in acc else acc[T] + red
-        return self._ungroup_add(acc, W[0].dtype, (k,))
+        return self._sum(self._ungroup_add(acc, W[0].dtype, (k,)))
 
     def matmat(self, V: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """J V for an (n, k) block of tangent columns -> per-family (B, r, k)
@@ -282,7 +321,7 @@ class JacobianContext:
                 contrib = torch.sum(self.jacs[fi][j] ** 2, dim=1)
                 red = apply_reduce(fam.reduce_plans[j], contrib)
                 acc[T] = red if T not in acc else acc[T] + red
-        return self._ungroup_add(acc, self.dtype)
+        return self._sum(self._ungroup_add(acc, self.dtype))
 
     def scale_columns(self, scale: torch.Tensor) -> "JacobianContext":
         """A context with the Jacobian's columns scaled (Jacobi scaling,
@@ -319,10 +358,14 @@ class JacobianContext:
                 contrib = torch.einsum("bri,brj->bij", Jj, Jj)
                 red = apply_reduce(fam.reduce_plans[j], contrib)
                 out[T] = out[T] + red[: out[T].shape[0]]
+        if self.comm is not None:
+            out = dict(zip(out, self.comm.sum_all(list(out.values()))))
         return out
 
     def residual_vector(self) -> torch.Tensor:
-        """Flat corrected residual vector (M,)."""
+        """Flat corrected residual vector (M,), the whole problem's."""
+        if self.comm is not None:
+            return self.gathered().residual_vector()
         return torch.cat([r.reshape(-1) for r in self.residuals])
 
     @property
@@ -342,7 +385,9 @@ class JacobianContext:
 
     def to_dense(self) -> torch.Tensor:
         """The dense Jacobian (M, num_tangent): dense solvers and small
-        problems only (dense_jacobian_writer.h analog)."""
+        problems only (dense_jacobian_writer.h analog), the whole problem's."""
+        if self.comm is not None:
+            return self.gathered().to_dense()
         dev = self.residuals[0].device
         nt = self.num_tangent
         dense = torch.zeros((self.num_rows, nt + 1), dtype=self.dtype, device=dev)
@@ -389,10 +434,11 @@ def to_crs(ctx: JacobianContext):
     )
 
 
-def _cost_impl(x: torch.Tensor, families, apply_loss: bool = True) -> torch.Tensor:
+def _cost_impl(x: torch.Tensor, families, apply_loss: bool = True, comm=None) -> torch.Tensor:
     """0.5 sum rho(||r||^2) accumulated in f64 even for f32 evaluation: the
     LM accept/reject and function-tolerance tests compare cost differences,
-    which f32 sums over 10^5 residuals would drown."""
+    which f32 sums over 10^5 residuals would drown. ``comm``: the families
+    are this rank's share, and the sum is all-reduced."""
     total = torch.zeros((), dtype=torch.float64, device=x.device)
     for fam in families:
         r = family_residuals(fam, x)
@@ -401,12 +447,14 @@ def _cost_impl(x: torch.Tensor, families, apply_loss: bool = True) -> torch.Tens
             total = total + 0.5 * torch.sum(rho0.to(torch.float64))
         else:
             total = total + 0.5 * torch.sum((r * r).to(torch.float64))
-    return total
+    return total if comm is None else comm.sum(total)
 
 
-def _residuals_impl(x: torch.Tensor, families, apply_loss: bool = True) -> torch.Tensor:
+def _residuals_impl(x: torch.Tensor, families, apply_loss: bool = True,
+                    comm=None) -> torch.Tensor:
     """Flat residual vector of the given families, loss-corrected when
-    ``apply_loss``."""
+    ``apply_loss``; with ``comm``, of the whole problem, gathered in the
+    user's row order."""
     outs = []
     for fam in families:
         r = family_residuals(fam, x)
@@ -415,14 +463,17 @@ def _residuals_impl(x: torch.Tensor, families, apply_loss: bool = True) -> torch
             _, rho1, rho2 = fam.loss.evaluate(sq)
             scale, _ = corrector_coefficients(sq, rho1, rho2)
             r = correct_residuals(r, scale)
-        outs.append(r.reshape(-1))
+        outs.append(r)
+    if comm is not None:
+        outs, _ = comm.gather_rows(families, comm.full_families, outs, None)
+    outs = [r.reshape(-1) for r in outs]
     return torch.cat(outs) if outs else x.new_zeros((0,))
 
 
 def _context_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
-                  apply_loss: bool = True):
+                  apply_loss: bool = True, comm=None):
     """(cost f64, JacobianContext) at x; residuals and Jacobian blocks of the
-    context are loss-corrected."""
+    context are loss-corrected. ``comm``: see _cost_impl."""
     cost = torch.zeros((), dtype=torch.float64, device=x.device)
     all_jacs, all_res = [], []
     for fam in families:
@@ -435,30 +486,34 @@ def _context_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGrou
         all_jacs.append(jacs)
         all_res.append(r)
     ctx = JacobianContext(
-        list(families), tuple(all_jacs), tuple(all_res), num_tangent, groups
+        list(families), tuple(all_jacs), tuple(all_res), num_tangent, groups, comm
     )
-    return cost, ctx
+    return cost if comm is None else comm.sum(cost), ctx
 
 
 def _full_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
-               apply_loss: bool = True):
+               apply_loss: bool = True, comm=None):
     """(cost f64, gradient, JacobianContext) at x (see _context_impl)."""
-    cost, ctx = _context_impl(x, families, num_tangent, groups, apply_loss)
+    cost, ctx = _context_impl(x, families, num_tangent, groups, apply_loss, comm)
     return cost, ctx.gradient(), ctx
 
 
 def _cost_grad_impl(x: torch.Tensor, families, plus_struct, apply_loss: bool,
-                    num_tangent: int):
+                    num_tangent: int, comm=None):
     """(cost f64, tangent gradient) by reverse mode: the gradient of
     cost(plus(x, delta)) at delta = 0, with no Jacobian formed
     (program_evaluator.h:266-284 analog). The gradient has x's dtype; the
     inputs are detached, and grad is enabled here, so an outer
-    ``torch.no_grad()`` does not stop it."""
+    ``torch.no_grad()`` does not stop it. ``comm``: this rank's cost and
+    gradient are differentiated, then both all-reduced."""
     with torch.enable_grad():
         delta = torch.zeros((num_tangent,), dtype=x.dtype, device=x.device, requires_grad=True)
         cost = _cost_impl(plus_apply(plus_struct, x.detach(), delta), families, apply_loss)
         (grad,) = torch.autograd.grad(cost, delta)
-    return cost.detach(), grad
+    cost = cost.detach()
+    if comm is not None:
+        cost, grad = comm.sum(cost), comm.sum(grad)
+    return cost, grad
 
 
 @dataclasses.dataclass
@@ -505,25 +560,27 @@ class Evaluator:
     def cost(self, x: torch.Tensor) -> torch.Tensor:
         self._notify(x, False)
         with self._timer("Evaluator::Residual"):
-            return _cost_impl(x, self.program.families, self.apply_loss)
+            return _cost_impl(x, self.program.families, self.apply_loss, self.program.comm)
 
     def residuals(self, x: torch.Tensor) -> torch.Tensor:
         self._notify(x, False)
         with self._timer("Evaluator::Residual"):
-            return _residuals_impl(x, self.program.families, self.apply_loss)
+            return _residuals_impl(x, self.program.families, self.apply_loss, self.program.comm)
 
     def cost_and_gradient(self, x: torch.Tensor):
         """(cost, tangent gradient) without forming the Jacobian."""
         self._notify(x, False)
         p = self.program
         with self._timer("Evaluator::Gradient"):
-            return _cost_grad_impl(x, p.families, p.plus_struct, self.apply_loss, p.num_tangent)
+            return _cost_grad_impl(x, p.families, p.plus_struct, self.apply_loss, p.num_tangent,
+                                   p.comm)
 
     def cost_gradient_jacobian(self, x: torch.Tensor) -> FullEval:
         self._notify(x, True)
         p = self.program
         with self._timer("Evaluator::Jacobian"):
-            cost, grad, ctx = _full_impl(x, p.families, p.num_tangent, p.groups, self.apply_loss)
+            cost, grad, ctx = _full_impl(x, p.families, p.num_tangent, p.groups, self.apply_loss,
+                                         p.comm)
         return FullEval(cost=cost, gradient=grad, jacobian_context=ctx)
 
     def statistics(self):

@@ -3,15 +3,46 @@
 Reads a BAL text file (or synthesizes an instance of the canonical
 problem-16-22106 shape) and solves it with the configured trust-region /
 linear-solver / preconditioner combination.
+
+``--mesh N`` shards the solve over N ranks: run it under
+``python -m torch.distributed.run --nproc-per-node N -m
+ceres_tpu_torch.examples.bundle_adjuster --mesh N``, NCCL with one card per
+rank (``--device cuda``), gloo on the CPU (``--device cpu``). Rank 0 alone
+prints.
 """
 
 import argparse
+import contextlib
+import os
+import sys
+
+import torch
 
 import ceres_tpu_torch as ctt
 from ceres_tpu_torch.models import bal
 
-# What --mesh needs: a sharded solve (torch.distributed collectives).
-_SHARDING = "a solve sharded over N devices (--mesh) is ROADMAP Queue 1 item 19"
+
+def _join_ranks(n: int, device: str):
+    """(this rank's device, its mesh, whether this call started the process
+    group) for ``--mesh n`` under torch.distributed.run."""
+    import torch.distributed as dist
+
+    from ceres_tpu_torch.parallel import make_mesh
+
+    started = False
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                f"--mesh {n} runs on {n} ranks: start it with python -m "
+                f"torch.distributed.run --nproc-per-node {n}"
+            )
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        device, started = str(dev), True
+    return device, make_mesh(n, device_type=torch.device(device).type), started
 
 
 def main(argv=None):
@@ -42,9 +73,20 @@ def main(argv=None):
     ap.add_argument("--mesh", type=int, default=0, help="shard over N devices")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    device, mesh, started = args.device, None, False
     if args.mesh:
-        raise NotImplementedError(_SHARDING)
+        device, mesh, started = _join_ranks(args.mesh, args.device)
+    quiet = mesh is not None and torch.distributed.get_rank() != 0
+    try:
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(
+                null if quiet else sys.stdout):
+            _run(args, device, mesh)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
+
+def _run(args, device, mesh):
     if args.input:
         prob = bal.load_bal_file(args.input)
     else:
@@ -65,8 +107,9 @@ def main(argv=None):
         max_num_iterations=args.num_iterations,
         eta=args.eta,
         minimizer_progress_to_stdout=True,
+        mesh=mesh,
     )
-    summary = ctt.solve(options, problem, device=args.device)
+    summary = ctt.solve(options, problem, device=device)
     print(summary.full_report())
 
 

@@ -24,7 +24,7 @@ import torch
 
 from ceres_tpu_torch.evaluator import _cost_impl, _full_impl
 from ceres_tpu_torch.linear.cg import CG_FAILURE
-from ceres_tpu_torch.solver import SolverSummary, preprocess
+from ceres_tpu_torch.solver import SolverSummary, initial_state, preprocess
 from ceres_tpu_torch.trust_region import (
     IterationSummary,
     _SolveConfig,
@@ -94,7 +94,8 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig, trace: bool)
     """One LM iteration: (next state, trace row or None)."""
     sc = config.solve
     families = program.families
-    cost, grad, ctx = _full_impl(s.x, families, program.num_tangent, program.groups)
+    cost, grad, ctx = _full_impl(s.x, families, program.num_tangent, program.groups,
+                                 comm=program.comm)
 
     scaling = norms0 = None
     if config.jacobi_scaling:
@@ -108,7 +109,7 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig, trace: bool)
     step_is_valid = torch.isfinite(mcc) & (mcc > 0.0) & (lin_term < CG_FAILURE)
 
     candidate = candidate_point(program.plus_struct, s.x, step_scaled, scaling)
-    cand_cost = _cost_impl(candidate, families)
+    cand_cost = _cost_impl(candidate, families, comm=program.comm)
     cand_cost = torch.where(torch.isfinite(cand_cost), cand_cost, torch.inf)
     rho = (cost - cand_cost) / mcc
     accept = step_is_valid & (rho > config.min_relative_decrease)
@@ -175,7 +176,8 @@ def _fused_minimize(x0, program, solve_aux, max_num_iterations: int,
     """Run the LM loop from x0; returns (final state, initial cost, trace),
     the trace a (iterations, len(_TRACE_FIELDS)) f64 device tensor or None."""
     dev = x0.device
-    cost0, grad0, _ = _full_impl(x0, program.families, program.num_tangent, program.groups)
+    cost0, grad0, _ = _full_impl(x0, program.families, program.num_tangent, program.groups,
+                                 comm=program.comm)
     g0 = grad0.to(_F64)
 
     def i32(v):
@@ -426,7 +428,8 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
     or the line search honours (DOGLEG, LINE_SEARCH, inner iterations,
     gradient checks, bounds, callbacks, progress output, non-monotonic
     steps, a time budget, dumps) raise ``ValueError``: ``solve`` runs
-    them."""
+    them. With ``mesh`` the solve is sharded as ``solve``'s is (the JAX
+    package's fused_lm.py:364-396)."""
     t0 = time.perf_counter()
     summary = SolverSummary()
     prep = preprocess(options, problem, device, summary)
@@ -451,7 +454,7 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
             "ctt.solve runs them on the host-loop or line-search minimizer"
         )
     solve_aux = _build_solve_aux(resolved, program)
-    x0 = torch.from_numpy(program.initial_ambient()).to(program.device, program.eval_dtype)
+    x0 = initial_state(program, options.mesh)
     t1 = time.perf_counter()
     final, cost0, _ = _fused_minimize(
         x0, program, solve_aux, resolved.max_num_iterations,

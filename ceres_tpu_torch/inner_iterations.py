@@ -21,6 +21,10 @@ gradients and J'J blocks, the trust radii, the damped (T, T) solves and the
 delta are f64, and ``program.plus`` adds the delta to x in x's own dtype, so
 an f32 x stays f32. The per-block costs the accept test compares are summed
 in f64 too.
+
+On a sharded program (``parallel/sharding.py``) the sets come from the
+whole program, the same on every rank, and the per-block gradients, J'J
+blocks and costs, sums over rows, are all-reduced.
 """
 
 from __future__ import annotations
@@ -117,6 +121,7 @@ class CoordinateDescentMinimizer:
         self.program = program
         self.options = options
         self.evaluator = evaluator
+        whole = program.unsharded()
         user = options.inner_iteration_ordering
         if user is not None:
             # User groups (Solver::Options::inner_iteration_ordering):
@@ -127,10 +132,10 @@ class CoordinateDescentMinimizer:
                 g = [int(p) for p in g if program.active[int(p)]]
                 if not g:
                     continue
-                validate_independent_set(program, g)
+                validate_independent_set(whole, g)
                 self.sets.append(g)
         else:
-            self.sets = compute_independent_sets(program)
+            self.sets = compute_independent_sets(whole)
         self.num_steps = 3  # batched LM steps per set per pass
 
         # Per set, per tangent size T: the (G_T, T) tangent coordinates of
@@ -181,7 +186,8 @@ class CoordinateDescentMinimizer:
         program, opts = self.program, self.options
         families = program.families
         apply_loss = self.evaluator.apply_loss
-        _, ctx = _context_impl(x, families, program.num_tangent, program.groups, apply_loss)
+        comm = program.comm
+        _, ctx = _context_impl(x, families, program.num_tangent, program.groups, apply_loss, comm)
         f64 = torch.float64
         delta = torch.zeros((program.num_tangent,), dtype=f64, device=x.device)
         for T, (rows, plans) in groups.items():
@@ -195,6 +201,8 @@ class CoordinateDescentMinimizer:
                     gj = torch.einsum("brt,br->bt", J, ctx.residuals[fi])
                     g = g + apply_reduce(plan, gj.to(f64))
                     H = H + apply_reduce(plan, torch.einsum("bri,brj->bij", J, J).to(f64))
+            if comm is not None:
+                g, H = comm.sum_all([g, H])
             g, H = g[:G], H[:G]
             diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1),
                                opts.min_lm_diagonal, opts.max_lm_diagonal)
@@ -227,12 +235,14 @@ class CoordinateDescentMinimizer:
                     if plan is not None:
                         c_old = c_old + apply_reduce(plan, sq[fi][0])
                         c_new = c_new + apply_reduce(plan, sq[fi][1])
+            if comm is not None:
+                c_old, c_new = comm.sum_all([c_old, c_new])
             accept = c_new[:G] < c_old[:G]
             new_radii[T] = torch.where(accept, radii[T] * 2.0, radii[T] * 0.25)
             idx = rows.reshape(-1)
             delta[idx] = torch.where(accept[:, None], delta[rows], 0.0).reshape(-1)
         new_x = program.plus(x, delta)
-        return new_x, new_radii, _cost_impl(new_x, families, apply_loss)
+        return new_x, new_radii, _cost_impl(new_x, families, apply_loss, comm)
 
     def minimize(self, x: torch.Tensor) -> Tuple[torch.Tensor, float]:
         """One inner-iteration pass: (x, final cost), one host read."""

@@ -40,9 +40,11 @@ _F64 = torch.float64
 
 class Oracle:
     """Evaluation interface for line-search minimization: tensors in,
-    tensors out (the cost an f64 scalar on the device)."""
+    tensors out (the cost an f64 scalar on the device). ``comm``: the
+    collectives of a sharded program (parallel/sharding.py), or None."""
 
     num_tangent: int
+    comm = None
 
     def cost_and_gradient(self, x: torch.Tensor):
         raise NotImplementedError
@@ -60,6 +62,7 @@ class ProgramOracle(Oracle):
         self._program = program
         self._ev = Evaluator(program)
         self.num_tangent = program.num_tangent
+        self.comm = program.comm
 
     def cost_and_gradient(self, x):
         return self._ev.cost_and_gradient(x)
@@ -450,7 +453,10 @@ class LineSearchMinimizer:
                 summary.termination_type = TerminationType.CONVERGENCE
                 summary.message = "Parameter tolerance reached."
                 return x
-            if time.perf_counter() - start > opts.max_solver_time_in_seconds:
+            over = time.perf_counter() - start > opts.max_solver_time_in_seconds
+            if self.oracle.comm is not None:
+                over = self.oracle.comm.agree(over, x.device)  # rank 0's clock
+            if over:
                 summary.termination_type = TerminationType.NO_CONVERGENCE
                 summary.message = "Maximum solver time reached."
                 return x

@@ -4,7 +4,10 @@ after conjugate_gradients_solver.h:108-300).
 Same update order, Nash-Sofer Q-based termination (zeta test), r-tolerance
 test, residual refresh every ``residual_reset_period`` iterations, and the
 indefiniteness / numerical-failure guards. The loop runs on the host and
-reads one flag from the device per iteration to decide whether to stop.
+reads one flag from the device per iteration to decide whether to stop. On
+a sharded program (``parallel/sharding.py``) every vector here is the same
+on every rank, built from all-reduced products by the same arithmetic, so
+every rank reads the same flag and stops at the same iteration.
 """
 
 from __future__ import annotations

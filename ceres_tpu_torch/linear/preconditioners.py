@@ -89,6 +89,8 @@ def subset_preconditioner(
                 tk = ctx.tangent_idx(fi, k)
                 H.index_put_((tj[:, :, None], tk[:, None, :]), contrib, accumulate=True)
     H = H[:n, :n]
+    if ctx.comm is not None:
+        H = ctx.comm.sum(H)  # this rank's subset rows
     if D is not None:
         H = H + torch.diag(D * D)
     chol = torch.linalg.cholesky_ex(H)[0]

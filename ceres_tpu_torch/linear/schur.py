@@ -20,6 +20,11 @@ clusters) preconditioner and, optionally, a power-series initial guess. The
 camera clusters and their chains come from the native core
 (``utils/native.py``). Both solvers take an explicit tangent right-hand side
 (the mixed-precision refinement of ``trust_region._linear_solve``).
+
+On a sharded program (``parallel/sharding.py``) every row of a point lies
+on the point's owner rank: the point side ((E'E + D_e^2)^-1, E'w, the
+back-substitution) is computed by the owner alone, and the camera side
+(S, each S x, the right-hand side, the SCHUR_JACOBI blocks) is all-reduced.
 """
 
 from __future__ import annotations
@@ -134,6 +139,8 @@ class SchurStructure:
     chain_clusters: Optional[torch.Tensor] = None
     # SPARSE_SCHUR's CSC assembly of upper(S) (sparse_schur.py)
     sparse_assembly: Optional[object] = None
+    # on a sharded program: (P,) bool, the points this rank owns
+    e_owned: Optional[torch.Tensor] = None
 
     def to_dtype(self, dtype: torch.dtype) -> "SchurStructure":
         """The structure with its one floating array, ``f_mask``, in
@@ -147,10 +154,12 @@ def build_schur_structure(program, ordering: Optional[List[int]] = None) -> Schu
     explicit-S plan is attached by the caller when S is to be assembled).
     ``ordering``: the e-block ids to eliminate (group 0 of
     ``SolverOptions.linear_solver_ordering``) in place of the automatic
-    independent set."""
+    independent set; on a sharded program, the ordering it was sharded by).
+    On a sharded program every e-block must have an owner rank."""
     dev = program.device
+    comm = program.comm
     if ordering is None:
-        ordering = compute_schur_ordering(program)
+        ordering = compute_schur_ordering(program) if comm is None else comm.e_blocks
     e_pids = np.asarray([int(p) for p in ordering], dtype=np.int64)
     if not e_pids.size:
         raise ValueError("no e-blocks found for Schur elimination")
@@ -164,6 +173,15 @@ def build_schur_structure(program, ordering: Optional[List[int]] = None) -> Schu
     e_pids = e_pids[e_sizes == Te]
     P = e_pids.shape[0]
     e_group = offsets[e_pids][:, None] + np.arange(Te)
+    e_owned = None
+    if comm is not None:
+        owner = comm.e_owner[e_pids]
+        if np.any(owner < 0):
+            raise ValueError(
+                "the elimination ordering names e-blocks the program was not "
+                "sharded by (shard_program's e_blocks)"
+            )
+        e_owned = owner == comm.rank
 
     f_mask = np.ones(program.num_tangent)
     f_mask[e_group.reshape(-1)] = 0.0
@@ -273,6 +291,7 @@ def build_schur_structure(program, ordering: Optional[List[int]] = None) -> Schu
         host_e_pos=tuple(e_pos),
         host_f_pos=tuple(f_pos),
         host_e_pids=e_pids,
+        e_owned=to_dev(e_owned),
     )
 
 
@@ -287,9 +306,12 @@ def attach_clusters(program, ss: SchurStructure, with_forest: bool = False) -> N
     core's maximum-weight linear forest over the cluster visibility graph
     (paths: degree at most 2), walked into chains from their ends, a
     cluster outside every edge a chain of its own. Nothing is set when no
-    observation joins an f block and an e block."""
+    observation joins an f block and an e block. On a sharded program the
+    clusters come from the whole program's observations, the same on every
+    rank."""
     from ceres_tpu_torch.utils import native
 
+    program = program.unsharded()
     n = program.num_pids
     e_pids = ss.host_e_pids
     in_e = np.zeros(n, dtype=bool)
@@ -381,6 +403,11 @@ class SchurOperator:
             ete = ete + self._reduce_e(fi, _pair_product(E, E))
         De = self._gather_e(D)
         ete = ete.reshape(P, Te, Te) + torch.diag_embed(De * De)
+        if ss.e_owned is not None:
+            # another rank's points: identity, so that their (zero) E'w
+            # solves to zero here
+            eye = torch.eye(Te, dtype=ete.dtype, device=ete.device)
+            ete = torch.where(ss.e_owned[:, None, None], ete, eye)
         self._ete_inv = spd_inverse(ete)
         self._coordinates = None  # s_columns' coordinate tables, made at first use
 
@@ -415,6 +442,14 @@ class SchurOperator:
     def _solve_ete(self, t: torch.Tensor) -> torch.Tensor:
         """(E'E + D_e^2)^{-1} t, batched (P, Te)."""
         return spd_solve(self._ete_inv, t)
+
+    def _owned_e(self, u: torch.Tensor) -> torch.Tensor:
+        """A (P, Te) point-space result whole on every rank: each owner's
+        rows, all-reduced (``u`` itself in one process)."""
+        comm, owned = self.ctx.comm, self.ss.e_owned
+        if comm is None:
+            return u
+        return comm.sum(torch.where(owned[:, None], u, 0.0))
 
     def _embed_e(self, u: torch.Tensor) -> torch.Tensor:
         """(P, Te) point vector -> full tangent vector (zero on f)."""
@@ -671,7 +706,7 @@ class SchurOperator:
         x_f = x_f * ss.f_mask
         Jx = ctx.matvec(x_f, skip=ss.e_arg)
         diff = tuple(r - w for r, w in zip(ctx.residuals, Jx))
-        return x_f + self._embed_e(self._solve_ete(self._edot(diff)))
+        return x_f + self._embed_e(self._owned_e(self._solve_ete(self._edot(diff))))
 
     def back_substitute_tangent(self, x_f: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         """The e part for a tangent rhs r: y_e = (E'E + D_e^2)^{-1}
@@ -679,7 +714,7 @@ class SchurOperator:
         ss = self.ss
         x_f = x_f * ss.f_mask
         etfx = self._edot(self.ctx.matvec(x_f, skip=ss.e_arg))
-        return x_f + self._embed_e(self._solve_ete(self._gather_e(r) - etfx))
+        return x_f + self._embed_e(self._owned_e(self._solve_ete(self._gather_e(r) - etfx)))
 
     # -- preconditioners -----------------------------------------------------
 
@@ -714,6 +749,8 @@ class SchurOperator:
                     contrib = contrib - flat_outer(w, y, Te, T, T)
                 red = apply_reduce(ss.f_plan[fi][j], contrib)[: out[T].shape[0]]
                 out[T] = out[T] + red.reshape(-1, T, T)
+        if ctx.comm is not None:
+            out = dict(zip(out, ctx.comm.sum_all(list(out.values()))))
         for T, idx in ss.f_groups.items():
             df = self.D[idx]
             out[T] = out[T] + torch.diag_embed(df * df)

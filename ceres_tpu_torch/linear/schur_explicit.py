@@ -362,5 +362,7 @@ def assemble_reduced_system(op, plan: ExplicitSchurPlan) -> torch.Tensor:
             accumulate=True,
         )
     S = S_d + S_l + S_l.T
+    if op.ctx.comm is not None:
+        S = op.ctx.comm.sum(S)  # each rank's cells, from its rows
     df = op.D[op.ss.f_idx]
     return S + torch.diag((df * df).to(op.dtype))

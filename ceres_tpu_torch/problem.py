@@ -124,7 +124,9 @@ def cast_program(program: "Program", dtype) -> "Program":
     dtype = _torch_dtype(dtype)
     if program.eval_dtype == dtype:
         return program
-    for fam in program.families:
+    for fam in program.families + (program.comm.full_families if program.comm else []):
+        if fam.mask is not None:
+            fam.mask = fam.mask.to(dtype)
         if fam.data is not None:
             fam.data = pytree.tree_map(
                 lambda a: a.to(dtype) if a.is_floating_point() else a, fam.data
@@ -134,6 +136,7 @@ def cast_program(program: "Program", dtype) -> "Program":
     program._cast_bounds()
     program.solve_aux_cache.clear()
     program.schur_structure = None
+    program._unsharded_view = None
     return program
 
 
@@ -539,10 +542,13 @@ class Problem:
         self._programs.clear()
 
     def program(self, device) -> "Program":
-        """Freeze into an evaluation-ready Program on ``device``."""
+        """Freeze into an evaluation-ready Program on ``device``: the cached
+        one, unless a sharded solve left only this rank's rows in it
+        (``parallel.shard_program``), which is rebuilt whole (the JAX
+        package rebuilds it too, problem.py:600-604)."""
         device = torch.device(device)
         prog = self._programs.get(device)
-        if prog is None:
+        if prog is None or prog.mesh is not None:
             prog = Program(self, device)
             self._programs[device] = prog
         return prog
@@ -684,7 +690,12 @@ class Family:
       (``Program.groups``); a constant block points at the dummy row G;
     - ``reduce_plans[j]``: the batch -> tangent group reduction of arg j;
     - ``data``: pytree of tensors with leading axis B, or None;
-    - ``loss``: the family's loss (parameters floats, or (B,) tensors).
+    - ``loss``: the family's loss (parameters floats, or (B,) tensors);
+    - ``mask``: (B,) 1 on real rows, 0 on padding rows (which repeat a real
+      row's ids and contribute nothing), in the evaluation dtype; None when
+      every row is real (``parallel.pad_family``);
+    - ``source_rows``: on a sharded program, the (B,) row of each instance
+      in the unsharded family, -1 on padding (``parallel.shard_program``).
     """
 
     structure: FamilyStructure
@@ -697,6 +708,8 @@ class Family:
     amb_pos: Tuple[torch.Tensor, ...]
     amb_groups: BlockGroups
     reduce_plans: Tuple
+    mask: Optional[torch.Tensor] = None
+    source_rows: Optional[np.ndarray] = None
 
     @property
     def residual_size(self) -> int:
@@ -743,6 +756,13 @@ class Program:
         self.eval_dtype = torch.float64
         self.solve_aux_cache: dict = {}
         self.schur_structure = None
+        # Set by parallel.shard_program: the mesh, its axis names and the
+        # collectives of the sharded evaluation (parallel.sharding.MeshComm).
+        self.mesh = None
+        self.mesh_axis = None
+        self.point_axis = None
+        self.comm = None
+        self._unsharded_view = None
 
         # Per block id (position = id; removed blocks keep their slot with
         # size 0 in both layouts).
@@ -797,6 +817,25 @@ class Program:
         self._build_bounds()
         self._build_plus()
         self._build_families()
+
+    def unsharded(self) -> "Program":
+        """The program itself, or on a sharded program a view of it with
+        every family whole and no collectives: what a solver that takes the
+        gathered form (``parallel/sharding.py``) and the block structures
+        every rank must agree on (inner-iteration sets, camera clusters) are
+        built from."""
+        if self.comm is None:
+            return self
+        if self._unsharded_view is None:
+            import copy
+
+            view = copy.copy(self)
+            view.families = list(self.comm.full_families)
+            view.mesh = view.mesh_axis = view.point_axis = view.comm = None
+            view.solve_aux_cache = {}
+            view.schur_structure = None
+            self._unsharded_view = view
+        return self._unsharded_view
 
     # -- state vectors and bounds -------------------------------------------
 

@@ -20,10 +20,11 @@ SCHUR_JACOBI, SCHUR_POWER_SERIES_EXPANSION, CLUSTER_JACOBI,
 CLUSTER_TRIDIAGONAL; explicit or implicit S), any of them with
 mixed-precision refinement and, for the Schur solvers, a user elimination
 ordering. The two sparse solvers factor on the host (the native core,
-``utils/native.py``) and run in the host loop, as in the JAX package. A
-sharded evaluation (``mesh``) raises ``NotImplementedError`` naming its
-ROADMAP item. A solve runs on the card unless the caller names another
-device.
+``utils/native.py``) and run in the host loop, as in the JAX package. With
+``mesh`` (``parallel.make_mesh``) every rank of the process group calls
+``solve`` on the same problem, the program is sharded over the ranks
+(``parallel/sharding.py``) and every rank returns the same summary. A solve
+runs on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -48,9 +49,6 @@ from ceres_tpu_torch.types import (
     TerminationType,
     TrustRegionStrategyType,
 )
-
-_SHARDING = "ROADMAP Queue 1 item 19 (parallel/sharding.py on torch.distributed)"
-
 
 @dataclasses.dataclass
 class SolverOptions:
@@ -151,7 +149,8 @@ class SolverOptions:
     # (new_evaluation_point, evaluate_jacobians) before every residual /
     # Jacobian evaluation the minimizer performs.
     evaluation_callback: Optional[object] = None
-    # Multi-device execution: ``mesh`` (a sharded evaluation) is not ported;
+    # Multi-device execution: ``mesh``, a DeviceMesh over the ranks of the
+    # process group (parallel.make_mesh), shards the solve over them;
     # ``num_threads`` is accepted and ignored, as in the JAX package (the
     # card runs the evaluation).
     mesh: Optional[object] = None
@@ -345,10 +344,10 @@ class SolverOptions:
 
 
 def check_supported(options: SolverOptions) -> None:
-    """Raise NotImplementedError for what the port does not run yet: a
-    sharded evaluation."""
-    if options.mesh is not None:
-        raise NotImplementedError(f"mesh: {_SHARDING}")
+    """Raise NotImplementedError for what the port does not run yet. Since
+    the sharded evaluation (``mesh``) every option runs, so nothing raises;
+    the check stays where a later option that the port lacks would go."""
+    del options
 
 
 @dataclasses.dataclass
@@ -366,6 +365,11 @@ class SolverSummary:
     iterations: List = dataclasses.field(default_factory=list)
     # LM iterations that computed a step
     num_iterations: int = 0
+    # ranks of the mesh the solve was sharded over (1: no mesh), and this
+    # rank's collectives: {"all_reduce" | "broadcast": {"calls", "bytes",
+    # "seconds"}} (parallel.sharding.MeshComm.stats; None: no mesh)
+    num_devices: int = 1
+    collectives: Optional[dict] = None
     num_parameter_blocks: int = 0
     num_parameters: int = 0
     num_effective_parameters: int = 0
@@ -444,6 +448,7 @@ class SolverSummary:
             f"{'Preconditioner':<30}{str(self.preconditioner_type_used):>12}",
             f"{'Evaluation dtype':<30}{str(self.evaluation_dtype or 'float64'):>12}",
             f"{'Device':<30}{self.device:>12}",
+            f"{'Devices':<30}{self.num_devices:>12}",
             "",
             f"{'Initial cost':<30}{self.initial_cost:>12.6e}",
             f"{'Final cost':<30}{self.final_cost:>12.6e}",
@@ -486,13 +491,23 @@ def preprocess(options: SolverOptions, problem, device, summary: SolverSummary):
     the program on ``device``, fill the summary's problem sizes, validate
     the options, and end a solve that has nothing to do (invalid options, no
     non-constant block, an infeasible start). Returns (program, resolved
-    options) with the program cast to the evaluation dtype, or None when
-    ``summary`` is final. Raises NotImplementedError for what the port does
-    not run yet."""
+    options) with the program cast to the evaluation dtype and, with a mesh,
+    sharded over its ranks, or None when ``summary`` is final. Raises
+    NotImplementedError for what the port does not run yet."""
     from ceres_tpu_torch.evaluator import _cost_impl
     from ceres_tpu_torch.problem import cast_program
 
+    if options.mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(options.mesh, DeviceMesh):
+            raise TypeError(
+                "mesh must be a torch.distributed DeviceMesh over the ranks of the process "
+                f"group (ceres_tpu_torch.parallel.make_mesh), got {type(options.mesh).__name__}"
+            )
     device = torch.device(device)
+    if options.mesh is not None and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())  # this rank's card
     program = problem.program(device)
     summary.minimizer_type = options.minimizer_type
     summary.device = str(device)
@@ -537,7 +552,32 @@ def preprocess(options: SolverOptions, problem, device, summary: SolverSummary):
     summary.evaluation_dtype = options.evaluation_dtype
     if options.evaluation_dtype is not None:
         cast_program(program, options.evaluation_dtype)
+    if options.mesh is not None:
+        # shard by the elimination ordering the solve will use
+        # (the JAX package's shard_program call, solver.py:589-594)
+        from ceres_tpu_torch.ordered_groups import normalize_ordering
+        from ceres_tpu_torch.parallel import shard_program
+        from ceres_tpu_torch.trust_region import _SCHUR_TYPES
+
+        groups = normalize_ordering(resolved.linear_solver_ordering)
+        e_blocks = None
+        if groups and resolved.linear_solver_type in _SCHUR_TYPES:
+            e_blocks = list(groups[0])
+        shard_program(program, options.mesh, e_blocks=e_blocks)
+        summary.num_devices = int(options.mesh.size())
+        summary.collectives = program.comm.stats  # filled in as the solve runs
     return program, resolved
+
+
+def initial_state(program, mesh=None) -> torch.Tensor:
+    """The start x on the program's device in its evaluation dtype; with a
+    mesh, rank 0's bits on every rank (``parallel.replicate``)."""
+    x0 = torch.from_numpy(program.initial_ambient()).to(program.device, program.eval_dtype)
+    if mesh is None:
+        return x0
+    from ceres_tpu_torch.parallel import replicate
+
+    return replicate(x0, mesh, program.device)
 
 
 def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
@@ -566,7 +606,8 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
         from ceres_tpu_torch.gradient_checker import check_program_gradients_at
 
         ok, msg = check_program_gradients_at(
-            program, program.initial_ambient(), options.gradient_check_relative_precision
+            program.unsharded(), program.initial_ambient(),
+            options.gradient_check_relative_precision,
         )
         if not ok:
             summary.termination_type = TerminationType.FAILURE
@@ -575,7 +616,7 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
             return summary
     if trust_region:
         _build_solve_aux(resolved, program)  # memoized on the program
-    x0 = torch.from_numpy(program.initial_ambient()).to(program.device, program.eval_dtype)
+    x0 = initial_state(program, options.mesh)
     t1 = time.perf_counter()
     summary.preprocessor_time_in_seconds = t1 - t0
     event_logger.add_event("Preprocess")

@@ -158,6 +158,15 @@ _SCHUR_TYPES = (
 
 _CLUSTER_TYPES = (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
 _SPARSE_TYPES = (LinearSolverType.SPARSE_NORMAL_CHOLESKY, LinearSolverType.SPARSE_SCHUR)
+# The solvers that a sharded program runs in the gathered form: every rank
+# gathers the whole Jacobian and runs the one-process solver, and rank 0's
+# result is broadcast (parallel/sharding.py). The others are distributed.
+_GATHERED_TYPES = (
+    LinearSolverType.DENSE_QR,
+    LinearSolverType.DENSE_NORMAL_CHOLESKY,
+    LinearSolverType.SPARSE_NORMAL_CHOLESKY,
+    LinearSolverType.SPARSE_SCHUR,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,7 +217,10 @@ def _build_solve_aux(options, program) -> dict:
     """Preprocessor-built index structures (the block-Jacobi groups, the
     Schur elimination structure with, for a small reduced system, the
     explicit-S assembly plan, and the SUBSET preconditioner's row masks),
-    memoized on the program per structural option set."""
+    memoized on the program per structural option set. A sharded program's
+    gathered-form solvers get those of the whole program."""
+    if program.comm is not None and options.linear_solver_type in _GATHERED_TYPES:
+        return _build_solve_aux(options, program.unsharded())
     subset = options.residual_blocks_for_subset_preconditioner
     groups = normalize_ordering(options.linear_solver_ordering)
     key = (
@@ -280,8 +292,14 @@ def _base_linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
     num_iterations, termination) with linear/cg.py termination codes:
     iterative solvers report their CG termination (FAILURE on breakdown),
     direct solvers FAILURE on a non-finite result. ``rhs``: an explicit
-    tangent right-hand side in place of J'f."""
+    tangent right-hand side in place of J'f. On a sharded ``ctx`` the
+    gathered-form solvers solve the gathered context and take rank 0's
+    result."""
     lst = config.linear_solver_type
+    if ctx.comm is not None and lst in _GATHERED_TYPES:
+        y, iters, term = _base_linear_solve(ctx.gathered(), D, solve_aux, config, rhs=rhs)
+        y, iters, term = _broadcast_scalars(ctx.comm, y, iters, term)
+        return y, iters.to(torch.int32), term.to(torch.int32)
     if lst in _SCHUR_TYPES:
         return solve_schur(ctx, D, config, solve_aux["ss"], rhs=rhs)
     one = torch.ones((), dtype=torch.int32, device=D.device)
@@ -366,7 +384,17 @@ def _model_cost_change(ctx, step: torch.Tensor) -> torch.Tensor:
     for fi in range(len(ctx.families)):
         j64 = Js[fi].to(_F64)
         mcc = mcc - torch.sum(j64 * (ctx.residuals[fi].to(_F64) + j64 / 2.0))
-    return mcc
+    return ctx._sum(mcc)
+
+
+def _broadcast_scalars(comm, vec: torch.Tensor, *scalars: torch.Tensor):
+    """Rank 0's vector and scalars on every rank, in one broadcast: the
+    vector in its dtype, the scalars as f64 (exact for the counts and
+    codes)."""
+    packed = torch.cat([vec.to(_F64)] + [s.to(_F64).reshape(1) for s in scalars])
+    packed = comm.broadcast(packed)
+    n = vec.numel()
+    return (packed[:n].to(vec.dtype), *packed[n:].unbind())
 
 
 def lm_step(ctx, radius: torch.Tensor, solve_aux, config: _SolveConfig, scaling=None,
@@ -412,12 +440,13 @@ def _grad_norms(grad: torch.Tensor):
     return gmax, torch.linalg.norm(g)
 
 
-def _candidate_impl(x, step_scaled, scaling, families, plus_struct, apply_loss: bool):
+def _candidate_impl(x, step_scaled, scaling, families, plus_struct, apply_loss: bool,
+                    comm=None):
     """Candidate point, its cost and the x / step norms (f64) without a
     Jacobian: the step-by-step branch's candidate
     (trust_region_minimizer.cc:775-793), read by the host in one read."""
     cand = candidate_point(plus_struct, x, step_scaled, scaling)
-    cost = _cost_impl(cand, families, apply_loss)
+    cost = _cost_impl(cand, families, apply_loss, comm)
     step_norm = torch.linalg.norm((x - cand).to(_F64))
     x_norm = torch.linalg.norm(x.to(_F64))
     return cand, cost, step_norm, x_norm
@@ -439,7 +468,7 @@ def _tr_iteration_impl(x, ctx, radius, scaling, program, solve_aux, config: _Sol
     step_norm = torch.linalg.norm((x - cand).to(_F64))
     x_norm = torch.linalg.norm(x.to(_F64))
     cand_cost, cand_grad, cand_ctx = _full_impl(
-        cand, ctx.families, program.num_tangent, ctx.groups, apply_loss
+        cand, ctx.families, program.num_tangent, ctx.groups, apply_loss, ctx.comm
     )
     gmax, gnorm = _grad_norms(cand_grad)
     scalars = torch.stack([
@@ -639,11 +668,31 @@ class _SparseNormalStep:
         return _step_result(*_sparse_finish_impl(ctx, y_dev), term)
 
 
+class _GatheredStep:
+    """A host-driven sparse step on a sharded program: the step of the
+    whole program on the gathered context, rank 0's result broadcast."""
+
+    def __init__(self, step_fn, comm):
+        self._step_fn, self._comm = step_fn, comm
+
+    def __call__(self, ctx, radius: float):
+        step, mcc, iters, term = self._step_fn(ctx.gathered(), radius)
+        step, mcc, iters, term = _broadcast_scalars(self._comm, step, mcc, iters, term)
+        return step, mcc, iters.to(torch.int32), term.to(torch.int32)
+
+    def close(self) -> None:
+        close = getattr(self._step_fn, "close", None)
+        if close is not None:
+            close()
+
+
 def _make_lm_step_fn(options, program):
     """f(ctx, radius) -> (step, model_cost_change, lin_iters, lin_termination)
     for a host radius: the host-driven sparse steps for SPARSE_NORMAL_CHOLESKY
     and SPARSE_SCHUR, the card's step for every other solver."""
     config = _config_from_options(options)
+    if program.comm is not None and config.linear_solver_type in _SPARSE_TYPES:
+        return _GatheredStep(_make_lm_step_fn(options, program.unsharded()), program.comm)
     if config.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
         return _SparseNormalStep(config, program)
     solve_aux = _build_solve_aux(options, program)
@@ -924,7 +973,7 @@ class TrustRegionMinimizer:
                 self.evaluator._notify(None, False)
                 candidate_x, cc, sn, xn = _candidate_impl(
                     x, step_scaled, jacobi_scaling, program.families, program.plus_struct,
-                    self.evaluator.apply_loss,
+                    self.evaluator.apply_loss, program.comm,
                 )
                 candidate_cost, step_norm, x_norm = _to_host(cc, sn, xn)
                 summary.residual_evaluation_time_in_seconds += time.perf_counter() - t0
@@ -997,7 +1046,7 @@ class TrustRegionMinimizer:
                         from ceres_tpu_torch.gradient_checker import check_program_gradients_at
 
                         ok, msg = check_program_gradients_at(
-                            program, x, opts.gradient_check_relative_precision
+                            program.unsharded(), x, opts.gradient_check_relative_precision
                         )
                         if not ok:
                             summary.termination_type = TerminationType.FAILURE
@@ -1057,7 +1106,10 @@ class TrustRegionMinimizer:
             )
             return True
         total = it.cumulative_time_in_seconds = summary.iterations[-1].cumulative_time_in_seconds
-        if total >= opts.max_solver_time_in_seconds:
+        over = total >= opts.max_solver_time_in_seconds
+        if self.program.comm is not None:
+            over = self.program.comm.agree(over, self.program.device)  # rank 0's clock
+        if over:
             summary.termination_type = TerminationType.NO_CONVERGENCE
             summary.message = "Maximum solver time reached."
             return True

@@ -44,6 +44,22 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    cost to the bit). Both final costs must lie within 1e-3 relative of the
    JAX reference's 3587827.37 (BENCH_r05.json), and K1, K3 and K4 must each
    have been launched during the first timed solve;
+5b. sharded (``sharded``, right after phase 5): ``fused_solve`` with
+   ``options.mesh`` (``ceres_tpu_torch/parallel/``), the ranks started by
+   ``parallel.launch.spawn_ranks`` (spawn, a ``file://`` rendezvous). (a)
+   Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card): the
+   large case in float64 twice (the same bits both times, the same LM
+   iterations as phase 5's float64 solve, the final cost within
+   SHARDED_F64_RTOL), in float32 (within COST_RTOL of phase 5's float64),
+   and the flagship in float64 (ITERATIVE_SCHUR on the explicit S at
+   nf = 144; phase 4's float64 iterations, SHARDED_F64_RTOL). (b) One rank
+   over NCCL: the flagship in float32 through the mesh path, twice, each
+   phase 4's float32 result to the bit. Per rank and solve: its K1 / K3 / K4 launches
+   (each non-zero where the one-process solve launches it), set-up seconds,
+   seconds per LM iteration, and the calls, bytes and seconds of its
+   all-reduces (``MeshComm.timed``: the card is synchronized around each
+   collective, so the seconds are the collectives' own and the LM
+   iterations include those waits);
 6. solve, robust large: the large instance again with ``HuberLoss(1.0)``
    (the Jacobians and residuals the kernels reduce are the loss-corrected
    ones), DENSE_SCHUR, float32 and float64, a 2-iteration warm-up and two
@@ -1581,6 +1597,17 @@ def check_kernels(device) -> list:
 
 # ---- solves -----------------------------------------------------------------
 
+SHARDED_RANKS = 2
+SHARDED_F64_RTOL = 1e-8
+# (a): two ranks on one card over gloo; (b): one rank over NCCL. A rank's
+# first solve also pays the process's first use of the card (2.5 s an LM
+# iteration against 0.23 at the large case, on an NVIDIA H100 80GB HBM3 at
+# 700 W): its repeat is the one to read.
+SHARDED_GLOO_RUNS = [("large", "float64"), ("large", "float64"), ("large", "float32"),
+                     ("flagship", "float64")]
+SHARDED_NCCL_RUNS = [("flagship", "float32"), ("flagship", "float32")]
+SHARDED_TIMEOUT = 480.0  # one spawn: imports, set-up and every solve of every rank
+
 
 def _reset_launches() -> None:
     for mod, _ in KERNELS.values():
@@ -1626,9 +1653,9 @@ def _checked(problem, summary, reference: float, label: str) -> float:
     return rel
 
 
-def solve_flagship(device, dtype: str) -> dict:
+def solve_flagship(device, dtype: str):
     """Warm-up solve, then REPEATS timed solves; returns the launches made
-    by the first of them."""
+    by the first of them and its summary."""
     inst = flagship_instance()
     warm, _, _ = bal.build_problem(inst)
     ctt.fused_solve(_options(dtype, True, max_iters=2), warm, device=device)
@@ -1659,12 +1686,13 @@ def solve_flagship(device, dtype: str) -> dict:
     )
     if launches["sorted_segment_sum"] == 0:
         raise RuntimeError(f"flagship {dtype}: K1 was never launched")
-    return launches
+    return launches, summary
 
 
-def solve_large(device, dtype: str, inst) -> dict:
+def solve_large(device, dtype: str, inst):
     """A 2-iteration warm-up solve on a fresh problem, then LARGE_REPEATS
-    timed solves; returns the launches made by the first of them."""
+    timed solves; returns the launches made by the first of them (also by
+    width) and its summary."""
     warm, _, _ = bal.build_problem(inst)
     ctt.fused_solve(_options(dtype, False, max_iters=2), warm, device=device)
     del warm
@@ -1700,7 +1728,106 @@ def solve_large(device, dtype: str, inst) -> dict:
     for name, count in launches.items():
         if count == 0:
             raise RuntimeError(f"large {dtype}: {name} was never launched")
-    return launches, by_width
+    return launches, by_width, summary
+
+
+def _sharded_solve(case: str, dtype: str, mesh, device) -> dict:
+    """One sharded ``fused_solve`` of ``case`` on this rank: its summary's
+    numbers, its kernel launches and its collectives."""
+    problem, _, _ = bal.build_problem(large_instance() if case == "large" else flagship_instance())
+    opts = _options(dtype, case == "flagship")
+    opts.mesh = mesh
+    _reset_launches()
+    s = ctt.fused_solve(opts, problem, device=device)
+    iters = max(s.num_iterations, 1)
+    reduce = s.collectives["all_reduce"]
+    return dict(
+        case=case, dtype=dtype, rank=torch.distributed.get_rank(), ranks=s.num_devices,
+        initial_cost=s.initial_cost, final_cost=s.final_cost, lm_iterations=s.num_iterations,
+        termination=str(s.termination_type), setup_seconds=s.preprocessor_time_in_seconds,
+        solve_seconds=s.minimizer_time_in_seconds,
+        seconds_per_lm_iteration=s.minimizer_time_in_seconds / iters,
+        all_reduce_calls=reduce["calls"], all_reduce_bytes=reduce["bytes"],
+        all_reduce_bytes_per_lm_iteration=reduce["bytes"] / iters,
+        all_reduce_seconds=reduce["seconds"], broadcasts=s.collectives["broadcast"]["calls"],
+        launches=_launches(),
+    )
+
+
+def sharded_rank(rank: int, world: int, runs) -> list:
+    """A rank of the sharded phase: every (case, dtype) of ``runs`` on a
+    mesh over the world, on cuda:0 (every rank: one card)."""
+    del rank
+    from ceres_tpu_torch.parallel import make_mesh, sharding
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    sharding.MeshComm.timed = True
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(world, device_type="cuda")
+    return [_sharded_solve(case, dtype, mesh, device) for case, dtype in runs]
+
+
+def _held(label: str, got: dict, ref, rtol: float) -> float:
+    """A sharded solve against the one-process one: the same LM iterations,
+    the final cost within ``rtol``; returns the relative difference."""
+    rel = abs(got["final_cost"] - ref.final_cost) / ref.final_cost
+    if got["lm_iterations"] != ref.num_iterations or not rel <= rtol:
+        raise RuntimeError(
+            f"{label}: {got['lm_iterations']} iterations, final cost {got['final_cost']} "
+            f"against {ref.num_iterations}, {ref.final_cost} (rtol {rtol})")
+    return rel
+
+
+def solve_sharded(single: dict, paths: dict, smi: str) -> dict:
+    """Phase 5b: the sharded runs, held to the one-process summaries of
+    phases 4 and 5 (``single[case, dtype]``) and to their launches
+    (``paths``); returns each rank's launches by path."""
+    from ceres_tpu_torch.parallel.launch import spawn_ranks
+
+    torch.cuda.empty_cache()  # leave the card to the ranks
+    t0 = time.perf_counter()
+    gloo = spawn_ranks(sharded_rank, SHARDED_RANKS, (SHARDED_GLOO_RUNS,), backend="gloo",
+                       timeout=SHARDED_TIMEOUT)
+    t1 = time.perf_counter()
+    nccl = spawn_ranks(sharded_rank, 1, (SHARDED_NCCL_RUNS,), backend="nccl",
+                       timeout=SHARDED_TIMEOUT)
+    t2 = time.perf_counter()
+    out = {}
+    for backend, ranks, runs in (("gloo", gloo, SHARDED_GLOO_RUNS), ("nccl", nccl, SHARDED_NCCL_RUNS)):
+        for i, (case, dtype) in enumerate(runs):
+            got = [r[i] for r in ranks]
+            label = f"sharded {case} {dtype} {backend} run {i}"
+            keys = ("initial_cost", "final_cost", "lm_iterations", "termination")
+            if any(tuple(g[k] for k in keys) != tuple(got[0][k] for k in keys) for g in got):
+                raise RuntimeError(f"{label}: the ranks disagree: {got}")
+            one = single[case, dtype]
+            if backend == "nccl":
+                # one rank: the mesh path must give the unsharded bits
+                rel = _held(label, got[0], one, 0.0)
+                if got[0]["initial_cost"] != one.initial_cost:
+                    raise RuntimeError(f"{label}: initial cost {got[0]['initial_cost']}")
+            elif dtype == "float64":
+                rel = _held(label, got[0], one, SHARDED_F64_RTOL)
+            else:
+                ref = single[case, "float64"].final_cost
+                rel = abs(got[0]["final_cost"] - ref) / ref
+                if not rel <= COST_RTOL:
+                    raise RuntimeError(f"{label}: {got[0]['final_cost']} against float64 {ref}")
+            for g in got:
+                for name, n in paths[f"{case}_{dtype}"].items():
+                    if n and not g["launches"][name]:
+                        raise RuntimeError(f"{label}, rank {g['rank']}: {name} never launched")
+                tag = f"sharded_{case}_{dtype}_{backend}_{len(ranks)}rank_run{i}_rank{g['rank']}"
+                out[tag] = g["launches"]
+                phase("sharded", backend=backend, run=i, rel_err_vs_one_process=rel,
+                      one_process_final_cost=one.final_cost, **g)
+    large64 = [r[0]["final_cost"] == r[1]["final_cost"] for r in gloo]
+    phase("sharded_summary", nvidia_smi=smi, gloo_seconds=t1 - t0, nccl_seconds=t2 - t1,
+          large_float64_repeats_equal_bits=all(large64))
+    if not all(large64):
+        raise RuntimeError("sharded large float64: the two repeats differ")
+    return out
 
 
 def _usable(summary, label: str) -> None:
@@ -3309,13 +3436,14 @@ def main() -> int:
     device = torch.device("cuda", 0)
     build_kernels()
     records = check_kernels(device)
-    paths = {}
-    paths["flagship_float32"] = solve_flagship(device, "float32")
-    paths["flagship_float64"] = solve_flagship(device, "float64")
+    paths, single = {}, {}
+    for dtype in ("float32", "float64"):
+        paths[f"flagship_{dtype}"], single["flagship", dtype] = solve_flagship(device, dtype)
     inst = large_instance()
-    launches, by_width = solve_large(device, "float32", inst)
+    launches, by_width, single["large", "float32"] = solve_large(device, "float32", inst)
     paths["large_float32"] = launches
-    paths["large_float64"] = solve_large(device, "float64", inst)[0]
+    paths["large_float64"], _, single["large", "float64"] = solve_large(device, "float64", inst)
+    paths.update(solve_sharded(single, paths, smi))
     r32, paths["robust_large_float32"] = solve_robust_large(device, "float32", inst)
     r64, paths["robust_large_float64"] = solve_robust_large(device, "float64", inst)
     rel = abs(r32.final_cost - r64.final_cost) / r64.final_cost

@@ -65,10 +65,10 @@ def test_residuals_and_jacobians_at_x0(dtype, rtol):
 def test_loss_and_constant_blocks_are_roadmap_items():
     """A loss, constant blocks and parameter bounds are in the port: a
     bounded solve (the host loop) converges with the focal-length bound
-    respected, with inner iterations too, and with SPARSE_SCHUR. What is
-    left to a later item (a sharded evaluation) still raises, naming its
-    ROADMAP item, and an object that is no loss is refused when it is
-    added."""
+    respected, with inner iterations too, and with SPARSE_SCHUR. A mesh
+    that is no DeviceMesh (the sharded evaluation, item 19, is in the port
+    too) and an object that is no loss are refused, naming what they must
+    be."""
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.problem import Problem
 
@@ -96,7 +96,7 @@ def test_loss_and_constant_blocks_are_roadmap_items():
     assert s.is_solution_usable() and s.linear_solver_type_used == opts.linear_solver_type
     assert problem.parameter_block_value(int(cams[1]))[6] <= focal
     opts.mesh = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ctt.solve(opts, problem, device="cpu")
     with pytest.raises(TypeError, match="LossFunction"):
         tbal.build_problem(inst, loss=object())

@@ -92,7 +92,10 @@ def test_g2o_writer_round_trips_through_both_readers(tmp_path):
 
 
 def test_mesh_is_a_roadmap_item():
+    """--mesh runs on the ranks torch.distributed.run starts (item 19, done:
+    tests/test_torch_parallel_minimizers.py runs it); started alone it says
+    so."""
     from ceres_tpu_torch.examples import bundle_adjuster
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run --nproc-per-node 2"):
         bundle_adjuster.main(["--mesh", "2", "--device", "cpu"])

@@ -124,9 +124,9 @@ def _jax_package_exports():
 
 
 def test_the_port_exports_every_name_of_the_jax_package():
-    """Every public name of ceres_tpu's top level is the port's too (item
-    19, the sharded evaluation, exports none there), every module of the
-    JAX package but parallel/ (item 19) has a counterpart, and so has every
+    """Every public name of ceres_tpu's top level is the port's too, every
+    module of the JAX package has a counterpart (parallel/ since item 19;
+    ops/pallas_segment.py's kernels are csrc/*.cu), and so has every
     example program of examples/ in ceres_tpu_torch/examples/."""
     import ceres_tpu_torch as ctt
 
@@ -138,8 +138,7 @@ def test_the_port_exports_every_name_of_the_jax_package():
                    for p in (REPO / "ceres_tpu").rglob("*.py")}
     port_modules = {p.relative_to(REPO / "ceres_tpu_torch").as_posix()
                     for p in (REPO / "ceres_tpu_torch").rglob("*.py")}
-    missing = sorted(m for m in jax_modules - port_modules
-                     if not m.startswith("parallel/") and m != "ops/pallas_segment.py")
+    missing = sorted(m for m in jax_modules - port_modules if m != "ops/pallas_segment.py")
     assert missing == []
     programs = sorted(p.name for p in (REPO / "examples").glob("*.py"))
     assert len(programs) == 26
@@ -149,8 +148,8 @@ def test_the_port_exports_every_name_of_the_jax_package():
 def test_every_not_implemented_error_names_a_roadmap_item():
     """A ``raise NotImplementedError(...)`` with a message must carry the
     word ROADMAP, in the message or through a module-level constant (a bare
-    raise marks an abstract method of a base class)."""
-    found = 0
+    raise marks an abstract method of a base class). Since item 19, the
+    last module, none is left; one a later PR adds must follow the rule."""
     for path in _port_sources():
         tree = ast.parse(path.read_text())
         constants = {
@@ -164,25 +163,22 @@ def test_every_not_implemented_error_names_a_roadmap_item():
             if not (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
                     and getattr(node.exc.func, "id", "") == "NotImplementedError"):
                 continue
-            found += 1
             texts = [n.value for n in ast.walk(node.exc)
                      if isinstance(n, ast.Constant) and isinstance(n.value, str)]
             texts += [constants.get(n.id, "") for n in ast.walk(node.exc) if isinstance(n, ast.Name)]
             assert any("ROADMAP" in t for t in texts), f"{path}:{node.lineno}"
-    # what still raises: a sharded evaluation (solver.check_supported)
-    assert found >= 1
-    # ... and the items the messages name are in ROADMAP.md's Queue 1
+    # any item a message names is in ROADMAP.md's Queue 1
     roadmap = (REPO / "ROADMAP.md").read_text()
     named = set()
     for path in _port_sources():
         named.update(re.findall(r"Queue 1 item (\d+[a-z]?)", path.read_text()))
-    assert named and all(re.search(rf"^\*\*{n}\. ", roadmap, re.M) for n in named), named
+    assert all(re.search(rf"^\*\*{n}\. ", roadmap, re.M) for n in named), named
 
 
 def test_only_the_sparse_solvers_and_cluster_preconditioners_raise():
-    """Every minimizer option, both sparse solvers and both cluster
-    preconditioners run (item 14b is ported); what raises, a sharded
-    evaluation, names item 19."""
+    """Every minimizer option, both sparse solvers, both cluster
+    preconditioners (item 14b) and a sharded evaluation (item 19) pass the
+    check: nothing raises."""
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.solver import check_supported
 
@@ -206,8 +202,7 @@ def test_only_the_sparse_solvers_and_cluster_preconditioners_raise():
         for k, v in changes.items():
             setattr(opts, k, v)
         check_supported(opts)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
-        check_supported(ctt.SolverOptions(mesh=object()))
+    check_supported(ctt.SolverOptions(mesh=object()))
 
 
 def test_default_device_is_the_card_and_a_missing_card_raises():

@@ -33,6 +33,8 @@ the CPU, WHAT one of:
   (the covariance CG's counts and stopping test in both packages, about
   20 minutes) and 10 (the f32 large solve with inner iterations from nudged
   starts and restarted from one point, both packages, about 25 minutes);
+- ``inner_pass``: item 10's block-by-block check, one inner-iteration pass
+  of both packages from the same f32 point (``inner_pass``'s docstring);
 - ``examples``: every program of chip_smoke.EXAMPLES at the examples
   phase's argv (EXAMPLES_REFERENCE; about six minutes, five of them the
   denoising program's two iterations on the 481 x 321 image);
@@ -606,11 +608,11 @@ def cg_column_counts(mod, poses=2500, seed=0):
                 r_test_only=solve(inv, -np.inf)[0])
 
 
-def _inner_f32_problem(bm, nudge=0, which="point", state=None):
+def _inner_f32_problem(bm, nudge=0, which="point", state=None, sizes=LARGE):
     """The large instance at LARGE_MINIMIZERS' inner-iterations options in
     float32, the first point's or camera's first coordinate moved ``nudge``
     float32 ulps, or started from ``state`` (cameras, points)."""
-    inst = bm.synthesize_bal(noise=2.0, perturb=0.7, **LARGE)
+    inst = bm.synthesize_bal(noise=2.0, perturb=0.7, **sizes)
     if state is not None:
         inst.cameras[:], inst.points[:] = state
     p, cams, pts = bm.build_problem(inst)
@@ -678,6 +680,103 @@ def inner_f32_restart():
                      residual_sum=float(sum(0.5 * np.sum(a * a) for a in r)))
         f64 = f64 or costs["full"]
         out[f"{mod.__name__}_{dtype}_costs"] = {k: (v, (v - f64) / f64) for k, v in costs.items()}
+    return out
+
+
+def _block_costs(program, x, sets_T):
+    """Per block of each size group of a set, the f64 sum of 0.5 |r|^2 over
+    its rows, r the port's f32 residuals at x (the large case has no
+    loss): {T: (G,) numpy}."""
+    from ceres_tpu_torch.evaluator import family_residuals
+
+    out = {T: np.zeros(G) for T, G in sets_T.items()}
+    for fam in program.families:
+        r = family_residuals(fam, x).to(torch.float64).numpy()
+        c = 0.5 * np.sum(r * r, axis=1)
+        for j, T in enumerate(fam.structure.tangent_sizes):
+            if T in out:
+                pos = fam.block_pos[T][j]
+                keep = pos < out[T].shape[0]
+                out[T] += np.bincount(pos[keep], weights=c[keep], minlength=out[T].shape[0])
+    return out
+
+
+def inner_pass(sizes=LARGE):
+    """One inner-iteration pass of both packages, block by block (ROADMAP
+    Queue 3 item 10). Both start from JAX's float32 state after two
+    iterations of the inner_f32 solve; every set step of both packages
+    starts from JAX's x and radii of that step, so nothing drifts. JAX's
+    step runs jitted, as its solve runs it, and op by op
+    (``jax.disable_jit``), the same arithmetic in another rounding. Per
+    step: the blocks each accepts (its radius doubled), the blocks where the
+    jitted JAX step and the port differ, and for those the f64-summed block
+    cost before the step and after the accepting package's step (relative
+    margin), how many the two JAX runs differ in; after the step, each
+    package's own cost and the f64 sum of its f32 residuals."""
+    from ceres_tpu.evaluator import Evaluator as JEv
+    from ceres_tpu.inner_iterations import CoordinateDescentMinimizer as JCD
+    from ceres_tpu.problem import cast_program as jcast
+    from ceres_tpu_torch.evaluator import Evaluator as TEv
+    from ceres_tpu_torch.inner_iterations import CoordinateDescentMinimizer as TCD
+    from ceres_tpu_torch.problem import cast_program as tcast
+
+    opts = dict(evaluation_dtype="float32", use_inner_iterations=True)
+    p, cams, pts = _inner_f32_problem(jbal, sizes=sizes)
+    ct.solve(_set_options(ct, jbal.default_options(iterative=False),
+                          dict(max_num_iterations=2, **opts)), p)
+    state = (np.stack([p.parameter_block_value(int(c)) for c in cams]),
+             np.stack([p.parameter_block_value(int(q)) for q in pts]))
+    jopts = _set_options(ct, jbal.default_options(iterative=False), opts)
+    topts = _set_options(ctt, tbal.default_options(iterative=False), opts)
+    jprog = jcast(_inner_f32_problem(jbal, state=state, sizes=sizes)[0].program(), "float32")
+    tprog = tcast(_inner_f32_problem(tbal, state=state, sizes=sizes)[0].program("cpu"), "float32")
+    jmin, tmin = JCD(jprog, jopts, JEv(jprog)), TCD(tprog, topts, TEv(tprog))
+    out = dict(sets_equal=[list(a) for a in jmin.sets] == [list(b) for b in tmin.sets],
+               set_sizes=[len(a) for a in jmin.sets], steps=[])
+    x = jnp.asarray(jprog.initial_ambient(), dtype=jnp.float32)
+    r0 = jopts.initial_trust_region_radius
+    for si, s in enumerate(jmin.sets):
+        sizes = {T: int(rows.shape[0]) for T, (rows, _) in tmin._set_structs[si].items()}
+        # each family arg's row -> block position in its size group (G: none)
+        for fam in tprog.families:
+            fam.block_pos = {}
+            for T, G in sizes.items():
+                pos = np.full(tprog.num_pids, G, dtype=np.int64)
+                members = np.asarray(s)[tprog.tangent_sizes[np.asarray(s)] == T]
+                pos[members] = np.arange(members.shape[0])
+                fam.block_pos[T] = [pos[fam.block_ids[:, j]] for j in range(fam.num_args)]
+        radii = {T: jnp.full((G,), r0, jnp.float64) for T, G in sizes.items()}
+        for k in range(jmin.num_steps):
+            xt = torch.from_numpy(np.asarray(x))
+            before = _block_costs(tprog, xt, sizes)
+            jx, jr, jcost = jmin._step_fns[si](x, dict(radii))
+            with jax.disable_jit():
+                er = jmin._step_fns[si](x, dict(radii))[1]
+            tx, tr_, tcost = tmin._set_step(
+                tmin._set_structs[si], xt, {T: torch.from_numpy(np.asarray(v)) for T, v in radii.items()})
+            after_j = _block_costs(tprog, torch.from_numpy(np.asarray(jx)), sizes)
+            after_t = _block_costs(tprog, tx, sizes)
+            step = dict(set=si, step=k, groups={})
+            for T in sizes:
+                acc_j = np.asarray(jr[T]) > np.asarray(radii[T])
+                acc_t = tr_[T].numpy() > np.asarray(radii[T])
+                acc_e = np.asarray(er[T]) > np.asarray(radii[T])
+                differ = np.nonzero(acc_j != acc_t)[0]
+                margin = [float((np.where(acc_j[b], after_j[T][b], after_t[T][b]) - before[T][b])
+                                / before[T][b]) for b in differ]
+                step["groups"][T] = dict(
+                    blocks=int(acc_j.shape[0]), accepted_jax=int(acc_j.sum()),
+                    accepted_jax_op_by_op=int(acc_e.sum()), accepted_port=int(acc_t.sum()),
+                    differ=int(differ.shape[0]), jax_runs_differ=int((acc_j != acc_e).sum()),
+                    op_by_op_and_port_differ=int((acc_e != acc_t).sum()),
+                    differ_margins=sorted(margin, key=abs)[-8:],
+                    exact_after_jax=float(after_j[T].sum()), exact_after_port=float(after_t[T].sum()))
+            step.update(cost_jax=float(jcost), cost_port=float(tcost),
+                        x_max_rel_diff=float(np.max(np.abs(np.asarray(jx, np.float64) - tx.numpy())
+                                                    / np.maximum(np.abs(tx.numpy()), 1e-30))))
+            out["steps"].append(step)
+            print(json.dumps(step), flush=True)
+            x, radii = jx, jr
     return out
 
 
@@ -907,6 +1006,9 @@ if __name__ == "__main__":
                                   port=inner_f32_references(ctt),
                                   restart=inner_f32_restart(), seconds=time.time() - t0)),
                   flush=True)
+        elif what == "inner_pass":
+            print(json.dumps(dict(reference=what, result=inner_pass(),
+                                  seconds=time.time() - t0)), flush=True)
         elif what == "examples":
             import tempfile
 

@@ -96,8 +96,9 @@ def test_unsupported_options_are_roadmap_items():
     items, run in the fused loop as in the JAX package (the sparse solvers
     through their solve for a (ctx, D) caller) and reach the host loop's
     cost (held to JAX's by test_torch_sparse_*.py and
-    test_torch_cluster_preconditioners.py); a sharded evaluation still
-    raises, naming its item."""
+    test_torch_cluster_preconditioners.py); a sharded evaluation runs too
+    (item 19, tests/test_torch_parallel*.py), and a mesh that is no
+    DeviceMesh is refused, naming what it must be."""
     tiny = dict(num_cameras=4, num_points=60, num_observations=240, noise=2.0, perturb=0.7,
                 seed=1)
     for changes in (dict(linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY),
@@ -115,7 +116,7 @@ def test_unsupported_options_are_roadmap_items():
     tp = tbal.build_problem(tbal.synthesize_bal(**SIZES, seed=1))[0]
     opts = _options(tbal, None)
     opts.mesh = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ctt.fused_solve(opts, tp, device="cpu")
     # what only the host loop or the line search honours: fused_solve
     # refuses it and names solve
