@@ -7,8 +7,22 @@ scaling and LM damping, solves for the step (``trust_region._linear_solve``),
 takes the model cost change in f64, evaluates the candidate cost, and updates the
 radius and the invalid-step ladder with the four convergence tests of
 trust_region_minimizer.cc:640-764 — the semantics of the JAX package's
-``lax.while_loop`` body. The loop itself runs on the host and reads one
-value from the device per iteration: the termination code.
+``lax.while_loop`` body.
+
+Where the loop runs (``_DeviceLoop``): its state lives in static device
+buffers and one LM iteration is ``run_if(running)`` around that body
+(``utils/cuda_graph.py``), ``running`` meaning termination == running and
+iteration < budget, the budget a device scalar as in the JAX package. On
+the card, for the options ``captured_loop_eligible`` accepts, the start (the
+evaluation at x0) and the iteration are each captured once per program and
+configuration as a CUDA graph, with the CG's stop inside it a device value
+too (``linear/cg.py``); the host then replays the iteration
+``max_num_iterations`` times without reading (a replay after the stop is a
+skipped node) and reads the trace and the final scalars once, as the JAX
+package reads its loop's result once. The capture, with the eager warm-up
+iteration it needs, is set-up. Elsewhere (the CPU, a mesh, the options the
+capture does not take) the same iteration runs eagerly and each ``run_if``
+reads its predicate: one read per LM iteration and one per CG iteration.
 
 Scalars kept in f64 whatever the evaluation dtype, as the JAX package does
 under its global x64 switch: the costs, the model cost change, rho, the
@@ -19,11 +33,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 
 import torch
 
 from ceres_tpu_torch.evaluator import _cost_impl, _full_impl
 from ceres_tpu_torch.linear.cg import CG_FAILURE
+from ceres_tpu_torch.loss import loss_leaves, loss_structure
 from ceres_tpu_torch.solver import SolverSummary, initial_state, preprocess
 from ceres_tpu_torch.trust_region import (
     IterationSummary,
@@ -33,7 +49,14 @@ from ceres_tpu_torch.trust_region import (
     candidate_point,
     lm_step,
 )
-from ceres_tpu_torch.types import MinimizerType, TerminationType, TrustRegionStrategyType
+from ceres_tpu_torch.types import (
+    LinearSolverType,
+    MinimizerType,
+    PreconditionerType,
+    TerminationType,
+    TrustRegionStrategyType,
+)
+from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, run_if, uncounted
 
 # Termination codes of the loop (the JAX package's values).
 _RUNNING = 0
@@ -67,8 +90,8 @@ class _FusedState:
     cost: torch.Tensor  # f64 scalar
     radius: torch.Tensor  # f64
     decrease_factor: torch.Tensor  # f64
-    iteration: int
-    successful_steps: torch.Tensor  # int32 scalars from here on
+    iteration: torch.Tensor  # int32 scalars from here on
+    successful_steps: torch.Tensor
     unsuccessful_steps: torch.Tensor
     invalid_in_a_row: torch.Tensor
     termination: torch.Tensor
@@ -171,42 +194,233 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig, trace: bool)
     ), row
 
 
-def _fused_minimize(x0, program, solve_aux, max_num_iterations: int,
-                    config: _FusedConfig, trace: bool = False):
-    """Run the LM loop from x0; returns (final state, initial cost, trace),
-    the trace a (iterations, len(_TRACE_FIELDS)) f64 device tensor or None."""
-    dev = x0.device
-    cost0, grad0, _ = _full_impl(x0, program.families, program.num_tangent, program.groups,
-                                 comm=program.comm)
-    g0 = grad0.to(_F64)
+class _DeviceLoop:
+    """The fused loop of one program and configuration: the state in static
+    device buffers, the start (the evaluation at x0) and one LM iteration
+    under ``run_if(running)``; with ``captured``, both captured once as
+    CUDA graphs, the second reusing the first's memory, and replayed
+    (``prepare``, then ``run``)."""
 
-    def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=dev)
+    def __init__(self, program, solve_aux, config: _FusedConfig, trace: bool,
+                 captured: bool, x_like: torch.Tensor, losses: tuple):
+        dev = x_like.device
+        # the program holds the loop (in its solve_aux_cache), not the other
+        # way round: a dropped program frees its graphs' memory at once
+        self._program = weakref.ref(program)
+        self.solve_aux, self.config, self.captured = solve_aux, config, captured
+        self.losses = losses  # _loss_key of the program when the loop was made
 
-    s = _FusedState(
-        x=x0,
-        cost=cost0,
-        radius=torch.tensor(config.initial_trust_region_radius, dtype=_F64, device=dev),
-        decrease_factor=torch.tensor(2.0, dtype=_F64, device=dev),
-        iteration=0,
-        successful_steps=i32(0),
-        unsuccessful_steps=i32(0),
-        invalid_in_a_row=i32(0),
-        termination=torch.where(
-            torch.max(torch.abs(g0)) <= config.gradient_tolerance,
-            _CONVERGENCE,
-            _RUNNING,
-        ).to(torch.int32),
-        linear_iterations=i32(0),
-        gmax=torch.max(torch.abs(g0)),
-        gnorm=torch.linalg.norm(g0),
-        last_accept=torch.tensor(True, device=dev),
-    )
-    rows = []
-    while s.iteration < max_num_iterations and int(s.termination) == _RUNNING:
-        s, row = _body(s, program, solve_aux, config, trace)
-        rows.append(row)
-    return s, cost0, (torch.stack(rows) if trace and rows else None)
+        def f64():
+            return torch.zeros((), dtype=_F64, device=dev)
+
+        def i32():
+            return torch.zeros((), dtype=torch.int32, device=dev)
+
+        self.x0 = torch.empty_like(x_like)
+        self.cost0 = f64()
+        self.budget = i32()
+        self.state = _FusedState(
+            x=torch.empty_like(x_like), cost=f64(), radius=f64(), decrease_factor=f64(),
+            iteration=i32(), successful_steps=i32(), unsuccessful_steps=i32(),
+            invalid_in_a_row=i32(), termination=i32(), linear_iterations=i32(),
+            gmax=f64(), gnorm=f64(), last_accept=torch.zeros((), dtype=torch.bool, device=dev),
+        )
+        # row k: the iteration that started at iteration k
+        self.trace = (torch.zeros((_MAX_TRACED_ITERATIONS, len(_TRACE_FIELDS)), dtype=_F64,
+                                  device=dev) if trace else None)
+        self._always = torch.ones((), dtype=torch.bool, device=dev)
+        self.graphs = None  # (start, iteration) CapturedGraphs
+
+    @property
+    def program(self):
+        return self._program()
+
+    def _start(self) -> None:
+        program, config, s = self.program, self.config, self.state
+        cost0, grad0, _ = _full_impl(self.x0, program.families, program.num_tangent,
+                                     program.groups, comm=program.comm)
+        g0 = grad0.to(_F64)
+        gmax = torch.max(torch.abs(g0))
+        self.cost0.copy_(cost0)
+        s.x.copy_(self.x0)
+        s.cost.copy_(cost0)
+        s.radius.fill_(config.initial_trust_region_radius)
+        s.decrease_factor.fill_(2.0)
+        for count in (s.iteration, s.successful_steps, s.unsuccessful_steps,
+                      s.invalid_in_a_row, s.linear_iterations):
+            count.zero_()
+        s.termination.copy_(torch.where(gmax <= config.gradient_tolerance, _CONVERGENCE, _RUNNING))
+        s.gmax.copy_(gmax)
+        s.gnorm.copy_(torch.linalg.norm(g0))
+        s.last_accept.fill_(True)
+
+    def _iteration(self) -> None:
+        s = self.state
+        new, row = _body(s, self.program, self.solve_aux, self.config, self.trace is not None)
+        if row is not None:
+            self.trace.index_copy_(0, s.iteration.reshape(1).to(torch.int64), row[None])
+        for f in dataclasses.fields(_FusedState):
+            getattr(s, f.name).copy_(getattr(new, f.name))
+
+    def _start_in_body(self) -> None:
+        """The start as a conditional body that always runs: captured on the
+        stream the iteration's body is captured on, so that the iteration
+        graph reuses the start's temporaries (``CapturedGraph``'s
+        ``share``)."""
+        with run_if(self._always) as taken:
+            if taken:
+                self._start()
+
+    def _step(self) -> bool:
+        s = self.state
+        with run_if((s.termination == _RUNNING) & (s.iteration < self.budget)) as running:
+            if running:
+                self._iteration()
+        return running
+
+    def prepare(self, x0: torch.Tensor) -> float:
+        """Capture the start and the iteration, once: after a warm-up that
+        runs both eagerly from x0 (kernel builds, library handles, lazy
+        caches; its launches are counted nowhere). Returns the seconds it
+        took (0 when there was nothing to do). A failed capture raises."""
+        if not self.captured or self.graphs is not None:
+            return 0.0
+        t0 = time.perf_counter()
+        self.x0.copy_(x0)
+        with uncounted():
+            self._start()
+            self._iteration()
+        dev = x0.device
+        start = CapturedGraph(self._start_in_body, dev)
+        self.graphs = (start, CapturedGraph(self._step, dev, share=start))
+        return time.perf_counter() - t0
+
+    def run(self, x0: torch.Tensor, max_num_iterations: int) -> None:
+        """The loop from x0 for at most ``max_num_iterations`` iterations;
+        the results are in ``state``, ``cost0`` and ``trace``."""
+        self.x0.copy_(x0)
+        self.budget.fill_(max_num_iterations)
+        if self.captured:
+            self.prepare(x0)
+            start, iteration = self.graphs
+            start.replay()
+            for _ in range(max_num_iterations):
+                iteration.replay()
+            return
+        self._start()
+        for _ in range(max_num_iterations):
+            if not self._step():
+                break
+
+    def launch_counts(self) -> torch.Tensor:
+        """The graphs' region counters (f64, empty when not captured), read
+        with the results and handed back to :meth:`credit`."""
+        if self.graphs is None:
+            return self.cost0.new_zeros((0,))
+        return torch.cat([g.launch_counts() for g in self.graphs]).to(_F64)
+
+    @property
+    def graph_launches(self) -> int:
+        """Kernel launches credited from the graphs' replays so far."""
+        return 0 if self.graphs is None else sum(g.launches for g in self.graphs)
+
+    def credit(self, counts) -> None:
+        if self.graphs is None:
+            return
+        n0 = self.graphs[0].launch_counts().numel()
+        self.graphs[0].credit(counts[:n0])
+        self.graphs[1].credit(counts[n0:])
+
+    def read(self, max_num_iterations: int):
+        """One host read of the final scalars and the trace's first
+        ``max_num_iterations`` rows (crediting the graphs' launches):
+        ({name: float}, {field: (T,) numpy})."""
+        s = self.state
+        scalars = (self.cost0, s.termination, s.successful_steps, s.unsuccessful_steps,
+                   s.cost, s.gmax, s.gnorm, s.radius, s.iteration, s.linear_iterations)
+        names = ("cost0", "termination", "successful_steps", "unsuccessful_steps", "cost",
+                 "gmax", "gnorm", "radius", "iteration", "linear_iterations")
+        parts = [torch.stack([v.to(_F64) for v in scalars])]
+        rows = 0 if self.trace is None else min(max_num_iterations, _MAX_TRACED_ITERATIONS)
+        if rows:
+            parts.append(self.trace[:rows].reshape(-1))
+        parts.append(self.launch_counts())
+        host = torch.cat(parts).cpu().numpy()
+        k = len(scalars)
+        final = dict(zip(names, host[:k].tolist()))
+        for name in ("termination", "successful_steps", "unsuccessful_steps", "iteration",
+                     "linear_iterations"):
+            final[name] = int(final[name])
+        T = final["iteration"]
+        tr_host = host[k : k + rows * len(_TRACE_FIELDS)].reshape(rows, len(_TRACE_FIELDS))[:T]
+        self.credit(host[k + rows * len(_TRACE_FIELDS):])
+        return final, {f: tr_host[:, i] for i, f in enumerate(_TRACE_FIELDS)}
+
+
+# The linear solvers and preconditioners whose steps the capture takes:
+# every operation device work of fixed shape, no host read.
+_CAPTURED_SOLVERS = (LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CHOLESKY,
+                     LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR,
+                     LinearSolverType.CGNR)
+_CAPTURED_PRECONDITIONERS = (PreconditionerType.IDENTITY, PreconditionerType.JACOBI,
+                             PreconditionerType.SCHUR_JACOBI,
+                             PreconditionerType.SCHUR_POWER_SERIES_EXPANSION)
+
+
+def captured_loop_eligible(options, program) -> bool:
+    """Whether the fused loop runs as CUDA graphs: on the card, without a
+    mesh (its collectives go through the host), with DENSE_QR,
+    DENSE_NORMAL_CHOLESKY, DENSE_SCHUR, or ITERATIVE_SCHUR or CGNR under
+    IDENTITY, JACOBI, SCHUR_JACOBI or SCHUR_POWER_SERIES_EXPANSION, mixed
+    precision and the power-series initialization included. Not the
+    cluster preconditioners (an implicit S's cluster reads take
+    ``torch.nonzero``) nor SUBSET (its J'J assembly fails under capture).
+    Decided from the options alone: the rest runs the same iteration
+    eagerly."""
+    if program.device.type != "cuda" or program.comm is not None:
+        return False
+    lst, pt = options.linear_solver_type, options.preconditioner_type
+    if lst not in _CAPTURED_SOLVERS:
+        return False
+    return lst not in (LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.CGNR) or (
+        pt in _CAPTURED_PRECONDITIONERS)
+
+
+def _loss_key(program) -> tuple:
+    """What a loop captures of the families' losses: each loss's structure
+    and parameter values (a tensor parameter by the memory the graph
+    reads). ``LossFunctionWrapper.reset`` changes it without a new program,
+    as the JAX package's fused loop takes the losses as arguments."""
+    def leaf(v):
+        if isinstance(v, torch.Tensor):
+            return ("tensor", v.data_ptr(), v.dtype, tuple(v.shape))
+        return v if isinstance(v, (bool, int, float, str)) else ("object", id(v))
+
+    return tuple((loss_structure(f.loss), tuple(leaf(v) for v in loss_leaves(f.loss)))
+                 for f in program.families)
+
+
+def _device_loop(program, solve_aux, config: _FusedConfig, trace: bool, captured: bool,
+                 x0: torch.Tensor) -> _DeviceLoop:
+    """The program's loop for this configuration, kept beside its solve
+    structures in ``program.solve_aux_cache`` (which a cast of the program
+    to another dtype empties, graphs and all), as the JAX package keeps its
+    jit caches keyed on structure. One loop per configuration: a loop made
+    for other losses (``_loss_key``) is replaced, its graphs freed."""
+    key = ("device_loop", id(solve_aux), config, trace, captured, x0.dtype, x0.device)
+    losses = _loss_key(program)
+    loop = program.solve_aux_cache.get(key)
+    if loop is None or loop.solve_aux is not solve_aux or loop.losses != losses:
+        program.solve_aux_cache.pop(key, None)
+        loop = program.solve_aux_cache[key] = _DeviceLoop(
+            program, solve_aux, config, trace, captured, x0, losses)
+    return loop
+
+
+def device_loops(program) -> list:
+    """The fused loops kept on ``program`` (``_device_loop``)."""
+    return [v for k, v in program.solve_aux_cache.items()
+            if isinstance(k, tuple) and k and k[0] == "device_loop"]
 
 
 def _fill_records(summary, opts, final, cost0: float, tr):
@@ -378,37 +592,62 @@ def fused_traced_eligible(options, program) -> bool:
     )
 
 
-def minimize_fused_traced(resolved, program, x0, summary) -> torch.Tensor:
-    """Run the fused loop with a per-iteration trace and fill ``summary``
-    with the records, termination and counters the host loop would give
-    (a step meeting the parameter or function tolerance is not applied, as
-    the host loop returns before it). Returns the final x (device)."""
+def prepare_fused_loop(resolved, program, x0, summary, revert_on_tolerance: bool,
+                       trace: bool) -> _DeviceLoop:
+    """Set-up of a fused solve: the program's loop for these options, and
+    on the card, where ``captured_loop_eligible`` says so, its capture (a
+    program's first solve with these options only). The capture's seconds
+    go to ``summary.graph_capture_time_in_seconds``, inside the
+    preprocessor's."""
+    captured = captured_loop_eligible(resolved, program)
+    loop = _device_loop(program, _build_solve_aux(resolved, program),
+                        _fused_config(resolved, revert_on_tolerance), trace, captured, x0)
+    summary.captured_loop = captured
+    summary.graph_capture_time_in_seconds = loop.prepare(x0)
+    return loop
+
+
+def minimize_fused_traced(resolved, loop: _DeviceLoop, x0, summary) -> torch.Tensor:
+    """Run the fused loop (``prepare_fused_loop``'s, with its trace) and
+    fill ``summary`` with the records, termination and counters the host
+    loop would give (a step meeting the parameter or function tolerance is
+    not applied, as the host loop returns before it). Returns the final x
+    (device)."""
     t0 = time.perf_counter()
-    final, cost0, trace = _fused_minimize(
-        x0, program, _build_solve_aux(resolved, program), resolved.max_num_iterations,
-        _fused_config(resolved, revert_on_tolerance=True), trace=True,
-    )
-    # One batched read of the per-iteration trace and one of the final
-    # scalars.
-    tr_host = None if trace is None else trace.cpu().numpy()
-    tr = {} if tr_host is None else {f: tr_host[:, i] for i, f in enumerate(_TRACE_FIELDS)}
-    cost0, term, succ, cost, gmax, gnorm, radius = torch.stack([
-        cost0, final.termination.to(_F64), final.successful_steps.to(_F64), final.cost,
-        final.gmax, final.gnorm, final.radius,
-    ]).cpu().tolist()
-    T = final.iteration
+    loop.run(x0, resolved.max_num_iterations)
+    # One read: the final scalars and the per-iteration trace.
+    final, tr = loop.read(resolved.max_num_iterations)
+    T = final["iteration"]
     summary.num_iterations = T
-    host_final = dict(
-        iteration=T, termination=int(term), successful_steps=int(succ), cost=cost,
-        gmax=gmax, gnorm=gnorm, radius=radius,
-    )
-    _fill_records(summary, resolved, host_final, cost0, tr)
+    _fill_records(summary, resolved, final, final["cost0"], tr)
     # The whole solve is one device computation.
     summary.linear_solver_time_in_seconds += time.perf_counter() - t0
     summary.num_linear_solves += T
     summary.num_residual_evaluations += T + 1
     summary.num_jacobian_evaluations += T + 1
-    return final.x
+    return loop.state.x
+
+
+def summarize_final_state(summary, final, fixed_cost: float) -> None:
+    """``fused_solve``'s summary from the loop's final state (``read``'s
+    ``final``): the iteration, step and CG counts, the costs and the
+    termination."""
+    term = final["termination"]
+    summary.num_iterations = final["iteration"]
+    summary.initial_cost = final["cost0"] + fixed_cost
+    summary.final_cost = final["cost"] + fixed_cost
+    summary.num_successful_steps = final["successful_steps"]
+    summary.num_unsuccessful_steps = final["unsuccessful_steps"]
+    summary.num_linear_solver_iterations = final["linear_iterations"]
+    if term == _CONVERGENCE:
+        summary.termination_type = TerminationType.CONVERGENCE
+        summary.message = "Fused minimizer converged."
+    elif term == _FAILURE:
+        summary.termination_type = TerminationType.FAILURE
+        summary.message = "Too many consecutive invalid steps."
+    else:
+        summary.termination_type = TerminationType.NO_CONVERGENCE
+        summary.message = f"Maximum iterations reached ({final['iteration']})."
 
 
 # What the fused loop cannot honour and fused_solve refuses rather than drop.
@@ -453,32 +692,17 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
             f"fused_solve runs the fused loop, which cannot honour {', '.join(refused)}; "
             "ctt.solve runs them on the host-loop or line-search minimizer"
         )
-    solve_aux = _build_solve_aux(resolved, program)
     x0 = initial_state(program, options.mesh)
+    loop = prepare_fused_loop(resolved, program, x0, summary, revert_on_tolerance=False,
+                              trace=False)
     t1 = time.perf_counter()
-    final, cost0, _ = _fused_minimize(
-        x0, program, solve_aux, resolved.max_num_iterations,
-        _fused_config(resolved, revert_on_tolerance=False),
-    )
-    term = int(final.termination)  # waits for the device
+    loop.run(x0, resolved.max_num_iterations)
+    final, _ = loop.read(resolved.max_num_iterations)  # waits for the device
+    x = loop.state.x.to(_F64).cpu().numpy()
     t2 = time.perf_counter()
-    summary.num_iterations = final.iteration
-    summary.initial_cost = float(cost0) + program.fixed_cost
-    summary.final_cost = float(final.cost) + program.fixed_cost
-    summary.num_successful_steps = int(final.successful_steps)
-    summary.num_unsuccessful_steps = int(final.unsuccessful_steps)
-    summary.num_linear_solver_iterations = int(final.linear_iterations)
-    if term == _CONVERGENCE:
-        summary.termination_type = TerminationType.CONVERGENCE
-        summary.message = "Fused minimizer converged."
-    elif term == _FAILURE:
-        summary.termination_type = TerminationType.FAILURE
-        summary.message = "Too many consecutive invalid steps."
-    else:
-        summary.termination_type = TerminationType.NO_CONVERGENCE
-        summary.message = f"Maximum iterations reached ({final.iteration})."
+    summarize_final_state(summary, final, program.fixed_cost)
     if summary.is_solution_usable():
-        problem.write_back(final.x.to(_F64).cpu().numpy())
+        problem.write_back(x)
     summary.preprocessor_time_in_seconds = t1 - t0
     summary.minimizer_time_in_seconds = t2 - t1
     summary.total_time_in_seconds = time.perf_counter() - t0

@@ -46,6 +46,7 @@ from ceres_tpu_torch.ops.outer_segment_sum import flat_outer
 from ceres_tpu_torch.ops.reduce import apply_reduce, build_reduce_plan
 from ceres_tpu_torch.ops.small_linalg import contract, spd_inverse, spd_solve
 from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
+from ceres_tpu_torch.utils.cuda_graph import run_if
 
 # Below this many f coordinates ITERATIVE_SCHUR materializes S once per
 # linear solve and runs CG on the dense matrix (the JAX package's policy).
@@ -797,18 +798,27 @@ class SchurOperator:
         After the leading M^{-1} v, terms are added until ``num_terms`` were
         added or the latest term's norm drops below ``tolerance`` x
         ||M^{-1} v|| (power_series_expansion_preconditioner.cc:60-84).
-        ``tolerance = 0`` is the fixed count a preconditioner runs: no host
-        read. A tolerance reads one norm per term."""
+        ``tolerance = 0`` is the fixed count a preconditioner runs. With a
+        tolerance each term runs under ``run_if`` of the last term's test: a
+        device value inside a captured loop, one host read per term run
+        eagerly."""
         bj = self.schur_jacobi_preconditioner()
 
         def apply(v: torch.Tensor) -> torch.Tensor:
             acc = bj(v)
-            threshold = tolerance * torch.linalg.norm(acc) if tolerance > 0 else None
+            if tolerance <= 0:
+                for _ in range(num_terms):
+                    acc = acc + bj(v - self.s_times(acc))
+                return acc
+            threshold = tolerance * torch.linalg.norm(acc)
+            going = torch.ones((), dtype=torch.bool, device=acc.device)
             for _ in range(num_terms):
-                term = bj(v - self.s_times(acc))
-                acc = acc + term
-                if threshold is not None and not bool(torch.linalg.norm(term) >= threshold):
-                    break
+                with run_if(going) as taken:
+                    if not taken:
+                        break
+                    term = bj(v - self.s_times(acc))
+                    acc.add_(term)
+                    going.copy_(torch.linalg.norm(term) >= threshold)
             return acc
 
         return apply

@@ -35,10 +35,18 @@ import torch
 
 from ceres_tpu_torch.ops import cuda_build
 from ceres_tpu_torch.ops.segment_sum import segment_sum_sorted_plain
+from ceres_tpu_torch.utils import cuda_graph
 
 # Kernel launches made by outer_segment_sum (a plain counter: a run can show
 # that its main path went through the kernel).
 launches = 0
+
+
+def _credit(n: int) -> None:
+    """Add n launches (``utils.cuda_graph.launched``)."""
+    global launches
+    launches += n
+
 
 _SOURCE = "outer_segment_sum.cu"
 # (K, T1, T2) compiled as constants in the source; others take its run-time
@@ -113,7 +121,6 @@ def outer_segment_sum(
     ``a_idx``/``b_idx`` (Pp,) and the cells' (G+2,) int32 row pointer ->
     (G+1, T1*T2) cell sums. CPU tensors take the plain version; CUDA
     tensors launch the kernel (or raise)."""
-    global launches
     G = int(num_groups)
     dev = W.device
     for name, t in (("Y", Y), ("a_idx", a_idx), ("b_idx", b_idx), ("row_ptr", row_ptr)):
@@ -156,5 +163,5 @@ def outer_segment_sum(
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches += 1
+    cuda_graph.launched(_credit)
     return out

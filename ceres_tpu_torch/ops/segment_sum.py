@@ -26,12 +26,22 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.ops import cuda_build
+from ceres_tpu_torch.utils import cuda_graph
 
 # Kernel launches made by segment_sum_sorted (a plain counter: a run can
-# show that its main path went through the kernel).
+# show that its main path went through the kernel; a launch captured into
+# a CUDA graph counts once per replay that ran it, utils/cuda_graph.py).
 launches = 0
 # The same launches by the width d of the contributions.
 launches_by_width: collections.Counter = collections.Counter()
+
+
+def _credit(n: int, d: int) -> None:
+    """Add n launches at width d (``utils.cuda_graph.launched``)."""
+    global launches
+    launches += n
+    launches_by_width[d] += n
+
 
 _SOURCE = "sorted_segment_sum.cu"
 # Threads per block, from tools/sweep_kernels.py on an H100 80GB HBM3 at
@@ -100,7 +110,6 @@ def segment_sum_sorted(
     ``row_ptr`` is the (G+2,) int32 plan of :func:`build_row_ptr` on the
     contributions' device. CPU tensors take the plain version; CUDA tensors
     launch the kernel (or raise)."""
-    global launches
     G = int(num_groups)
     B = contrib.shape[0]
     if row_ptr.device != contrib.device:
@@ -135,6 +144,5 @@ def segment_sum_sorted(
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches += 1
-    launches_by_width[d] += 1
+    cuda_graph.launched(_credit, d)
     return out.reshape((G + 1,) + tuple(contrib.shape[1:]))

@@ -55,10 +55,14 @@ def spd_inverse(m: torch.Tensor) -> torch.Tensor:
     if n == 3:
         return _inv3(m)
     # Batched Cholesky; a block that is not SPD yields NaN (no exception,
-    # no host sync), as the JAX package's unrolled factorization does.
+    # no host sync), as the JAX package's unrolled factorization does. Then
+    # L^-1 by a batched triangular solve and L^-T L^-1: on the card cuBLAS'
+    # batched trsm and gemm, which a CUDA graph captures (the batched
+    # cholesky_solve goes to MAGMA, which cannot be captured).
     L, info = torch.linalg.cholesky_ex(m)
     eye = torch.eye(n, dtype=m.dtype, device=m.device).expand(m.shape)
-    inv = torch.cholesky_solve(eye, L)
+    linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    inv = linv.mT @ linv
     return torch.where((info == 0)[..., None, None], inv, torch.nan)
 
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.ops import cuda_build
+from ceres_tpu_torch.utils import cuda_graph
 
 # Kernel launches made by segment_sum_unsorted (a plain counter: a run can
 # show that its main path went through the kernel). One call is one launch
@@ -39,6 +40,14 @@ from ceres_tpu_torch.ops import cuda_build
 launches = 0
 # The same launches by the width d of the contributions.
 launches_by_width: collections.Counter = collections.Counter()
+
+
+def _credit(n: int, d: int) -> None:
+    """Add n launches at width d (``utils.cuda_graph.launched``)."""
+    global launches
+    launches += n
+    launches_by_width[d] += n
+
 
 _SOURCE = "unsorted_segment_sum.cu"
 
@@ -243,7 +252,6 @@ def segment_sum_unsorted(contrib: torch.Tensor, plan: UnsortedPlan) -> torch.Ten
     ``plan`` is the :class:`UnsortedPlan` of the ids, on the contributions'
     device. CPU tensors take the plain version; CUDA tensors launch the
     kernels (or raise)."""
-    global launches
     G = plan.num_groups
     B = contrib.shape[0]
     if plan.device != contrib.device:
@@ -267,6 +275,5 @@ def segment_sum_unsorted(contrib: torch.Tensor, plan: UnsortedPlan) -> torch.Ten
     partial = torch.empty((plan.num_pieces, d), dtype=flat.dtype, device=flat.device)
     out = torch.empty((G + 1, d), dtype=flat.dtype, device=flat.device)
     _launch(flat, plan, partial, out)
-    launches += 1
-    launches_by_width[d] += 1
+    cuda_graph.launched(_credit, d)
     return out.reshape((G + 1,) + tail)

@@ -382,12 +382,18 @@ class SolverSummary:
     # step), linear_solver.h:57-74.
     num_linear_solver_failures: int = 0
     num_linear_solver_iterations: int = 0
-    # host set-up (program, dtype cast, Schur and explicit-S plans) and the
-    # LM loop itself, up to the last device result
+    # host set-up (program, dtype cast, Schur and explicit-S plans, the
+    # fused loop's capture) and the LM loop itself, up to the last device
+    # result
     preprocessor_time_in_seconds: float = 0.0
     minimizer_time_in_seconds: float = 0.0
     postprocessor_time_in_seconds: float = 0.0
     total_time_in_seconds: float = 0.0
+    # Whether the fused loop ran as CUDA graphs (fused_lm.py), and the
+    # seconds of this solve's set-up that captured them (0 when the
+    # program's graphs were captured by an earlier solve).
+    captured_loop: bool = False
+    graph_capture_time_in_seconds: float = 0.0
     # Per-phase minimizer times and counts (solver.h:967-1006, the
     # FullReport time table), host seconds. The host loop's fused iteration
     # and the traced loop evaluate inside the step computation, so their
@@ -463,6 +469,8 @@ class SolverSummary:
             "",
             "Time (in seconds):",
             f"{'Preprocessor':<34}{self.preprocessor_time_in_seconds:>10.4f}",
+            *([f"  {'Graph capture':<28}{self.graph_capture_time_in_seconds:>14.4f}"]
+              if self.captured_loop else []),
             "",
             f"  {'Residual only evaluation':<28}"
             f"{self.residual_evaluation_time_in_seconds:>14.4f}"
@@ -580,13 +588,29 @@ def initial_state(program, mesh=None) -> torch.Tensor:
     return replicate(x0, mesh, program.device)
 
 
+def summarize_records(summary: SolverSummary) -> None:
+    """``solve``'s postprocess from the records (solver.cc:834-855): the
+    initial and final cost and the step and CG counts."""
+    records = summary.iterations
+    if records:
+        summary.initial_cost = records[0].cost
+        summary.final_cost = min(r.cost for r in records)
+        summary.num_successful_steps = sum(1 for r in records if r.step_is_successful)
+        summary.num_unsuccessful_steps = sum(1 for r in records if not r.step_is_successful)
+        summary.num_linear_solver_iterations = sum(r.linear_solver_iterations for r in records)
+
+
 def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
     """Analog of ceres::Solve (solver.cc:857, Solver::Solve solver.cc:734):
     solves on ``device`` (the card by default; without one that raises, it
     does not move to the CPU) and writes the solution back into the problem.
     A step that meets the parameter or function tolerance ends the solve at
     the iterate BEFORE that step (trust_region_minimizer.cc:720-766)."""
-    from ceres_tpu_torch.fused_lm import fused_traced_eligible, minimize_fused_traced
+    from ceres_tpu_torch.fused_lm import (
+        fused_traced_eligible,
+        minimize_fused_traced,
+        prepare_fused_loop,
+    )
     from ceres_tpu_torch.line_search import LineSearchMinimizer
     from ceres_tpu_torch.trust_region import TrustRegionMinimizer, _build_solve_aux
     from ceres_tpu_torch.utils.observability import EventLogger
@@ -617,12 +641,16 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
     if trust_region:
         _build_solve_aux(resolved, program)  # memoized on the program
     x0 = initial_state(program, options.mesh)
+    fused = trust_region and fused_traced_eligible(resolved, program)
+    if fused:
+        loop = prepare_fused_loop(resolved, program, x0, summary, revert_on_tolerance=True,
+                                  trace=True)
     t1 = time.perf_counter()
     summary.preprocessor_time_in_seconds = t1 - t0
     event_logger.add_event("Preprocess")
 
-    if trust_region and fused_traced_eligible(resolved, program):
-        x = minimize_fused_traced(resolved, program, x0, summary)
+    if fused:
+        x = minimize_fused_traced(resolved, loop, x0, summary)
     else:
         if trust_region:
             minimizer = TrustRegionMinimizer(program, resolved, summary)
@@ -650,14 +678,7 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
     summary.minimizer_time_in_seconds = t2 - t1
     event_logger.add_event("Minimize")
 
-    # Postprocess from the records (solver.cc:834-855).
-    records = summary.iterations
-    if records:
-        summary.initial_cost = records[0].cost
-        summary.final_cost = min(r.cost for r in records)
-        summary.num_successful_steps = sum(1 for r in records if r.step_is_successful)
-        summary.num_unsuccessful_steps = sum(1 for r in records if not r.step_is_successful)
-        summary.num_linear_solver_iterations = sum(r.linear_solver_iterations for r in records)
+    summarize_records(summary)
     if summary.is_solution_usable():
         problem.write_back(x)
     summary.postprocessor_time_in_seconds = time.perf_counter() - t2

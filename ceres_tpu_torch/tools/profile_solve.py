@@ -11,30 +11,39 @@ flagship cases with HuberLoss(1.0); pose_graph: the 2500-pose sphere, CGNR +
 block Jacobi, cut to its first 6 LM iterations because the whole solve runs
 tens of thousands of CG iterations; host_loop_large: the large case through
 ``ctt.solve`` with progress output and an iteration callback, i.e. the
-host-loop minimizer's fused iteration), after a 2-iteration warm-up solve:
+host-loop minimizer's fused iteration), after a 2-iteration warm-up solve.
+``ctt.fused_solve`` runs the fused loop as CUDA graphs where
+``fused_lm.captured_loop_eligible`` says so (every case but
+host_loop_large); the same loop run eagerly (``eager_loop``: every
+``run_if`` reads its predicate, one host read per LM and per CG iteration)
+is measured beside it:
 
-1. ``stages``: one solve with every stage bracketed by
+1. ``stages``: one eager loop with every stage bracketed by
    ``torch.cuda.synchronize()`` and timed on the host clock, so a stage's
-   seconds hold its host work and its device work. Stages nest: the
-   kernels' wrappers (K1, K3, K4) are inside the evaluation and the S
-   assembly or the S x products, S x and the preconditioner's applications
-   inside CG, and all are listed on their own. The synchronizing makes this
-   solve slower than a plain one; both loop times are printed, and the
-   seconds per CG iteration of both.
-2. ``device``: one plain solve under ``torch.profiler``, on a problem whose
-   host set-up (program, plans, copies to the card) was done beforehand by
-   a 0-iteration solve: the device's busy time (union of its kernels'
-   intervals), its idle share of the LM loop, the number of device
-   operations, and the ten kernels with the most time.
-3. ``host_reads``: the host reads of one plain solve on a problem set up
-   beforehand, as for ``device`` (every operation that waits for the
-   device, as ``torch.cuda.set_sync_debug_mode`` reports them: reads, and
-   copies from the host, which wait too), in all and per LM iteration, by
-   the line of the port that made them, and the device operations per LM
-   iteration; for host_loop_large
-   also the speculative evaluations the rejected steps wasted, with their
-   seconds (the full evaluation's synchronized time per call, from
-   ``stages``).
+   seconds hold its host work and its device work (a captured loop runs
+   its stages inside the graph, where nothing can be bracketed). Stages
+   nest: the kernels' wrappers (K1, K3, K4) are inside the evaluation and
+   the S assembly or the S x products, S x and the preconditioner's
+   applications inside CG, and all are listed on their own. The
+   synchronizing makes this loop slower than a plain one; the plain
+   solve's loop seconds (captured), the eager loop's, the synchronized
+   ones and the seconds per CG iteration of each are printed.
+2. ``device``: one plain solve under ``torch.profiler``, and the eager
+   loop under it, on a problem whose host set-up (program, plans, copies to
+   the card, the graphs' capture) was done beforehand by a 0-iteration
+   solve: the device's busy time (union of its kernels' intervals), its
+   idle share of the LM loop, the number of device operations, and the ten
+   kernels with the most time; and each loop's seconds between two CUDA
+   events (``loop_device_seconds_cuda_events``), which holds where the
+   profiler sees no kernel of a graph's replay.
+3. ``host_reads``: the host reads of one plain solve and of the eager loop
+   on a problem set up beforehand, as for ``device`` (every operation that
+   waits for the device, as ``torch.cuda.set_sync_debug_mode`` reports
+   them: reads, and copies from the host, which wait too), in all and per
+   LM iteration, by the line of the port that made them, and the device
+   operations per LM iteration; for host_loop_large also the speculative
+   evaluations the rejected steps wasted, with their seconds (the full
+   evaluation's synchronized time per call, from ``stages``).
 
 One JSON line per result on standard output, each with the card's name and
 power limit. Needs a CUDA device.
@@ -58,6 +67,7 @@ from ceres_tpu_torch import evaluator, fused_lm, trust_region
 from ceres_tpu_torch.linear import cgnr, schur, schur_explicit
 from ceres_tpu_torch.models import bal, pose_graph
 from ceres_tpu_torch.ops import reduce
+from ceres_tpu_torch.solver import initial_state, preprocess, summarize_records
 
 _LARGE = dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7)
 _FLAGSHIP = dict(num_cameras=16, num_points=22106, num_observations=83718, seed=16)
@@ -172,6 +182,46 @@ def _device_profile(run):
     return summary, busy * 1e-6, len(spans), top
 
 
+def eager_loop(problem, opts, device="cuda", revert_on_tolerance: bool = True):
+    """The fused loop of ``ctt.solve`` (revert_on_tolerance, with its trace)
+    or of ``ctt.fused_solve`` (without), on the problem's program and the
+    options, run eagerly (``fused_lm._device_loop`` with captured=False:
+    every run_if reads its predicate), its summary filled by the functions
+    that solve fills its own with: a captured solve's baseline. Returns
+    (the summary, the loop's seconds)."""
+    summary = ctt.SolverSummary()
+    program, resolved = preprocess(opts, problem, device, summary)
+    x0 = initial_state(program)
+    loop = fused_lm._device_loop(program, trust_region._build_solve_aux(resolved, program),
+                                 fused_lm._fused_config(resolved, revert_on_tolerance),
+                                 revert_on_tolerance, False, x0)
+    if program.device.type == "cuda":
+        torch.cuda.synchronize(program.device)
+    t0 = time.perf_counter()
+    if revert_on_tolerance:
+        fused_lm.minimize_fused_traced(resolved, loop, x0, summary)
+        summarize_records(summary)
+    else:
+        loop.run(x0, resolved.max_num_iterations)
+        final, _ = loop.read(resolved.max_num_iterations)
+        fused_lm.summarize_final_state(summary, final, program.fixed_cost)
+    seconds = time.perf_counter() - t0
+    summary.minimizer_time_in_seconds = seconds
+    return summary, seconds
+
+
+def _event_seconds(run):
+    """(run(), the device's seconds between a CUDA event before it and one
+    after it)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = run()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) * 1e-3
+
+
 def _host_reads(run):
     """(run(), {"file:line": count}) of the operations in run() that waited
     for the device, as torch.cuda.set_sync_debug_mode("warn") reports them
@@ -240,58 +290,93 @@ def main(argv) -> int:
         with contextlib.redirect_stdout(io.StringIO()):
             return ctt.solve(opts, problem)
 
+    host_loop = case == "host_loop_large"
+
+    def eager(dtype, problem):
+        return eager_loop(problem, options(dtype, full), revert_on_tolerance=False)[0]
+
+    def prepared(dtype, run):
+        """run on a problem set up (and captured) beforehand, from its
+        start every time (a solve writes its solution back)."""
+        problem = build()
+        start = problem.state().copy()
+        solve(dtype, max_iters=0, problem=problem)  # set-up and capture, kept with the problem
+
+        def from_start():
+            problem.write_back(start)
+            return run(problem)
+
+        return from_start
+
     for dtype in dtypes:
         solve(dtype, max_iters=2)
         plain = solve(dtype)
-        with _Stages() as stages:
-            timed = solve(dtype)
+        if host_loop:
+            with _Stages() as stages:
+                timed = solve(dtype)
+        else:
+            problem = build()
+            eager_plain = eager(dtype, problem)
+            with _Stages() as stages:
+                timed = eager(dtype, problem)
         emit(
             result="stages", dtype=dtype, lm_iterations=timed.num_iterations,
             linear_solver_iterations=timed.num_linear_solver_iterations,
-            final_cost=timed.final_cost,
+            final_cost=timed.final_cost, captured=plain.captured_loop,
             loop_seconds_plain=plain.minimizer_time_in_seconds,
+            loop_seconds_eager=None if host_loop else eager_plain.minimizer_time_in_seconds,
             loop_seconds_synchronized=timed.minimizer_time_in_seconds,
             seconds_per_cg_iteration_plain=plain.minimizer_time_in_seconds
             / max(plain.num_linear_solver_iterations, 1),
+            seconds_per_cg_iteration_eager=None if host_loop else
+            eager_plain.minimizer_time_in_seconds / max(eager_plain.num_linear_solver_iterations, 1),
             seconds_per_cg_iteration_synchronized=timed.minimizer_time_in_seconds
             / max(timed.num_linear_solver_iterations, 1),
             setup_seconds=plain.preprocessor_time_in_seconds,
+            capture_seconds=plain.graph_capture_time_in_seconds,
             stages={k: {"seconds": v, "calls": stages.calls[k]} for k, v in stages.seconds.items()},
         )
-        prepared = build()
-        solve(dtype, max_iters=0, problem=prepared)  # set-up only; cached on the problem
-        summary, busy, ops, top = _device_profile(lambda: solve(dtype, problem=prepared))
-        loop = summary.minimizer_time_in_seconds
-        emit(
-            result="device", dtype=dtype, lm_iterations=summary.num_iterations,
-            linear_solver_iterations=summary.num_linear_solver_iterations,
-            loop_seconds_profiled=loop, device_busy_seconds=busy,
-            device_idle_share_of_loop=(1.0 - busy / loop) if busy else None,
-            device_operations=ops,
-            top_kernels=[{"name": n[:80], "seconds": s} for n, s in top],
-        )
-        prepared = build()
-        solve(dtype, max_iters=0, problem=prepared)  # set-up only, as above
-        summary, reads = _host_reads(lambda: solve(dtype, problem=prepared))
-        n = max(summary.num_iterations, 1)
-        fields = {}
-        if case == "host_loop_large":
-            wasted = sum(1 for r in summary.iterations[1:]
-                         if r.step_is_valid and not r.step_is_successful)
-            label = "full evaluation (residuals, Jacobians, gradient)"
-            per_eval = stages.seconds[label] / max(stages.calls[label], 1)
-            fields = dict(
-                records=len(summary.iterations), rejected_steps=summary.num_unsuccessful_steps,
-                wasted_speculative_evaluations=wasted,
-                full_evaluation_seconds_synchronized=per_eval, wasted_seconds=wasted * per_eval,
+        loops = {"plain": lambda p: solve(dtype, problem=p)}
+        if not host_loop:
+            loops["eager"] = lambda p: eager(dtype, p)
+        for name, run in loops.items():
+            again = prepared(dtype, run)
+            summary, busy, ops, top = _device_profile(again)
+            _, event_seconds = _event_seconds(again)
+            loop = summary.minimizer_time_in_seconds
+            emit(
+                result="device", dtype=dtype, loop=name, captured=name == "plain" and not host_loop,
+                lm_iterations=summary.num_iterations,
+                linear_solver_iterations=summary.num_linear_solver_iterations,
+                loop_seconds_profiled=loop, device_busy_seconds=busy,
+                device_idle_share_of_loop=(1.0 - busy / loop) if busy else None,
+                device_operations=ops,
+                device_operations_per_lm_iteration=ops / max(summary.num_iterations, 1),
+                loop_device_seconds_cuda_events=event_seconds,
+                top_kernels=[{"name": n[:80], "seconds": s} for n, s in top],
             )
-        emit(
-            result="host_reads", dtype=dtype, lm_iterations=summary.num_iterations,
-            host_reads=sum(reads.values()), host_reads_per_lm_iteration=sum(reads.values()) / n,
-            host_reads_by_site=dict(reads.most_common(12)),
-            device_operations_per_lm_iteration=ops / n,
-            loop_seconds=summary.minimizer_time_in_seconds, **fields,
-        )
+        for name, run in loops.items():
+            summary, reads = _host_reads(prepared(dtype, run))
+            n = max(summary.num_iterations, 1)
+            fields = {}
+            if host_loop:
+                wasted = sum(1 for r in summary.iterations[1:]
+                             if r.step_is_valid and not r.step_is_successful)
+                label = "full evaluation (residuals, Jacobians, gradient)"
+                per_eval = stages.seconds[label] / max(stages.calls[label], 1)
+                fields = dict(
+                    records=len(summary.iterations), rejected_steps=summary.num_unsuccessful_steps,
+                    wasted_speculative_evaluations=wasted,
+                    full_evaluation_seconds_synchronized=per_eval, wasted_seconds=wasted * per_eval,
+                )
+            emit(
+                result="host_reads", dtype=dtype, loop=name, lm_iterations=summary.num_iterations,
+                linear_solver_iterations=summary.num_linear_solver_iterations,
+                host_reads=sum(reads.values()),
+                host_reads_per_lm_iteration=sum(reads.values()) / n,
+                host_reads_by_site=dict(reads.most_common(12)),
+                loop_seconds=summary.minimizer_time_in_seconds, **fields,
+            )
     return 0
 
 

@@ -8,7 +8,9 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    checks that float32 matmuls run in full float32 (no TF32);
 2. build: compiles the three kernels with nvcc from ``ceres_tpu_torch/csrc``,
    one nvcc each, all at the same time: the sorted segment sum (K1), the
-   unsorted segment sum (K3) and the fused pair-outer segment sum (K4);
+   unsorted segment sum (K3) and the fused pair-outer segment sum (K4), and
+   beside them the binding of the CUDA graphs' conditional nodes
+   (``graph_conditional.cu``);
 3. kernel: each kernel against its plain PyTorch version on the card, at the
    shapes the solves below give it (f32 and f64) and at edge cases (K1:
    short segments, long ones and a mix; K3: its compile-time widths 9 and 81
@@ -44,7 +46,26 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    cost to the bit). Both final costs must lie within 1e-3 relative of the
    JAX reference's 3587827.37 (BENCH_r05.json), and K1, K3 and K4 must each
    have been launched during the first timed solve;
-5b. sharded (``sharded``, right after phase 5): ``fused_solve`` with
+5a. captured loop (``captured_loop``, right after phase 5): the fused
+   loop as CUDA graphs (``utils/cuda_graph.py``). For the flagship and the
+   large case in float32 and float64 and the 500-pose graph (CGNR, float64),
+   on one problem each: the loop run eagerly (``profile_solve.eager_loop``:
+   every ``run_if`` reads its predicate), ``ctt.solve`` (captured: the
+   capture is its set-up), a repeat solve from the same start, the eager
+   loop again. Every run must give the same final cost to the bit, the same
+   records and LM and CG counts; the repeat at most CAPTURED_MAX_HOST_READS
+   host reads (the eager count printed beside it), all its kernel launches
+   credited from the graphs' replays and equal to the eager loop's, K1
+   (flagship) and K1, K3 and K4 (large) among them; each captured solve
+   within COST_RTOL of the JAX reference. Printed: capture seconds, seconds
+   per LM and CG iteration (eager and captured), host reads by site, peak
+   device memory of the eager run and of the capturing solve, the bytes the
+   graphs' pools keep (each program keeps one set of graphs, with their
+   pools, for each option set it was solved with) and the memory reserved
+   after the capture. Then ``loss_swap``: a small robust BAL solved, its
+   ``LossFunctionWrapper`` reset to TrivialLoss and solved again, which
+   must capture anew and equal a fresh problem's solve to the bit;
+5b. sharded (``sharded``, right after phase 5a): ``fused_solve`` with
    ``options.mesh`` (``ceres_tpu_torch/parallel/``), the ranks started by
    ``parallel.launch.spawn_ranks`` (spawn, a ``file://`` rendezvous). (a)
    Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card): the
@@ -90,7 +111,10 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    warm-up and two timed solves each, equal to the bit (cost, LM and CG
    iterations), a usable termination, within 1e-3 relative of 3587827.37,
    float32 within 1e-5 of float64; K1 and K3 launched, K4 never. Its
-   ``plan`` line shows the Schur structure's plan kinds;
+   ``plan`` line shows the Schur structure's plan kinds.
+   ``seconds_per_cg_iteration`` is the CG loops' seconds (``_CGClock``)
+   over their iterations, clocked on the same loop run eagerly; ``captured_loop_seconds_per_cg_iteration`` is the captured
+   loop's seconds over its CG iterations;
 11. solve, flagship preconditioners (``flagship_preconditioners``): the
    flagship instance at ``bal.default_options(iterative=True)``, float64,
    once each with IDENTITY, JACOBI,
@@ -257,12 +281,14 @@ iteration, the nnz of the factored matrix and of L, and the host reads per
 iteration (a short solve's, its set-up done beforehand). The native core is
 compiled with g++ at its first use (``ceres_tpu_torch/utils/native.py``).
 
-``solve_seconds`` is the LM loop on the device; the host set-up of each
-fresh problem is reported as ``setup_seconds``; ``seconds_per_cg_iteration``
-of the large iterative solve is the time of its CG loops (S x included, the
-rest of the LM iteration not) over its CG iterations. Launch counters are
-set to zero just before a timed solve and read just after it; K1's and K3's
-are also reported by the width d of what they reduce (``launches_by_width``).
+``solve_seconds`` is the LM loop on the device (the graphs' replays where
+the loop is captured: ``fused_lm.captured_loop_eligible``); the host set-up
+of each fresh problem, the capture included, is reported as
+``setup_seconds``. Launch counters are set to zero just before a timed
+solve and read just after it; a launch captured into a graph counts once
+per replay that ran it (the counts are read with the loop's results); the
+eager warm-up a capture needs counts nowhere. K1's and K3's are also
+reported by the width d of what they reduce (``launches_by_width``).
 
 Before the last line: an ``elapsed`` line (the script's seconds), one
 ``{"kernels": [...]}`` line (per kernel: its times at the large case's
@@ -277,6 +303,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -287,7 +314,7 @@ import numpy as np
 import torch
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import dogleg, evaluator, inner_iterations, trust_region
+from ceres_tpu_torch import dogleg, evaluator, fused_lm, inner_iterations, trust_region
 from ceres_tpu_torch.linear import schur as schur_mod
 from ceres_tpu_torch.linear import sparse_cholesky
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
@@ -296,7 +323,8 @@ from ceres_tpu_torch.ops import cuda_build
 from ceres_tpu_torch.ops import outer_segment_sum as osum
 from ceres_tpu_torch.ops import segment_sum as ss
 from ceres_tpu_torch.ops import unsorted_segment_sum as us
-from ceres_tpu_torch.tools.profile_solve import _device_profile, _host_reads
+from ceres_tpu_torch.tools.profile_solve import _device_profile, _host_reads, eager_loop
+from ceres_tpu_torch.utils import cuda_graph
 
 NUM_CAMERAS, NUM_POINTS, NUM_OBS, SEED = 16, 22106, 83718, 16
 LARGE = dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7)
@@ -312,6 +340,7 @@ ROBUST_FLAGSHIP_REFERENCE_FINAL_COST = 114544.60539235643
 # pose_graph.default_options(), float64, JAX on the CPU: CONVERGENCE after
 # 96 LM iterations and 44 687 CG iterations, from 10.250683705811847.
 POSE_GRAPH_POSES, POSE_GRAPH_SEED = 2500, 0
+POSE_GRAPH_JAX_ITERATIONS = (95, 44687)  # the JAX package's LM / CG iterations there
 POSE_GRAPH_REFERENCE_FINAL_COST = 0.377419867537356
 # The same for synthesize_sphere(500, seed=0) (518 constraints, every plan
 # ``scatter``): CONVERGENCE after 15 LM and 3837 CG iterations.
@@ -776,9 +805,12 @@ def check_device() -> str:
 
 
 def build_kernels() -> None:
+    """The three kernels and the captured loop's conditional-node binding
+    (``csrc/graph_conditional.cu``), one nvcc each, all at the same time."""
     t0 = time.perf_counter()
-    cuda_build.build_in_parallel([mod.build_kernel for mod, _ in KERNELS.values()])
-    for name in KERNELS:
+    cuda_build.build_in_parallel(
+        [mod.build_kernel for mod, _ in KERNELS.values()] + [cuda_graph.build_library])
+    for name in (*KERNELS, "graph_conditional"):
         phase(
             "build", kernel=name, seconds=time.perf_counter() - t0,
             nvcc_seconds=cuda_build.build_seconds[name],
@@ -1731,6 +1763,163 @@ def solve_large(device, dtype: str, inst):
     return launches, by_width, summary
 
 
+# captured_loop: the cases, and the most host reads a repeat solve of a
+# captured program may make (the start's upload, the one read of the
+# loop's results, the solution's download).
+CAPTURED_LOOP_CASES = [("flagship", "float32"), ("flagship", "float64"),
+                       ("large", "float32"), ("large", "float64"),
+                       ("pose_graph_repeat", "float64")]
+CAPTURED_MAX_HOST_READS = 3
+
+
+def _records_key(summary) -> list:
+    """Every IterationSummary record of a solve, to the bit."""
+    return [repr(dataclasses.astuple(r)) for r in summary.iterations]
+
+
+def _graph_launches(problem, device) -> int:
+    """Kernel launches credited so far from the replays of the graphs of
+    ``problem``'s fused loops."""
+    return sum(lp.graph_launches for lp in fused_lm.device_loops(problem.program(device)))
+
+
+def _graph_pool_bytes(problem, device) -> int:
+    """Device bytes held by the memory pools of the graphs of ``problem``'s
+    fused loops (reserved for as long as the program keeps them)."""
+    return cuda_graph.pool_bytes([g for lp in fused_lm.device_loops(problem.program(device))
+                                  for g in lp.graphs or ()])
+
+
+def captured_loss_swap(device) -> None:
+    """Solve, ``LossFunctionWrapper.reset(TrivialLoss())``, solve again: the
+    second solve must be captured anew and equal a fresh problem's solve
+    under the new loss to the bit, records included."""
+    inst = bal.synthesize_bal(num_cameras=4, num_points=1100, num_observations=4400, seed=42)
+    wrapper = ctt.LossFunctionWrapper(ctt.HuberLoss(1.0))
+    problem = bal.build_problem(inst, loss=wrapper)[0]
+    opts = bal.default_options(iterative=True)
+    start = problem.state().copy()
+    first = ctt.solve(opts, problem, device=device)
+    wrapper.reset(ctt.TrivialLoss())
+    problem.write_back(start)
+    swapped = ctt.solve(opts, problem, device=device)
+    fresh = bal.build_problem(inst, loss=ctt.LossFunctionWrapper(ctt.TrivialLoss()))[0]
+    expected = ctt.solve(opts, fresh, device=device)
+    ok = (first.captured_loop and swapped.captured_loop and expected.captured_loop
+          and swapped.graph_capture_time_in_seconds > 0.0
+          and swapped.final_cost == expected.final_cost != first.final_cost
+          and _records_key(swapped) == _records_key(expected))
+    phase("captured_loop", case="loss_swap", dtype="float64", huber_final_cost=first.final_cost,
+          swapped_final_cost=swapped.final_cost, fresh_final_cost=expected.final_cost,
+          recaptured=swapped.graph_capture_time_in_seconds > 0.0, ok=ok)
+    if not ok:
+        raise RuntimeError("captured_loop loss_swap: the solve after reset() is not a fresh "
+                           "problem's solve under the new loss")
+
+
+def _captured_case(case: str, dtype: str, device, inst):
+    """(problem, options, JAX reference cost) of a captured_loop case."""
+    if case == "pose_graph_repeat":
+        graph = pose_graph.synthesize_sphere(POSE_GRAPH_REPEAT_POSES, seed=POSE_GRAPH_SEED)
+        problem = pose_graph.build_problem_3d(*graph[:3])[0]
+        return problem, pose_graph.default_options(), POSE_GRAPH_REPEAT_REFERENCE_FINAL_COST
+    if case == "flagship":
+        return (bal.build_problem(flagship_instance())[0], _options(dtype, True),
+                REFERENCE_FINAL_COST)
+    return bal.build_problem(inst)[0], _options(dtype, False), LARGE_REFERENCE_FINAL_COST
+
+
+def solve_captured_loop(device, inst, smi) -> dict:
+    """``captured_loop``: for each case of CAPTURED_LOOP_CASES, on one
+    problem, the loop run eagerly, then ``ctt.solve`` (which captures the
+    program's graphs: set-up), its repeat from the same start (host reads
+    counted, launches read), and the eager loop again: every run the same
+    final cost to the bit, the same records and LM and CG counts; the repeat
+    at most CAPTURED_MAX_HOST_READS host reads, all its kernel launches
+    from the graphs and as many as the eager loop's, and the kernels of the
+    path launched; the JAX reference held as in the phases above. Returns
+    the repeat solves' launches by case."""
+    paths = {}
+    for case, dtype in CAPTURED_LOOP_CASES:
+        label = f"captured_loop {case} {dtype}"
+        problem, opts, reference = _captured_case(case, dtype, device, inst)
+        x_start = problem.state().copy()
+        runs, seconds, launches, reads = [], [], [], []
+        for kind in ("eager", "captured", "captured", "eager"):
+            problem.write_back(x_start)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            if len(runs) == 2:
+                graph_launches = -_graph_launches(problem, device)
+            if kind == "eager":
+                (summary, loop_seconds), site = _host_reads(
+                    lambda: eager_loop(problem, opts, device))
+            else:
+                summary, site = _host_reads(lambda: ctt.solve(opts, problem, device=device))
+                loop_seconds = summary.minimizer_time_in_seconds
+                if not summary.captured_loop:
+                    raise RuntimeError(f"{label}: the solve was not captured")
+                _checked(problem, summary, reference, label)
+            runs.append(summary)
+            seconds.append(loop_seconds)
+            launches.append(_launches())
+            reads.append(site)
+            if len(runs) == 1:
+                eager_peak = torch.cuda.max_memory_allocated()
+            if len(runs) == 2:
+                capture = dict(seconds=summary.graph_capture_time_in_seconds,
+                               setup_seconds=summary.preprocessor_time_in_seconds,
+                               peak_device_bytes=torch.cuda.max_memory_allocated(),
+                               pool_bytes=_graph_pool_bytes(problem, device),
+                               reserved_bytes=torch.cuda.memory_reserved())
+            if len(runs) == 3:
+                graph_launches += _graph_launches(problem, device)
+        keys = [(s.final_cost, len(s.iterations) - 1, s.num_linear_solver_iterations,
+                 _records_key(s)) for s in runs]
+        repeat = runs[2]
+        lm, cg = len(repeat.iterations) - 1, repeat.num_linear_solver_iterations
+        phase(
+            "captured_loop", case=case, dtype=dtype, nvidia_smi=smi,
+            final_cost=repeat.final_cost, reference_final_cost=reference,
+            lm_iterations=lm, cg_iterations=cg, termination=str(repeat.termination_type),
+            capture_seconds=capture["seconds"], first_setup_seconds=capture["setup_seconds"],
+            loop_seconds={"eager": [seconds[0], seconds[3]], "captured": seconds[1:3]},
+            seconds_per_lm_iteration={"eager": [t / max(lm, 1) for t in (seconds[0], seconds[3])],
+                                      "captured": [t / max(lm, 1) for t in seconds[1:3]]},
+            seconds_per_cg_iteration={"eager": [t / max(cg, 1) for t in (seconds[0], seconds[3])],
+                                      "captured": [t / max(cg, 1) for t in seconds[1:3]]},
+            host_reads={"captured_repeat": sum(reads[2].values()),
+                        "eager": sum(reads[3].values())},
+            host_reads_by_site={"captured_repeat": dict(reads[2]),
+                                "eager": dict(reads[3].most_common(4))},
+            launches={"captured_repeat": launches[2], "eager": launches[3]},
+            graph_launches_of_the_repeat=graph_launches,
+            peak_device_bytes={"eager": eager_peak,
+                               "first_solve_with_capture": capture["peak_device_bytes"]},
+            graph_pool_bytes=capture["pool_bytes"],
+            reserved_device_bytes_after_capture=capture["reserved_bytes"],
+            equal_to_the_bit=all(k == keys[0] for k in keys),
+        )
+        if any(k != keys[0] for k in keys):
+            raise RuntimeError(f"{label}: eager and captured runs differ: "
+                               f"{[k[:3] for k in keys]}")
+        if sum(reads[2].values()) > CAPTURED_MAX_HOST_READS:
+            raise RuntimeError(f"{label}: the repeat solve read the host "
+                               f"{sum(reads[2].values())} times: {dict(reads[2])}")
+        if launches[2] != launches[3] or graph_launches != sum(launches[2].values()):
+            raise RuntimeError(f"{label}: captured launches {launches[2]} (from the graphs "
+                               f"{graph_launches}), eager {launches[3]}")
+        needed = {"flagship": ("sorted_segment_sum",), "large": tuple(KERNELS),
+                  "pose_graph_repeat": ()}[case]
+        if any(launches[2][name] == 0 for name in needed):
+            raise RuntimeError(f"{label}: launches {launches[2]}, needed {needed}")
+        paths[f"captured_loop_{case}_{dtype}"] = launches[2]
+        del problem
+    captured_loss_swap(device)
+    return paths
+
+
 def _sharded_solve(case: str, dtype: str, mesh, device) -> dict:
     """One sharded ``fused_solve`` of ``case`` on this rank: its summary's
     numbers, its kernel launches and its collectives."""
@@ -1943,6 +2132,7 @@ def solve_pose_graph(device):
         reference_final_cost=POSE_GRAPH_REFERENCE_FINAL_COST, rel_err=rel,
         lm_iterations=len(summary.iterations) - 1,
         cg_iterations=summary.num_linear_solver_iterations,
+        jax_lm_cg_iterations=POSE_GRAPH_JAX_ITERATIONS, captured=summary.captured_loop,
         termination=str(summary.termination_type), message=summary.message,
         build_seconds=build_seconds,
         setup_seconds=summary.preprocessor_time_in_seconds,
@@ -1980,9 +2170,10 @@ def _schur_plans(program) -> dict:
 
 
 class _CGClock:
-    """Device-inclusive seconds spent in the Schur solver's CG loops: the
-    CG call is bracketed by ``torch.cuda.synchronize()`` (two per linear
-    solve, which the loop's own host reads make nearly free)."""
+    """Device-inclusive seconds spent in the Schur solver's CG loops of an
+    eagerly run loop: the CG call is bracketed by ``torch.cuda.synchronize()``
+    (two per linear solve, which the loop's own host reads make nearly
+    free)."""
 
     def __init__(self):
         self.seconds = 0.0
@@ -2006,28 +2197,31 @@ class _CGClock:
 
 def solve_large_iterative(device, dtype: str, inst):
     """The large case with ITERATIVE_SCHUR on the implicit S: a 2-iteration
-    warm-up, then two timed solves on fresh problems, equal to the bit, the
-    first with its CG loops clocked. Returns (summary, launches and launches
-    by width of the first)."""
+    warm-up, then two timed solves on fresh problems (captured), equal to
+    the bit, and on the first problem the same loop run eagerly with its CG
+    loops clocked. Returns (summary, launches and launches by width of the
+    first)."""
     warm, _, _ = bal.build_problem(inst)
     ctt.fused_solve(_iterative_options(dtype, 2), warm, device=device)
     del warm
     runs = []
     for i in range(LARGE_REPEATS):
         problem, _, _ = bal.build_problem(inst)
+        x_start = problem.state().copy()
         if i == 0:
             torch.cuda.reset_peak_memory_stats()
             _reset_launches()
-            with _CGClock() as cg_clock:
-                runs.append(ctt.fused_solve(_iterative_options(dtype), problem, device=device))
-        else:
-            runs.append(ctt.fused_solve(_iterative_options(dtype), problem, device=device))
+        runs.append(ctt.fused_solve(_iterative_options(dtype), problem, device=device))
         if i == 0:
             launches, by_width = _launches(), _launches_by_width()
             peak = torch.cuda.max_memory_allocated()
             rel = _checked(problem, runs[0], LARGE_REFERENCE_FINAL_COST,
                            f"large iterative {dtype}")
             plans = _schur_plans(problem.program(device))
+            problem.write_back(x_start)
+            with _CGClock() as cg_clock:
+                eager, _ = eager_loop(problem, _iterative_options(dtype), device,
+                                       revert_on_tolerance=False)
         first, last = runs[0], runs[-1]
         if (last.final_cost, last.num_iterations, last.num_linear_solver_iterations) != (
             first.final_cost, first.num_iterations, first.num_linear_solver_iterations
@@ -2048,7 +2242,10 @@ def solve_large_iterative(device, dtype: str, inst):
         successful_steps=summary.num_successful_steps, cg_iterations=cg,
         termination=str(summary.termination_type), solve_seconds=seconds,
         seconds_per_lm_iteration=seconds / max(summary.num_iterations, 1),
-        cg_seconds=cg_clock.seconds, seconds_per_cg_iteration=cg_clock.seconds / max(cg, 1),
+        cg_seconds=cg_clock.seconds,
+        seconds_per_cg_iteration=cg_clock.seconds / max(eager.num_linear_solver_iterations, 1),
+        captured_loop_seconds_per_cg_iteration=seconds / max(cg, 1),
+        eager_final_cost_equal_to_the_bit=eager.final_cost == summary.final_cost,
         solve_seconds_all=[s.minimizer_time_in_seconds for s in runs],
         setup_seconds=summary.preprocessor_time_in_seconds,
         setup_seconds_all=[s.preprocessor_time_in_seconds for s in runs],
@@ -3155,8 +3352,8 @@ def solve_denoising(device, smi: str) -> dict:
     BSDS500 image), 24 experts of 5 x 5, written to files and loaded by the
     model, at default_options() (CGNR + JACOBI) for 10 iterations: float64
     against JAX f64, float32 against float64; K1 launches per CG iteration.
-    Before them, a 1-iteration solve under torch.profiler (it is also the
-    warm-up, and builds the program every solve uses): the device
+    Before them, a 1-iteration solve (the set-up: the program every solve
+    uses and the loop's capture), then one under torch.profiler: the device
     operations per CG iteration and the idle share."""
     import tempfile
 
@@ -3178,6 +3375,7 @@ def solve_denoising(device, smi: str) -> dict:
         opts.evaluation_dtype = dtype
         return ctt.solve(opts, problem, device=device)
 
+    run("float64", 1)  # set-up: the program, its plans and the loop's capture
     summary, busy, ops, top = _device_profile(lambda: run("float64", 1))
     one = summary.iterations[1].linear_solver_iterations
     loop = summary.minimizer_time_in_seconds
@@ -3443,6 +3641,7 @@ def main() -> int:
     launches, by_width, single["large", "float32"] = solve_large(device, "float32", inst)
     paths["large_float32"] = launches
     paths["large_float64"], _, single["large", "float64"] = solve_large(device, "float64", inst)
+    paths.update(solve_captured_loop(device, inst, smi))
     paths.update(solve_sharded(single, paths, smi))
     r32, paths["robust_large_float32"] = solve_robust_large(device, "float32", inst)
     r64, paths["robust_large_float64"] = solve_robust_large(device, "float64", inst)

@@ -558,3 +558,117 @@ def test_evaluate_on_the_card_matches_the_cpu(device):
     block = problem.evaluate_residual_block(3)
     np.testing.assert_allclose(block["cost"], problem.evaluate_residual_block(3, device="cpu")["cost"],
                                rtol=1e-12)
+
+
+def test_run_if_nests_inside_a_captured_graph(device):
+    """Nested IF nodes: each body runs only where its predicate is true at
+    that point of the replay, with the launches counted per run."""
+    from ceres_tpu_torch.utils import cuda_graph
+
+    x = torch.zeros(8, device=device)
+    a = torch.zeros((), dtype=torch.bool, device=device)
+    b = torch.zeros((), dtype=torch.bool, device=device)
+
+    def fn():
+        with cuda_graph.run_if(a):
+            y = x + 1.0
+            with cuda_graph.run_if(b):
+                y.copy_(y * 10.0)
+            x.copy_(2.0 * y)
+
+    fn()
+    graph = cuda_graph.CapturedGraph(fn, device)
+    for av, bv, want in ((0, 0, 0.0), (1, 0, 2.0), (1, 1, 20.0), (0, 1, 0.0)):
+        x.zero_()
+        a.fill_(bool(av))
+        b.fill_(bool(bv))
+        graph.replay()
+        assert float(x[0]) == want
+
+
+def test_captured_launches_count_per_replay_that_ran_them(device):
+    from ceres_tpu_torch.utils import cuda_graph
+
+    G = 5000
+    seg = np.sort(np.random.default_rng(0).integers(0, G, 20000))
+    row_ptr = torch.from_numpy(ss.build_row_ptr(seg, G)).to(device)
+    contrib = torch.ones((20000, 3), dtype=torch.float32, device=device)
+    out = torch.zeros((G + 1, 3), device=device)
+    go = torch.zeros((), dtype=torch.bool, device=device)
+
+    def fn():
+        with cuda_graph.run_if(go):
+            out.copy_(ss.segment_sum_sorted(contrib, row_ptr, G))
+
+    fn()
+    graph = cuda_graph.CapturedGraph(fn, device)
+    before = ss.launches
+    for run in (True, False, True, True):
+        go.fill_(run)
+        graph.replay()
+    graph.credit(graph.launch_counts().cpu().tolist())
+    assert ss.launches == before + 3 and graph.launches == 3
+    assert float(out.sum()) == 20000 * 3
+
+
+# every option set the captured loop takes (fused_lm.captured_loop_eligible)
+CAPTURED_OPTIONS = {
+    "iterative_schur_jacobi": dict(),
+    "iterative_identity": dict(preconditioner_type="IDENTITY"),
+    "iterative_jacobi": dict(preconditioner_type="JACOBI"),
+    "iterative_power_series": dict(preconditioner_type="SCHUR_POWER_SERIES_EXPANSION"),
+    "iterative_explicit": dict(use_explicit_schur_complement=True),
+    "iterative_spse_initialization": dict(use_spse_initialization=True),
+    "iterative_mixed_precision": dict(use_mixed_precision_solves=True,
+                                      max_num_refinement_iterations=3),
+    "dense_schur": dict(linear_solver_type="DENSE_SCHUR"),
+    "dense_schur_mixed_precision": dict(linear_solver_type="DENSE_SCHUR",
+                                        use_mixed_precision_solves=True),
+    "dense_qr": dict(linear_solver_type="DENSE_QR"),
+    "dense_normal_cholesky": dict(linear_solver_type="DENSE_NORMAL_CHOLESKY"),
+    "cgnr_jacobi": dict(linear_solver_type="CGNR", preconditioner_type="JACOBI"),
+    "cgnr_identity": dict(linear_solver_type="CGNR", preconditioner_type="IDENTITY"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", sorted(CAPTURED_OPTIONS))
+def test_captured_solve_matches_the_eager_loop(device, dtype, name):
+    """ctt.solve runs these as CUDA graphs: its records and final cost equal
+    the same loop run eagerly, to the bit, and a repeat solve of the same
+    program reads the host at most 3 times. 4400 observations: the point
+    sums go to K1 and the camera sums to a one-hot matmul, both in a fixed
+    order (below 4096 rows they are index_add_'s atomics, whose order
+    changes from run to run, captured or not)."""
+    from ceres_tpu_torch.tools.profile_solve import _host_reads, eager_loop
+
+    inst = bal.synthesize_bal(num_cameras=4, num_points=1100, num_observations=4400, seed=42)
+    problem = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))[0]
+    opts = bal.default_options(iterative=True)
+    for field, value in CAPTURED_OPTIONS[name].items():
+        enum = {"linear_solver_type": ctt.LinearSolverType,
+                "preconditioner_type": ctt.PreconditionerType}.get(field)
+        setattr(opts, field, enum[value] if enum else value)
+    opts.evaluation_dtype = dtype
+    start = problem.state().copy()
+    eager, _ = eager_loop(problem, opts, device)
+    problem.write_back(start)
+    first = ctt.solve(opts, problem, device=device)
+    problem.write_back(start)
+    repeat, reads = _host_reads(lambda: ctt.solve(opts, problem, device=device))
+    assert first.captured_loop and repeat.captured_loop
+    assert first.graph_capture_time_in_seconds > 0.0 == repeat.graph_capture_time_in_seconds
+    assert sum(reads.values()) <= 3, dict(reads)
+    for s in (first, repeat):
+        assert s.final_cost == eager.final_cost
+        assert [repr(r) for r in s.iterations] == [repr(r) for r in eager.iterations]
+
+
+def test_a_captured_solve_follows_a_loss_swapped_between_solves(device):
+    """Solve, ``LossFunctionWrapper.reset(TrivialLoss())``, solve again:
+    the second solve is captured anew and equals a fresh problem's solve
+    under the new loss, records included (a graph captured with the old
+    loss would replay its arithmetic). The check is ``chip_smoke.py``'s."""
+    import chip_smoke
+
+    chip_smoke.captured_loss_swap(device)
