@@ -2,11 +2,12 @@
 ``ceres_tpu/ops/small_linalg.py``'s ``spd_inverse`` / ``spd_solve``).
 
 Closed-form cofactor inverse for n <= 3 (the (E'E + D^2) point blocks of
-bundle adjustment, what InvertPSDMatrix<3,3> does) and a batched Cholesky
-above that (the 9x9 camera blocks of SCHUR_JACOBI). The JAX package unrolls
-the Cholesky up to n = 32 so XLA can fuse it on the TPU; eagerly that would
-be hundreds of tiny launches, so the port calls the batched library
-factorization instead. ``contract`` multiplies batches of tiny matrices
+bundle adjustment, what InvertPSDMatrix<3,3> does) and above that a batched
+Cholesky followed by two batched triangular solves against the identity,
+L^-T (L^-1 I) (the 9x9 camera blocks of SCHUR_JACOBI, the cluster blocks).
+The JAX package unrolls the Cholesky up to n = 32 so XLA can fuse it on the
+TPU; eagerly that would be hundreds of tiny launches, so the port calls the
+batched library factorization instead. ``contract`` multiplies batches of tiny matrices
 term by term over their short axis.
 """
 
@@ -55,15 +56,19 @@ def spd_inverse(m: torch.Tensor) -> torch.Tensor:
     if n == 3:
         return _inv3(m)
     # Batched Cholesky; a block that is not SPD yields NaN (no exception,
-    # no host sync), as the JAX package's unrolled factorization does. Then
-    # L^-1 by a batched triangular solve and L^-T L^-1: on the card cuBLAS'
-    # batched trsm and gemm, which a CUDA graph captures (the batched
-    # cholesky_solve goes to MAGMA, which cannot be captured).
+    # no host sync), as the JAX package's unrolled factorization does.
     L, info = torch.linalg.cholesky_ex(m)
-    eye = torch.eye(n, dtype=m.dtype, device=m.device).expand(m.shape)
-    linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    inv = linv.mT @ linv
+    inv = _cholesky_solve(L, torch.eye(n, dtype=m.dtype, device=m.device).expand(m.shape))
     return torch.where((info == 0)[..., None, None], inv, torch.nan)
+
+
+def _cholesky_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(L L')^-1 b by two triangular solves, L^-T (L^-1 b): on the CPU the
+    bits of ``torch.cholesky_solve`` (LAPACK's potrs is these two trsm
+    calls), on the card cuBLAS' trsm, which a CUDA graph captures (the
+    batched ``cholesky_solve`` goes to MAGMA, which cannot be captured)."""
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 def spd_solve(inv_m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

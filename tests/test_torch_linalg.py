@@ -29,6 +29,22 @@ def test_spd_inverse_matches_jax(n):
     np.testing.assert_allclose(np.einsum("bij,bj->bi", m, x), b, atol=1e-10)
 
 
+SPD_INVERSE_RTOL = {np.float64: 1e-12, np.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n", range(4, 13))
+def test_spd_inverse_by_cholesky_matches_jax(n, dtype):
+    """Above n = 3 the port's inverse is a batched Cholesky and two
+    triangular solves, the JAX package's an unrolled Cholesky and L^-T L^-1:
+    held to each other relative to the largest entry."""
+    m = _spd(np.random.default_rng(n), 20, n).astype(dtype)
+    out = spd_inverse(torch.tensor(m)).numpy()
+    ref = np.asarray(jax_spd_inverse(jnp.asarray(m)))
+    assert out.dtype == ref.dtype == dtype
+    np.testing.assert_allclose(out, ref, rtol=0, atol=SPD_INVERSE_RTOL[dtype] * np.abs(ref).max())
+
+
 def test_spd_inverse_marks_non_spd_blocks_nan():
     m = _spd(np.random.default_rng(1), 3, 9)
     m[1] = -m[1]
