@@ -10,7 +10,9 @@ Three paths, chosen as the JAX package chooses them:
   plan (the segment-sum kernels), and inverted in float64 on the host;
 - **matrix-free**, for a large tangent space otherwise: the requested columns
   of inverse(J'J) by Jacobi-preconditioned CG on the card, 8 columns at a
-  time, each column stopping on its own test;
+  time, each column stopping on its own test; on the card the 8-column
+  solve is one CUDA graph, captured once per ``compute`` and replayed per
+  chunk with one read of its results (``_ColumnSolves``);
 - **DENSE_SVD** or the **SPARSE_QR** analog (one dense QR) of the dense
   Jacobian, in float64 numpy on the host.
 
@@ -27,7 +29,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ceres_tpu_torch.linear.cg import CG_SUCCESS, conjugate_gradients_columns
 from ceres_tpu_torch.types import CovarianceAlgorithmType
+from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, uncounted
 
 # Above this tangent dimension the dense-J algorithms are infeasible and the
 # scalable paths (Schur marginals, matrix-free CG) take over.
@@ -55,7 +59,9 @@ class Covariance:
     ``statistics`` holds the seconds of its parts (``jacobian_seconds``; on
     the Schur path ``structure_seconds``, ``assembly_seconds`` of S and
     ``inverse_seconds`` on the host) and, on the matrix-free path, the CG
-    iterations of each column (``cg_iterations``)."""
+    iterations of each column (``cg_iterations``), the seconds of the
+    chunks' solves (``cg_seconds``) and of the CG's capture on the card
+    (``graph_capture_seconds``)."""
 
     def __init__(self, options: Optional[CovarianceOptions] = None):
         self.options = options or CovarianceOptions()
@@ -240,8 +246,6 @@ class Covariance:
     def _compute_matrix_free(self, covariance_blocks, program, full):
         """Columns of inverse(J'J) by Jacobi-preconditioned CG on J'J,
         without a dense J: O(nnz) memory. True / False."""
-        from ceres_tpu_torch.linear.cg import CG_SUCCESS, conjugate_gradients_columns
-
         ctx = full.jacobian_context
         n = program.num_tangent
         # The union of the coordinates of each pair's second block (the
@@ -266,30 +270,23 @@ class Covariance:
             # A zero column of J: J'J is singular (covariance_impl.cc:536).
             return False
         inv_d = torch.from_numpy(1.0 / d).to(program.device, ctx.dtype)[:, None]
-        max_iters = int(min(10 * n, 20_000))
+        solves = _ColumnSolves(ctx, inv_d, cols, _captured(program.device))
+        t0 = time.perf_counter()
         Z = np.zeros((n, len(cols)), dtype=np.float64)
         iterations = []
-        for start in range(0, len(cols), COLUMNS_PER_SOLVE):
-            chunk = cols[start : start + COLUMNS_PER_SOLVE]
-            E = torch.zeros((n, len(chunk)), dtype=ctx.dtype, device=program.device)
-            E[chunk, torch.arange(len(chunk))] = 1.0
-            res = conjugate_gradients_columns(
-                ctx.normal_matmat,
-                E,
-                preconditioner=lambda V: V * inv_d,
-                max_num_iterations=max_iters,
-                min_num_iterations=1,
-                r_tolerance=1e-10,
-                residual_reset_period=100,
-            )
-            iterations.extend(res.num_iterations.cpu().tolist())
-            if not bool(torch.all(res.termination == CG_SUCCESS)):
+        for c in range(solves.num_chunks):
+            chunk = cols[c * COLUMNS_PER_SOLVE : (c + 1) * COLUMNS_PER_SOLVE]
+            x, its, terms = solves.solve(c)
+            iterations.extend(its[: len(chunk)].tolist())
+            if not np.all(terms[: len(chunk)] == CG_SUCCESS):
                 # Breakdown, indefiniteness or no convergence: rank
                 # deficiency, as the reference's QR failure.
                 self.statistics["cg_iterations"] = iterations
                 return False
-            Z[:, start : start + len(chunk)] = res.x.to(torch.float64).cpu().numpy()
+            Z[:, c * COLUMNS_PER_SOLVE : c * COLUMNS_PER_SOLVE + len(chunk)] = x[:, : len(chunk)]
         self.statistics["cg_iterations"] = iterations
+        self.statistics["cg_seconds"] = time.perf_counter() - t0
+        self.statistics["graph_capture_seconds"] = solves.capture_seconds
         self._mf_Z = Z
         self._mf_pos = {c: i for i, c in enumerate(cols)}
         return True
@@ -379,3 +376,79 @@ def _clock(device) -> float:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
+
+
+def _captured(device: torch.device) -> bool:
+    """Whether the matrix-free CG runs as a CUDA graph: on the card."""
+    return device.type == "cuda"
+
+
+class _ColumnSolves:
+    """The matrix-free path's batched CG, COLUMNS_PER_SOLVE columns of
+    inverse(J'J) a chunk, as the JAX package's jitted ``vmap`` of its CG:
+    Jacobi-preconditioned, r_tolerance 1e-10, the residual refreshed every
+    100 iterations, at most min(10 n, 20 000) iterations. The chunks' unit
+    vectors come from a (chunks, K) device table of the columns (padded
+    with n, a zero column, which is done at once), so that one solve reads
+    its chunk from a static buffer. With ``captured`` (the card) the solve
+    is captured once as a CUDA graph, its CG a WHILE node, and replayed per
+    chunk; else it runs eagerly, one read per CG iteration. Either way
+    :meth:`solve` then reads x, the counts and the terminations at once."""
+
+    def __init__(self, ctx, inv_d: torch.Tensor, cols: List[int], captured: bool):
+        n, K = ctx.num_tangent, COLUMNS_PER_SOLVE
+        dev = inv_d.device
+        self.num_chunks = -(-len(cols) // K)
+        table = np.full((self.num_chunks, K), n, dtype=np.int64)
+        table.reshape(-1)[: len(cols)] = cols
+        self.table = torch.from_numpy(table).to(dev)
+        self.ctx, self.inv_d, self.n = ctx, inv_d, n
+        self.max_iters = int(min(10 * n, 20_000))
+        self.chunk = self.table[0].clone()
+        self.x = torch.zeros((n, K), dtype=ctx.dtype, device=dev)
+        self.iterations = torch.zeros((K,), dtype=torch.int32, device=dev)
+        self.termination = torch.zeros((K,), dtype=torch.int32, device=dev)
+        self.graph = None
+        self.capture_seconds = 0.0
+        if captured:
+            t0 = time.perf_counter()
+            self.chunk.fill_(n)  # warm-up: zero columns, done before the loop
+            with uncounted():
+                self._solve()
+            self.graph = CapturedGraph(self._solve, dev)
+            self.capture_seconds = time.perf_counter() - t0
+
+    def _solve(self) -> None:
+        n = self.n
+        # the chunk's unit vectors (a padding column n is zero)
+        rows = torch.arange(n, device=self.x.device)
+        E = (rows[:, None] == self.chunk[None, :]).to(self.x.dtype)
+        inv_d = self.inv_d
+        res = conjugate_gradients_columns(
+            self.ctx.normal_matmat,
+            E,
+            preconditioner=lambda V: V * inv_d,
+            max_num_iterations=self.max_iters,
+            min_num_iterations=1,
+            r_tolerance=1e-10,
+            residual_reset_period=100,
+        )
+        self.x.copy_(res.x)
+        self.iterations.copy_(res.num_iterations)
+        self.termination.copy_(res.termination)
+
+    def solve(self, c: int):
+        """Chunk c: (x (n, K) float64, iterations (K,), terminations (K,)),
+        numpy, in one read."""
+        self.chunk.copy_(self.table[c])
+        if self.graph is None:
+            self._solve()
+        else:
+            self.graph.replay()
+        host = torch.cat([self.x.to(torch.float64).reshape(-1),
+                          self.iterations.to(torch.float64),
+                          self.termination.to(torch.float64)]).cpu().numpy()
+        K = COLUMNS_PER_SOLVE
+        nk = self.n * K
+        return (host[:nk].reshape(self.n, K), host[nk : nk + K].astype(np.int64),
+                host[nk + K :].astype(np.int64))

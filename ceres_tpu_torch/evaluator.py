@@ -140,6 +140,17 @@ def _apply_loss(family: Family, r: torch.Tensor, jacs):
     return cost, correct_residuals(r, scale), jacs
 
 
+def tangent_idx(fam: Family, j: int, groups: BlockGroups, num_tangent: int) -> torch.Tensor:
+    """(B, T_j) tangent coordinates of ``fam``'s arg j blocks; a constant
+    block points at the dummy coordinate ``num_tangent``."""
+    T = fam.structure.tangent_sizes[j]
+    pos = fam.bd_pos[j]
+    dummy = torch.full((1, T), num_tangent, dtype=torch.int64, device=pos.device)
+    if T not in groups:
+        return dummy.expand(fam.batch, T)
+    return torch.cat([groups[T], dummy], dim=0)[pos]
+
+
 @dataclasses.dataclass
 class JacobianContext:
     """The problem Jacobian as batched per-family blocks.
@@ -375,13 +386,7 @@ class JacobianContext:
     def tangent_idx(self, fi: int, j: int) -> torch.Tensor:
         """(B, T_j) tangent coordinates of arg j's blocks; a constant block
         points at the dummy coordinate ``num_tangent``."""
-        fam = self.families[fi]
-        T = fam.structure.tangent_sizes[j]
-        pos = fam.bd_pos[j]
-        dummy = torch.full((1, T), self.num_tangent, dtype=torch.int64, device=pos.device)
-        if T not in self.groups:
-            return dummy.expand(fam.batch, T)
-        return torch.cat([self.groups[T], dummy], dim=0)[pos]
+        return tangent_idx(self.families[fi], j, self.groups, self.num_tangent)
 
     def to_dense(self) -> torch.Tensor:
         """The dense Jacobian (M, num_tangent): dense solvers and small

@@ -52,7 +52,6 @@ from ceres_tpu_torch.trust_region import (
 from ceres_tpu_torch.types import (
     LinearSolverType,
     MinimizerType,
-    PreconditionerType,
     TerminationType,
     TrustRegionStrategyType,
 )
@@ -357,33 +356,26 @@ class _DeviceLoop:
         return final, {f: tr_host[:, i] for i, f in enumerate(_TRACE_FIELDS)}
 
 
-# The linear solvers and preconditioners whose steps the capture takes:
-# every operation device work of fixed shape, no host read.
+# The linear solvers whose steps the capture takes, under every
+# preconditioner: every operation device work of fixed shape, no host read.
 _CAPTURED_SOLVERS = (LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CHOLESKY,
                      LinearSolverType.DENSE_SCHUR, LinearSolverType.ITERATIVE_SCHUR,
                      LinearSolverType.CGNR)
-_CAPTURED_PRECONDITIONERS = (PreconditionerType.IDENTITY, PreconditionerType.JACOBI,
-                             PreconditionerType.SCHUR_JACOBI,
-                             PreconditionerType.SCHUR_POWER_SERIES_EXPANSION)
 
 
 def captured_loop_eligible(options, program) -> bool:
     """Whether the fused loop runs as CUDA graphs: on the card, without a
     mesh (its collectives go through the host), with DENSE_QR,
     DENSE_NORMAL_CHOLESKY, DENSE_SCHUR, or ITERATIVE_SCHUR or CGNR under
-    IDENTITY, JACOBI, SCHUR_JACOBI or SCHUR_POWER_SERIES_EXPANSION, mixed
-    precision and the power-series initialization included. Not the
-    cluster preconditioners (an implicit S's cluster reads take
-    ``torch.nonzero``) nor SUBSET (its J'J assembly fails under capture).
-    Decided from the options alone: the rest runs the same iteration
-    eagerly."""
+    any preconditioner (IDENTITY, JACOBI, SCHUR_JACOBI,
+    SCHUR_POWER_SERIES_EXPANSION, CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL on
+    S assembled or on the implicit S's probes, SUBSET), mixed precision and
+    the power-series initialization included. Not the sparse solvers, whose
+    factorization runs on the host. Decided from the options alone: the
+    rest runs the same iteration eagerly."""
     if program.device.type != "cuda" or program.comm is not None:
         return False
-    lst, pt = options.linear_solver_type, options.preconditioner_type
-    if lst not in _CAPTURED_SOLVERS:
-        return False
-    return lst not in (LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.CGNR) or (
-        pt in _CAPTURED_PRECONDITIONERS)
+    return options.linear_solver_type in _CAPTURED_SOLVERS
 
 
 def _loss_key(program) -> tuple:

@@ -13,8 +13,8 @@ flag, one read per iteration as before and one per block. On
 a sharded program (``parallel/sharding.py``) every vector here is the same
 on every rank, built from all-reduced products by the same arithmetic, so
 every rank reads the same flag and stops at the same iteration.
-``conjugate_gradients_columns`` (the matrix-free covariance) keeps a host
-loop that reads every COLUMNS_CHECK_EVERY iterations.
+``conjugate_gradients_columns`` (the matrix-free covariance's batched CG)
+runs the same loop over k columns at once.
 """
 
 from __future__ import annotations
@@ -32,8 +32,6 @@ CG_NO_CONVERGENCE = LinearSolverTerminationType.NO_CONVERGENCE.value
 CG_SUCCESS = LinearSolverTerminationType.SUCCESS.value
 CG_FAILURE = LinearSolverTerminationType.FAILURE.value
 CG_FATAL_ERROR = LinearSolverTerminationType.FATAL_ERROR.value
-# conjugate_gradients_columns: CG iterations between two host reads.
-COLUMNS_CHECK_EVERY = 10
 
 
 def direct_termination(y: torch.Tensor) -> torch.Tensor:
@@ -170,12 +168,16 @@ def conjugate_gradients_columns(
     """:func:`conjugate_gradients` on the k columns of rhs (n, k) at once,
     from x0 = 0, the analog of the JAX package's ``vmap`` of its
     ``while_loop``: every column runs the same update with its own scalars
-    and stops on its own test; a finished column's state is frozen while
-    the others go on. ``operator`` and ``preconditioner`` map (n, k) to
-    (n, k) column by column. The host reads whether every column is done
-    once every COLUMNS_CHECK_EVERY iterations (a frozen column does not
-    move, so the results do not depend on it). Returns x (n, k) and (k,)
-    iteration counts, terminations and residual norms."""
+    and stops on its own test; a finished column's state is frozen (the
+    vmapped loop's select) while the others go on. ``operator`` and
+    ``preconditioner`` map (n, k) to (n, k) column by column. The loop is
+    :func:`conjugate_gradients`'s: ``run_while`` over blocks of
+    ``residual_reset_period`` iterations, each under ``run_if`` of "some
+    column running and under the cap" (a running column's count is the
+    batch's, so the block says statically where the residual refreshes);
+    captured, one WHILE node; eagerly, one read per iteration and one per
+    block. Returns x (n, k) and (k,) iteration counts, terminations and
+    residual norms."""
     M = preconditioner if preconditioner is not None else (lambda v: v)
     dev, dt = rhs.device, rhs.dtype
     k = rhs.shape[1]
@@ -194,19 +196,21 @@ def conjugate_gradients_columns(
     done = (norm_rhs == 0.0) | ((min_num_iterations == 0) & (norm_r <= tol_r))
     termination = torch.where(done, CG_SUCCESS, CG_NO_CONVERGENCE).to(torch.int32)
     iterations = torch.zeros((k,), dtype=torch.int32, device=dev)
+    batch_iterations = torch.zeros((), dtype=torch.int32, device=dev)
     p = torch.zeros_like(rhs)
     rho = torch.ones((k,), dtype=dt, device=dev)
-    i = 0
-    while i < max_num_iterations and (i % COLUMNS_CHECK_EVERY or not bool(done.all())):
-        i += 1
+
+    def iteration(j: int) -> None:
+        # the batch's iteration i, the j-th of its block; the state changes
+        # only through copy_
+        i = batch_iterations + 1
         active = ~done
         z = M(r)
-        last_rho = rho
         rho_new = dot(r, z)
         fail_rho = _is_zero_or_inf(rho_new)
-        beta = rho_new / last_rho
+        beta = rho_new / rho
         fail_beta = _is_zero_or_inf(beta) & (i > 1)
-        p_new = z if i == 1 else z + beta * p
+        p_new = torch.where(i == 1, z, z + beta * p) if j == 1 else z + beta * p
 
         q = operator(p_new)
         pq = dot(p_new, q)
@@ -215,13 +219,13 @@ def conjugate_gradients_columns(
         fail_alpha = torch.isinf(alpha)
 
         x_new = x + alpha * p_new
-        if i % residual_reset_period == 0:
+        if j == residual_reset_period:
             r_new = rhs - operator(x_new)
         else:
             r_new = r - alpha * q
 
         Q1 = -dot(x_new, rhs + r_new)
-        zeta = i * (Q1 - Q0) / torch.where(Q1 == 0.0, torch.ones_like(Q1), Q1)
+        zeta = i.to(dt) * (Q1 - Q0) / torch.where(Q1 == 0.0, torch.ones_like(Q1), Q1)
         norm_r_new = torch.linalg.vector_norm(r_new, dim=0)
 
         converged = ((zeta < q_tolerance) | (norm_r_new <= tol_r)) & (i >= min_num_iterations)
@@ -233,13 +237,26 @@ def conjugate_gradients_columns(
         keep_old = fail_rho | fail_beta | indefinite
         # The batched while_loop's select: only active columns move.
         move = active & ~keep_old
-        x = torch.where(move, x_new, x)
-        r = torch.where(move, r_new, r)
-        p = torch.where(active, p_new, p)
-        rho = torch.where(active, rho_new, rho)
-        Q0 = torch.where(active & ~stop, Q1, Q0)
-        norm_r = torch.where(active, norm_r_new, norm_r)
-        termination = torch.where(active, term, termination)
-        iterations = iterations + active.to(torch.int32)
-        done = done | stop
+        x.copy_(torch.where(move, x_new, x))
+        r.copy_(torch.where(move, r_new, r))
+        p.copy_(torch.where(active, p_new, p))
+        rho.copy_(torch.where(active, rho_new, rho))
+        Q0.copy_(torch.where(active & ~stop, Q1, Q0))
+        norm_r.copy_(torch.where(active, norm_r_new, norm_r))
+        termination.copy_(torch.where(active, term, termination))
+        iterations.copy_(iterations + active.to(torch.int32))
+        batch_iterations.copy_(i)
+        done.copy_(done | stop)
+
+    def running():
+        return ~torch.all(done) & (batch_iterations < max_num_iterations)
+
+    def block() -> None:
+        for j in range(1, residual_reset_period + 1):
+            with run_if(running()) as go:
+                if not go:
+                    break
+                iteration(j)
+
+    run_while(running, block)
     return CGResult(x=x, num_iterations=iterations, termination=termination, final_norm_r=norm_r)

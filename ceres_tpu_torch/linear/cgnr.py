@@ -33,6 +33,7 @@ def solve_cgnr(
     r_tolerance: float = -1.0,
     rhs: Optional[torch.Tensor] = None,
     subset_masks=None,
+    subset_plan: Optional[precond.SubsetPlan] = None,
 ) -> CGResult:
     """Returns CGResult whose .x solves min ||J y - f||^2 + ||D y||^2,
     or (J'J + D'D) y = rhs when an explicit tangent rhs is given. JACOBI is
@@ -49,7 +50,7 @@ def solve_cgnr(
         else:
             M = precond.scalar_jacobi_preconditioner(ctx, D)
     elif preconditioner_type == PreconditionerType.SUBSET and subset_masks is not None:
-        M = precond.subset_preconditioner(ctx, subset_masks, D)
+        M = precond.subset_preconditioner(ctx, subset_masks, D, subset_plan)
     else:
         raise ValueError(
             f"CGNR supports IDENTITY/JACOBI/SUBSET, got {preconditioner_type}"

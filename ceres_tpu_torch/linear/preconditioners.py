@@ -10,12 +10,15 @@ closed form per size group, so applying it is one einsum per group.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from ceres_tpu_torch.evaluator import JacobianContext, _group_rows
-from ceres_tpu_torch.ops.small_linalg import spd_inverse
+from ceres_tpu_torch.evaluator import JacobianContext, _group_rows, tangent_idx
+from ceres_tpu_torch.ops.segment_sum import build_row_ptr, segment_sum_sorted
+from ceres_tpu_torch.ops.small_linalg import cholesky_solve, spd_inverse
 from ceres_tpu_torch.problem import BlockGroups
 
 
@@ -65,30 +68,78 @@ def block_jacobi_preconditioner(
     return apply
 
 
+@dataclasses.dataclass
+class SubsetPlan:
+    """The SUBSET preconditioner's J'J cells as a fixed-order sum, built
+    once on the host: the per-instance products of :func:`subset_preconditioner`
+    flattened in the JAX package's scatter order (family, arg pair,
+    instance, row, column), the ones that land in a cell of J'J (not on the
+    dummy coordinate) stably sorted by cell, and summed per cell by K1
+    (``ops/segment_sum.py``) in that order: the sums of the JAX package's
+    ``.at[].add``, the same bits on every run, no atomics."""
+
+    perm: torch.Tensor  # (N,) int64: the contributions, cell by cell
+    row_ptr: torch.Tensor  # (U+2,) int32: the CSR row pointer of the U cells
+    cells: torch.Tensor  # (U,) int64: each cell's flat index i * n + j
+
+
+def build_subset_plan(families, groups: BlockGroups, num_tangent: int, subset_masks) -> SubsetPlan:
+    """The :class:`SubsetPlan` of a program's families (``subset_masks`` as
+    :func:`subset_preconditioner` takes them), on the families' device."""
+    n = num_tangent
+    cells = []
+    for fi, fam in enumerate(families):
+        if subset_masks[fi] is None:
+            continue
+        idx = [tangent_idx(fam, j, groups, n).cpu().numpy() for j in range(fam.num_args)]
+        for tj in idx:
+            for tk in idx:
+                c = tj[:, :, None] * n + tk[:, None, :]
+                c = np.where((tj[:, :, None] < n) & (tk[:, None, :] < n), c, -1).reshape(-1)
+                cells.append(c)
+    flat = np.concatenate(cells)
+    kept = np.nonzero(flat >= 0)[0]
+    perm = kept[np.argsort(flat[kept], kind="stable")]
+    unique, seg = np.unique(flat[perm], return_inverse=True)
+    dev = families[0].bd_pos[0].device
+    return SubsetPlan(
+        perm=torch.from_numpy(perm).to(dev),
+        row_ptr=torch.from_numpy(build_row_ptr(seg, unique.size)).to(dev),
+        cells=torch.from_numpy(unique).to(dev),
+    )
+
+
 def subset_preconditioner(
-    ctx: JacobianContext, subset_masks, D: Optional[torch.Tensor] = None
+    ctx: JacobianContext, subset_masks, D: Optional[torch.Tensor] = None,
+    plan: Optional[SubsetPlan] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """M = (J_subset' J_subset + D'D)^-1 for a user-chosen subset of
     residual rows (subset_preconditioner.h:44-80). ``subset_masks`` is a
     per-family (B,) 0/1 tensor selecting member instances (None: none of the
     family). One dense assembly and one dense Cholesky, where the reference
     factors the subset normal matrix with sparse Cholesky: small problems
-    only."""
+    only. The assembly sums the masked per-instance products J_j' J_k into
+    the cells of J'J through ``plan`` (:func:`build_subset_plan`, built here
+    when not given); the solve is two triangular solves. Every operation is
+    device work of fixed shape, so a CUDA graph captures it."""
+    if plan is None:
+        plan = build_subset_plan(ctx.families, ctx.groups, ctx.num_tangent, subset_masks)
     n = ctx.num_tangent
     dt = ctx.dtype
-    H = torch.zeros((n + 1, n + 1), dtype=dt, device=ctx.residuals[0].device)
+    contribs = []
     for fi, fam in enumerate(ctx.families):
         m = subset_masks[fi]
         if m is None:
             continue
         for j in range(fam.num_args):
             Jm_j = ctx.jacs[fi][j] * m.to(dt)[:, None, None]
-            tj = ctx.tangent_idx(fi, j)
             for k in range(fam.num_args):
-                contrib = torch.einsum("bri,brj->bij", Jm_j, ctx.jacs[fi][k])
-                tk = ctx.tangent_idx(fi, k)
-                H.index_put_((tj[:, :, None], tk[:, None, :]), contrib, accumulate=True)
-    H = H[:n, :n]
+                contribs.append(torch.einsum("bri,brj->bij", Jm_j, ctx.jacs[fi][k]).reshape(-1))
+    U = plan.cells.shape[0]
+    vals = torch.cat(contribs)[plan.perm]
+    sums = segment_sum_sorted(vals[:, None], plan.row_ptr, U)[:U, 0]
+    H = torch.zeros((n * n,), dtype=dt, device=ctx.residuals[0].device)
+    H = H.index_copy_(0, plan.cells, sums).reshape(n, n)
     if ctx.comm is not None:
         H = ctx.comm.sum(H)  # this rank's subset rows
     if D is not None:
@@ -96,6 +147,6 @@ def subset_preconditioner(
     chol = torch.linalg.cholesky_ex(H)[0]
 
     def apply(v: torch.Tensor) -> torch.Tensor:
-        return torch.cholesky_solve(v[:, None], chol)[:, 0]
+        return cholesky_solve(chol, v[:, None])[:, 0]
 
     return apply

@@ -134,9 +134,12 @@ class SchurStructure:
     host_e_pids: np.ndarray  # (P,) the e-block ids, in point order
     explicit: Optional[object] = None  # schur_explicit.ExplicitSchurPlan
     # CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL (attach_clusters): (C, m) tangent
-    # coordinates of each camera cluster padded with num_tangent, and the
+    # coordinates of each camera cluster padded with num_tangent, the (R, 2)
+    # (cluster, slot) of each of its R real coordinates (static, so that
+    # reading the table shapes nothing at solve time), and the
     # (num_chains, L) cluster ids of each chain padded with C
     cluster_groups: Optional[torch.Tensor] = None
+    cluster_slots: Optional[torch.Tensor] = None
     chain_clusters: Optional[torch.Tensor] = None
     # SPARSE_SCHUR's CSC assembly of upper(S) (sparse_schur.py)
     sparse_assembly: Optional[object] = None
@@ -352,6 +355,7 @@ def attach_clusters(program, ss: SchurStructure, with_forest: bool = False) -> N
     for i, r in enumerate(rows):
         mat[i, : len(r)] = r
     ss.cluster_groups = torch.from_numpy(mat).to(program.device)
+    ss.cluster_slots = torch.from_numpy(np.argwhere(mat < program.num_tangent)).to(program.device)
     ss.chain_clusters = None
     if not (with_forest and nclusters > 1):
         return
@@ -507,7 +511,7 @@ class SchurOperator:
             row, off = torch.zeros_like(size), torch.zeros_like(size)
             for T, idx in ctx.groups.items():
                 flat = idx.reshape(-1)
-                size[flat] = T
+                size.index_fill_(0, flat, T)  # no host scalar: a capture refuses its copy
                 row[flat] = torch.arange(idx.shape[0], device=dev).repeat_interleave(T)
                 off[flat] = torch.arange(T, device=dev).repeat(idx.shape[0])
             self._coordinates = (size, row, off)
@@ -570,15 +574,18 @@ class SchurOperator:
         S[t[c, b], coords[c, a]] for each (C, m) target table t of
         ``targets``: (C, m, m) per target, [c, a, b]. From the assembled
         reduced S when given, else from probes of the implicit S (the JAX
-        package's vmapped S e_i, here in chunks)."""
-        n = self.ctx.num_tangent
+        package's vmapped S e_i, here in chunks of a static width).
+        ``cluster_groups`` is the structure's table (``attach_clusters``),
+        whose real coordinates ``ss.cluster_slots`` lists."""
         C, m = cluster_groups.shape
         if S is not None:
             fr = self.ss.explicit.f_reduced  # (n+1,) reduced coordinate, nf = none
             S_pad = torch.nn.functional.pad(S, (0, 1, 0, 1))
             rc = fr[cluster_groups]
             return [S_pad[fr[t][:, None, :], rc[:, :, None]] for t in targets]
-        ca = torch.nonzero(cluster_groups < n)  # (cluster, slot) of every real coordinate
+        if cluster_groups is not self.ss.cluster_groups:
+            raise ValueError("the cluster table is not this structure's (attach_clusters)")
+        ca = self.ss.cluster_slots
         out = []
         for o in self.probe(cluster_groups[ca[:, 0], ca[:, 1]], [t[ca[:, 0]] for t in targets],
                             chunk):

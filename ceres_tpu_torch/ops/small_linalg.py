@@ -58,11 +58,11 @@ def spd_inverse(m: torch.Tensor) -> torch.Tensor:
     # Batched Cholesky; a block that is not SPD yields NaN (no exception,
     # no host sync), as the JAX package's unrolled factorization does.
     L, info = torch.linalg.cholesky_ex(m)
-    inv = _cholesky_solve(L, torch.eye(n, dtype=m.dtype, device=m.device).expand(m.shape))
+    inv = cholesky_solve(L, torch.eye(n, dtype=m.dtype, device=m.device).expand(m.shape))
     return torch.where((info == 0)[..., None, None], inv, torch.nan)
 
 
-def _cholesky_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cholesky_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(L L')^-1 b by two triangular solves, L^-T (L^-1 b): on the CPU the
     bits of ``torch.cholesky_solve`` (LAPACK's potrs is these two trsm
     calls), on the card cuBLAS' trsm, which a CUDA graph captures (the

@@ -5,19 +5,32 @@ and ``tiny_solver_autodiff_function.h``).
 ``tiny_solve`` solves one problem or a batch of independent ones at once:
 x0 of shape (n,) or (B, n), ``fn`` written for one instance and batched by
 ``torch.func.vmap``, its Jacobian from ``jacfwd``. The JAX package runs
-``vmap`` of a ``lax.while_loop``, whose batch goes on until every lane is
-done while a finished lane's state is held by a select; here every lane
-carries a ``done`` flag, a step is computed for all lanes and kept only for
-the active ones, and the host reads one flag per iteration to stop.
+``vmap`` of a ``lax.while_loop`` inside ``jit``, whose batch goes on until
+every lane is done while a finished lane's state is held by a select. Here
+every lane carries a ``done`` flag, a step is computed for all lanes and
+kept only for the active ones, and the loop is ``utils.cuda_graph.run_while``
+on "some lane active" (:class:`_TinyLoop`). On the card the whole solve is
+captured once per ``fn``, batch shape, dtype, device and the four options
+(the JAX package's ``jit`` cache on its static arguments) as a CUDA graph
+whose loop is a WHILE node, and every call replays it: a call reads the
+host no more for more iterations. The graph, its memory pool and its static
+buffers are kept for the life of the process, as ``jit`` keeps its
+executables; ``fn`` must be pure tensor operations, as the JAX package
+needs it traceable. On the CPU the same loop runs eagerly, one read per
+iteration.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
+
+from ceres_tpu_torch.ops.small_linalg import cholesky_solve
+from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, run_while, uncounted
 
 _EPS = float(np.finfo(np.float64).eps)
 
@@ -43,51 +56,55 @@ def _residuals_and_jacobian(fn: Callable, x: torch.Tensor):
     return r, J
 
 
-def tiny_solve(
-    fn: Callable,
-    x0,
-    max_num_iterations: int = 50,
-    gradient_tolerance: float = 1e-10,
-    parameter_tolerance: float = 1e-8,
-    cost_threshold: float = _EPS,
-    device="cuda",
-) -> TinySolverResults:
-    """Minimize 0.5 ||fn(x)||^2 by dense LM (Madsen-Nielsen-Tingleff), for
-    x0 of shape (n,) or a batch (B, n). ``fn`` maps one (n,) point to its
-    (m,) residuals in torch ops. A lane whose damped normal matrix is not
-    positive definite rejects the step, as the JAX package's NaN Cholesky
-    does. Results have x0's batch shape."""
-    x0 = torch.as_tensor(x0).to(device)
-    if not x0.is_floating_point():
-        x0 = x0.to(torch.float64)
-    single = x0.ndim == 1
-    x = x0[None] if single else x0
-    B, n = x.shape
-    dtype = x.dtype
-    eye = torch.eye(n, dtype=dtype, device=x.device)
+class _TinyLoop:
+    """Batched solves of ``fn`` from static buffers: a (B, n) start in
+    ``x0``, the state changing only by ``copy_`` so that the loop runs the
+    same eagerly and as a WHILE node. With ``captured`` (the card) the solve
+    is captured once, after a one-iteration warm-up from ``x_like``, and
+    :meth:`run` replays it."""
 
-    r, J = _residuals_and_jacobian(fn, x)
-    cost0 = 0.5 * torch.sum(r * r, dim=-1)
-    jtj = J.transpose(1, 2) @ J
-    u = 1e-4 * torch.amax(torch.diagonal(jtj, dim1=1, dim2=2), dim=-1)
-    v = torch.full((B,), 2.0, dtype=dtype, device=x.device)
-    cost = cost0
-    it = torch.zeros((B,), dtype=torch.int32, device=x.device)
-    done = torch.zeros((B,), dtype=torch.bool, device=x.device)
-    status = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    def __init__(self, fn: Callable, x_like: torch.Tensor, max_num_iterations: int,
+                 gradient_tolerance: float, parameter_tolerance: float,
+                 cost_threshold: float, captured: bool):
+        B, n = x_like.shape
+        dtype, device = x_like.dtype, x_like.device
+        self.fn = fn
+        self.options = (max_num_iterations, gradient_tolerance, parameter_tolerance,
+                        cost_threshold)
+        self.x0 = x_like.clone()
+        self.budget = torch.zeros((), dtype=torch.int32, device=device)
+        self.x = torch.zeros_like(self.x0)
+        self.u, self.v, self.cost, self.cost0, self.gmax = (
+            torch.zeros((B,), dtype=dtype, device=device) for _ in range(5))
+        self.it, self.status = (torch.zeros((B,), dtype=torch.int32, device=device)
+                                for _ in range(2))
+        self.done = torch.zeros((B,), dtype=torch.bool, device=device)
+        self.eye = torch.eye(n, dtype=dtype, device=device)
+        self.graph = None
+        self.capture_seconds = 0.0
+        if captured:
+            t0 = time.perf_counter()
+            self.budget.fill_(1)
+            with uncounted():
+                self._solve()
+            self.graph = CapturedGraph(self._solve, device)
+            self.capture_seconds = time.perf_counter() - t0
 
-    while True:
-        active = ~done & (it < max_num_iterations)
-        if not bool(active.any()):
-            break
+    def _active(self) -> torch.Tensor:
+        return ~self.done & (self.it < self.budget)
+
+    def _iteration(self) -> None:
+        fn, x, u, v, cost = self.fn, self.x, self.u, self.v, self.cost
+        _, gradient_tolerance, parameter_tolerance, cost_threshold = self.options
+        active = self._active()
         r, J = _residuals_and_jacobian(fn, x)
         g = (J.transpose(1, 2) @ r[..., None])[..., 0]
         gmax = torch.amax(g.abs(), dim=-1)
-        lhs = J.transpose(1, 2) @ J + u[:, None, None] * eye
+        lhs = J.transpose(1, 2) @ J + u[:, None, None] * self.eye
         # Solve (J'J + uI) dx = -g (tiny_solver.h Update / Solve); a failed
         # factorization gives a NaN step, which is rejected below.
         L, info = torch.linalg.cholesky_ex(lhs)
-        dx = -torch.cholesky_solve(g[..., None], L)[..., 0]
+        dx = -cholesky_solve(L, g[..., None])[..., 0]
         dx = torch.where((info == 0)[:, None], dx, torch.nan)
         x_new = x + dx
         r_new = vmap(fn)(x_new)
@@ -114,20 +131,85 @@ def tiny_solve(
         ).to(torch.int32)
 
         # A finished lane keeps its state, as the batched while_loop's select.
-        x = torch.where(active[:, None], x_next, x)
-        u = torch.where(active, u_next, u)
-        v = torch.where(active, v_next, v)
-        cost = torch.where(active, cost_next, cost)
-        status = torch.where(active, status_next, status)
-        done = torch.where(active, grad_conv | param_conv | cost_conv, done)
-        it = it + active.to(torch.int32)
+        x.copy_(torch.where(active[:, None], x_next, x))
+        u.copy_(torch.where(active, u_next, u))
+        v.copy_(torch.where(active, v_next, v))
+        cost.copy_(torch.where(active, cost_next, cost))
+        self.status.copy_(torch.where(active, status_next, self.status))
+        self.done.copy_(torch.where(active, grad_conv | param_conv | cost_conv, self.done))
+        self.it.copy_(self.it + active.to(torch.int32))
 
-    r, J = _residuals_and_jacobian(fn, x)
-    gnorm = torch.amax((J.transpose(1, 2) @ r[..., None])[..., 0].abs(), dim=-1)
-    out = TinySolverResults(
-        x=x, cost=cost, initial_cost=cost0, iterations=it,
-        gradient_max_norm=gnorm, converged=status,
-    )
+    def _solve(self) -> None:
+        r, J = _residuals_and_jacobian(self.fn, self.x0)
+        self.cost0.copy_(0.5 * torch.sum(r * r, dim=-1))
+        jtj = J.transpose(1, 2) @ J
+        self.u.copy_(1e-4 * torch.amax(torch.diagonal(jtj, dim1=1, dim2=2), dim=-1))
+        self.v.fill_(2.0)
+        self.x.copy_(self.x0)
+        self.cost.copy_(self.cost0)
+        for t in (self.it, self.status, self.done):
+            t.zero_()
+        run_while(lambda: torch.any(self._active()), self._iteration)
+        r, J = _residuals_and_jacobian(self.fn, self.x)
+        self.gmax.copy_(torch.amax((J.transpose(1, 2) @ r[..., None])[..., 0].abs(), dim=-1))
+
+    def run(self, x0: torch.Tensor) -> TinySolverResults:
+        """The solve from ``x0``; the results are copies (the buffers serve
+        the next call)."""
+        self.x0.copy_(x0)
+        self.budget.fill_(self.options[0])
+        if self.graph is None:
+            self._solve()
+        else:
+            self.graph.replay()
+        return TinySolverResults(
+            x=self.x.clone(), cost=self.cost.clone(), initial_cost=self.cost0.clone(),
+            iterations=self.it.clone(), gradient_max_norm=self.gmax.clone(),
+            converged=self.status.clone(),
+        )
+
+
+# The card's captured solves, by fn, batch shape, dtype, device and options.
+_LOOPS: dict = {}
+
+
+def tiny_loop(fn: Callable, x: torch.Tensor, *options) -> _TinyLoop:
+    """The solve loop of ``fn`` from starts shaped as ``x`` (B, n) with these
+    options: on the card the one captured at the first call with them,
+    elsewhere a new eager one."""
+    if x.device.type != "cuda":
+        return _TinyLoop(fn, x, *options, captured=False)
+    key = (fn, tuple(x.shape), x.dtype, x.device, *options)
+    loop = _LOOPS.get(key)
+    if loop is None:
+        loop = _LOOPS[key] = _TinyLoop(fn, x, *options, captured=True)
+    return loop
+
+
+def tiny_solve(
+    fn: Callable,
+    x0,
+    max_num_iterations: int = 50,
+    gradient_tolerance: float = 1e-10,
+    parameter_tolerance: float = 1e-8,
+    cost_threshold: float = _EPS,
+    device="cuda",
+) -> TinySolverResults:
+    """Minimize 0.5 ||fn(x)||^2 by dense LM (Madsen-Nielsen-Tingleff), for
+    x0 of shape (n,) or a batch (B, n). ``fn`` maps one (n,) point to its
+    (m,) residuals in torch ops. A lane whose damped normal matrix is not
+    positive definite rejects the step, as the JAX package's NaN Cholesky
+    does. Results have x0's batch shape. On the card the first call with a
+    given ``fn``, shape, dtype and options captures the solve (a failed
+    capture raises) and every call replays it."""
+    x0 = torch.as_tensor(x0).to(device)
+    if not x0.is_floating_point():
+        x0 = x0.to(torch.float64)
+    single = x0.ndim == 1
+    x = x0[None] if single else x0
+    loop = tiny_loop(fn, x, int(max_num_iterations), float(gradient_tolerance),
+                     float(parameter_tolerance), float(cost_threshold))
+    out = loop.run(x)
     if single:
         out = TinySolverResults(*(a[0] for a in out))
     return out

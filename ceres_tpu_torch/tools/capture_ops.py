@@ -1,0 +1,164 @@
+"""Which operations of the linear solvers a CUDA graph captures, one at a
+time, each in a process of its own (a failed capture can leave the context
+unusable). Every operation runs once eagerly, then is captured five ways:
+alone in ``torch.cuda.graph`` (``plain``), inside a conditional IF body
+(``utils/cuda_graph.run_if`` in a ``CapturedGraph``, as the fused loop
+captures its LM iteration: ``in_if_body``), inside a WHILE body in such an
+IF body (``in_while_body``), inside an IF body in that WHILE body (as
+``linear/cg.py`` captures a CG iteration: ``in_cg_iteration``), and ten
+times in ten such IF bodies (a CG block: ``in_cg_block``); each graph is
+replayed and held to the eager result. One JSON line per operation and
+way: its name, ``captured`` and the error. On the card only:
+
+    CUDA_LAUNCH_BLOCKING=1 python3 -m ceres_tpu_torch.tools.capture_ops [names]
+
+The operations: the SUBSET preconditioner's assembly and solve as they were
+written before they were made capturable (``index_put_`` with
+``accumulate=True`` into J'J, a single-matrix ``torch.cholesky_solve``) and
+as they are now (``ops/segment_sum.py``'s K1 over a fixed cell order, then
+``index_copy_``; two triangular solves), and the batched
+``torch.cholesky_solve`` that ``ops/small_linalg.spd_inverse`` replaced.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+# J'J's sizes: the 60-pose graph's (on which the fused loop's capture of
+# PR 13's SUBSET path fails) and a larger one
+SIZES = (354, 600)
+B = 2000  # instances
+T = 3  # their block size
+
+
+def _inputs(device, N):
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(rng.integers(0, N, (B, T))).to(device)
+    contrib = torch.from_numpy(rng.standard_normal((B, T, T))).to(device)
+    a = rng.standard_normal((N, N))
+    H = torch.from_numpy(a @ a.T + N * np.eye(N)).to(device)
+    L = torch.linalg.cholesky(H)
+    v = torch.from_numpy(rng.standard_normal(N)).to(device)
+    small = rng.standard_normal((512, 9, 9))
+    Ls = torch.linalg.cholesky(torch.from_numpy(small @ small.transpose(0, 2, 1) + 9 * np.eye(9))
+                               .to(device))
+    return idx, contrib, H, L, v, Ls
+
+
+def _operations(device, N):
+    from ceres_tpu_torch.ops.segment_sum import build_row_ptr, segment_sum_sorted
+    from ceres_tpu_torch.ops.small_linalg import cholesky_solve
+
+    idx, contrib, H, L, v, Ls = _inputs(device, N)
+    cells = (idx[:, :, None] * N + idx[:, None, :]).reshape(-1).cpu().numpy()
+    perm = np.argsort(cells, kind="stable")
+    unique, seg = np.unique(cells[perm], return_inverse=True)
+    perm_d = torch.from_numpy(perm).to(device)
+    row_ptr = torch.from_numpy(build_row_ptr(seg, unique.size)).to(device)
+    unique_d = torch.from_numpy(unique).to(device)
+    eye = torch.eye(9, dtype=Ls.dtype, device=device).expand(Ls.shape)
+
+    def index_put_accumulate():
+        out = torch.zeros((N, N), dtype=contrib.dtype, device=device)
+        return out.index_put_((idx[:, :, None], idx[:, None, :]), contrib, accumulate=True)
+
+    def k1_cells():
+        sums = segment_sum_sorted(contrib.reshape(-1)[perm_d][:, None], row_ptr, unique.size)
+        out = torch.zeros((N * N,), dtype=contrib.dtype, device=device)
+        return out.index_copy_(0, unique_d, sums[: unique.size, 0]).reshape(N, N)
+
+    return {
+        "index_put_accumulate": index_put_accumulate,
+        "k1_cells_index_copy": k1_cells,
+        "cholesky_ex": lambda: torch.linalg.cholesky_ex(H)[0],
+        "cholesky_solve": lambda: torch.cholesky_solve(v[:, None], L),
+        "two_triangular_solves": lambda: cholesky_solve(L, v[:, None]),
+        "cholesky_solve_batched": lambda: torch.cholesky_solve(eye, Ls),
+        "two_triangular_solves_batched": lambda: cholesky_solve(Ls, eye),
+    }
+
+
+def check(name: str, way: str, N: int) -> dict:
+    from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, run_if, run_while
+
+    device = torch.device("cuda", 0)
+    op = _operations(device, N)[name]
+    eager = op()
+    torch.cuda.synchronize()
+    result = {}
+    try:
+        if way == "plain":
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                result["out"] = op()
+            graph.replay()
+        else:
+            out = torch.empty_like(eager)
+            go = torch.ones((), dtype=torch.bool, device=device)
+            trips = torch.zeros((), dtype=torch.int32, device=device)
+
+            def trip():
+                out.copy_(op())
+                trips.add_(1)
+
+            def cg_trip():  # a CG iteration: an IF body inside the WHILE body
+                with run_if(go):
+                    trip()
+
+            def cg_block():  # a CG block: ten such IF bodies in one WHILE body
+                for _ in range(10):
+                    with run_if(go):
+                        out.copy_(op())
+                trips.add_(1)
+
+            def body():
+                with run_if(go):
+                    if way == "in_if_body":
+                        out.copy_(op())
+                    else:  # a WHILE body inside the LM iteration's IF
+                        trips.zero_()
+                        run_while(lambda: trips < 1, {"in_while_body": trip,
+                                                      "in_cg_iteration": cg_trip,
+                                                      "in_cg_block": cg_block}[way])
+
+            CapturedGraph(body, device).replay()
+            result["out"] = out
+        torch.cuda.synchronize()
+    except Exception as e:  # the capture's failure is the finding
+        return dict(operation=name, way=way, n=N, captured=False,
+                    error=f"{type(e).__name__}: {e}"[:400])
+    return dict(operation=name, way=way, n=N, captured=True,
+                equal_to_eager=bool(torch.equal(result["out"], eager)))
+
+
+NAMES = ["index_put_accumulate", "k1_cells_index_copy", "cholesky_ex", "cholesky_solve",
+         "two_triangular_solves", "cholesky_solve_batched", "two_triangular_solves_batched"]
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("capture_ops needs a CUDA device")
+    if len(argv) == 4 and argv[0] == "--one":
+        print(json.dumps(check(argv[1], argv[2], int(argv[3]))), flush=True)
+        return 0
+    for name in argv or NAMES:
+        for N in SIZES:
+            for way in ("plain", "in_if_body", "in_while_body", "in_cg_iteration",
+                        "in_cg_block"):
+                run = subprocess.run([sys.executable, "-m", "ceres_tpu_torch.tools.capture_ops",
+                                      "--one", name, way, str(N)], capture_output=True,
+                                     text=True, timeout=300)
+                lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+                print(lines[-1] if lines else json.dumps(dict(
+                    operation=name, way=way, n=N, captured=False, exit_code=run.returncode,
+                    error=run.stderr.strip().splitlines()[-1:] or [""])), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -35,6 +35,7 @@ from ceres_tpu_torch.evaluator import Evaluator, _cost_impl, _full_impl
 from ceres_tpu_torch.linear.cg import CG_FAILURE, CG_FATAL_ERROR, CG_SUCCESS, direct_termination
 from ceres_tpu_torch.linear.cgnr import solve_cgnr
 from ceres_tpu_torch.linear.dense import solve_dense_normal_cholesky, solve_dense_qr
+from ceres_tpu_torch.linear.preconditioners import build_subset_plan
 from ceres_tpu_torch.linear.schur import (
     EXPLICIT_S_AUTO_MAX_NF,
     attach_clusters,
@@ -262,7 +263,7 @@ def _build_solve_aux(options, program) -> dict:
             or int(ss.f_idx.shape[0]) <= EXPLICIT_S_AUTO_MAX_NF
         ):
             ss.explicit = build_explicit_plan(program, ss)
-    subset_masks = None
+    subset_masks = subset_plan = None
     if options.preconditioner_type == PreconditionerType.SUBSET and subset:
         rids = np.asarray(sorted(int(r) for r in subset), dtype=np.int64)
         subset_masks = tuple(
@@ -271,7 +272,10 @@ def _build_solve_aux(options, program) -> dict:
             )
             for f in program.families
         )
-    aux = {"bd_groups": program.groups, "ss": ss, "subset_masks": subset_masks}
+        subset_plan = build_subset_plan(program.families, program.groups, program.num_tangent,
+                                        subset_masks)
+    aux = {"bd_groups": program.groups, "ss": ss, "subset_masks": subset_masks,
+           "subset_plan": subset_plan}
     program.solve_aux_cache[key] = aux
     return aux
 
@@ -322,6 +326,7 @@ def _base_linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
             r_tolerance=-1.0,
             rhs=rhs,
             subset_masks=solve_aux.get("subset_masks"),
+            subset_plan=solve_aux.get("subset_plan"),
         )
         return res.x, res.num_iterations, res.termination
     if lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY:

@@ -48,7 +48,10 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    have been launched during the first timed solve;
 5a. captured loop (``captured_loop``, right after phase 5): the fused
    loop as CUDA graphs (``utils/cuda_graph.py``). For the flagship and the
-   large case in float32 and float64 and the 500-pose graph (CGNR, float64),
+   large case in float32 and float64, the 500-pose graph (CGNR, float64),
+   the flagship under CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL (float32 and
+   float64) and the 500-pose graph under CGNR + SUBSET with its odometry
+   edges as the subset (float64; JAX's record count and cost within 1e-9),
    on one problem each: the loop run eagerly (``profile_solve.eager_loop``:
    every ``run_if`` reads its predicate), ``ctt.solve`` (captured: the
    capture is its set-up), a repeat solve from the same start, the eager
@@ -56,7 +59,8 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    records and LM and CG counts; the repeat at most CAPTURED_MAX_HOST_READS
    host reads (the eager count printed beside it), all its kernel launches
    credited from the graphs' replays and equal to the eager loop's, K1
-   (flagship) and K1, K3 and K4 (large) among them; each captured solve
+   (flagship, its clusters, SUBSET's J'J cells) and K1, K3 and K4 (large)
+   among them; each captured solve
    within COST_RTOL of the JAX reference. Printed: capture seconds, seconds
    per LM and CG iteration (eager and captured), host reads by site, peak
    device memory of the eager run and of the capturing solve, the bytes the
@@ -190,11 +194,15 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    hand-written Jacobian is wrong: FAILURE with the JAX package's message;
 20. solve, large, CLUSTER_JACOBI (``large_iterative_cluster_jacobi``, after
    the inner iterations): the large instance under ITERATIVE_SCHUR with
-   CLUSTER_JACOBI on the implicit S, float32, after a 2-iteration warm-up:
-   the cost within 1e-3 of the JAX package's float64 cost at the large
-   phase's options (LARGE_F64_FINAL_COST), the preconditioner's build
-   seconds (the cluster blocks from probes S e_i in chunks of columns,
-   ``linear/schur.PROBE_CHUNK_BYTES``) and the peak memory;
+   CLUSTER_JACOBI on the implicit S, float32: the loop run eagerly (the
+   preconditioner's build seconds, synchronized: the cluster blocks from
+   probes S e_i in chunks of columns, ``linear/schur.PROBE_CHUNK_BYTES``;
+   its peak memory), then ``ctt.solve`` (captured, the probes inside the
+   iteration graph: capture seconds, graph pool bytes, seconds per LM
+   iteration) and a repeat (host reads): the three the same final cost to
+   the bit and the same launches, the cost within 1e-3 of the JAX
+   package's float64 cost at the large phase's options
+   (LARGE_F64_FINAL_COST);
 21. solve, pose graph, SPARSE_NORMAL_CHOLESKY
    (``pose_graph_sparse_cholesky``): the 2500-pose sphere through
    ``ctt.solve`` (the host loop's sparse step: J'J cells reduced on the card,
@@ -213,8 +221,10 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    ``flagship_cluster_tridiagonal``): the flagship under ITERATIVE_SCHUR
    with each cluster preconditioner (the fused loop; the clusters by
    canonical views and their chains by the linear forest, in the native
-   core), float32 and float64: float64 against JAX's LM and CG counts and
-   cost (1e-9), float32 within 1e-5 of float64;
+   core), float32 and float64, captured: float64 against JAX's LM and CG
+   counts and cost (1e-9), float32 within 1e-5 of float64; capture
+   seconds, graph pool bytes, seconds per LM iteration and a repeat's host
+   reads;
 24. covariance, large (``covariance_large``, float64 and float32, after the
    cluster phase on the same instance): ``ctt.Covariance().compute`` at the
    instance's own values (no solve), camera 0 and the last point constant
@@ -229,9 +239,11 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    (``covariance_pose_graph_matrix_free``): the 2500-pose sphere (15 000
    tangent coordinates, no Schur structure): 9 columns of inverse(J'J) by
    batched Jacobi-preconditioned CG (8 columns at a time, each stopping on
-   its own test, the host read every 10 iterations); the
+   its own test), captured once per ``compute`` and replayed per chunk; the
    quaternion blocks of poses 1, 1250 and 2499 in ambient space against JAX
-   (1e-5) and each column's CG iterations against JAX's (20%);
+   (1e-5) and each column's CG iterations against JAX's (20%); the same
+   computation with the CG run eagerly, equal to the bit (columns and
+   counts); host reads per chunk and seconds per CG iteration of both;
 26. numeric differentiation (``numeric_diff_flagship``): the flagship with
    its Snavely residual under ``ctt.numeric_diff``, CENTRAL to convergence
    and RIDDERS for 3 iterations, float64: JAX's records and CG iterations,
@@ -253,9 +265,12 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    written as .dat files, float64: final costs (1e-10) and LREs (1e-6)
    against JAX's, the record counts printed beside JAX's;
 30. TinySolver (``tiny_solver_batch``): 65 536 problems (Rosenbrock and an
-   exponential fit) in one ``ctt.tiny_solve`` on the card: every lane's
-   iterations and status (exact lane-weighted sums) and the sums of x and
-   x^2 (1e-10) against JAX's ``vmap(tiny_solve)``;
+   exponential fit) in one ``ctt.tiny_solve`` on the card (captured at its
+   first call, replayed at the repeat): every lane's iterations and status
+   (exact lane-weighted sums) and the sums of x and x^2 (1e-10) against
+   JAX's ``vmap(tiny_solve)``, the repeat and the same solve run eagerly
+   equal to the bit; the first call's capture seconds, the repeat's seconds
+   and host reads;
 31. the C API (``c_api``): the curve fit y = exp(m x + c) through
    ``ceres_problem_add_residual_block`` with a numpy callback and a Cauchy
    stock loss, then ``ceres_solve`` on the card: the caller's arrays written
@@ -1095,13 +1110,14 @@ def tiny_batch(problems=TINY["problems"], seed=TINY["seed"]):
     return x0, y
 
 
-def tiny_residual(y):
-    """The torch residual of tiny_batch's lanes (20 values)."""
-    t = torch.from_numpy(TINY_SAMPLES)
-    yt = torch.from_numpy(y)
+def tiny_residual(y, device="cpu"):
+    """The torch residual of tiny_batch's lanes (20 values), its samples on
+    ``device`` (a CUDA graph captures no copy from the host)."""
+    t = torch.from_numpy(TINY_SAMPLES).to(device)
+    yt = torch.from_numpy(y).to(device)
 
     def fn(x):
-        tt, yy = t.to(x.device, x.dtype), yt.to(x.device, x.dtype)
+        tt, yy = t.to(x.dtype), yt.to(x.dtype)
         rosen = torch.cat([10.0 * (x[1:2] - x[0:1] * x[0:1]), 1.0 - x[0:1], torch.zeros_like(yy[2:])])
         fit = x[0:1] * torch.exp(x[1:2] * tt) + x[2:3] - yy
         return torch.where(x[3:4] > 0, rosen, fit)
@@ -1768,7 +1784,16 @@ def solve_large(device, dtype: str, inst):
 # loop's results, the solution's download).
 CAPTURED_LOOP_CASES = [("flagship", "float32"), ("flagship", "float64"),
                        ("large", "float32"), ("large", "float64"),
-                       ("pose_graph_repeat", "float64")]
+                       ("pose_graph_repeat", "float64"),
+                       ("flagship_cluster_jacobi", "float32"),
+                       ("flagship_cluster_jacobi", "float64"),
+                       ("flagship_cluster_tridiagonal", "float32"),
+                       ("flagship_cluster_tridiagonal", "float64"),
+                       ("pose_graph_subset", "float64")]
+# The 500-pose graph under CGNR + SUBSET, its odometry edges as the subset:
+# JAX f64 on the CPU (tests/test_torch_references.py pose_graph_subset):
+# records, CG iterations, final cost.
+POSE_GRAPH_SUBSET_REFERENCE = (9, 77, 0.0580636689398613)
 CAPTURED_MAX_HOST_READS = 3
 
 
@@ -1819,10 +1844,19 @@ def captured_loss_swap(device) -> None:
 
 def _captured_case(case: str, dtype: str, device, inst):
     """(problem, options, JAX reference cost) of a captured_loop case."""
-    if case == "pose_graph_repeat":
+    if case.startswith("pose_graph"):
         graph = pose_graph.synthesize_sphere(POSE_GRAPH_REPEAT_POSES, seed=POSE_GRAPH_SEED)
         problem = pose_graph.build_problem_3d(*graph[:3])[0]
-        return problem, pose_graph.default_options(), POSE_GRAPH_REPEAT_REFERENCE_FINAL_COST
+        opts = pose_graph.default_options()
+        if case == "pose_graph_repeat":
+            return problem, opts, POSE_GRAPH_REPEAT_REFERENCE_FINAL_COST
+        opts.preconditioner_type = ctt.PreconditionerType.SUBSET
+        opts.residual_blocks_for_subset_preconditioner = list(range(POSE_GRAPH_REPEAT_POSES - 1))
+        return problem, opts, POSE_GRAPH_SUBSET_REFERENCE[2]
+    if case.startswith("flagship_cluster"):
+        pt = case[len("flagship_"):].upper()
+        return (bal.build_problem(flagship_instance())[0], _cluster_options(pt, dtype),
+                FLAGSHIP_CLUSTER_REFERENCE[pt][2])
     if case == "flagship":
         return (bal.build_problem(flagship_instance())[0], _options(dtype, True),
                 REFERENCE_FINAL_COST)
@@ -1910,8 +1944,11 @@ def solve_captured_loop(device, inst, smi) -> dict:
         if launches[2] != launches[3] or graph_launches != sum(launches[2].values()):
             raise RuntimeError(f"{label}: captured launches {launches[2]} (from the graphs "
                                f"{graph_launches}), eager {launches[3]}")
-        needed = {"flagship": ("sorted_segment_sum",), "large": tuple(KERNELS),
-                  "pose_graph_repeat": ()}[case]
+        if case == "pose_graph_subset":
+            records, _, cost = POSE_GRAPH_SUBSET_REFERENCE
+            _held_to_jax(repeat, records, cost, f"{label} against JAX")
+        needed = {"large": tuple(KERNELS), "pose_graph_repeat": ()}.get(
+            case, ("sorted_segment_sum",))
         if any(launches[2][name] == 0 for name in needed):
             raise RuntimeError(f"{label}: launches {launches[2]}, needed {needed}")
         paths[f"captured_loop_{case}_{dtype}"] = launches[2]
@@ -3058,25 +3095,30 @@ def _cluster_options(pt: str, dtype: str):
 
 def solve_flagship_clusters(device, smi: str) -> dict:
     """The flagship under ITERATIVE_SCHUR with CLUSTER_JACOBI and with
-    CLUSTER_TRIDIAGONAL (ctt.solve, the fused loop; S assembled, nf = 144),
-    float32 and float64: float64 against JAX's LM and CG counts and cost
-    (1e-9), float32 within 1e-5 of float64; the clusters and chains."""
+    CLUSTER_TRIDIAGONAL (ctt.solve, the fused loop captured; S assembled,
+    nf = 144), float32 and float64: float64 against JAX's LM and CG counts
+    and cost (1e-9), float32 within 1e-5 of float64; the clusters and
+    chains, the capture's seconds and pool bytes, seconds per LM iteration
+    and a repeat solve's host reads."""
     inst = flagship_instance()
     paths = {}
     for pt in ("CLUSTER_JACOBI", "CLUSTER_TRIDIAGONAL"):
         out = {}
         for dtype in ("float32", "float64"):
             problem = bal.build_problem(inst)[0]
+            start = problem.state().copy()
             _reset_launches()
             s = ctt.solve(_cluster_options(pt, dtype), problem, device=device)
             launches = _launches()
-            again = bal.build_problem(inst)[0]
-            zero = _cluster_options(pt, dtype)
-            zero.max_num_iterations = 0
-            _, reads = _reads(lambda: ctt.solve(_cluster_options(pt, dtype), again, device=device),
-                              lambda: ctt.solve(zero, again, device=device))
+            pool = _graph_pool_bytes(problem, device)
+            problem.write_back(start)
+            repeat, reads = _host_reads(
+                lambda: ctt.solve(_cluster_options(pt, dtype), problem, device=device))
             ss_ = problem.program(device).schur_structure
             _usable(s, f"flagship {pt} {dtype}")
+            if not (s.captured_loop and repeat.final_cost == s.final_cost):
+                raise RuntimeError(f"flagship {pt} {dtype}: not captured, or the repeat "
+                                   f"differs ({repeat.final_cost} against {s.final_cost})")
             chains = None if ss_.chain_clusters is None else ss_.chain_clusters.cpu().numpy()
             C = int(ss_.cluster_groups.shape[0])
             phase(
@@ -3087,10 +3129,16 @@ def solve_flagship_clusters(device, smi: str) -> dict:
                 termination=str(s.termination_type),
                 solve_seconds=s.minimizer_time_in_seconds,
                 setup_seconds=s.preprocessor_time_in_seconds,
+                captured_loop=s.captured_loop,
+                capture_seconds=s.graph_capture_time_in_seconds, graph_pool_bytes=pool,
+                seconds_per_lm_iteration={
+                    "first": s.minimizer_time_in_seconds / max(s.num_iterations, 1),
+                    "repeat": repeat.minimizer_time_in_seconds / max(repeat.num_iterations, 1)},
                 clusters=C, cluster_width=int(ss_.cluster_groups.shape[1]),
                 chains=None if chains is None else [[int(c) for c in ch if c < C]
                                                     for ch in chains],
-                host_reads_per_iteration=sum(reads.values()) / max(s.num_iterations, 1),
+                host_reads_of_a_repeat=sum(reads.values()),
+                host_reads_per_iteration=sum(reads.values()) / max(repeat.num_iterations, 1),
                 launches=launches, card=smi,
             )
             out[dtype], paths[f"flagship_{pt.lower()}_{dtype}"] = s, launches
@@ -3106,9 +3154,12 @@ def solve_flagship_clusters(device, smi: str) -> dict:
 
 def solve_large_cluster_jacobi(device, inst, smi: str) -> dict:
     """The large instance under ITERATIVE_SCHUR + CLUSTER_JACOBI on the
-    implicit S (nf = 4176), float32, after a 2-iteration warm-up: the cost
+    implicit S (nf = 4176), float32: the loop run eagerly, with the
+    preconditioner's builds timed (synchronized) and the peak memory; then
+    ``ctt.solve``, which captures the loop with its probes (capture seconds,
+    pool bytes, seconds per LM iteration), and a repeat (host reads): the
+    three the same final cost to the bit and the same launches, the cost
     within 1e-3 of the JAX f64 cost at the large phase's options; the
-    preconditioner's build seconds (synchronized) and the peak memory, the
     probes' chunks at full width."""
     builds = []
     real = schur_mod.SchurOperator.clustered_preconditioner
@@ -3122,44 +3173,58 @@ def solve_large_cluster_jacobi(device, inst, smi: str) -> dict:
         return out
 
     opts = _cluster_options("CLUSTER_JACOBI", "float32")
-    warm_opts = _cluster_options("CLUSTER_JACOBI", "float32")
-    warm_opts.max_num_iterations = 2
-    ctt.solve(warm_opts, bal.build_problem(inst)[0], device=device)
     problem = bal.build_problem(inst)[0]
+    start = problem.state().copy()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     schur_mod.SchurOperator.clustered_preconditioner = timed
     try:
-        s = ctt.solve(opts, problem, device=device)
+        eager, eager_seconds = eager_loop(problem, opts, device)
     finally:
         schur_mod.SchurOperator.clustered_preconditioner = real
-    launches, peak = _launches(), torch.cuda.max_memory_allocated()
-    again = bal.build_problem(inst)[0]
-    zero = _cluster_options("CLUSTER_JACOBI", "float32")
-    zero.max_num_iterations = 0
-    short, reads = _reads(lambda: ctt.solve(warm_opts, again, device=device),
-                          lambda: ctt.solve(zero, again, device=device))
+    eager_launches, peak = _launches(), torch.cuda.max_memory_allocated()
+    _reset_launches()
+    s = ctt.solve(opts, problem, device=device)
+    launches = _launches()
+    pool = _graph_pool_bytes(problem, device)
+    problem.write_back(start)
+    repeat, reads = _host_reads(lambda: ctt.solve(opts, problem, device=device))
     rel = _checked(problem, s, LARGE_F64_FINAL_COST, "large iterative cluster jacobi float32")
     _usable(s, "large iterative cluster jacobi float32")
     ss_ = problem.program(device).schur_structure
     groups = ss_.cluster_groups
     probe_chunk = max(1, schur_mod.PROBE_CHUNK_BYTES // (inst.num_observations * 9 * 4))
+    lm = max(s.num_iterations, 1)
     phase(
         "solve", case="large_iterative_cluster_jacobi", dtype="float32",
         initial_cost=s.initial_cost, final_cost=s.final_cost,
         reference_final_cost=LARGE_F64_FINAL_COST, rel_err=rel,
         lm_iterations=s.num_iterations, cg_iterations=s.num_linear_solver_iterations,
         termination=str(s.termination_type), solve_seconds=s.minimizer_time_in_seconds,
-        setup_seconds=s.preprocessor_time_in_seconds,
+        setup_seconds=s.preprocessor_time_in_seconds, captured_loop=s.captured_loop,
+        capture_seconds=s.graph_capture_time_in_seconds, graph_pool_bytes=pool,
+        eager_peak_device_bytes=peak,
+        loop_seconds={"eager": eager_seconds, "captured": s.minimizer_time_in_seconds,
+                      "captured_repeat": repeat.minimizer_time_in_seconds},
+        seconds_per_lm_iteration={"eager": eager_seconds / lm,
+                                  "captured": s.minimizer_time_in_seconds / lm,
+                                  "captured_repeat": repeat.minimizer_time_in_seconds / lm},
         explicit_s=ss_.explicit is not None, clusters=int(groups.shape[0]),
-        cluster_width=int(groups.shape[1]), probe_columns=int((groups < ss_.f_mask.numel()).sum()),
+        cluster_width=int(groups.shape[1]), probe_columns=int(ss_.cluster_slots.shape[0]),
         probe_chunk_columns=probe_chunk, probe_chunk_bytes=schur_mod.PROBE_CHUNK_BYTES,
-        preconditioner_build_seconds=builds, peak_device_bytes=peak, launches=launches,
-        host_reads_per_iteration=sum(reads.values()) / max(short.num_iterations, 1),
-        card=smi,
+        preconditioner_build_seconds_eager=builds, launches=launches,
+        eager_launches=eager_launches, host_reads_of_a_repeat=sum(reads.values()),
+        host_reads_by_site=dict(reads), equal_to_the_bit=(
+            eager.final_cost == s.final_cost == repeat.final_cost), card=smi,
     )
-    if ss_.explicit is not None or not builds:
-        raise RuntimeError("large cluster jacobi: not the implicit S's probes")
+    if ss_.explicit is not None or not builds or not s.captured_loop:
+        raise RuntimeError("large cluster jacobi: not the implicit S's probes, or not captured")
+    if not eager.final_cost == s.final_cost == repeat.final_cost or launches != eager_launches:
+        raise RuntimeError(f"large cluster jacobi: eager {eager.final_cost} {eager_launches}, "
+                           f"captured {s.final_cost} {launches}, repeat {repeat.final_cost}")
+    if sum(reads.values()) > CAPTURED_MAX_HOST_READS:
+        raise RuntimeError(f"large cluster jacobi: a repeat read the host {dict(reads)}")
     return launches
 
 
@@ -3227,38 +3292,75 @@ def solve_covariance_large(device, dtype: str, inst, smi: str) -> dict:
     return launches
 
 
+def _matrix_free_covariance(problem, pairs, device, captured: bool):
+    """``Covariance().compute`` of ``pairs`` with the batched CG captured
+    (the card's path) or run eagerly: (the Covariance, seconds, host reads
+    by site, launches)."""
+    from ceres_tpu_torch import covariance
+
+    real = covariance._captured
+    covariance._captured = lambda dev: captured
+    try:
+        cov = ctt.Covariance()
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok, reads = _host_reads(lambda: cov.compute(pairs, problem, device=device))
+        seconds = time.perf_counter() - t0
+    finally:
+        covariance._captured = real
+    if not ok or cov._mf_Z is None:
+        raise RuntimeError("covariance matrix-free: refused, or not the matrix-free path")
+    return cov, seconds, reads, _launches()
+
+
 def solve_covariance_matrix_free(device, smi: str) -> dict:
     """Covariance of the 2500-pose sphere at its own values: 15 000 tangent
     coordinates and no Schur structure, so the requested columns of
-    inverse(J'J) are solved by CG, 8 at a time; the quaternion blocks of
-    poses 1, 1250 and 2499 in ambient space against JAX f64."""
+    inverse(J'J) are solved by CG, 8 at a time, captured once per compute()
+    and replayed per chunk; the quaternion blocks of poses 1, 1250 and 2499
+    in ambient space against JAX f64; the same computation with the CG run
+    eagerly, equal to the bit; host reads per chunk and seconds per CG
+    iteration of both."""
     problem, _, quat_id = pose_graph.build_problem_3d(
         *pose_graph.synthesize_sphere(POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED)[:3])
     q = [quat_id[v] for v in (1, POSE_GRAPH_POSES // 2, POSE_GRAPH_POSES - 1)]
     pairs = [(q[0], q[0]), (q[1], q[1]), (q[2], q[2]), (q[0], q[2])]
-    cov = ctt.Covariance()
-    _reset_launches()
-    t0 = time.perf_counter()
-    ok, reads = _host_reads(lambda: cov.compute(pairs, problem, device=device))
-    seconds = time.perf_counter() - t0
-    launches = _launches()
-    if not ok or cov._mf_Z is None:
-        raise RuntimeError("covariance matrix-free: refused, or not the matrix-free path")
+    # eager first: the program's set-up is the eager computation's, and the
+    # captured one reads only what a compute() of a set-up program reads
+    eager, eager_seconds, eager_reads, _ = _matrix_free_covariance(problem, pairs, device, False)
+    cov, seconds, reads, launches = _matrix_free_covariance(problem, pairs, device, True)
     ref = COVARIANCE_MATRIX_FREE_REFERENCE
     errs = [_fingerprint_err(cov.get_covariance_block(*pair), r)
             for pair, r in zip(pairs, ref["blocks"])]
     iterations = cov.statistics["cg_iterations"]
     moved = [abs(a - b) / b for a, b in zip(iterations, ref["cg_iterations"])]
+    chunks = -(-len(iterations) // 8)
+    # the batched loop runs as long as its longest column, chunk by chunk
+    batch_iterations = sum(max(iterations[c * 8:(c + 1) * 8]) for c in range(chunks))
+    equal = (np.array_equal(cov._mf_Z, eager._mf_Z)
+             and iterations == eager.statistics["cg_iterations"])
     phase("solve", case="covariance_pose_graph_matrix_free", dtype="float64", nvidia_smi=smi,
           block_rel_err=errs, rtol=COVARIANCE_MATRIX_FREE_RTOL, cg_iterations=iterations,
           reference_cg_iterations=ref["cg_iterations"], cg_iterations_rel=moved,
-          seconds=seconds, host_reads=sum(reads.values()),
-          seconds_per_cg_iteration=seconds / max(max(iterations[:8]) + max(iterations[8:] or [0]), 1),
-          **{k: v for k, v in cov.statistics.items() if k != "cg_iterations"},
+          chunks=chunks, seconds={"captured": seconds, "eager": eager_seconds},
+          host_reads={"captured": sum(reads.values()), "eager": sum(eager_reads.values())},
+          host_reads_per_chunk={"captured": sum(reads.values()) / chunks,
+                                "eager": sum(eager_reads.values()) / chunks},
+          host_reads_by_site={"captured": dict(reads), "eager": dict(eager_reads.most_common(4))},
+          cg_seconds={"captured": cov.statistics["cg_seconds"],
+                      "eager": eager.statistics["cg_seconds"]},
+          seconds_per_cg_iteration={"captured": cov.statistics["cg_seconds"] / batch_iterations,
+                                    "eager": eager.statistics["cg_seconds"] / batch_iterations},
+          captured_equal_to_eager_to_the_bit=equal,
+          **{k: v for k, v in cov.statistics.items() if k not in ("cg_iterations", "cg_seconds")},
           launches=launches)
     if max(errs) > COVARIANCE_MATRIX_FREE_RTOL or max(moved) > CG_ITERATIONS_RTOL:
         raise RuntimeError(f"covariance matrix-free: blocks {errs}, CG iterations {iterations} "
                            f"against JAX {ref['cg_iterations']}")
+    if not equal:
+        raise RuntimeError(f"covariance matrix-free: captured and eager differ: CG iterations "
+                           f"{iterations} against {eager.statistics['cg_iterations']}")
     return launches
 
 
@@ -3503,15 +3605,28 @@ def tiny_checksums(x, iterations, status) -> dict:
 def solve_tiny(device, smi: str) -> dict:
     """65 536 small problems in one batched tiny_solve on the card, float64:
     every lane's iterations and status (exact sums weighted by lane) and
-    the sums of x and x^2 against JAX's vmap(tiny_solve)."""
+    the sums of x and x^2 against JAX's vmap(tiny_solve). The first call
+    captures the solve (its seconds printed), the repeat replays it (its
+    seconds and host reads printed); both equal to the same loop run
+    eagerly, to the bit."""
+    from ceres_tpu_torch import tiny_solver
+
     x0, y = tiny_batch()
-    fn = tiny_residual(y)
-    ctt.tiny_solve(fn, x0[:64], device=device)  # warm-up
+    fn = tiny_residual(y, device)
     _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = ctt.tiny_solve(fn, x0, device=device)
+    torch.cuda.synchronize()
+    first_seconds = time.perf_counter() - t0
+    x_dev = torch.as_tensor(x0).to(device)
+    loop = tiny_solver.tiny_loop(fn, x_dev, 50, 1e-10, 1e-8, float(np.finfo(np.float64).eps))
     t0 = time.perf_counter()
     r, reads = _host_reads(lambda: ctt.tiny_solve(fn, x0, device=device))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    eager = tiny_solver._TinyLoop(fn, x_dev, *loop.options, captured=False).run(x_dev)
+    equal = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(r, first, eager))
     got = tiny_checksums(r.x.cpu().numpy(), r.iterations.cpu().numpy(), r.converged.cpu().numpy())
     ref = TINY_REFERENCE
     exact = {k: got[k] == ref[k] for k in ("iterations", "iterations_by_lane", "status_counts",
@@ -3519,11 +3634,16 @@ def solve_tiny(device, smi: str) -> dict:
     x_rel = max(abs(a - b) / max(abs(b), 1.0) for k in ("x_sum", "x_sq_sum")
                 for a, b in zip(got[k], ref[k]))
     phase("solve", case="tiny_solver_batch", dtype="float64", nvidia_smi=smi,
-          problems=x0.shape[0], checksums=got, exact=exact, x_rel_err=x_rel, seconds=seconds,
-          max_iterations=int(r.iterations.max()), host_reads=sum(reads.values()),
+          problems=x0.shape[0], checksums=got, exact=exact, x_rel_err=x_rel,
+          first_call_seconds=first_seconds, capture_seconds=loop.capture_seconds,
+          seconds=seconds, max_iterations=int(r.iterations.max()),
+          host_reads=sum(reads.values()), host_reads_by_site=dict(reads),
+          captured=loop.graph is not None, equal_to_the_eager_loop_to_the_bit=equal,
           launches=_launches())
     if not all(exact.values()) or x_rel > TINY_X_RTOL:
         raise RuntimeError(f"tiny solver: {got} against JAX {ref}")
+    if loop.graph is None or not equal:
+        raise RuntimeError("tiny solver: not captured, or the captured and eager solves differ")
     return _launches()
 
 

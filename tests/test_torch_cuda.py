@@ -6,7 +6,11 @@ ITERATIVE_SCHUR step that reaches K1 and K3 and not K4, and the modeling API
 on the card against the CPU (robust BAL with a constant camera, a pose
 graph, the dense solvers and CGNR, ``Problem.evaluate``), a bounded solve
 through the host-loop minimizer, and the sparse solvers and cluster
-preconditioners on the card against the CPU. Skipped without a card.
+preconditioners on the card against the CPU; the fused loop captured as
+CUDA graphs under every option set it takes (the cluster preconditioners
+and SUBSET among them), the matrix-free covariance's batched CG and
+TinySolver captured, each against the same loop run eagerly, to the bit.
+Skipped without a card.
 
 This file imports neither jax nor ceres_tpu, so it also runs where only
 PyTorch is installed:
@@ -628,24 +632,38 @@ CAPTURED_OPTIONS = {
     "dense_normal_cholesky": dict(linear_solver_type="DENSE_NORMAL_CHOLESKY"),
     "cgnr_jacobi": dict(linear_solver_type="CGNR", preconditioner_type="JACOBI"),
     "cgnr_identity": dict(linear_solver_type="CGNR", preconditioner_type="IDENTITY"),
+    "iterative_cluster_jacobi": dict(preconditioner_type="CLUSTER_JACOBI"),
+    "iterative_cluster_tridiagonal": dict(preconditioner_type="CLUSTER_TRIDIAGONAL"),
+    # no S assembled: the cluster blocks from the implicit S's probes
+    "iterative_cluster_jacobi_implicit": dict(preconditioner_type="CLUSTER_JACOBI",
+                                              implicit_s=True),
+    "iterative_cluster_tridiagonal_implicit": dict(preconditioner_type="CLUSTER_TRIDIAGONAL",
+                                                   implicit_s=True),
+    "cgnr_subset": dict(linear_solver_type="CGNR", preconditioner_type="SUBSET",
+                        residual_blocks_for_subset_preconditioner=list(range(0, 4400, 3))),
 }
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("name", sorted(CAPTURED_OPTIONS))
-def test_captured_solve_matches_the_eager_loop(device, dtype, name):
+def test_captured_solve_matches_the_eager_loop(device, dtype, name, monkeypatch):
     """ctt.solve runs these as CUDA graphs: its records and final cost equal
     the same loop run eagerly, to the bit, and a repeat solve of the same
     program reads the host at most 3 times. 4400 observations: the point
     sums go to K1 and the camera sums to a one-hot matmul, both in a fixed
     order (below 4096 rows they are index_add_'s atomics, whose order
-    changes from run to run, captured or not)."""
+    changes from run to run, captured or not); SUBSET's J'J cells go to K1."""
+    from ceres_tpu_torch import trust_region
     from ceres_tpu_torch.tools.profile_solve import _host_reads, eager_loop
 
     inst = bal.synthesize_bal(num_cameras=4, num_points=1100, num_observations=4400, seed=42)
     problem = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))[0]
     opts = bal.default_options(iterative=True)
-    for field, value in CAPTURED_OPTIONS[name].items():
+    changes = dict(CAPTURED_OPTIONS[name])
+    if changes.pop("implicit_s", False):
+        monkeypatch.setattr(schur, "EXPLICIT_S_AUTO_MAX_NF", 0)
+        monkeypatch.setattr(trust_region, "EXPLICIT_S_AUTO_MAX_NF", 0)
+    for field, value in changes.items():
         enum = {"linear_solver_type": ctt.LinearSolverType,
                 "preconditioner_type": ctt.PreconditionerType}.get(field)
         setattr(opts, field, enum[value] if enum else value)
@@ -662,6 +680,74 @@ def test_captured_solve_matches_the_eager_loop(device, dtype, name):
     for s in (first, repeat):
         assert s.final_cost == eager.final_cost
         assert [repr(r) for r in s.iterations] == [repr(r) for r in eager.iterations]
+    ss_ = problem.program(device).schur_structure
+    if "implicit" in name:
+        assert ss_.explicit is None and ss_.cluster_groups is not None
+
+
+def _sphere_covariance(device, captured: bool, monkeypatch):
+    """The matrix-free covariance of a 120-pose sphere (720 tangent
+    coordinates; the path forced as tests/test_torch_covariance.py forces
+    it), with its CG captured or eager: (Z, CG iterations, host reads)."""
+    from ceres_tpu_torch import covariance
+    from ceres_tpu_torch.models import pose_graph
+    from ceres_tpu_torch.tools.profile_solve import _host_reads
+
+    monkeypatch.setattr(covariance, "DENSE_COVARIANCE_MAX_TANGENT", 1)
+    monkeypatch.setattr(covariance.Covariance, "_compute_schur_marginals", lambda self, *a: None)
+    monkeypatch.setattr(covariance, "_captured", lambda dev: captured)
+    problem, _, quat_id = pose_graph.build_problem_3d(
+        *pose_graph.synthesize_sphere(120, seed=1)[:3])
+    pairs = [(quat_id[v], quat_id[v]) for v in range(1, 120, 7)]
+    cov = ctt.Covariance()
+    ok, reads = _host_reads(lambda: cov.compute(pairs, problem, device=device))
+    assert ok and cov._mf_Z is not None
+    return cov._mf_Z, cov.statistics["cg_iterations"], reads
+
+
+def test_captured_matrix_free_covariance_matches_the_eager_one(device, monkeypatch):
+    """The 8-column CG captured once per compute() and replayed per chunk
+    gives the eager loop's columns and counts to the bit. Its reads are the
+    eager computation's but for the CG's: the same set-up and one read per
+    chunk, and of the CG only the warm-up's one predicate, whatever the
+    iteration counts (eagerly one a CG iteration)."""
+    def loop_reads(reads):
+        return sum(v for site, v in reads.items() if site.startswith("cuda_graph.py"))
+
+    def other_reads(reads):
+        return {site: v for site, v in reads.items() if not site.startswith("cuda_graph.py")}
+
+    eager_z, eager_it, eager_reads = _sphere_covariance(device, False, monkeypatch)
+    z, it, reads = _sphere_covariance(device, True, monkeypatch)
+    again, it2, reads2 = _sphere_covariance(device, True, monkeypatch)
+    assert it == it2 == eager_it and np.array_equal(z, eager_z) and np.array_equal(again, z)
+    assert reads == reads2 and other_reads(reads) == other_reads(eager_reads), (reads, eager_reads)
+    assert loop_reads(reads) == 1 and loop_reads(eager_reads) > max(it), (reads, eager_reads)
+
+
+def test_captured_tiny_solve_matches_the_eager_one(device):
+    """TinySolver on the card: captured at the first call with a given fn,
+    shape, dtype and options, replayed after; every call the eager loop's
+    results to the bit, and a repeat from a card tensor reads the host
+    nothing, whatever its iteration count."""
+    from ceres_tpu_torch import tiny_solver
+    from ceres_tpu_torch.tools.profile_solve import _host_reads
+
+    def rosenbrock(x):
+        return torch.cat([10.0 * (x[1:2] - x[0:1] ** 2), 1.0 - x[0:1]])
+
+    x0 = torch.from_numpy(np.array([-1.2, 1.0]) + 0.8 * np.random.default_rng(0)
+                          .standard_normal((4096, 2))).to(device)
+    options = (50, 1e-10, 1e-8, float(np.finfo(np.float64).eps))
+    eager = tiny_solver._TinyLoop(rosenbrock, x0, *options, captured=False).run(x0)
+    first = ctt.tiny_solve(rosenbrock, x0, device=device)
+    repeat, reads = _host_reads(lambda: ctt.tiny_solve(rosenbrock, x0, device=device))
+    assert tiny_solver.tiny_loop(rosenbrock, x0, *options).graph is not None
+    assert sum(reads.values()) == 0, dict(reads)
+    assert int(eager.iterations.max()) > 10 and len(set(eager.iterations.tolist())) > 5
+    for out in (first, repeat):
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
 
 
 def test_a_captured_solve_follows_a_loss_swapped_between_solves(device):

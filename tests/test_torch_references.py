@@ -194,6 +194,23 @@ def pose_graph_sparse_references(mod, poses=2500, seed=0):
     return len(s.iterations), s.final_cost, s.termination_type.name, time.time() - t0
 
 
+def pose_graph_subset_references(mod, poses=500, seed=0):
+    """``solve`` of ``pose_graph.synthesize_sphere(poses, seed)`` at
+    ``pose_graph.default_options()`` with CGNR + SUBSET, its odometry edges
+    (the first poses - 1 residual blocks) as the subset, f64: (records, CG
+    iterations, final cost, termination, seconds)."""
+    pg = jpg if mod is ct else tpg
+    kw = {} if mod is ct else dict(device="cpu")
+    t0 = time.time()
+    problem = pg.build_problem_3d(*pg.synthesize_sphere(poses, seed=seed)[:3])[0]
+    opts = pg.default_options()
+    opts.preconditioner_type = mod.PreconditionerType.SUBSET
+    opts.residual_blocks_for_subset_preconditioner = list(range(poses - 1))
+    s = mod.solve(opts, problem, **kw)
+    return (len(s.iterations), s.num_linear_solver_iterations, s.final_cost,
+            s.termination_type.name, time.time() - t0)
+
+
 def sequential_sparse_schur_references(mod, sizes=None, dtype="float64"):
     """``solve`` of chip_smoke.sequential_instance (``sizes`` its
     arguments) at bal.default_options(iterative=False) with SPARSE_SCHUR
@@ -861,6 +878,14 @@ def test_sparse_references_match_jax(what):
     np.testing.assert_allclose(t[1], j[1], rtol=1e-10)
 
 
+def test_pose_graph_subset_references_match_jax():
+    """The captured loop's CGNR + SUBSET pose graph at 60 poses: JAX's
+    records, CG iterations and termination, the final cost within 1e-10."""
+    j, t = (pose_graph_subset_references(m, poses=60, seed=1) for m in (ct, ctt))
+    assert t[0] == j[0] > 2 and t[1] == j[1] and t[3] == j[3]
+    np.testing.assert_allclose(t[2], j[2], rtol=1e-10)
+
+
 def test_flagship_host_loop_solves_match_jax():
     (bj, nj), (bt, nt) = (flagship_host_loop_references(m, SMALL) for m in (ct, ctt))
     assert bt[0] == bj[0] and bt[2] == bj[2] > 0
@@ -951,6 +976,9 @@ if __name__ == "__main__":
                 seconds=time.time() - t0)), flush=True)
         elif what == "sparse_pose_graph":
             print(json.dumps(dict(reference=what, result=pose_graph_sparse_references(ct))),
+                  flush=True)
+        elif what == "pose_graph_subset":
+            print(json.dumps(dict(reference=what, result=pose_graph_subset_references(ct))),
                   flush=True)
         elif what == "sparse_sequential":
             print(json.dumps(dict(reference=what, result=sequential_sparse_schur_references(ct))),
