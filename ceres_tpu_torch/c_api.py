@@ -177,6 +177,8 @@ class _CallbackLoss(_loss.LossFunction):
     """A ``ceres_loss_function_t`` callback, fn(user_data, s, out[3]),
     called per element on the host."""
 
+    runs_on_host = True  # no CUDA graph holds it (fused_lm.captured_loop_eligible)
+
     def __init__(self, fn: Callable, user_data) -> None:
         self._fn = fn
         self._user_data = user_data
@@ -250,6 +252,8 @@ def ceres_problem_add_residual_block(
 
     def fn(*blocks):
         return _Residuals.apply(cb, *blocks)
+
+    fn.runs_on_host = True  # no CUDA graph holds it (fused_lm.captured_loop_eligible)
 
     if loss_function is None:
         loss_obj: Optional[_loss.LossFunction] = None

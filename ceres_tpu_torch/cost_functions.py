@@ -25,24 +25,32 @@ import numpy as np
 import torch
 
 
-def _const(value) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(value, dtype=np.float64))
+class _Constant:
+    """A stored float64 constant, handed out in the dtype and on the device
+    of a point (one copy per pair, made at first use: a copy from the host
+    at every call would be refused inside a CUDA graph's capture)."""
 
+    def __init__(self, value):
+        self.data = torch.as_tensor(np.asarray(value, dtype=np.float64))
+        self._copies: dict = {}
 
-def _like(const: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A stored f64 constant in the dtype and on the device of ``x``."""
-    return const.to(device=x.device, dtype=x.dtype)
+    def like(self, x: torch.Tensor) -> torch.Tensor:
+        key = (x.device, x.dtype)
+        out = self._copies.get(key)
+        if out is None:
+            out = self._copies[key] = self.data.to(device=x.device, dtype=x.dtype)
+        return out
 
 
 def normal_prior(A, b) -> Callable:
     """r(x) = A (x - b) (normal_prior.h:43-58). A may be rectangular
     (rank-deficient covariance)."""
-    A, b = _const(A), _const(b)
-    if A.ndim != 2 or A.shape[1] != b.shape[0]:
-        raise ValueError(f"A must be (r, {b.shape[0]}), got {tuple(A.shape)}")
+    A, b = _Constant(A), _Constant(b)
+    if A.data.ndim != 2 or A.data.shape[1] != b.data.shape[0]:
+        raise ValueError(f"A must be (r, {b.data.shape[0]}), got {tuple(A.data.shape)}")
 
     def fn(x):
-        return _like(A, x) @ (x - _like(b, x))
+        return A.like(x) @ (x - b.like(x))
 
     return fn
 
@@ -62,27 +70,27 @@ def conditioned(fn: Callable, conditioners: Sequence[Callable]) -> Callable:
 def scaled(fn: Callable, scale) -> Callable:
     """Residuals premultiplied by a scalar or matrix (the residual-space
     analog of ScaledLoss)."""
-    scale = _const(scale)
+    scale = _Constant(scale)
 
     def wrapped(*args):
         r = fn(*args)
-        s = _like(scale, r)
+        s = scale.like(r)
         if s.ndim == 2:
             return s @ r
-        return s.reshape(-1) * r if s.ndim else float(scale) * r
+        return s.reshape(-1) * r if s.ndim else float(scale.data) * r
 
     return wrapped
 
 
 def fixed_arguments(fn: Callable, fixed: Dict[int, np.ndarray]) -> Callable:
     """Bind argument positions to constants; remaining args shift left."""
-    fixed = {int(k): _const(v) for k, v in fixed.items()}
+    fixed = {int(k): _Constant(v) for k, v in fixed.items()}
 
     def wrapped(*args):
         full = []
         it = iter(args)
         for i in range(len(args) + len(fixed)):
-            full.append(_like(fixed[i], args[0]) if i in fixed else next(it))
+            full.append(fixed[i].like(args[0]) if i in fixed else next(it))
         return fn(*full)
 
     return wrapped

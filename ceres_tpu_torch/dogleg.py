@@ -13,12 +13,14 @@ Scaling convention of dogleg_strategy.cc:168-175: the elliptical trust
 region ||D step|| <= r is handled in the scaled space step' = D step, with
 D = sqrt(clamped diag(J'J)). Every array stays in the evaluation dtype; the
 host reads through ``trust_region._to_host``, one read per retry of the
-Gauss-Newton solve and one for the step's norm and model cost change.
+Gauss-Newton solve and one for the step's norm and model cost change. In
+the host loop ``precompute`` runs from ``host_loop_graphs`` (a CUDA graph
+on the card, replayed per retry with mu a device scalar); ``traditional``,
+``subspace_model`` and the model cost change are a few vector operations
+and run eagerly.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -33,18 +35,20 @@ _MAX_MU = 1.0
 _MU_INCREASE = 10.0
 
 
-def precompute(ctx, mu: float, linear_solve, solve_aux, min_diagonal: float,
+def precompute(ctx, mu: torch.Tensor, linear_solve, solve_aux, min_diagonal: float,
                max_diagonal: float):
     """The diagonal scaling, the scaled gradient, the Cauchy alpha and the
     scaled Gauss-Newton step regularized by D = diagonal * sqrt(mu)
-    (dogleg_strategy.cc:120-134, 176-195, 560-568, ComputeGaussNewtonStep).
-    Returns (diagonal, gradient, alpha, gn_step, lin_iters, lin_term)."""
+    (dogleg_strategy.cc:120-134, 176-195, 560-568, ComputeGaussNewtonStep),
+    mu an f64 device scalar. Returns (diagonal, gradient, alpha, gn_step,
+    lin_iters, lin_term)."""
     diagonal = torch.sqrt(torch.clamp(ctx.squared_column_norms(), min_diagonal, max_diagonal))
     gradient = ctx.gradient() / diagonal
     jg = ctx.matvec(gradient / diagonal)
     jg_sq = ctx._sum(sum(torch.sum(w * w) for w in jg))
     alpha = torch.sum(gradient * gradient) / jg_sq
-    y, lin_iters, lin_term = linear_solve(ctx, diagonal * math.sqrt(mu), solve_aux)
+    y, lin_iters, lin_term = linear_solve(ctx, diagonal * torch.sqrt(mu).to(diagonal.dtype),
+                                          solve_aux)
     # a mixed-precision solve returns an f64-refined y
     gn_step = -diagonal * y.to(diagonal.dtype)
     return diagonal, gradient, alpha, gn_step, lin_iters, lin_term
@@ -135,9 +139,12 @@ def find_boundary_minimum(B: np.ndarray, g: np.ndarray, radius: float):
 
 class DoglegStrategy:
     """The host state machine over the functions above; the interface of
-    ``LevenbergMarquardtStrategy`` plus ``compute_step``."""
+    ``LevenbergMarquardtStrategy`` plus ``compute_step``. With ``graphs``
+    (``host_loop_graphs.HostLoopGraphs``) the Gauss-Newton solve is its
+    ``dogleg`` region, on the context ``graphs.scaled()``, which is then
+    the one ``compute_step`` is given."""
 
-    def __init__(self, options, linear_solve, solve_aux=None):
+    def __init__(self, options, linear_solve, solve_aux=None, graphs=None):
         self.radius = options.initial_trust_region_radius
         self.max_radius = options.max_trust_region_radius
         self.mu = _MIN_MU
@@ -148,6 +155,7 @@ class DoglegStrategy:
         self.max_diagonal = options.max_lm_diagonal
         self._linear_solve = linear_solve
         self._solve_aux = solve_aux
+        self._graphs = graphs
         self._cache = None  # (ctx, diagonal, gradient, alpha, gn_step)
         # Gauss-Newton solves redone at a larger mu in this solve (each
         # retry is one more linear solve and host read).
@@ -162,13 +170,8 @@ class DoglegStrategy:
             # non-finite or FAILURE-terminated solve (the reference's LM
             # regularization retry). One host read per try.
             while True:
-                diagonal, gradient, alpha, gn_step, li, term = precompute(
-                    ctx, self.mu, self._linear_solve, self._solve_aux,
-                    self.min_diagonal, self.max_diagonal,
-                )
-                finite, lin_iters, lin_term = _to_host(
-                    torch.all(torch.isfinite(gn_step)), li, term
-                )
+                diagonal, gradient, alpha, gn_step, checks = self._precompute(ctx)
+                finite, lin_iters, lin_term = checks.cpu().tolist()
                 lin_iters, lin_term = int(lin_iters), int(lin_term)
                 if finite and lin_term < CG_FAILURE:
                     break
@@ -190,6 +193,20 @@ class DoglegStrategy:
             (mcc,) = _to_host(mcc)
         self.dogleg_step_norm = float(norm)
         return step, mcc, lin_iters, lin_term
+
+    def _precompute(self, ctx):
+        """:func:`precompute` at this mu: (diagonal, gradient, alpha,
+        gn_step, (gn_step finite, lin_iters, lin_term) as one f64 device
+        vector, read by the caller)."""
+        if self._graphs is not None:
+            return self._graphs.dogleg_precompute(self.mu)
+        f64 = torch.float64
+        mu = torch.full((), self.mu, dtype=f64, device=ctx.residuals[0].device)
+        diagonal, gradient, alpha, gn_step, li, term = precompute(
+            ctx, mu, self._linear_solve, self._solve_aux, self.min_diagonal, self.max_diagonal)
+        checks = torch.stack([torch.all(torch.isfinite(gn_step)).to(f64), li.to(f64),
+                              term.to(f64)])
+        return diagonal, gradient, alpha, gn_step, checks
 
     def _subspace_step(self, ctx, diagonal, gradient, alpha, gn_step):
         """ComputeSubspaceDoglegStep (dogleg_strategy.cc:265-343): the

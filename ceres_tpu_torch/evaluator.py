@@ -538,14 +538,20 @@ class Evaluator:
     evaluation whether the point is new — by the identity of x, as the
     reference tells it by its parameter pointers — and whether Jacobians
     are wanted. ``statistics()`` holds the calls and host seconds of each
-    entry point (execution_summary.h)."""
+    entry point (execution_summary.h). With ``graphs``
+    (``host_loop_graphs.HostLoopGraphs``, the host loop's) the entry points
+    but ``residuals`` run from its regions: ``cost_gradient_jacobian``'s
+    point becomes its current point, and the gradient and context it
+    returns are its current buffers, valid until the next such call."""
 
-    def __init__(self, program, apply_loss_function: bool = True, evaluation_callback=None):
+    def __init__(self, program, apply_loss_function: bool = True, evaluation_callback=None,
+                 graphs=None):
         from ceres_tpu_torch.utils.observability import ExecutionSummary
 
         self.program = program
         self.apply_loss = apply_loss_function
         self.evaluation_callback = evaluation_callback
+        self.graphs = graphs
         self._last_x = None
         self.execution_summary = ExecutionSummary()
 
@@ -565,6 +571,8 @@ class Evaluator:
     def cost(self, x: torch.Tensor) -> torch.Tensor:
         self._notify(x, False)
         with self._timer("Evaluator::Residual"):
+            if self.graphs is not None:
+                return self.graphs.cost(x)
             return _cost_impl(x, self.program.families, self.apply_loss, self.program.comm)
 
     def residuals(self, x: torch.Tensor) -> torch.Tensor:
@@ -577,6 +585,8 @@ class Evaluator:
         self._notify(x, False)
         p = self.program
         with self._timer("Evaluator::Gradient"):
+            if self.graphs is not None:
+                return self.graphs.cost_and_gradient(x)
             return _cost_grad_impl(x, p.families, p.plus_struct, self.apply_loss, p.num_tangent,
                                    p.comm)
 
@@ -584,8 +594,11 @@ class Evaluator:
         self._notify(x, True)
         p = self.program
         with self._timer("Evaluator::Jacobian"):
-            cost, grad, ctx = _full_impl(x, p.families, p.num_tangent, p.groups, self.apply_loss,
-                                         p.comm)
+            if self.graphs is not None:
+                cost, grad, ctx = self.graphs.full(x)
+            else:
+                cost, grad, ctx = _full_impl(x, p.families, p.num_tangent, p.groups,
+                                             self.apply_loss, p.comm)
         return FullEval(cost=cost, gradient=grad, jacobian_context=ctx)
 
     def statistics(self):

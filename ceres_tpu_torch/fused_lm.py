@@ -364,16 +364,22 @@ _CAPTURED_SOLVERS = (LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CH
 
 
 def captured_loop_eligible(options, program) -> bool:
-    """Whether the fused loop runs as CUDA graphs: on the card, without a
+    """Whether the fused loop, and the host loop's device work
+    (``host_loop_graphs``), run as CUDA graphs: on the card, without a
     mesh (its collectives go through the host), with DENSE_QR,
     DENSE_NORMAL_CHOLESKY, DENSE_SCHUR, or ITERATIVE_SCHUR or CGNR under
     any preconditioner (IDENTITY, JACOBI, SCHUR_JACOBI,
     SCHUR_POWER_SERIES_EXPANSION, CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL on
     S assembled or on the implicit S's probes, SUBSET), mixed precision and
     the power-series initialization included. Not the sparse solvers, whose
-    factorization runs on the host. Decided from the options alone: the
-    rest runs the same iteration eagerly."""
+    factorization runs on the host, nor a problem whose residual functions
+    or losses call back into the host (``runs_on_host``: the C API's).
+    Decided from the options and the problem's functions, never by trying:
+    the rest runs the same iteration eagerly."""
     if program.device.type != "cuda" or program.comm is not None:
+        return False
+    if any(getattr(f.structure.fn, "runs_on_host", False) or getattr(f.loss, "runs_on_host", False)
+           for f in program.families):
         return False
     return options.linear_solver_type in _CAPTURED_SOLVERS
 

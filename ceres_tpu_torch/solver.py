@@ -389,9 +389,11 @@ class SolverSummary:
     minimizer_time_in_seconds: float = 0.0
     postprocessor_time_in_seconds: float = 0.0
     total_time_in_seconds: float = 0.0
-    # Whether the fused loop ran as CUDA graphs (fused_lm.py), and the
-    # seconds of this solve's set-up that captured them (0 when the
-    # program's graphs were captured by an earlier solve).
+    # Whether the fused loop (fused_lm.py), or the host loop's device work
+    # (host_loop_graphs.py), ran as CUDA graphs, and the seconds this solve
+    # spent capturing them (0 when the program's graphs were captured by an
+    # earlier solve; the host loop captures each at its first call, inside
+    # the minimizer's time).
     captured_loop: bool = False
     graph_capture_time_in_seconds: float = 0.0
     # Per-phase minimizer times and counts (solver.h:967-1006, the

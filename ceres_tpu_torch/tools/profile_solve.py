@@ -12,9 +12,9 @@ block Jacobi, cut to its first 6 LM iterations because the whole solve runs
 tens of thousands of CG iterations; host_loop_large: the large case through
 ``ctt.solve`` with progress output and an iteration callback, i.e. the
 host-loop minimizer's fused iteration), after a 2-iteration warm-up solve.
-``ctt.fused_solve`` runs the fused loop as CUDA graphs where
-``fused_lm.captured_loop_eligible`` says so (every case but
-host_loop_large); the same loop run eagerly (``eager_loop``: every
+``ctt.fused_solve`` runs the fused loop, and ``ctt.solve`` the host loop's
+device work, as CUDA graphs where ``fused_lm.captured_loop_eligible`` says
+so; the same loop run eagerly (``eager_loop``, ``eager_host_loop``: every
 ``run_if`` reads its predicate, one host read per LM and per CG iteration)
 is measured beside it:
 
@@ -28,6 +28,7 @@ is measured beside it:
    synchronizing makes this loop slower than a plain one; the plain
    solve's loop seconds (captured), the eager loop's, the synchronized
    ones and the seconds per CG iteration of each are printed.
+   host_loop_large's stages are those of ``eager_host_loop``.
 2. ``device``: one plain solve under ``torch.profiler``, and the eager
    loop under it, on a problem whose host set-up (program, plans, copies to
    the card, the graphs' capture) was done beforehand by a 0-iteration
@@ -63,7 +64,7 @@ import warnings
 import torch
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import evaluator, fused_lm, trust_region
+from ceres_tpu_torch import evaluator, fused_lm, host_loop_graphs, trust_region
 from ceres_tpu_torch.linear import cgnr, schur, schur_explicit
 from ceres_tpu_torch.models import bal, pose_graph
 from ceres_tpu_torch.ops import reduce
@@ -120,7 +121,7 @@ class _Stages:
     def __enter__(self):
         # the evaluations' call sites: the fused loop, the host loop's fused
         # iteration and candidate, and the Evaluator
-        for mod in (fused_lm, trust_region, evaluator):
+        for mod in (fused_lm, trust_region, evaluator, host_loop_graphs):
             self.wrap(mod, "_full_impl", "full evaluation (residuals, Jacobians, gradient)")
             self.wrap(mod, "_cost_impl", "cost-only evaluation")
         self.wrap(trust_region, "_linear_solve", "linear solve")
@@ -210,6 +211,29 @@ def eager_loop(problem, opts, device="cuda", revert_on_tolerance: bool = True):
     return summary, seconds
 
 
+def eager_host_loop(problem, opts, device="cuda"):
+    """``ctt.solve``'s host loop (``trust_region.TrustRegionMinimizer``, for
+    options ``fused_lm.fused_traced_eligible`` refuses) on the problem's
+    program and the options, its regions run eagerly (no graph; every
+    run_if reads its predicate), its summary filled as ``solve`` fills its
+    own and the solution written back: a captured host loop's baseline.
+    Returns (the summary, the loop's seconds)."""
+    summary = ctt.SolverSummary()
+    program, resolved = preprocess(opts, problem, device, summary)
+    x0 = initial_state(program)
+    if program.device.type == "cuda":
+        torch.cuda.synchronize(program.device)
+    t0 = time.perf_counter()  # as solve's minimizer time: the minimizer's set-up too
+    minimizer = trust_region.TrustRegionMinimizer(program, resolved, summary, captured=False)
+    x = minimizer.minimize(x0).to(torch.float64).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    summary.minimizer_time_in_seconds = seconds
+    summarize_records(summary)
+    if summary.is_solution_usable():
+        problem.write_back(x)
+    return summary, seconds
+
+
 def _event_seconds(run):
     """(run(), the device's seconds between a CUDA event before it and one
     after it)."""
@@ -279,20 +303,27 @@ def main(argv) -> int:
                 opts.function_tolerance = 1e-6  # the model's default
             return opts
 
+    host_loop = case == "host_loop_large"
+
+    def host_options(dtype, max_iters):
+        opts = options(dtype, max_iters)
+        opts.minimizer_progress_to_stdout = True
+        opts.callbacks = [lambda it: ctt.CallbackReturnType.SOLVER_CONTINUE]
+        return opts
+
     def solve(dtype, max_iters=None, problem=None):
         if problem is None:
             problem = build()
-        opts = options(dtype, full if max_iters is None else max_iters)
-        if case != "host_loop_large":
-            return ctt.fused_solve(opts, problem)
-        opts.minimizer_progress_to_stdout = True
-        opts.callbacks = [lambda it: ctt.CallbackReturnType.SOLVER_CONTINUE]
+        max_iters = full if max_iters is None else max_iters
+        if not host_loop:
+            return ctt.fused_solve(options(dtype, max_iters), problem)
         with contextlib.redirect_stdout(io.StringIO()):
-            return ctt.solve(opts, problem)
-
-    host_loop = case == "host_loop_large"
+            return ctt.solve(host_options(dtype, max_iters), problem)
 
     def eager(dtype, problem):
+        if host_loop:
+            with contextlib.redirect_stdout(io.StringIO()):
+                return eager_host_loop(problem, host_options(dtype, full))[0]
         return eager_loop(problem, options(dtype, full), revert_on_tolerance=False)[0]
 
     def prepared(dtype, run):
@@ -300,7 +331,9 @@ def main(argv) -> int:
         start every time (a solve writes its solution back)."""
         problem = build()
         start = problem.state().copy()
-        solve(dtype, max_iters=0, problem=problem)  # set-up and capture, kept with the problem
+        # set-up and capture, kept with the problem (the host loop captures
+        # its regions at their first call: two iterations meet them)
+        solve(dtype, max_iters=2 if host_loop else 0, problem=problem)
 
         def from_start():
             problem.write_back(start)
@@ -311,41 +344,35 @@ def main(argv) -> int:
     for dtype in dtypes:
         solve(dtype, max_iters=2)
         plain = solve(dtype)
-        if host_loop:
-            with _Stages() as stages:
-                timed = solve(dtype)
-        else:
-            problem = build()
-            eager_plain = eager(dtype, problem)
-            with _Stages() as stages:
-                timed = eager(dtype, problem)
+        problem = build()
+        eager_plain = eager(dtype, problem)
+        with _Stages() as stages:
+            timed = eager(dtype, build())
         emit(
             result="stages", dtype=dtype, lm_iterations=timed.num_iterations,
             linear_solver_iterations=timed.num_linear_solver_iterations,
             final_cost=timed.final_cost, captured=plain.captured_loop,
             loop_seconds_plain=plain.minimizer_time_in_seconds,
-            loop_seconds_eager=None if host_loop else eager_plain.minimizer_time_in_seconds,
+            loop_seconds_eager=eager_plain.minimizer_time_in_seconds,
             loop_seconds_synchronized=timed.minimizer_time_in_seconds,
             seconds_per_cg_iteration_plain=plain.minimizer_time_in_seconds
             / max(plain.num_linear_solver_iterations, 1),
-            seconds_per_cg_iteration_eager=None if host_loop else
-            eager_plain.minimizer_time_in_seconds / max(eager_plain.num_linear_solver_iterations, 1),
+            seconds_per_cg_iteration_eager=eager_plain.minimizer_time_in_seconds
+            / max(eager_plain.num_linear_solver_iterations, 1),
             seconds_per_cg_iteration_synchronized=timed.minimizer_time_in_seconds
             / max(timed.num_linear_solver_iterations, 1),
             setup_seconds=plain.preprocessor_time_in_seconds,
             capture_seconds=plain.graph_capture_time_in_seconds,
             stages={k: {"seconds": v, "calls": stages.calls[k]} for k, v in stages.seconds.items()},
         )
-        loops = {"plain": lambda p: solve(dtype, problem=p)}
-        if not host_loop:
-            loops["eager"] = lambda p: eager(dtype, p)
+        loops = {"plain": lambda p: solve(dtype, problem=p), "eager": lambda p: eager(dtype, p)}
         for name, run in loops.items():
             again = prepared(dtype, run)
             summary, busy, ops, top = _device_profile(again)
             _, event_seconds = _event_seconds(again)
             loop = summary.minimizer_time_in_seconds
             emit(
-                result="device", dtype=dtype, loop=name, captured=name == "plain" and not host_loop,
+                result="device", dtype=dtype, loop=name, captured=name == "plain",
                 lm_iterations=summary.num_iterations,
                 linear_solver_iterations=summary.num_linear_solver_iterations,
                 loop_seconds_profiled=loop, device_busy_seconds=busy,

@@ -20,6 +20,8 @@ package's loop reads it: once per iteration on the fused-iteration branch
 scalars in one read), two or three times on the step-by-step branch, once
 more per trial of the bounds line search, and, under DOGLEG, once per
 Gauss-Newton solve and once for the step (twice more for a subspace step).
+The device work between two reads runs from ``host_loop_graphs.py``: on
+static buffers, and on the card as CUDA graphs, as the JAX package jits it.
 """
 
 from __future__ import annotations
@@ -718,18 +720,30 @@ def _make_lm_step_fn(options, program):
 
 class TrustRegionMinimizer:
     """The outer loop (trust_region_minimizer.cc:68-136), Levenberg-Marquardt
-    or DOGLEG, with inner iterations and gradient checks."""
+    or DOGLEG, with inner iterations and gradient checks. Its device work
+    between the host's decisions runs from ``host_loop_graphs`` (static
+    buffers; CUDA graphs where ``fused_lm.captured_loop_eligible`` says so,
+    or ``captured`` when given, which the eager baseline sets False)."""
 
-    def __init__(self, program, options, summary):
+    def __init__(self, program, options, summary, captured=None):
+        from ceres_tpu_torch.fused_lm import captured_loop_eligible
+        from ceres_tpu_torch.host_loop_graphs import host_loop_graphs
+
         self.program = program
         self.options = options
         self.summary = summary
-        self.evaluator = Evaluator(program, evaluation_callback=options.evaluation_callback)
+        if captured is None:
+            captured = captured_loop_eligible(options, program)
+        self.graphs = host_loop_graphs(program, options, _build_solve_aux(options, program),
+                                       captured, program.eval_dtype)
+        self.evaluator = Evaluator(program, evaluation_callback=options.evaluation_callback,
+                                   graphs=self.graphs)
         self.use_dogleg = options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
         if self.use_dogleg:
             from ceres_tpu_torch.dogleg import DoglegStrategy
 
-            self.dogleg = DoglegStrategy(options, *_make_linear_solve(options, program))
+            self.dogleg = DoglegStrategy(options, *_make_linear_solve(options, program),
+                                         graphs=self.graphs)
             self.step_fn = None
         else:
             self.step_fn = _make_lm_step_fn(options, program)
@@ -741,7 +755,6 @@ class TrustRegionMinimizer:
         # line search, inner iterations, gradient checks, dumps, callbacks
         # that read the state or every evaluation, a host-driven sparse
         # factorization.
-        self._fused_config = _config_from_options(options)
         self._use_fused_iteration = (
             not self.use_dogleg
             and options.linear_solver_type not in _SPARSE_TYPES
@@ -755,11 +768,12 @@ class TrustRegionMinimizer:
                 and options.trust_region_minimizer_iterations_to_dump
             )
         )
-        self._fused_aux = _build_solve_aux(options, program) if self._use_fused_iteration else None
-        # A caller (a test) may swap self.step_fn; the fused path then
-        # stands down so the replacement is what runs.
+        # The card's LM step for every solver but the sparse ones, whose
+        # step (step_fn) factors on the host. A caller (a test) may swap
+        # self.step_fn; the fused iteration and the LM step region then
+        # stand down so the replacement is what runs.
         self._default_step_fn = self.step_fn
-        self._scaled_ctx_memo = None
+        self._step_region = options.linear_solver_type not in _SPARSE_TYPES
 
         # Inner iterations (solver.h:560-600, coordinate descent).
         self.inner_minimizer = None
@@ -770,32 +784,38 @@ class TrustRegionMinimizer:
             self.inner_minimizer = CoordinateDescentMinimizer(program, options, self.evaluator)
 
     def minimize(self, x0: torch.Tensor) -> torch.Tensor:
+        """The solution from x0 (the regions' current point: read it before
+        the program's next solve). The graphs captured in this call count
+        their seconds in the summary's ``graph_capture_time_in_seconds``;
+        their launches are credited at the end (one host read)."""
+        graphs = self.graphs
+        capture0 = graphs.capture_seconds
         try:
             return self._minimize(x0)
         finally:
             close = getattr(self._default_step_fn, "close", None)
             if close is not None:
                 close()  # the sparse step's factoring thread
+            graphs.credit()
+            self.summary.captured_loop = graphs.captured
+            self.summary.graph_capture_time_in_seconds += graphs.capture_seconds - capture0
 
     def _minimize(self, x0: torch.Tensor) -> torch.Tensor:
         opts = self.options
         program = self.program
         summary = self.summary
+        graphs = self.graphs
         start_time = time.perf_counter()
-        dev = x0.device
-
-        def radius_tensor(r):
-            # a fill kernel, not a copy from the host (which would wait)
-            return torch.full((), r, dtype=_F64, device=dev)
 
         x = program.clamp(x0)
         strategy = self.dogleg if self.use_dogleg else LevenbergMarquardtStrategy(opts)
 
-        # Iteration zero (trust_region_minimizer.cc:196-283).
+        # Iteration zero (trust_region_minimizer.cc:196-283). From here on x,
+        # ctx and grad are the regions' current buffers (graphs.x, ...),
+        # written by an evaluation at an accepted point.
         t0 = time.perf_counter()
         full = self.evaluator.cost_gradient_jacobian(x)
-        grad = full.gradient
-        ctx = full.jacobian_context
+        x, grad, ctx = graphs.x, full.gradient, full.jacobian_context
         x_cost, gmax0, gnorm0 = _to_host(full.cost, *_grad_norms(grad))
         summary.jacobian_evaluation_time_in_seconds += time.perf_counter() - t0
         summary.num_jacobian_evaluations += 1
@@ -808,7 +828,8 @@ class TrustRegionMinimizer:
         if opts.jacobi_scaling:
             # scale_i = 1 / (1 + sqrt(diag(J'J)_i)), fixed at iteration 0
             # (trust_region_minimizer.cc:263-279)
-            jacobi_scaling = 1.0 / (1.0 + torch.sqrt(ctx.squared_column_norms()))
+            jacobi_scaling = graphs.set_scaling(
+                1.0 / (1.0 + torch.sqrt(ctx.squared_column_norms())))
 
         step_evaluator = TrustRegionStepEvaluator(
             x_cost,
@@ -853,32 +874,25 @@ class TrustRegionMinimizer:
             summary.num_iterations += 1
 
             solver_t0 = time.perf_counter()
-            fused = self._use_fused_iteration and self.step_fn is self._default_step_fn
+            default_step = self.step_fn is self._default_step_fn
+            fused = self._use_fused_iteration and default_step
             if fused:
                 # Step + candidate + speculative evaluation; one read.
-                cand_x_dev, cand_ctx, cand_grad, scalar_pack = _tr_iteration_impl(
-                    x, ctx, radius_tensor(strategy.radius), jacobi_scaling, program,
-                    self._fused_aux, self._fused_config, self.evaluator.apply_loss,
-                )
                 (model_cost_change, lin_iters, lin_term, f_cand_cost, f_step_norm,
-                 f_x_norm, f_gmax, f_gnorm) = scalar_pack.cpu().tolist()
+                 f_x_norm, f_gmax, f_gnorm) = graphs.iteration(strategy.radius).cpu().tolist()
                 step_scaled = True  # not None: validity checked below
             else:
-                # Memoized column scaling: a rejected iteration keeps the
-                # same scaled context.
-                if jacobi_scaling is None:
-                    ctx_used = ctx
-                else:
-                    memo = self._scaled_ctx_memo
-                    if memo is None or memo[0] is not ctx or memo[1] is not jacobi_scaling:
-                        memo = (ctx, jacobi_scaling, ctx.scale_columns(jacobi_scaling))
-                        self._scaled_ctx_memo = memo
-                    ctx_used = memo[2]
+                # The Jacobian scaled once per evaluation: a rejected
+                # iteration keeps the same scaled context.
+                ctx_used = graphs.scaled()
                 if self.use_dogleg:
                     # host numbers, read by the strategy
                     step_scaled, model_cost_change, lin_iters, lin_term = (
                         strategy.compute_step(ctx_used)
                     )
+                elif self._step_region and default_step:
+                    step_scaled, scalars = graphs.lm_step(strategy.radius)
+                    model_cost_change, lin_iters, lin_term = scalars.cpu().tolist()
                 else:
                     step_scaled, mcc, lin_iters, lin_term = self.step_fn(
                         ctx_used, strategy.radius
@@ -954,7 +968,6 @@ class TrustRegionMinimizer:
             num_consecutive_invalid_steps = 0
 
             if fused:
-                candidate_x = cand_x_dev
                 candidate_cost = f_cand_cost
                 step_norm = f_step_norm
                 x_norm = f_x_norm
@@ -976,11 +989,8 @@ class TrustRegionMinimizer:
                 # Candidate, its cost and the norms: one read.
                 t0 = time.perf_counter()
                 self.evaluator._notify(None, False)
-                candidate_x, cc, sn, xn = _candidate_impl(
-                    x, step_scaled, jacobi_scaling, program.families, program.plus_struct,
-                    self.evaluator.apply_loss, program.comm,
-                )
-                candidate_cost, step_norm, x_norm = _to_host(cc, sn, xn)
+                candidate_x, scalars = graphs.candidate(step_scaled)
+                candidate_cost, step_norm, x_norm = scalars.cpu().tolist()
                 summary.residual_evaluation_time_in_seconds += time.perf_counter() - t0
                 summary.num_residual_evaluations += 1
             if not np.isfinite(candidate_cost):
@@ -1036,12 +1046,12 @@ class TrustRegionMinimizer:
 
             if it.step_is_successful:
                 atleast_one_successful_step = True
-                x = candidate_x
                 x_cost = candidate_cost
                 if fused:
                     # The speculative evaluation is the reference's
-                    # HandleSuccessfulStep re-evaluation (:826), done already.
-                    grad, ctx = cand_grad, cand_ctx
+                    # HandleSuccessfulStep re-evaluation (:826), done already:
+                    # its candidate becomes the current point.
+                    graphs.accept()
                     it.gradient_max_norm, it.gradient_norm = f_gmax, f_gnorm
                 else:
                     if opts.check_gradients:
@@ -1051,18 +1061,18 @@ class TrustRegionMinimizer:
                         from ceres_tpu_torch.gradient_checker import check_program_gradients_at
 
                         ok, msg = check_program_gradients_at(
-                            program.unsharded(), x, opts.gradient_check_relative_precision
+                            program.unsharded(), candidate_x,
+                            opts.gradient_check_relative_precision,
                         )
                         if not ok:
                             summary.termination_type = TerminationType.FAILURE
                             summary.message = (
                                 f"Gradient check failed at iteration {it.iteration}: {msg}"
                             )
-                            return x
+                            return candidate_x
                     t0 = time.perf_counter()
-                    full = self.evaluator.cost_gradient_jacobian(x)
-                    grad = full.gradient
-                    ctx = full.jacobian_context
+                    full = self.evaluator.cost_gradient_jacobian(candidate_x)
+                    x, grad = graphs.x, full.gradient
                     it.gradient_max_norm, it.gradient_norm = _to_host(*_grad_norms(grad))
                     summary.jacobian_evaluation_time_in_seconds += time.perf_counter() - t0
                     summary.num_jacobian_evaluations += 1

@@ -138,7 +138,9 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    ``ctt.solve`` with ``minimizer_progress_to_stdout`` (the setting of
    ``examples/bundle_adjuster.py``) and an iteration callback that keeps
    each record, which send it to the host-loop minimizer and its fused
-   iteration (step, candidate and a speculative evaluation, one host read).
+   iteration (step, candidate and a speculative evaluation, one host read),
+   captured as CUDA graphs (``host_loop_graphs``; a fresh problem's solve
+   captures them: ``capture_seconds_all``).
    float32 and float64, a 2-iteration warm-up and LARGE_REPEATS timed
    solves, equal to the bit; a usable termination within 1e-3 relative of
    3587827.37; K1, K3 and K4 launched; the progress text one header and one
@@ -148,26 +150,44 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    and linear iterations, costs within HOST_LOOP_COST_RTOL (whether the
    costs are equal to the bit is printed: the two loops scale the Jacobian
    differently, so they are not expected to be);
+13a. host loop, progress output (``host_loop_progress``): the flagship
+   instance at phase 4's options through ``ctt.solve`` with
+   ``minimizer_progress_to_stdout`` (its text kept out of the phase
+   lines), float32 and float64, on one problem: the host loop's regions run
+   eagerly (``profile_solve.eager_host_loop``), ``ctt.solve`` (which
+   captures them), a repeat and the eager run again
+   (``_eager_captured_repeat``): the four runs equal to the bit (records
+   but their times, final cost, x) with equal K1 / K3 / K4 launches; the repeat reads the host nowhere inside a graph,
+   at most once per LM iteration plus HOST_LOOP_SETUP_READS, and within
+   1e-3 of REFERENCE_FINAL_COST. Printed: seconds and host reads per LM
+   iteration of each run, reads by site, capture seconds, the graphs and
+   their pools' bytes beside the eager peak, and the bytes and device
+   milliseconds of the accept copy (the fused candidate into the current
+   buffers, timed over 50 replays);
 14. solve, host loop, flagship (``flagship_host_loop``), float64, at
    ``bal.default_options(iterative=True)``: (a) every point's z bounded to
    [-1, 1] with the start clipped into the box (the step-by-step branch,
    the projected line search and the clamp), (b) ``use_nonmonotonic_steps``
    with an ``EvaluationCallback`` that counts its calls and a time budget of
-   1e5 s. Each against the JAX package's float64 result for the same
+   1e5 s. Each eager, captured, again and eager as in 13a (the same bits,
+   launches and callback calls; seconds and reads of each printed), the
+   captured solve against the JAX package's float64 result for the same
    problem and options: the same record count, the cost within 1e-6
    relative, (a) the final state inside the box with active bounds, (b) the
    same number of evaluation-callback calls;
 15. solve, DOGLEG, large (``dogleg_large_traditional`` in float32 and
    float64, ``dogleg_large_subspace`` in float64): the large instance at
    DENSE_SCHUR through ``ctt.solve`` with ``trust_region_strategy_type``
-   DOGLEG (the host loop's step-by-step branch), a 2-iteration warm-up and
-   LARGE_REPEATS solves equal to the bit, the second with its host reads
-   counted (``torch.cuda.set_sync_debug_mode``, after a 0-iteration solve
-   did the set-up). float64 against the JAX package's float64 record count
-   and cost (1e-9), float32 within 1e-6 of float64; K1, K3 and K4 launched;
-   the Gauss-Newton retries at a larger mu reported;
+   DOGLEG (the host loop's step-by-step branch, its Gauss-Newton solve a
+   CUDA graph), a 2-iteration warm-up on a problem of its own, then eager,
+   captured, again and eager on one problem as in 13a (host reads
+   counted by ``torch.cuda.set_sync_debug_mode``). float64 against the JAX
+   package's float64 record count and cost (1e-9), float32 within 1e-6 of
+   float64; K1, K3 and K4 launched; the Gauss-Newton retries at a larger
+   mu reported;
 16. solve, inner iterations, large (``inner_iterations_large``): the same
-   with LM and ``use_inner_iterations``, float32 and float64: the
+   with LM and ``use_inner_iterations`` (the LM step captured, the inner
+   passes eager), float32 and float64: the
    independent sets, their plan kinds, the inner steps and seconds, the set
    construction's seconds, and the launches of the inner passes apart from
    the LM step's (both K1 and K3 launched inside them); float64 against
@@ -329,7 +349,8 @@ import numpy as np
 import torch
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import dogleg, evaluator, fused_lm, inner_iterations, trust_region
+from ceres_tpu_torch import dogleg, evaluator, fused_lm, host_loop_graphs, inner_iterations
+from ceres_tpu_torch import trust_region
 from ceres_tpu_torch.linear import schur as schur_mod
 from ceres_tpu_torch.linear import sparse_cholesky
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
@@ -338,7 +359,12 @@ from ceres_tpu_torch.ops import cuda_build
 from ceres_tpu_torch.ops import outer_segment_sum as osum
 from ceres_tpu_torch.ops import segment_sum as ss
 from ceres_tpu_torch.ops import unsorted_segment_sum as us
-from ceres_tpu_torch.tools.profile_solve import _device_profile, _host_reads, eager_loop
+from ceres_tpu_torch.tools.profile_solve import (
+    _device_profile,
+    _host_reads,
+    eager_host_loop,
+    eager_loop,
+)
 from ceres_tpu_torch.utils import cuda_graph
 
 NUM_CAMERAS, NUM_POINTS, NUM_OBS, SEED = 16, 22106, 83718, 16
@@ -2474,8 +2500,11 @@ def solve_host_loop_large(device, dtype: str, inst, smi: str):
         progress_lines=len(progress), callback_records=callback_records,
         setup_seconds=host.preprocessor_time_in_seconds,
         setup_seconds_all=[s.preprocessor_time_in_seconds for s in runs],
+        capture_seconds_all=[s.graph_capture_time_in_seconds for s in runs],
         launches=launches, launches_by_width=by_width, peak_device_bytes=peak, card=smi,
     )
+    if not all(s.captured_loop for s in runs):
+        raise RuntimeError(f"host loop large {dtype}: the host loop was not captured")
     if not agree:
         raise RuntimeError(f"host loop large {dtype}: records differ from the traced loop's")
     if not progress[0].startswith("iter ") or len(progress) != 1 + len(host.iterations):
@@ -2486,6 +2515,159 @@ def solve_host_loop_large(device, dtype: str, inst, smi: str):
         if count == 0:
             raise RuntimeError(f"host loop large {dtype}: {name} was never launched")
     return launches
+
+
+# A captured host-loop repeat solve's host reads besides its one per LM
+# iteration on the fused iteration: the start's upload, iteration 0's read,
+# the graphs' launch counts and the solution's download.
+HOST_LOOP_SETUP_READS = 4
+
+
+def _host_loop_records_key(summary) -> list:
+    """Every IterationSummary record of a host-loop solve but its three
+    times, to the bit."""
+    return [repr(dataclasses.astuple(r)[:-3]) for r in summary.iterations]
+
+
+def _host_loop_graph_sets(problem, device) -> list:
+    """The captured ``HostLoopGraphs`` kept on ``problem``'s program."""
+    return [g for g in host_loop_graphs.host_loop_graph_sets(problem.program(device))
+            if g.captured]
+
+
+def _accept_copy(graphs) -> tuple:
+    """(bytes, ms) of one replay of the fused iteration's accept copy
+    (candidate x, residuals, Jacobian blocks and gradient into the current
+    buffers; each read and written once), from CUDA events over 50
+    replays."""
+    graph = graphs.graphs["accept"]
+    moved = 2 * sum(t.numel() * t.element_size() for t in graphs._bufs["fused_candidate"])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(50):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return moved, start.elapsed_time(end) / 50
+
+
+HOST_LOOP_RUNS = ("eager", "captured", "repeat", "eager_again")
+
+
+def _eager_captured_repeat(label: str, problem, opts, device) -> list:
+    """The host loop's runs on one problem from one start (HOST_LOOP_RUNS):
+    its regions run eagerly (``profile_solve.eager_host_loop``),
+    ``ctt.solve`` (which captures them: its
+    ``graph_capture_time_in_seconds``), a repeat (replays only) and the
+    eager run again. Per run: {summary, seconds, reads, launches, x, calls
+    (an evaluation callback's), peak}. Raises unless every run gives the
+    first's bits (records but their times, final cost, x, the callback's
+    calls) and K1 / K3 / K4 launches, the repeat reads the host nowhere
+    inside a graph (no CG predicate) and at most once more than the eager
+    run again (its launch counts), and the repeat captures nothing."""
+    start = problem.state().copy()
+    runs = []
+    for kind in HOST_LOOP_RUNS:
+        problem.write_back(start)
+        callback = opts.evaluation_callback
+        if callback is not None:
+            callback.calls = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            if kind.startswith("eager"):
+                (summary, seconds), reads = _host_reads(
+                    lambda: eager_host_loop(problem, opts, device))
+            else:
+                summary, reads = _host_reads(lambda: ctt.solve(opts, problem, device=device))
+                seconds = summary.minimizer_time_in_seconds
+        runs.append(dict(summary=summary, seconds=seconds, reads=reads, launches=_launches(),
+                         x=problem.state().copy(), text=text.getvalue(),
+                         calls=None if callback is None else callback.calls,
+                         peak=torch.cuda.max_memory_allocated()))
+    eager, repeat = runs[0], runs[2]
+    for kind, run in zip(HOST_LOOP_RUNS[1:], runs[1:]):
+        same = (_host_loop_records_key(run["summary"]) == _host_loop_records_key(eager["summary"])
+                and run["summary"].final_cost == eager["summary"].final_cost
+                and np.array_equal(run["x"], eager["x"]) and run["calls"] == eager["calls"])
+        if not (same and run["summary"].captured_loop == (kind != "eager_again")):
+            raise RuntimeError(f"{label}: the {kind} run differs from the eager one "
+                               f"({run['summary'].final_cost} against "
+                               f"{eager['summary'].final_cost})")
+        if run["launches"] != eager["launches"]:
+            raise RuntimeError(f"{label}: {kind} launches {run['launches']}, eager "
+                               f"{eager['launches']}")
+    reads, eager_reads = repeat["reads"], sum(runs[3]["reads"].values())
+    if (any(site.startswith("cuda_graph.py") for site in reads)
+            or sum(reads.values()) > eager_reads + 1
+            or repeat["summary"].graph_capture_time_in_seconds != 0.0):
+        raise RuntimeError(f"{label}: the repeat read the host {dict(reads)} (eager "
+                           f"{eager_reads}) or captured again")
+    return runs
+
+
+def _host_loop_fields(runs, problem, device) -> dict:
+    """The phase fields of _eager_captured_repeat's runs: seconds and host
+    reads per LM iteration (eager, captured, repeat), reads by site, the
+    capture's seconds, the graphs' pool bytes beside the eager peak."""
+    lm = max(runs[2]["summary"].num_iterations, 1)  # loop trips: a stop may add no record
+    graphs = _host_loop_graph_sets(problem, device)
+    return dict(
+        lm_iterations=runs[2]["summary"].num_iterations,
+        seconds={k: r["seconds"] for k, r in zip(HOST_LOOP_RUNS, runs)},
+        seconds_per_lm_iteration={k: r["seconds"] / lm for k, r in zip(HOST_LOOP_RUNS, runs)},
+        host_reads={k: sum(r["reads"].values()) for k, r in zip(HOST_LOOP_RUNS, runs)},
+        host_reads_per_lm_iteration={k: sum(r["reads"].values()) / lm
+                                     for k, r in zip(HOST_LOOP_RUNS, runs)},
+        host_reads_by_site={"eager": dict(runs[0]["reads"].most_common(6)),
+                            "repeat": dict(runs[2]["reads"])},
+        capture_seconds=runs[1]["summary"].graph_capture_time_in_seconds,
+        graphs=sorted(name for g in graphs for name in g.graphs),
+        graph_pool_bytes=sum(g.pool_bytes() for g in graphs),
+        peak_device_bytes={"eager": runs[0]["peak"], "captured": runs[1]["peak"]},
+        launches=runs[2]["launches"],
+    )
+
+
+def solve_host_loop_progress(device, smi: str) -> dict:
+    """``host_loop_progress``: the flagship instance through ``ctt.solve``
+    with ``minimizer_progress_to_stdout`` (its text kept out of the phase
+    lines), float32 and float64, at phase 4's options: the host loop's fused
+    iteration. Eager, captured, again and eager (``_eager_captured_repeat``),
+    each held to REFERENCE_FINAL_COST; the repeat at most one host read per
+    LM iteration plus HOST_LOOP_SETUP_READS. Returns the repeat's launches
+    by dtype."""
+    paths = {}
+    for dtype in ("float32", "float64"):
+        label = f"host_loop_progress {dtype}"
+        problem, _, _ = bal.build_problem(flagship_instance())
+        opts = _options(dtype, True)
+        opts.minimizer_progress_to_stdout = True
+        runs = _eager_captured_repeat(label, problem, opts, device)
+        rel = _checked(problem, runs[2]["summary"], REFERENCE_FINAL_COST, label)
+        fields = _host_loop_fields(runs, problem, device)
+        graphs = _host_loop_graph_sets(problem, device)
+        accept_bytes, accept_ms = _accept_copy(graphs[0])
+        repeat = runs[2]["summary"]
+        phase("host_loop", case="host_loop_progress", dtype=dtype, nvidia_smi=smi,
+              final_cost=repeat.final_cost, reference_final_cost=REFERENCE_FINAL_COST,
+              rel_err=rel, cg_iterations=repeat.num_linear_solver_iterations,
+              termination=str(repeat.termination_type),
+              progress_lines=len(runs[2]["text"].splitlines()),
+              accept_copy_bytes=accept_bytes, accept_copy_ms=accept_ms, **fields)
+        if fields["host_reads"]["repeat"] > fields["lm_iterations"] + HOST_LOOP_SETUP_READS:
+            raise RuntimeError(f"{label}: the repeat read the host {fields['host_reads']} "
+                               f"times in {fields['lm_iterations']} LM iterations")
+        if len(runs[2]["text"].splitlines()) != 1 + len(repeat.iterations):
+            raise RuntimeError(f"{label}: {len(runs[2]['text'].splitlines())} progress lines")
+        if fields["launches"]["sorted_segment_sum"] == 0:
+            raise RuntimeError(f"{label}: K1 was never launched")
+        paths[f"host_loop_progress_{dtype}"] = fields["launches"]
+        del problem
+    return paths
 
 
 class _CountingCallback(ctt.EvaluationCallback):
@@ -2499,8 +2681,10 @@ class _CountingCallback(ctt.EvaluationCallback):
 def solve_flagship_host_loop(device, smi: str) -> dict:
     """The flagship instance through the host loop's step-by-step branch,
     float64: bounded (the projected line search) and non-monotonic (with an
-    EvaluationCallback and a time budget), each against the JAX package's
-    float64 result. Returns the launches of each solve."""
+    EvaluationCallback and a time budget), each run eagerly, captured,
+    again and eagerly (``_eager_captured_repeat``) and the captured solve held
+    to the JAX package's float64 result. Returns the captured solve's
+    launches of each."""
     paths = {}
     boxed = flagship_instance()
     boxed.points[:, 2] = np.clip(boxed.points[:, 2], -1.0, 1.0)
@@ -2518,10 +2702,11 @@ def solve_flagship_host_loop(device, smi: str) -> dict:
         ("bounded", problem, bal.default_options(iterative=True), FLAGSHIP_BOUNDED_REFERENCE),
         ("nonmonotonic", nonmono, opts_n, FLAGSHIP_NONMONOTONIC_REFERENCE[:2]),
     ):
-        _reset_launches()
-        summary = ctt.solve(opts, prob, device=device)
-        launches, by_width = _launches(), _launches_by_width()
-        _usable(summary, f"flagship host loop {name}")
+        label = f"flagship host loop {name}"
+        runs = _eager_captured_repeat(label, prob, opts, device)
+        summary = runs[1]["summary"]
+        launches = runs[1]["launches"]
+        _usable(summary, label)
         rel = abs(summary.final_cost - reference) / reference
         extra = {}
         if name == "bounded":
@@ -2529,29 +2714,30 @@ def solve_flagship_host_loop(device, smi: str) -> dict:
             extra = dict(inside_the_box=bool(np.all(np.abs(z) <= 1.0)),
                          active_bounds=int(np.sum(np.abs(z) == 1.0)))
         else:
-            extra = dict(evaluation_callback_calls=counter.calls,
+            extra = dict(evaluation_callback_calls=runs[1]["calls"],
                          reference_evaluation_callback_calls=FLAGSHIP_NONMONOTONIC_REFERENCE[2],
                          nonmonotonic_steps=sum(r.step_is_nonmonotonic for r in summary.iterations))
         phase(
             "solve", case="flagship_host_loop", variant=name, dtype="float64",
             initial_cost=summary.initial_cost, final_cost=summary.final_cost,
             reference_final_cost=reference, rel_err=rel, records=len(summary.iterations),
-            reference_records=records, lm_iterations=summary.num_iterations,
+            reference_records=records,
             cg_iterations=summary.num_linear_solver_iterations,
             termination=str(summary.termination_type), message=summary.message,
-            solve_seconds=summary.minimizer_time_in_seconds,
             setup_seconds=summary.preprocessor_time_in_seconds,
-            launches=launches, launches_by_width=by_width, card=smi, **extra,
+            launches_by_width=_launches_by_width(), card=smi,
+            **_host_loop_fields(runs, prob, device), **extra,
         )
         if len(summary.iterations) != records or not rel <= FLAGSHIP_HOST_LOOP_RTOL:
-            raise RuntimeError(f"flagship host loop {name}: records {len(summary.iterations)} "
+            raise RuntimeError(f"{label}: records {len(summary.iterations)} "
                                f"(JAX {records}), cost {summary.final_cost} (JAX {reference})")
         if name == "bounded" and not (extra["inside_the_box"] and extra["active_bounds"] > 0):
             raise RuntimeError(f"flagship host loop bounded: {extra}")
-        if name == "nonmonotonic" and counter.calls != FLAGSHIP_NONMONOTONIC_REFERENCE[2]:
-            raise RuntimeError(f"flagship host loop nonmonotonic: {counter.calls} callback calls")
+        if name == "nonmonotonic" and runs[1]["calls"] != FLAGSHIP_NONMONOTONIC_REFERENCE[2]:
+            raise RuntimeError(f"flagship host loop nonmonotonic: {runs[1]['calls']} "
+                               "callback calls")
         if launches["sorted_segment_sum"] == 0:
-            raise RuntimeError(f"flagship host loop {name}: K1 was never launched")
+            raise RuntimeError(f"{label}: K1 was never launched")
         paths[f"flagship_host_loop_{name}"] = launches
     return paths
 
@@ -2627,9 +2813,10 @@ def _reads(run, prepare):
 
 def solve_large_minimizer(device, label: str, dtype: str, inst, changes: dict, smi: str):
     """The large case through ctt.solve (DENSE_SCHUR) with the minimizer
-    options ``changes``: a 2-iteration warm-up, then LARGE_REPEATS solves
-    equal to the bit; the first timed and counted, the second with its host
-    reads counted. Returns (summary, launches of the first, extra fields)."""
+    options ``changes``: a 2-iteration warm-up on a problem of its own, then
+    on one problem its regions run eagerly, captured, again and eagerly
+    (``_eager_captured_repeat``: the same bits and launches). Returns (the
+    captured solve's summary, its launches, extra fields)."""
 
     def options(max_iters=50):
         opts = _options(dtype, False, max_iters)
@@ -2640,38 +2827,18 @@ def solve_large_minimizer(device, label: str, dtype: str, inst, changes: dict, s
     warm, _, _ = bal.build_problem(inst)
     ctt.solve(options(2), warm, device=device)
     del warm
-    runs = []
+    problem, _, _ = bal.build_problem(inst)
     with _instances(dogleg.DoglegStrategy) as strategies, _instances(
         inner_iterations.CoordinateDescentMinimizer
     ) as inner, _inner_launches() as inner_counts, _timed_calls(
         inner_iterations, "compute_independent_sets"
     ) as coloring:
-        for i in range(LARGE_REPEATS):
-            problem, _, _ = bal.build_problem(inst)
-            if i == 0:
-                torch.cuda.reset_peak_memory_stats()
-                _reset_launches()
-                inner_counts.clear()
-                runs.append(ctt.solve(options(), problem, device=device))
-                launches, by_width = _launches(), _launches_by_width()
-                inner_only = {k: inner_counts[k] for k in launches}
-                peak = torch.cuda.max_memory_allocated()
-                _checked(problem, runs[0], LARGE_REFERENCE_FINAL_COST, f"{label} {dtype}")
-            else:
-                summary, reads = _reads(
-                    lambda: ctt.solve(options(), problem, device=device),
-                    lambda: ctt.solve(options(0), problem, device=device),
-                )
-                runs.append(summary)
-            if runs[-1].final_cost != runs[0].final_cost or _record_key(runs[-1]) != _record_key(
-                runs[0]
-            ):
-                raise RuntimeError(f"{label} {dtype} solve is not repeatable on the card")
-            del problem
-    summary = runs[0]
+        runs = _eager_captured_repeat(f"{label} {dtype}", problem, options(), device)
+    summary, launches = runs[1]["summary"], runs[1]["launches"]
+    # every run's inner passes launch alike
+    inner_only = {k: inner_counts[k] // len(runs) for k in launches}
+    _checked(problem, summary, LARGE_REFERENCE_FINAL_COST, f"{label} {dtype}")
     _usable(summary, f"{label} {dtype}")
-    n = max(summary.num_iterations, 1)
-    seconds = summary.minimizer_time_in_seconds
     extra = {}
     if strategies:
         extra["mu_retries"] = strategies[0].mu_retries
@@ -2689,19 +2856,13 @@ def solve_large_minimizer(device, label: str, dtype: str, inst, changes: dict, s
     phase(
         "solve", case=label, dtype=dtype, initial_cost=summary.initial_cost,
         final_cost=summary.final_cost, records=len(summary.iterations),
-        lm_iterations=summary.num_iterations,
         successful_steps=summary.num_successful_steps,
         rejected_steps=summary.num_unsuccessful_steps,
         termination=str(summary.termination_type), message=summary.message,
-        solve_seconds=seconds, seconds_per_iteration=seconds / n,
-        solve_seconds_all=[s.minimizer_time_in_seconds for s in runs],
+
         setup_seconds=summary.preprocessor_time_in_seconds,
-        setup_seconds_all=[s.preprocessor_time_in_seconds for s in runs],
-        host_reads_second_solve=sum(reads.values()),
-        host_reads_per_iteration=sum(reads.values()) / max(runs[-1].num_iterations, 1),
-        host_reads_by_site=dict(reads.most_common(12)),
-        launches=launches, launches_by_width=by_width, peak_device_bytes=peak, card=smi,
-        **extra,
+        launches_by_width=_launches_by_width(), card=smi,
+        **_host_loop_fields(runs, problem, device), **extra,
     )
     for name, count in launches.items():
         if count == 0:
@@ -3786,6 +3947,7 @@ def main() -> int:
     inst = large_instance()
     for dtype in ("float32", "float64"):
         paths[f"host_loop_large_{dtype}"] = solve_host_loop_large(device, dtype, inst, smi)
+    paths.update(solve_host_loop_progress(device, smi))
     paths.update(solve_dogleg_large(device, inst, smi))
     paths.update(solve_inner_iterations_large(device, inst, smi))
     paths["large_iterative_cluster_jacobi_float32"] = solve_large_cluster_jacobi(

@@ -9,8 +9,11 @@ through the host-loop minimizer, and the sparse solvers and cluster
 preconditioners on the card against the CPU; the fused loop captured as
 CUDA graphs under every option set it takes (the cluster preconditioners
 and SUBSET among them), the matrix-free covariance's batched CG and
-TinySolver captured, each against the same loop run eagerly, to the bit.
-Skipped without a card.
+TinySolver captured, each against the same loop run eagerly, to the bit;
+the host loop's device work captured (``host_loop_graphs``: progress
+output, bounds, an evaluation callback with non-monotonic steps, DOGLEG,
+inner iterations) against its regions run eagerly, to the bit, and the
+Evaluator's three entry points from their graphs. Skipped without a card.
 
 This file imports neither jax nor ceres_tpu, so it also runs where only
 PyTorch is installed:
@@ -758,3 +761,125 @@ def test_a_captured_solve_follows_a_loss_swapped_between_solves(device):
     import chip_smoke
 
     chip_smoke.captured_loss_swap(device)
+
+
+def _host_loop_case(name: str):
+    """(problem, options) of a host-loop case on CAPTURED_OPTIONS's 4400-
+    observation BAL (deterministic reductions): ITERATIVE_SCHUR with
+    progress output (the fused iteration), else DENSE_SCHUR."""
+    inst = bal.synthesize_bal(num_cameras=4, num_points=1100, num_observations=4400, seed=42)
+    if name == "bounds":
+        inst.points[:, 2] = np.clip(inst.points[:, 2], -1.0, 1.0)
+    problem, _, pts = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))
+    opts = bal.default_options(iterative=name.startswith("progress"))
+    opts.evaluation_dtype = "float32" if name.endswith("float32") else "float64"
+    if name.startswith("progress"):
+        opts.minimizer_progress_to_stdout = True
+    elif name == "bounds":
+        for pid in pts:
+            problem.set_parameter_lower_bound(int(pid), 2, -1.0)
+            problem.set_parameter_upper_bound(int(pid), 2, 1.0)
+    elif name == "evaluation_callback_nonmonotonic":
+        opts.use_nonmonotonic_steps = True
+        opts.evaluation_callback = _CountingCallback()
+    elif name.startswith("dogleg"):
+        opts.trust_region_strategy_type = ctt.TrustRegionStrategyType.DOGLEG
+        opts.dogleg_type = ctt.DoglegType[name.split("_", 1)[1].upper() + "_DOGLEG"]
+    else:
+        opts.use_inner_iterations = True
+    return problem, opts
+
+
+class _CountingCallback(ctt.EvaluationCallback):
+    def __init__(self):
+        self.calls = 0
+
+    def prepare_for_evaluation(self, new_evaluation_point, evaluate_jacobians):
+        self.calls += 1
+
+
+HOST_LOOP_CASES = ["progress_float32", "progress_float64", "bounds",
+                   "evaluation_callback_nonmonotonic", "dogleg_traditional", "dogleg_subspace",
+                   "inner_iterations"]
+
+
+@pytest.mark.parametrize("name", HOST_LOOP_CASES)
+def test_captured_host_loop_matches_the_eager_one(device, name, capsys):
+    """ctt.solve's host loop runs its device work from CUDA graphs
+    (``host_loop_graphs``): the first solve captures them, a repeat replays
+    them, and both equal the same regions run eagerly
+    (``profile_solve.eager_host_loop``) to the bit (records less their
+    times, final cost, x, the evaluation callback's calls) with the eager
+    run's K1 / K3 / K4 launches. The repeat reads the host nowhere inside a
+    region (no CG predicate), fewer times than the eager run, and on the
+    fused iteration (progress output) at most once per LM iteration plus
+    ``chip_smoke.HOST_LOOP_SETUP_READS``."""
+    import chip_smoke
+    from ceres_tpu_torch.tools.profile_solve import _host_reads, eager_host_loop
+
+    problem, opts = _host_loop_case(name)
+    start = problem.state().copy()
+    runs = []
+    for kind in ("eager", "captured", "captured"):
+        problem.write_back(start)
+        if opts.evaluation_callback is not None:
+            opts.evaluation_callback.calls = 0
+        before = (ss.launches, us.launches, osum.launches)
+        if kind == "eager":
+            summary, reads = _host_reads(lambda: eager_host_loop(problem, opts, device)[0])
+        else:
+            summary, reads = _host_reads(lambda: ctt.solve(opts, problem, device=device))
+        launches = tuple(a - b for a, b in zip((ss.launches, us.launches, osum.launches), before))
+        calls = getattr(opts.evaluation_callback, "calls", None)
+        runs.append((summary, reads, launches, problem.state().copy(), calls))
+    capsys.readouterr()
+    eager, first, repeat = runs
+    assert not eager[0].captured_loop and first[0].captured_loop and repeat[0].captured_loop
+    assert first[0].graph_capture_time_in_seconds > 0.0 == repeat[0].graph_capture_time_in_seconds
+    assert eager[0].is_solution_usable() and sum(eager[2]) > 0
+    for run in (first, repeat):
+        assert chip_smoke._host_loop_records_key(run[0]) == chip_smoke._host_loop_records_key(
+            eager[0])
+        assert run[0].final_cost == eager[0].final_cost
+        assert np.array_equal(run[3], eager[3]) and run[2] == eager[2] and run[4] == eager[4]
+    reads, eager_reads = repeat[1], eager[1]
+    assert not any(site.startswith("cuda_graph.py") for site in reads), dict(reads)
+    assert sum(reads.values()) < sum(eager_reads.values()), (dict(reads), dict(eager_reads))
+    if name.startswith("progress"):
+        lm = repeat[0].num_iterations  # loop trips: a stop may add no record
+        assert sum(reads.values()) <= lm + chip_smoke.HOST_LOOP_SETUP_READS, dict(reads)
+
+
+def test_captured_evaluator_entry_points_match_the_eager_ones(device):
+    """The host loop's Evaluator with its regions captured: cost,
+    cost_and_gradient (reverse mode through the graph) and
+    cost_gradient_jacobian at two points equal the eager regions' to the
+    bit (the reverse-mode gradient, whose gather's backward accumulates, to
+    1e-12), and a result kept from the first point is not overwritten by
+    the second."""
+    from ceres_tpu_torch.solver import SolverSummary, initial_state, preprocess
+    from ceres_tpu_torch.trust_region import TrustRegionMinimizer
+
+    problem, opts = _host_loop_case("bounds")
+    out = {}
+    for captured in (False, True):
+        program, resolved = preprocess(opts, problem, device, SolverSummary())
+        ev = TrustRegionMinimizer(program, resolved, SolverSummary(), captured=captured).evaluator
+        x0 = initial_state(program)
+        got = []
+        for x in (x0, x0 * 1.01):
+            cost = ev.cost(x)
+            cg = ev.cost_and_gradient(x)
+            full = ev.cost_gradient_jacobian(x)
+            got.append([cost, *cg, full.cost, full.gradient.clone(),
+                        *[J.clone() for js in full.jacobian_context.jacs for J in js]])
+        kept_cost, kept_grad = got[0][0], got[0][2]
+        assert float(kept_cost) != float(got[1][0]) and not torch.equal(kept_grad, got[1][2])
+        out[captured] = got
+        assert bool(ev.graphs.graphs) == captured
+    for a, b in zip(out[False], out[True]):
+        for i, (u, v) in enumerate(zip(a, b)):
+            if i == 2:
+                torch.testing.assert_close(v, u, rtol=1e-12, atol=0.0)
+            else:
+                assert torch.equal(u, v), i

@@ -40,7 +40,7 @@ import torch
 
 import ceres_tpu_torch as ctt
 from ceres_tpu.linear.cg import conjugate_gradients as jax_cg
-from ceres_tpu_torch import fused_lm, tiny_solver
+from ceres_tpu_torch import c_api, fused_lm, tiny_solver
 from ceres_tpu_torch import trust_region as ttr
 from ceres_tpu_torch.linear import schur as tschur
 from ceres_tpu_torch.linear.cg import conjugate_gradients, conjugate_gradients_columns
@@ -317,8 +317,8 @@ def test_one_tiny_solver_iteration_reads_only_its_predicates(monkeypatch):
     assert bool((loop.cost <= loop.cost0).all()) and bool((loop.cost < loop.cost0).any())
 
 
-def _program(device_type="cuda", comm=None):
-    return types.SimpleNamespace(device=torch.device(device_type), comm=comm)
+def _program(device_type="cuda", comm=None, families=()):
+    return types.SimpleNamespace(device=torch.device(device_type), comm=comm, families=families)
 
 
 # (linear solver, preconditioner, mixed precision, spse initialization) -> captured
@@ -349,9 +349,15 @@ def test_captured_loop_eligible(lst, pt, mixed, spse, captured):
     opts = ctt.SolverOptions(linear_solver_type=lst, preconditioner_type=pt,
                              use_mixed_precision_solves=mixed, use_spse_initialization=spse)
     assert fused_lm.captured_loop_eligible(opts, _program()) is captured
-    # never on the CPU, never over a mesh
+    # never on the CPU, never over a mesh, never with a function that runs
+    # on the host (the C API's callbacks)
     assert not fused_lm.captured_loop_eligible(opts, _program("cpu"))
     assert not fused_lm.captured_loop_eligible(opts, _program(comm=object()))
+    capi = c_api.ceres_create_problem()
+    c_api.ceres_problem_add_residual_block(capi, lambda *a: True, None, None, None, 1, 1, [1],
+                                           [np.zeros(1)])
+    hosted = capi.problem.program("cpu").families
+    assert not fused_lm.captured_loop_eligible(opts, _program(families=hosted))
 
 
 def test_cpu_solve_runs_the_eager_loop():

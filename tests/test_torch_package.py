@@ -46,6 +46,7 @@ assert native._lib is None  # nor the native core
         "ceres_tpu_torch.linear.preconditioners",
         "ceres_tpu_torch.ordered_groups",
         "ceres_tpu_torch.trust_region",
+        "ceres_tpu_torch.host_loop_graphs",
         "ceres_tpu_torch.dogleg",
         "ceres_tpu_torch.inner_iterations",
         "ceres_tpu_torch.line_search",
