@@ -60,14 +60,42 @@ def _group_rows(groups: BlockGroups, v: torch.Tensor, T: int) -> torch.Tensor:
     return v[groups[T]]
 
 
+class _RowGather(torch.autograd.Function):
+    """``table[index]``, whose backward sums each table row's gradients
+    through ``plan`` (the family's gather plan, ``ops/reduce.py``) in one
+    fixed order: the same bits on every run, captured or not, where the
+    index's own backward adds them with atomics in no fixed order on the
+    card. Rows the plan drops (constant blocks) get no gradient."""
+
+    @staticmethod
+    def forward(table, index, plan):
+        return table[index]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, _, ctx.plan = inputs
+        ctx.num_rows = table.shape[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return apply_reduce(ctx.plan, grad)[: ctx.num_rows], None, None
+
+
 def _gather_blocks(family: Family, x: torch.Tensor):
     """Per-instance parameter blocks (B, A_j) per arg: the ambient size
     group's (G, A) table of x and one row gather. Constant blocks are
-    gathered like the others."""
-    return tuple(
-        _group_rows(family.amb_groups, x, A)[family.amb_pos[j]]
-        for j, A in enumerate(family.structure.block_sizes)
-    )
+    gathered like the others. Where x carries a gradient (the reverse mode
+    of ``_cost_grad_impl``) the gather is ``_RowGather``: the gradient
+    reaches every block with a tangent, none reaches a constant block."""
+    differentiated = torch.is_grad_enabled() and x.requires_grad
+    blocks = []
+    for j, A in enumerate(family.structure.block_sizes):
+        table = _group_rows(family.amb_groups, x, A)
+        if differentiated:
+            blocks.append(_RowGather.apply(table, family.amb_pos[j], family.gather_plans[j]))
+        else:
+            blocks.append(table[family.amb_pos[j]])
+    return tuple(blocks)
 
 
 def _mask_rows(family: Family, a: torch.Tensor) -> torch.Tensor:
@@ -507,7 +535,8 @@ def _cost_grad_impl(x: torch.Tensor, families, plus_struct, apply_loss: bool,
                     num_tangent: int, comm=None):
     """(cost f64, tangent gradient) by reverse mode: the gradient of
     cost(plus(x, delta)) at delta = 0, with no Jacobian formed
-    (program_evaluator.h:266-284 analog). The gradient has x's dtype; the
+    (program_evaluator.h:266-284 analog), its sums over rows in a fixed
+    order (``_RowGather``). The gradient has x's dtype; the
     inputs are detached, and grad is enabled here, so an outer
     ``torch.no_grad()`` does not stop it. ``comm``: this rank's cost and
     gradient are differentiated, then both all-reduced."""
@@ -542,7 +571,9 @@ class Evaluator:
     (``host_loop_graphs.HostLoopGraphs``, the host loop's) the entry points
     but ``residuals`` run from its regions: ``cost_gradient_jacobian``'s
     point becomes its current point, and the gradient and context it
-    returns are its current buffers, valid until the next such call."""
+    returns are its current buffers, valid until the next such call. The
+    line search's (``host_loop_graphs.LineSearchGraphs``) serve
+    ``cost_and_gradient`` alone."""
 
     def __init__(self, program, apply_loss_function: bool = True, evaluation_callback=None,
                  graphs=None):

@@ -363,25 +363,36 @@ _CAPTURED_SOLVERS = (LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CH
                      LinearSolverType.CGNR)
 
 
+def regions_capturable(device, comm, functions) -> bool:
+    """Whether device work that calls ``functions`` (residual functions,
+    losses, a GradientProblem's ``fn`` and ``gradient_fn``; None skipped)
+    runs as CUDA graphs: on the card, without a mesh (its collectives go
+    through the host), and with no function that calls back into the host
+    (``runs_on_host``: the C API's). The line search and GradientProblem
+    take this alone; the host loop adds its linear solvers
+    (``captured_loop_eligible``). Decided from the device and the
+    functions, never by trying: the rest runs the same regions eagerly."""
+    return (torch.device(device).type == "cuda" and comm is None
+            and not any(getattr(f, "runs_on_host", False) for f in functions))
+
+
+def program_functions(program) -> list:
+    """The residual functions and losses of ``program``'s families."""
+    return [g for f in program.families for g in (f.structure.fn, f.loss)]
+
+
 def captured_loop_eligible(options, program) -> bool:
     """Whether the fused loop, and the host loop's device work
-    (``host_loop_graphs``), run as CUDA graphs: on the card, without a
-    mesh (its collectives go through the host), with DENSE_QR,
+    (``host_loop_graphs``), run as CUDA graphs: where
+    ``regions_capturable`` says so, with DENSE_QR,
     DENSE_NORMAL_CHOLESKY, DENSE_SCHUR, or ITERATIVE_SCHUR or CGNR under
     any preconditioner (IDENTITY, JACOBI, SCHUR_JACOBI,
     SCHUR_POWER_SERIES_EXPANSION, CLUSTER_JACOBI and CLUSTER_TRIDIAGONAL on
     S assembled or on the implicit S's probes, SUBSET), mixed precision and
     the power-series initialization included. Not the sparse solvers, whose
-    factorization runs on the host, nor a problem whose residual functions
-    or losses call back into the host (``runs_on_host``: the C API's).
-    Decided from the options and the problem's functions, never by trying:
-    the rest runs the same iteration eagerly."""
-    if program.device.type != "cuda" or program.comm is not None:
-        return False
-    if any(getattr(f.structure.fn, "runs_on_host", False) or getattr(f.loss, "runs_on_host", False)
-           for f in program.families):
-        return False
-    return options.linear_solver_type in _CAPTURED_SOLVERS
+    factorization runs on the host."""
+    return (regions_capturable(program.device, program.comm, program_functions(program))
+            and options.linear_solver_type in _CAPTURED_SOLVERS)
 
 
 def _loss_key(program) -> tuple:

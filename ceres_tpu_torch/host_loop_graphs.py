@@ -38,6 +38,26 @@ Regions:
   ``accept`` copies the candidate into the current buffers.
 - ``dogleg``: DOGLEG's Gauss-Newton solve with its Cauchy point at mu.
 
+The line-search minimizer's device work is ``LineSearchGraphs``' (the JAX
+package jits the evaluator's ``_cost_grad_impl`` and GradientProblem's
+``_cost_grad``): two regions over static buffers of their own, made the
+same way:
+
+- ``start`` (``cost_and_gradient``): the cost and tangent gradient at the
+  search's point x itself (on a manifold x [+] 0 need not give x's bits).
+- ``phi``: phi(a) = f(x [+] a d) for the point x, direction d (``line``)
+  and step a, a device scalar filled before the replay: the point, its
+  cost and gradient and d'g, the cost and d'g in one f64 vector for the
+  host's one read. The point and gradient are handed out as copies, which
+  no later call overwrites (a search keeps several points at once).
+
+Their graphs hold no conditional node, so each replay credits its
+launches on the host, with no read (``CapturedGraph.credit_replay``).
+``ProgramLineSearchGraphs`` evaluates a Program (kept per dtype, device and
+losses in ``Program.solve_aux_cache``, ``line_search_graphs``);
+``gradient_problem`` has its own for a GradientProblem. Their eligibility
+is ``fused_lm.regions_capturable``.
+
 The current buffers change only through ``full`` and ``accept``: a
 JacobianContext or gradient the host loop holds stays valid until its next
 evaluation. ``cost`` and ``cost_and_gradient`` return copies, which no
@@ -82,35 +102,16 @@ class HostLoopConfig:
     jacobi_scaling: bool
 
 
-class HostLoopGraphs:
-    """The host loop's regions over one program's static buffers (see the
-    module's docstring)."""
+class _Regions:
+    """Regions over static buffers on one device, captured at their first
+    call where ``captured`` (the machinery of the module's docstring)."""
 
-    def __init__(self, program, solve_aux: dict, config: HostLoopConfig, captured: bool,
-                 losses: tuple):
-        # the program holds this object, not the other way round: a dropped
-        # program frees the graphs' memory at once
-        self._program = weakref.ref(program)
-        self.solve_aux, self.config, self.captured, self.losses = (
-            solve_aux, config, captured, losses)
-        self.device = program.device
-        self.radius = torch.zeros((), dtype=_F64, device=self.device)
-        self.mu = torch.zeros((), dtype=_F64, device=self.device)
-        self.x: Optional[torch.Tensor] = None  # the current point
-        self.trial_x: Optional[torch.Tensor] = None  # the point of cost / cost_and_gradient
+    def __init__(self, device: torch.device, captured: bool):
+        self.device, self.captured = device, captured
         self._bufs: dict = {}  # region outputs by name, allocated at their first (eager) run
         self.graphs: dict = {}  # region name -> CapturedGraph
         self._pool_owner: Optional[CapturedGraph] = None
         self.capture_seconds = 0.0
-        # the contexts handed out for the current point (name -> context),
-        # made anew by every evaluation at x and every accepted candidate
-        self._contexts: dict = {}
-
-    @property
-    def program(self):
-        return self._program()
-
-    # -- machinery --------------------------------------------------------------
 
     def _keep(self, name: str, *tensors: torch.Tensor) -> list:
         """Copy ``tensors`` into the static buffers ``name``, made like them
@@ -163,6 +164,30 @@ class HostLoopGraphs:
     def pool_bytes(self) -> int:
         """Device bytes the graphs' memory pools hold."""
         return pool_bytes(self.graphs.values()) if self.graphs else 0
+
+
+class HostLoopGraphs(_Regions):
+    """The host loop's regions over one program's static buffers (see the
+    module's docstring)."""
+
+    def __init__(self, program, solve_aux: dict, config: HostLoopConfig, captured: bool,
+                 losses: tuple):
+        super().__init__(program.device, captured)
+        # the program holds this object, not the other way round: a dropped
+        # program frees the graphs' memory at once
+        self._program = weakref.ref(program)
+        self.solve_aux, self.config, self.losses = solve_aux, config, losses
+        self.radius = torch.zeros((), dtype=_F64, device=self.device)
+        self.mu = torch.zeros((), dtype=_F64, device=self.device)
+        self.x: Optional[torch.Tensor] = None  # the current point
+        self.trial_x: Optional[torch.Tensor] = None  # the point of cost / cost_and_gradient
+        # the contexts handed out for the current point (name -> context),
+        # made anew by every evaluation at x and every accepted candidate
+        self._contexts: dict = {}
+
+    @property
+    def program(self):
+        return self._program()
 
     def _context(self, name: str) -> JacobianContext:
         """A JacobianContext over the residual and Jacobian buffers ``name``
@@ -375,3 +400,105 @@ def host_loop_graph_sets(program) -> list:
     """The ``HostLoopGraphs`` kept on ``program``."""
     return [v for k, v in program.solve_aux_cache.items()
             if isinstance(k, tuple) and k and k[0] == "host_loop"]
+
+
+class LineSearchGraphs(_Regions):
+    """The line search's regions, ``start`` and ``phi`` (see the module's
+    docstring), over the device work of a subclass's ``evaluate`` (x ->
+    (cost as an f64 scalar, tangent gradient)) and ``plus``."""
+
+    def __init__(self, device: torch.device, captured: bool):
+        super().__init__(device, captured)
+        self.x: Optional[torch.Tensor] = None  # the search's point
+        self.d: Optional[torch.Tensor] = None  # its direction
+        self.a: Optional[torch.Tensor] = None  # the step, in the direction's dtype
+
+    def evaluate(self, x: torch.Tensor):
+        raise NotImplementedError
+
+    def plus(self, x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _run(self, name: str, fn) -> None:
+        super()._run(name, fn)
+        graph = self.graphs.get(name)
+        if graph is not None:
+            graph.credit_replay()
+
+    def _set_point(self, x: torch.Tensor) -> None:
+        if self.x is None:
+            self.x = torch.empty_like(x)
+        if x is not self.x:
+            self.x.copy_(x)
+
+    def cost_and_gradient(self, x: torch.Tensor):
+        """(cost, tangent gradient) at x, copies; x becomes the search's
+        point."""
+        self._set_point(x)
+        self._run("start", self._start)
+        cost, grad = self._bufs["start"]
+        return cost.clone(), grad.clone()
+
+    def _start(self) -> None:
+        self._keep("start", *self.evaluate(self.x))
+
+    def line(self, x: torch.Tensor, d: torch.Tensor) -> None:
+        """Search from x along d (copied into the static buffers)."""
+        self._set_point(x)
+        if self.d is None:
+            self.d = torch.empty_like(d)
+            self.a = torch.zeros((), dtype=d.dtype, device=d.device)
+        self.d.copy_(d)
+
+    def phi(self, a: float):
+        """phi at step ``a`` along :meth:`line`'s: ((phi(a), phi'(a)) as an
+        f64 device vector, valid until the next call; x [+] a d; its
+        gradient), the last two copies."""
+        self.a.fill_(a)
+        self._run("phi", self._phi)
+        scalars, xa, g = self._bufs["phi"]
+        return scalars, xa.clone(), g.clone()
+
+    def _phi(self) -> None:
+        xa = self.plus(self.x, self.a * self.d)
+        cost, g = self.evaluate(xa)
+        self._keep("phi", torch.stack([cost.to(_F64), torch.dot(g, self.d).to(_F64)]), xa, g)
+
+
+class ProgramLineSearchGraphs(LineSearchGraphs):
+    """A Program's line-search regions: the reverse-mode cost and gradient
+    of ``evaluator._cost_grad_impl``, the losses applied."""
+
+    def __init__(self, program, captured: bool, losses: tuple):
+        super().__init__(program.device, captured)
+        self._program = weakref.ref(program)  # as HostLoopGraphs
+        self.losses = losses
+
+    def evaluate(self, x: torch.Tensor):
+        p = self._program()
+        return _cost_grad_impl(x, p.families, p.plus_struct, True, p.num_tangent, p.comm)
+
+    def plus(self, x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+        return self._program().plus(x, delta)
+
+
+def line_search_graphs(program, captured: bool) -> ProgramLineSearchGraphs:
+    """The program's line-search regions (made, or kept from an earlier
+    solve) in ``program.solve_aux_cache``: keyed on what their device work
+    depends on (the evaluation dtype, the losses applied, the device) and
+    on ``captured``, replaced when the families' losses changed."""
+    from ceres_tpu_torch.fused_lm import _loss_key
+
+    key = ("line_search", program.eval_dtype, True, captured, program.device)
+    losses = _loss_key(program)
+    graphs = program.solve_aux_cache.get(key)
+    if graphs is None or graphs.losses != losses:
+        graphs = program.solve_aux_cache[key] = ProgramLineSearchGraphs(
+            program, captured, losses)
+    return graphs
+
+
+def line_search_graph_sets(program) -> list:
+    """The ``LineSearchGraphs`` kept on ``program``."""
+    return [v for k, v in program.solve_aux_cache.items()
+            if isinstance(k, tuple) and k and k[0] == "line_search"]

@@ -7,13 +7,20 @@ strong-Wolfe searches with polynomial interpolation) and
 
 The minimizer is generic over an *oracle*, so one loop serves nonlinear
 least squares (the gradient by reverse mode, ``Evaluator.cost_and_gradient``)
-and ``GradientProblem`` (gradient_problem_solver.cc:99-150). The bracketing
-logic stays on the host like the reference's; the vectors (x, g, the
-direction, L-BFGS's s and y, BFGS's matrix) stay on the device. The host
-reads once per evaluation of phi (its value and phi'(a) together), once per
-direction (d'g and g'g, for the descent test and a restart) and once after
-each step (the iteration's norms and the curvature pair's s'y and y'y); the
-two-loop recursion's dot products stay on the device.
+and ``GradientProblem`` (gradient_problem_solver.cc:99-150). An oracle's
+evaluations are the regions of its ``graphs``
+(``host_loop_graphs.LineSearchGraphs``): the cost and gradient at the start,
+and phi(a) = f(x [+] a d), each device work on static buffers, on the card
+one CUDA graph replayed per call where ``fused_lm.regions_capturable`` says
+so (as the JAX package jits them), else the same regions run eagerly. The
+bracketing logic stays on the host like the reference's; the vectors (x, g,
+the direction, L-BFGS's s and y, BFGS's matrix) stay on the device, and the
+directions are computed eagerly (the JAX package computes them in numpy).
+The host reads once per evaluation of phi (its value and phi'(a)
+together), once per direction (d'g and g'g, for the descent test and a
+restart) and once after each step (the iteration's norms and the curvature
+pair's s'y and y'y); the two-loop recursion's dot products stay on the
+device.
 """
 
 from __future__ import annotations
@@ -34,41 +41,61 @@ from ceres_tpu_torch.types import (
     NonlinearConjugateGradientType,
     TerminationType,
 )
+from ceres_tpu_torch.utils.observability import ScopedExecutionTimer
 
 _F64 = torch.float64
 
 
 class Oracle:
     """Evaluation interface for line-search minimization: tensors in,
-    tensors out (the cost an f64 scalar on the device). ``comm``: the
+    tensors out (the cost an f64 scalar on the device), from the regions
+    ``graphs`` (``host_loop_graphs.LineSearchGraphs``). ``comm``: the
     collectives of a sharded program (parallel/sharding.py), or None."""
 
     num_tangent: int
     comm = None
+    graphs = None
 
     def cost_and_gradient(self, x: torch.Tensor):
-        raise NotImplementedError
+        """(cost, tangent gradient) at x, copies."""
+        return self.graphs.cost_and_gradient(x)
 
-    def plus(self, x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError
+    def line(self, x: torch.Tensor, d: torch.Tensor) -> None:
+        """Search from x along d."""
+        self.graphs.line(x, d)
+
+    def phi(self, a: float):
+        """((phi(a), phi'(a)) as an f64 device vector, x [+] a d, its
+        gradient) along :meth:`line`'s."""
+        return self.graphs.phi(a)
 
 
 class ProgramOracle(Oracle):
-    """A Program's cost and tangent gradient (Evaluator.cost_and_gradient)."""
+    """A Program's cost and tangent gradient on its line-search regions
+    (``host_loop_graphs.line_search_graphs``), captured where ``captured``
+    (by default ``fused_lm.regions_capturable``; the eager baseline sets
+    False). Every evaluation is an ``Evaluator::Gradient`` call of the
+    evaluator's statistics."""
 
-    def __init__(self, program):
+    def __init__(self, program, captured: Optional[bool] = None):
         from ceres_tpu_torch.evaluator import Evaluator
+        from ceres_tpu_torch.fused_lm import program_functions, regions_capturable
+        from ceres_tpu_torch.host_loop_graphs import line_search_graphs
 
-        self._program = program
-        self._ev = Evaluator(program)
+        if captured is None:
+            captured = regions_capturable(program.device, program.comm,
+                                          program_functions(program))
+        self.graphs = line_search_graphs(program, captured)
+        self._ev = Evaluator(program, graphs=self.graphs)
         self.num_tangent = program.num_tangent
         self.comm = program.comm
 
     def cost_and_gradient(self, x):
         return self._ev.cost_and_gradient(x)
 
-    def plus(self, x, delta):
-        return self._program.plus(x, delta)
+    def phi(self, a):
+        with ScopedExecutionTimer("Evaluator::Gradient", self._ev.execution_summary):
+            return self.graphs.phi(a)
 
 
 # -- line searches -----------------------------------------------------------
@@ -90,19 +117,18 @@ def _interpolate_cubic(lo: _PhiEval, hi: _PhiEval) -> float:
 
 
 class _LineSearchFunction:
-    """phi(a) = f(plus(x, a d)) (line_search.h:213 LineSearchFunction)."""
+    """phi(a) = f(plus(x, a d)) (line_search.h:213 LineSearchFunction): one
+    run of the oracle's ``phi`` region and one host read per call."""
 
     def __init__(self, oracle: Oracle, x, direction):
         self.oracle = oracle
-        self.x = x
-        self.d = direction
+        oracle.line(x, direction)
         self.evals = 0
 
     def __call__(self, a: float) -> _PhiEval:
         self.evals += 1
-        xa = self.oracle.plus(self.x, a * self.d)
-        c, g = self.oracle.cost_and_gradient(xa)
-        value, dg = _to_host(c, torch.dot(g, self.d))
+        scalars, xa, g = self.oracle.phi(a)
+        value, dg = _to_host(*scalars)
         return _PhiEval(a=a, value=value, gradient=dg, x=xa, g=g)
 
 
@@ -272,13 +298,14 @@ def _ncg_direction(g, prev_g, prev_d, kind: NonlinearConjugateGradientType):
 
 
 class LineSearchMinimizer:
-    """Analog of LineSearchMinimizer::Minimize (line_search_minimizer.cc:87)."""
+    """Analog of LineSearchMinimizer::Minimize (line_search_minimizer.cc:87),
+    over an oracle or a Program's (``ProgramOracle(program, captured)``)."""
 
-    def __init__(self, program_or_oracle, options, summary):
+    def __init__(self, program_or_oracle, options, summary, captured: Optional[bool] = None):
         if isinstance(program_or_oracle, Oracle):
             self.oracle = program_or_oracle
         else:
-            self.oracle = ProgramOracle(program_or_oracle)
+            self.oracle = ProgramOracle(program_or_oracle, captured)
         self.options = options
         self.summary = summary
         # The Evaluator's statistics (``solve`` folds them into the
@@ -286,6 +313,19 @@ class LineSearchMinimizer:
         self.evaluator = getattr(self.oracle, "_ev", None)
 
     def minimize(self, x0: torch.Tensor) -> torch.Tensor:
+        """The solution from x0. The graphs captured in this call count
+        their seconds in the summary's ``graph_capture_time_in_seconds``;
+        each replay credits its launches as it runs (no read)."""
+        graphs = self.oracle.graphs
+        capture0 = graphs.capture_seconds
+        try:
+            return self._minimize(x0)
+        finally:
+            self.summary.captured_loop = graphs.captured
+            self.summary.graph_capture_time_in_seconds += graphs.capture_seconds - capture0
+            self.summary.num_iterations = max(len(self.summary.iterations) - 1, 0)
+
+    def _minimize(self, x0: torch.Tensor) -> torch.Tensor:
         opts = self.options
         oracle = self.oracle
         summary = self.summary

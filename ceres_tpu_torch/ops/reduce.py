@@ -16,6 +16,13 @@ sums, row G being the dummy group (ids outside [0, G): callers slice
   the cell-sorting row gather a sorted kind would need (the kernel reads
   the rows where they lie, through a row list the host builds once);
 - ``scatter``: ``index_add_`` (the JAX package's ``ell`` and ``scatter``).
+
+A gather plan (:func:`build_gather_plan`) sums the gradients of a row
+gather back into the gathered table's rows, the backward of the evaluator's
+``table[index]``. It takes only the kinds that add in one fixed order on
+the card (``onehot``, ``sorted``, ``unsorted``; never ``scatter``, whose
+atomics add in no fixed order), so a reverse-mode gradient has the same
+bits on every run, captured into a CUDA graph or not.
 """
 
 from __future__ import annotations
@@ -68,6 +75,26 @@ def choose_plan_kind(seg: np.ndarray, num_groups: int, device_type: str) -> str:
     return "scatter"
 
 
+def choose_gather_plan_kind(seg: np.ndarray, num_groups: int) -> str:
+    """Gather-plan kind for rows gathered from table rows ``seg`` (ids
+    outside [0, G): rows whose gradient is dropped) of a ``num_groups``-row
+    table: ``onehot`` for few rows, ``sorted`` (K1, through a stable row
+    list unless the ids already are sorted and none is dropped), or
+    ``unsorted`` (K3) for ids in any order and a few thousand rows at most.
+    Never ``scatter``. The same on every device, so a CPU test runs the plan
+    a card gets through the plain versions. Pure, as
+    :func:`choose_plan_kind`."""
+    seg = np.asarray(seg, dtype=np.int64).reshape(-1)
+    G = int(num_groups)
+    if G + 1 <= ONEHOT_MAX_GROUPS:
+        return "onehot"
+    if np.all((seg >= 0) & (seg < G)) and np.all(seg[1:] >= seg[:-1]):
+        return "sorted"
+    if G + 1 <= UNSORTED_MAX_GROUPS:
+        return "unsorted"
+    return "sorted"
+
+
 @dataclasses.dataclass
 class ReducePlan:
     """Host-built plan reducing (B, ...) by segment id to (G+1, ...)."""
@@ -78,6 +105,9 @@ class ReducePlan:
     onehot: Optional[torch.Tensor] = None
     # sorted: (G+2,) int32 CSR row pointer (ops/segment_sum.build_row_ptr).
     row_ptr: Optional[torch.Tensor] = None
+    # sorted (gather plans): (B',) int64 rows in id order, the rows kept
+    # (a stable permutation of them); None when every row is, in order.
+    rows: Optional[torch.Tensor] = None
     # scatter: (B,) int64 segment ids (dummy = G).
     seg: Optional[torch.Tensor] = None
     # unsorted: the rows of each segment, cut into pieces
@@ -93,18 +123,15 @@ class ReducePlan:
         return m
 
 
-def build_reduce_plan(
-    seg_ids: np.ndarray, num_groups: int, device: torch.device
-) -> ReducePlan:
-    """Plan for reducing B rows into ``num_groups`` groups; its index
-    arrays live on ``device``, the device of the contributions it will
-    reduce."""
-    device = torch.device(device)
+def _mapped(seg_ids: np.ndarray, num_groups: int) -> np.ndarray:
+    """(B,) int64 ids with those outside [0, G) mapped to the dummy id G."""
     seg = np.asarray(seg_ids, dtype=np.int64).reshape(-1)
+    return np.where((seg < 0) | (seg >= num_groups), num_groups, seg)
+
+
+def _build_plan(kind: str, seg: np.ndarray, G: int, device: torch.device) -> ReducePlan:
+    """The plan of ``kind`` for mapped ids ``seg`` (``_mapped``)."""
     B = seg.shape[0]
-    G = int(num_groups)
-    seg = np.where((seg < 0) | (seg >= G), G, seg)
-    kind = choose_plan_kind(seg, G, device.type)
     if kind == "onehot":
         onehot = np.zeros((G + 1, B), dtype=np.int8)
         onehot[seg, np.arange(B)] = 1
@@ -126,13 +153,48 @@ def build_reduce_plan(
     )
 
 
+def build_reduce_plan(
+    seg_ids: np.ndarray, num_groups: int, device: torch.device
+) -> ReducePlan:
+    """Plan for reducing B rows into ``num_groups`` groups; its index
+    arrays live on ``device``, the device of the contributions it will
+    reduce."""
+    device = torch.device(device)
+    G = int(num_groups)
+    seg = _mapped(seg_ids, G)
+    return _build_plan(choose_plan_kind(seg, G, device.type), seg, G, device)
+
+
+def build_gather_plan(
+    seg_ids: np.ndarray, num_groups: int, device: torch.device
+) -> ReducePlan:
+    """Gather plan (:func:`choose_gather_plan_kind`) summing B gathered
+    rows' gradients into the ``num_groups`` rows they came from; rows with
+    ids outside [0, G) add nothing to rows 0..G-1 (a ``sorted`` plan leaves
+    them out, so that no long dummy segment is walked). Its arrays live on
+    ``device``."""
+    device = torch.device(device)
+    G = int(num_groups)
+    seg = _mapped(seg_ids, G)
+    kind = choose_gather_plan_kind(seg, G)
+    if kind != "sorted":
+        return _build_plan(kind, seg, G, device)
+    order = np.nonzero(seg < G)[0]
+    order = order[np.argsort(seg[order], kind="stable")]
+    plan = _build_plan(kind, seg[order], G, device)
+    if not np.array_equal(order, np.arange(seg.shape[0])):
+        plan.rows = torch.from_numpy(order).to(device)
+    return plan
+
+
 def apply_reduce(plan: ReducePlan, contrib: torch.Tensor) -> torch.Tensor:
     """Reduce (B, ...) contributions to (G+1, ...) group sums."""
     B = contrib.shape[0]
     tail = tuple(contrib.shape[1:])
     G = plan.num_groups
     if plan.kind == "sorted":
-        return segment_sum_sorted(contrib, plan.row_ptr, G)
+        rows = contrib if plan.rows is None else contrib[plan.rows]
+        return segment_sum_sorted(rows, plan.row_ptr, G)
     if plan.kind == "unsorted":
         return segment_sum_unsorted(contrib, plan.unsorted)
     index = plan.onehot if plan.kind == "onehot" else plan.seg

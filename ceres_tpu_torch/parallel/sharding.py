@@ -58,7 +58,7 @@ import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from ceres_tpu_torch.loss import loss_take
-from ceres_tpu_torch.ops.reduce import build_reduce_plan
+from ceres_tpu_torch.ops.reduce import build_gather_plan, build_reduce_plan
 from ceres_tpu_torch.problem import Family, Program
 
 OBS_AXIS = "obs"
@@ -231,8 +231,9 @@ def _family_float_dtype(fam: Family, dtype=None) -> torch.dtype:
 
 def _take_rows(fam: Family, rows: np.ndarray, real: np.ndarray, dtype) -> Family:
     """The family's instances ``rows`` (in that order), those with ``real``
-    False as padding (mask 0, source row -1). The reduce plans are rebuilt
-    on the kept rows, for the family's device."""
+    False as padding (mask 0, source row -1). The reduce and gather plans
+    are rebuilt on the kept rows, for the family's device (a gather plan
+    drops the padding rows, as it drops constant blocks)."""
     first = fam.bd_pos[0] if fam.bd_pos else fam.amb_pos[0]
     dev = first.device
     rows_t = torch.from_numpy(rows).to(dev)
@@ -241,10 +242,17 @@ def _take_rows(fam: Family, rows: np.ndarray, real: np.ndarray, dtype) -> Family
         mdt = _family_float_dtype(fam, dtype)
         m = torch.from_numpy(real.astype(np.float64)).to(dev, mdt)
         mask = m if fam.mask is None else fam.mask[rows_t].to(mdt) * m
-    source = rows if fam.source_rows is None else fam.source_rows[rows]
+    source = np.where(real, rows if fam.source_rows is None else fam.source_rows[rows], -1)
     plans = tuple(
         build_reduce_plan(b.cpu().numpy()[rows], p.num_groups, dev)
         for b, p in zip(fam.bd_pos, fam.reduce_plans)
+    )
+    # a row with a tangent (bd_pos short of its plan's dummy) that is real
+    gather_plans = tuple(
+        build_gather_plan(
+            np.where((b.cpu().numpy()[rows] < p.num_groups) & (source >= 0),
+                     a.cpu().numpy()[rows], g.num_groups), g.num_groups, dev)
+        for b, p, a, g in zip(fam.bd_pos, fam.reduce_plans, fam.amb_pos, fam.gather_plans)
     )
     return Family(
         structure=fam.structure,
@@ -257,8 +265,9 @@ def _take_rows(fam: Family, rows: np.ndarray, real: np.ndarray, dtype) -> Family
         amb_pos=tuple(a[rows_t] for a in fam.amb_pos),
         amb_groups=fam.amb_groups,
         reduce_plans=plans,
+        gather_plans=gather_plans,
         mask=mask,
-        source_rows=np.where(real, source, -1),
+        source_rows=source,
     )
 
 

@@ -39,7 +39,7 @@ from ceres_tpu_torch.loss import (
     stack_losses,
 )
 from ceres_tpu_torch.manifold import EuclideanManifold, Manifold
-from ceres_tpu_torch.ops.reduce import build_reduce_plan
+from ceres_tpu_torch.ops.reduce import build_gather_plan, build_reduce_plan
 
 
 @dataclasses.dataclass(eq=False)
@@ -689,6 +689,9 @@ class Family:
     - ``bd_pos[j]``: (B,) row of the block in its tangent size group
       (``Program.groups``); a constant block points at the dummy row G;
     - ``reduce_plans[j]``: the batch -> tangent group reduction of arg j;
+    - ``gather_plans[j]``: the reverse mode's sum of arg j's gathered rows
+      back into its ambient size group (``ops/reduce.build_gather_plan``;
+      constant blocks and padding rows dropped);
     - ``data``: pytree of tensors with leading axis B, or None;
     - ``loss``: the family's loss (parameters floats, or (B,) tensors);
     - ``mask``: (B,) 1 on real rows, 0 on padding rows (which repeat a real
@@ -708,6 +711,7 @@ class Family:
     amb_pos: Tuple[torch.Tensor, ...]
     amb_groups: BlockGroups
     reduce_plans: Tuple
+    gather_plans: Tuple
     mask: Optional[torch.Tensor] = None
     source_rows: Optional[np.ndarray] = None
 
@@ -1025,7 +1029,7 @@ class Program:
         sizes = tuple(int(self.block_sizes[cols[0, j]]) for j in range(k))
         tsizes = tuple(int(self.tangent_sizes[cols[0, j]]) for j in range(k))
         manifolds = tuple(self._manifold_of(cols[0, j]) for j in range(k))
-        bd_pos, amb_pos, plans = [], [], []
+        bd_pos, amb_pos, plans, gather_plans = [], [], [], []
         for j in range(k):
             col = cols[:, j]
             dummy = self.bd_groups[tsizes[j]].shape[0] if tsizes[j] in self.bd_groups else 0
@@ -1033,6 +1037,9 @@ class Program:
             bd_pos.append(torch.from_numpy(pj).to(dev))
             amb_pos.append(torch.from_numpy(self._amb_row[col]).to(dev))
             plans.append(build_reduce_plan(pj, dummy, dev))
+            num_amb = self.amb_groups[sizes[j]].shape[0]
+            gather_plans.append(build_gather_plan(
+                np.where(self.constant[col], num_amb, self._amb_row[col]), num_amb, dev))
         residual_size = _infer_residual_size(fn, sizes, data)
         if data is not None:
             data = pytree.tree_map(
@@ -1058,6 +1065,7 @@ class Program:
             amb_pos=tuple(amb_pos),
             amb_groups=self.ambient_groups,
             reduce_plans=tuple(plans),
+            gather_plans=tuple(gather_plans),
         )
 
     # -- reporting ----------------------------------------------------------

@@ -11,7 +11,8 @@ callbacks (with ``update_state_every_iteration``), an ``EvaluationCallback``,
 progress output, non-monotonic steps, a time budget, trust-region problem
 dumps, or more than 2048 (or 0) iterations. A LINE_SEARCH solve takes
 ``line_search.LineSearchMinimizer`` (L-BFGS, BFGS, nonlinear CG, steepest
-descent; Armijo or Wolfe). ``check_gradients`` checks every family's
+descent; Armijo or Wolfe), its evaluations on the program's line-search
+regions (``host_loop_graphs.line_search_graphs``). ``check_gradients`` checks every family's
 Jacobian before the loop too. The trust-region loops run a loss, manifolds
 and constant blocks, and one of the linear solvers DENSE_QR,
 DENSE_NORMAL_CHOLESKY, SPARSE_NORMAL_CHOLESKY, CGNR (IDENTITY, JACOBI,
@@ -389,11 +390,11 @@ class SolverSummary:
     minimizer_time_in_seconds: float = 0.0
     postprocessor_time_in_seconds: float = 0.0
     total_time_in_seconds: float = 0.0
-    # Whether the fused loop (fused_lm.py), or the host loop's device work
-    # (host_loop_graphs.py), ran as CUDA graphs, and the seconds this solve
-    # spent capturing them (0 when the program's graphs were captured by an
-    # earlier solve; the host loop captures each at its first call, inside
-    # the minimizer's time).
+    # Whether the fused loop (fused_lm.py), or the host loop's or the line
+    # search's device work (host_loop_graphs.py), ran as CUDA graphs, and the
+    # seconds this solve spent capturing them (0 when the graphs were
+    # captured by an earlier solve; the host loop and the line search
+    # capture each region at its first call, inside the minimizer's time).
     captured_loop: bool = False
     graph_capture_time_in_seconds: float = 0.0
     # Per-phase minimizer times and counts (solver.h:967-1006, the
@@ -674,7 +675,6 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
             summary.jacobian_evaluation_time_in_seconds += stats.times.get(
                 "Evaluator::Gradient", 0.0
             ) + stats.times.get("Evaluator::Jacobian", 0.0)
-            summary.num_iterations = max(len(summary.iterations) - 1, 0)
     x = x.to(torch.float64).cpu().numpy()
     t2 = time.perf_counter()
     summary.minimizer_time_in_seconds = t2 - t1

@@ -64,7 +64,14 @@ import warnings
 import torch
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import evaluator, fused_lm, host_loop_graphs, trust_region
+from ceres_tpu_torch import (
+    evaluator,
+    fused_lm,
+    gradient_problem,
+    host_loop_graphs,
+    line_search,
+    trust_region,
+)
 from ceres_tpu_torch.linear import cgnr, schur, schur_explicit
 from ceres_tpu_torch.models import bal, pose_graph
 from ceres_tpu_torch.ops import reduce
@@ -213,18 +220,23 @@ def eager_loop(problem, opts, device="cuda", revert_on_tolerance: bool = True):
 
 def eager_host_loop(problem, opts, device="cuda"):
     """``ctt.solve``'s host loop (``trust_region.TrustRegionMinimizer``, for
-    options ``fused_lm.fused_traced_eligible`` refuses) on the problem's
-    program and the options, its regions run eagerly (no graph; every
-    run_if reads its predicate), its summary filled as ``solve`` fills its
-    own and the solution written back: a captured host loop's baseline.
-    Returns (the summary, the loop's seconds)."""
+    options ``fused_lm.fused_traced_eligible`` refuses, or with
+    ``minimizer_type`` LINE_SEARCH ``line_search.LineSearchMinimizer``) on
+    the problem's program and the options, its regions run eagerly (no
+    graph; every run_if reads its predicate), its summary filled as
+    ``solve`` fills its own and the solution written back: a captured host
+    loop's or line search's baseline. Returns (the summary, the loop's
+    seconds)."""
     summary = ctt.SolverSummary()
     program, resolved = preprocess(opts, problem, device, summary)
     x0 = initial_state(program)
     if program.device.type == "cuda":
         torch.cuda.synchronize(program.device)
     t0 = time.perf_counter()  # as solve's minimizer time: the minimizer's set-up too
-    minimizer = trust_region.TrustRegionMinimizer(program, resolved, summary, captured=False)
+    if resolved.minimizer_type == ctt.MinimizerType.LINE_SEARCH:
+        minimizer = line_search.LineSearchMinimizer(program, resolved, summary, captured=False)
+    else:
+        minimizer = trust_region.TrustRegionMinimizer(program, resolved, summary, captured=False)
     x = minimizer.minimize(x0).to(torch.float64).cpu().numpy()
     seconds = time.perf_counter() - t0
     summary.minimizer_time_in_seconds = seconds
@@ -232,6 +244,12 @@ def eager_host_loop(problem, opts, device="cuda"):
     if summary.is_solution_usable():
         problem.write_back(x)
     return summary, seconds
+
+
+def eager_gradient_problem(options, problem, parameters, device="cuda"):
+    """``ctt.solve_gradient_problem`` with its regions run eagerly: a
+    captured GradientProblem solve's baseline. Returns the summary."""
+    return gradient_problem._solve(options, problem, parameters, device, captured=False)
 
 
 def _event_seconds(run):

@@ -265,6 +265,7 @@ class CapturedGraph:
         _opened.clear()
         _opened.append(root)
         _bank = [self._bank, 0]
+        self.conditional = False  # whether a conditional body was captured
         # No collection during the capture: freeing another graph (a
         # dropped program's) while a stream captures is an error.
         collecting = gc.isenabled()
@@ -279,12 +280,21 @@ class CapturedGraph:
             if collecting:
                 gc.enable()
             _open.clear()
+            self.conditional = len(_opened) > 1
             regions, _opened[:] = list(_opened), []
             _bank = None
         return sorted((r for r in regions if r.slot is not None), key=lambda r: r.slot)
 
     def replay(self) -> None:
         self.graph.replay()
+
+    def credit_replay(self) -> None:
+        """Credit one replay's launches on the host, with no read: for a
+        graph that captured no conditional node, whose every launch runs
+        once per replay."""
+        if self.conditional:
+            raise RuntimeError("a graph with conditional nodes counts its runs on the device")
+        self.credit([n + 1 for n in self._credited])
 
     def launch_counts(self) -> torch.Tensor:
         """(regions,) int64 device tensor: each counted region's runs."""

@@ -195,20 +195,30 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    function tolerances: the f32 end is set by rounding noise, INNER_F32_RTOL);
 17. solve, flagship line search (``flagship_line_search``): the flagship
    through ``ctt.solve`` with the LINE_SEARCH minimizer (L-BFGS, Wolfe,
-   100 iterations), float64 twice (every record's cost equal to the bit;
-   the second with its host reads counted) against JAX: the record count
-   and termination, and the final cost and the costs of records 25, 50 and
-   75 each within 1e-6 relative, or within ten times the reference's own
-   change under a one-ulp change of the start where that is larger (1.1e-5
-   at record 100); float32 reported; two reverse-mode gradients at the
-   start equal to the bit (autograd adds the gather's rows back on the
-   card);
+   100 iterations), float64, on one problem from one start: its regions
+   (``host_loop_graphs.LineSearchGraphs``: the start's cost and gradient,
+   phi) run eagerly, captured, again and eagerly, every record, the final
+   cost and x equal to the bit and the same K1 / K3 launches, K1 launched
+   (the gradient's gather sums its rows through it); the repeat reads the
+   host at most 3.08 times an iteration and nowhere inside a graph;
+   seconds and host reads an iteration of each run, the capture's seconds,
+   the graphs' pool bytes beside the eager peak; one more captured solve
+   split into its evaluations, directions and reads (host seconds, and
+   the device seconds of the phi replays and the directions from CUDA
+   events); against JAX: the record count and termination, and the final
+   cost and the costs of records 25, 50 and 75 each within 1e-6 relative,
+   or within ten times the reference's own change under a one-ulp change
+   of the start where that is larger (1.1e-5 at record 100); the captured
+   gradient at the start equal to the eager one to the bit; float32
+   reported;
 18. solve, gradient problem (``gradient_problem``): ``examples/
-   rosenbrock.py``'s problem through ``ctt.solve_gradient_problem`` once
-   per direction type against JAX: the termination, and x within 1e-8 with
-   the record count where the reference's trajectory is steady (L-BFGS,
-   BFGS), within ten times its one-ulp spread where it is not (nonlinear
-   CG, steepest descent);
+   rosenbrock.py``'s problem through ``ctt.solve_gradient_problem`` per
+   direction type, eager, captured, again and eager on one problem (the
+   same records and x to the bit; seconds and host reads an iteration),
+   against JAX: the termination, and x within 1e-8 with the record count
+   where the reference's trajectory is steady (L-BFGS, BFGS), within ten
+   times its one-ulp spread where it is not (nonlinear CG, steepest
+   descent);
 19. solve, gradient checks (``check_gradients``): the flagship with
    ``check_gradients`` for 3 iterations (usable), and a residual whose
    hand-written Jacobian is wrong: FAILURE with the JAX package's message;
@@ -349,7 +359,7 @@ import numpy as np
 import torch
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import dogleg, evaluator, fused_lm, host_loop_graphs, inner_iterations
+from ceres_tpu_torch import dogleg, fused_lm, host_loop_graphs, inner_iterations
 from ceres_tpu_torch import trust_region
 from ceres_tpu_torch.linear import schur as schur_mod
 from ceres_tpu_torch.linear import sparse_cholesky
@@ -362,6 +372,7 @@ from ceres_tpu_torch.ops import unsorted_segment_sum as us
 from ceres_tpu_torch.tools.profile_solve import (
     _device_profile,
     _host_reads,
+    eager_gradient_problem,
     eager_host_loop,
     eager_loop,
 )
@@ -2530,9 +2541,11 @@ def _host_loop_records_key(summary) -> list:
 
 
 def _host_loop_graph_sets(problem, device) -> list:
-    """The captured ``HostLoopGraphs`` kept on ``problem``'s program."""
-    return [g for g in host_loop_graphs.host_loop_graph_sets(problem.program(device))
-            if g.captured]
+    """The captured ``HostLoopGraphs`` and ``LineSearchGraphs`` kept on
+    ``problem``'s program."""
+    program = problem.program(device)
+    return [g for g in (host_loop_graphs.host_loop_graph_sets(program)
+                        + host_loop_graphs.line_search_graph_sets(program)) if g.captured]
 
 
 def _accept_copy(graphs) -> tuple:
@@ -2934,52 +2947,110 @@ def _line_search_options(dtype: str, max_iters: int = 100):
     return opts
 
 
-def _gradient_repeats(program, device) -> bool:
-    """Whether two reverse-mode gradients at the start are equal to the bit
-    (autograd sums the row gather's backward, many rows into each point)."""
-    x = torch.from_numpy(program.initial_ambient()).to(device, program.eval_dtype)
-    ev = evaluator.Evaluator(program)
-    return bool(torch.equal(ev.cost_and_gradient(x)[1], ev.cost_and_gradient(x)[1]))
+# The eager L-BFGS at the flagship reads the host 3.08 times an iteration
+# (one read per evaluation of phi, per direction and per step, and the
+# start's and the solution's); the captured regions may add none.
+LINE_SEARCH_MAX_READS_PER_ITERATION = 3.08
+
+
+def _captured_gradient_equals_eager(program, x) -> bool:
+    """Whether the reverse-mode gradient at x from the program's captured
+    ``start`` region (replayed twice) equals the eager region's to the
+    bit."""
+    eager = host_loop_graphs.line_search_graphs(program, False).cost_and_gradient(x)[1]
+    captured = host_loop_graphs.line_search_graphs(program, True)
+    grads = [captured.cost_and_gradient(x)[1] for _ in range(2)]
+    return all(torch.equal(g, eager) for g in grads)
+
+
+@contextlib.contextmanager
+def _line_search_split():
+    """Split the line-search iterations run in the with-body: host seconds
+    to enqueue the directions (``_LBFGS.apply``) and the evaluations (the
+    regions' ``line`` and ``phi``), host seconds blocked in the minimizer's
+    reads (``_to_host``), and the device seconds of each phi replay and of
+    each direction (CUDA events around them). Yields the totals' dict."""
+    from ceres_tpu_torch import line_search
+
+    totals = collections.Counter()
+    events = {"phi": [], "direction": []}
+
+    def wrapped(key, fn, device_key=None):
+        def run(*args, **kw):
+            if device_key:
+                ends = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ends[0].record()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            totals[key] += time.perf_counter() - t0
+            if device_key:
+                ends[1].record()
+                events[device_key].append(ends)
+            return out
+
+        return run
+
+    saved = [(line_search._LBFGS, "apply"), (host_loop_graphs.LineSearchGraphs, "line"),
+             (host_loop_graphs.LineSearchGraphs, "phi"), (line_search, "_to_host")]
+    originals = [getattr(owner, name) for owner, name in saved]
+    line_search._LBFGS.apply = wrapped("direction_host_s", originals[0], "direction")
+    host_loop_graphs.LineSearchGraphs.line = wrapped("evaluation_host_s", originals[1])
+    host_loop_graphs.LineSearchGraphs.phi = wrapped("evaluation_host_s", originals[2], "phi")
+    line_search._to_host = wrapped("reads_host_s", originals[3])
+    try:
+        yield totals
+    finally:
+        for (owner, name), fn in zip(saved, originals):
+            setattr(owner, name, fn)
+        torch.cuda.synchronize()
+        for key, pairs in events.items():
+            totals[f"{key}_device_s"] = sum(a.elapsed_time(b) for a, b in pairs) * 1e-3
 
 
 def solve_flagship_line_search(device, smi: str) -> dict:
-    """The flagship through ctt.solve with the LINE_SEARCH minimizer: f64
-    twice (equal to the bit; the second with its host reads counted)
-    against JAX f64, f32 once; and whether two gradients repeat. Returns
-    the launches of the first f64 solve (none: the reverse-mode gradient
-    runs no kernel of the port)."""
+    """The flagship through ctt.solve with the LINE_SEARCH minimizer,
+    float64, on one problem from one start: its regions run eagerly,
+    captured, again and eagerly (``_eager_captured_repeat``: every record,
+    the final cost and x to the bit, the same K1 / K3 launches, the repeat
+    reading the host nowhere inside a graph), K1 launched; the repeat at
+    most LINE_SEARCH_MAX_READS_PER_ITERATION host reads an iteration; the
+    captured run against JAX f64; one more captured solve split into its
+    evaluations, directions and reads; the captured start gradient equal to
+    the eager one to the bit; float32 reported. Returns the captured
+    solve's launches."""
     inst = flagship_instance()
     warm, _, _ = bal.build_problem(inst)
     ctt.solve(_line_search_options("float64", 2), warm, device=device)
-    runs = []
-    for i in range(2):
-        problem, _, _ = bal.build_problem(inst)
-        if i == 0:
-            _reset_launches()
-            runs.append(ctt.solve(_line_search_options("float64"), problem, device=device))
-            launches, by_width = _launches(), _launches_by_width()
-            _checked(problem, runs[0], FLAGSHIP_LINE_SEARCH_REFERENCE["final_cost"],
-                     "flagship line search float64")
-        else:
-            summary, reads = _reads(
-                lambda: ctt.solve(_line_search_options("float64"), problem, device=device),
-                lambda: ctt.solve(_line_search_options("float64", 0), problem, device=device),
-            )
-            runs.append(summary)
-    costs = [[r.cost for r in s.iterations] for s in runs]
-    repeats = costs[0] == costs[1] and runs[0].final_cost == runs[1].final_cost
-    gradient_repeats = _gradient_repeats(bal.build_problem(inst)[0].program(device), device)
+    del warm
+    label = "flagship line search float64"
+    problem, _, _ = bal.build_problem(inst)
+    start = problem.state().copy()
+    runs = _eager_captured_repeat(label, problem, _line_search_options("float64"), device)
+    fields = {k.replace("lm_iteration", "iteration"): v
+              for k, v in _host_loop_fields(runs, problem, device).items()}
+    problem.write_back(start)
+    with _line_search_split() as split:
+        timed = ctt.solve(_line_search_options("float64"), problem, device=device)
+    if _host_loop_records_key(timed) != _host_loop_records_key(runs[0]["summary"]):
+        raise RuntimeError(f"{label}: the split run differs from the eager one")
+    iterations = max(timed.num_iterations, 1)
+    split = {k: v / iterations for k, v in sorted(split.items())}
+    split["iteration_s"] = timed.minimizer_time_in_seconds / iterations
+    program = problem.program(device)
+    gradient_equal = _captured_gradient_equals_eager(
+        program, torch.from_numpy(start).to(device, program.eval_dtype))
     p32, _, _ = bal.build_problem(inst)
     s32 = ctt.solve(_line_search_options("float32"), p32, device=device)
     ref = FLAGSHIP_LINE_SEARCH_REFERENCE
-    s = runs[0]
+    s = runs[1]["summary"]
+    costs = [r.cost for r in s.iterations]
     n = max(s.num_iterations, 1)
     evals = sum(r.line_search_function_evaluations for r in s.iterations)
-    got = [s.final_cost] + [costs[0][i] for i in ref["checked_records"]
-                            if i < len(costs[0])]
+    got = [s.final_cost] + [costs[i] for i in ref["checked_records"] if i < len(costs)]
     want = [ref["final_cost"], *ref["checked_costs"]]
     rels = [abs(a - b) / b for a, b in zip(got, want)]
     tols = [max(LINE_SEARCH_COST_RTOL, 10 * sp) for sp in ref["spread"]]
+    reads = fields["host_reads_per_iteration"]["repeat"]
     phase(
         "solve", case="flagship_line_search", dtype="float64", initial_cost=s.initial_cost,
         final_cost=s.final_cost, reference_final_cost=ref["final_cost"], records=len(s.iterations),
@@ -2988,37 +3059,68 @@ def solve_flagship_line_search(device, smi: str) -> dict:
         evaluations_per_iteration=evals / n,
         checked_records=ref["checked_records"], rel_final_and_checked=rels,
         tolerances=tols, within_1e_6=[r <= LINE_SEARCH_COST_RTOL for r in rels],
-        repeats_equal_to_the_bit=repeats, gradient_repeats_equal_to_the_bit=gradient_repeats,
-        solve_seconds=s.minimizer_time_in_seconds,
-        seconds_per_iteration=s.minimizer_time_in_seconds / n,
-        solve_seconds_all=[r.minimizer_time_in_seconds for r in runs],
+        captured_gradient_equals_eager=gradient_equal,
+        repeat_split_per_iteration=split,
         setup_seconds=s.preprocessor_time_in_seconds,
-        host_reads_second_solve=sum(reads.values()),
-        host_reads_per_iteration=sum(reads.values()) / max(runs[1].num_iterations, 1),
-        host_reads_by_site=dict(reads.most_common(12)),
         float32=dict(final_cost=s32.final_cost, records=len(s32.iterations),
-                     termination=str(s32.termination_type),
+                     termination=str(s32.termination_type), captured=s32.captured_loop,
                      solve_seconds=s32.minimizer_time_in_seconds),
-        launches=launches, launches_by_width=by_width, card=smi,
+        launches_by_width=_launches_by_width(), card=smi, **fields,
     )
-    if not (repeats and gradient_repeats):
-        raise RuntimeError("flagship line search: two float64 solves or gradients differ")
+    if not gradient_equal:
+        raise RuntimeError(f"{label}: the captured gradient differs from the eager one")
     if (len(s.iterations), s.termination_type.name) != (ref["records"], ref["termination"]):
-        raise RuntimeError(f"flagship line search: {len(s.iterations)} records, "
+        raise RuntimeError(f"{label}: {len(s.iterations)} records, "
                            f"{s.termination_type} (JAX {ref['records']}, {ref['termination']})")
     if not all(r <= t for r, t in zip(rels, tols)):
-        raise RuntimeError(f"flagship line search: costs {got} vs JAX {want}")
-    return launches
+        raise RuntimeError(f"{label}: costs {got} vs JAX {want}")
+    if reads > LINE_SEARCH_MAX_READS_PER_ITERATION:
+        raise RuntimeError(f"{label}: the repeat read the host {reads} times an iteration")
+    if runs[1]["launches"]["sorted_segment_sum"] == 0:
+        raise RuntimeError(f"{label}: K1 was never launched")
+    return runs[1]["launches"]
 
 
 def _rosenbrock(x):
     return (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] ** 2) ** 2
 
 
+def gradient_problem_runs(label: str, problem, x0, opts, device) -> list:
+    """``problem`` solved from ``x0`` four times (HOST_LOOP_RUNS): its
+    regions eagerly (``profile_solve.eager_gradient_problem``),
+    ``ctt.solve_gradient_problem`` (which captures them), again (replays
+    only) and eagerly again. Per run {summary, x, reads, seconds}. Raises
+    unless every run gives the first's records (less their times) and x to
+    the bit, the captured runs are captured and the repeat captures nothing
+    and reads the host no more than the eager run again."""
+    runs = []
+    for kind in HOST_LOOP_RUNS:
+        x = np.array(x0, dtype=np.float64)
+        solve = eager_gradient_problem if kind.startswith("eager") else ctt.solve_gradient_problem
+        summary, reads = _host_reads(lambda: solve(opts, problem, x, device))
+        runs.append(dict(summary=summary, x=x, reads=reads,
+                         seconds=summary.minimizer_time_in_seconds))
+    eager = runs[0]
+    for kind, run in zip(HOST_LOOP_RUNS[1:], runs[1:]):
+        same = (_host_loop_records_key(run["summary"]) == _host_loop_records_key(eager["summary"])
+                and np.array_equal(run["x"], eager["x"]))
+        if not (same and run["summary"].captured_loop == (kind in ("captured", "repeat"))):
+            raise RuntimeError(f"{label}: the {kind} run differs from the eager one "
+                               f"(x {run['x']} against {eager['x']})")
+    repeat = runs[2]
+    if (sum(repeat["reads"].values()) > sum(runs[3]["reads"].values())
+            or repeat["summary"].graph_capture_time_in_seconds != 0.0):
+        raise RuntimeError(f"{label}: the repeat read the host {dict(repeat['reads'])} or "
+                           f"captured again")
+    return runs
+
+
 def solve_gradient_problems(device, smi: str) -> None:
-    """examples/rosenbrock.py's problem through ctt.solve_gradient_problem,
-    once per direction type, against JAX f64, after a 2-iteration warm-up
-    (the first reverse-mode pass on the card takes seconds)."""
+    """examples/rosenbrock.py's problem per direction type, after a
+    2-iteration warm-up (the first reverse-mode pass on the card takes
+    seconds): ``gradient_problem_runs`` on one problem each (eager,
+    captured, again, eager: the same bits), the captured run against JAX
+    f64."""
     t0 = time.perf_counter()
     ctt.solve_gradient_problem(ctt.GradientProblemOptions(max_num_iterations=2),
                                ctt.GradientProblem(_rosenbrock, 2), np.array([-1.2, 1.0]),
@@ -3028,16 +3130,22 @@ def solve_gradient_problems(device, smi: str) -> None:
         opts = ctt.GradientProblemOptions(
             max_num_iterations=200,
             line_search_direction_type=ctt.LineSearchDirectionType[direction])
-        x = np.array([-1.2, 1.0])
-        s = ctt.solve_gradient_problem(opts, ctt.GradientProblem(_rosenbrock, 2), x,
-                                       device=device)
+        runs = gradient_problem_runs(f"gradient problem {direction}",
+                                     ctt.GradientProblem(_rosenbrock, 2), [-1.2, 1.0], opts,
+                                     device)
+        s, x = runs[1]["summary"], runs[1]["x"]
+        n = max(s.num_iterations, 1)
         dx = float(np.max(np.abs(x - np.asarray(x_ref))))
         tol = max(ROSENBROCK_X_ATOL, 10 * spread)
         phase("solve", case="gradient_problem", direction=direction,
               records=len(s.iterations), reference_records=records,
               termination=str(s.termination_type), x=x.tolist(), reference_x=list(x_ref),
-              max_abs_x_diff=dx, tolerance=tol, solve_seconds=s.minimizer_time_in_seconds,
-              card=smi)
+              max_abs_x_diff=dx, tolerance=tol,
+              seconds={k: r["seconds"] for k, r in zip(HOST_LOOP_RUNS, runs)},
+              seconds_per_iteration={k: r["seconds"] / n for k, r in zip(HOST_LOOP_RUNS, runs)},
+              host_reads_per_iteration={k: sum(r["reads"].values()) / n
+                                        for k, r in zip(HOST_LOOP_RUNS, runs)},
+              capture_seconds=s.graph_capture_time_in_seconds, card=smi)
         steady = spread <= ROSENBROCK_X_ATOL
         if s.termination_type.name != termination or dx > tol or (
             steady and len(s.iterations) != records

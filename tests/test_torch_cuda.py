@@ -13,7 +13,9 @@ TinySolver captured, each against the same loop run eagerly, to the bit;
 the host loop's device work captured (``host_loop_graphs``: progress
 output, bounds, an evaluation callback with non-monotonic steps, DOGLEG,
 inner iterations) against its regions run eagerly, to the bit, and the
-Evaluator's three entry points from their graphs. Skipped without a card.
+Evaluator's three entry points from their graphs; the line search and
+GradientProblem on their captured regions against the same regions run
+eagerly, to the bit. Skipped without a card.
 
 This file imports neither jax nor ceres_tpu, so it also runs where only
 PyTorch is installed:
@@ -852,11 +854,10 @@ def test_captured_host_loop_matches_the_eager_one(device, name, capsys):
 
 def test_captured_evaluator_entry_points_match_the_eager_ones(device):
     """The host loop's Evaluator with its regions captured: cost,
-    cost_and_gradient (reverse mode through the graph) and
-    cost_gradient_jacobian at two points equal the eager regions' to the
-    bit (the reverse-mode gradient, whose gather's backward accumulates, to
-    1e-12), and a result kept from the first point is not overwritten by
-    the second."""
+    cost_and_gradient (reverse mode through the graph, its gather's
+    backward summed in a fixed order) and cost_gradient_jacobian at two
+    points equal the eager regions' to the bit, and a result kept from the
+    first point is not overwritten by the second."""
     from ceres_tpu_torch.solver import SolverSummary, initial_state, preprocess
     from ceres_tpu_torch.trust_region import TrustRegionMinimizer
 
@@ -879,7 +880,47 @@ def test_captured_evaluator_entry_points_match_the_eager_ones(device):
         assert bool(ev.graphs.graphs) == captured
     for a, b in zip(out[False], out[True]):
         for i, (u, v) in enumerate(zip(a, b)):
-            if i == 2:
-                torch.testing.assert_close(v, u, rtol=1e-12, atol=0.0)
-            else:
-                assert torch.equal(u, v), i
+            assert torch.equal(u, v), i
+
+
+@pytest.mark.parametrize("direction", ["LBFGS", "NONLINEAR_CONJUGATE_GRADIENT"])
+def test_captured_line_search_matches_the_eager_one(device, direction):
+    """ctt.solve with the LINE_SEARCH minimizer on its captured regions
+    (``host_loop_graphs.LineSearchGraphs``), eager, captured, again and
+    eager on one problem (``chip_smoke._eager_captured_repeat``): every
+    record, the final cost and x to the bit, the same launches (K1 through
+    the gradient's gather), the repeat reading the host nowhere inside a
+    graph and capturing nothing."""
+    import chip_smoke
+
+    problem, _ = _host_loop_case("progress_float64")
+    opts = bal.default_options(iterative=True)
+    opts.minimizer_type = ctt.MinimizerType.LINE_SEARCH
+    opts.line_search_direction_type = ctt.LineSearchDirectionType[direction]
+    opts.max_num_iterations = 30
+    runs = chip_smoke._eager_captured_repeat(f"line search {direction}", problem, opts, device)
+    assert runs[1]["summary"].is_solution_usable() and len(runs[1]["summary"].iterations) > 10
+    assert runs[1]["launches"]["sorted_segment_sum"] > 0
+
+
+@pytest.mark.parametrize("direction", ["LBFGS", "BFGS", "NONLINEAR_CONJUGATE_GRADIENT",
+                                       "STEEPEST_DESCENT"])
+def test_captured_gradient_problem_matches_the_eager_one(device, direction):
+    """ctt.solve_gradient_problem on its captured regions, eager, captured,
+    again and eager (``chip_smoke.gradient_problem_runs``): the same
+    records and x to the bit; Rosenbrock by reverse mode, and under L-BFGS
+    a user gradient on the sphere manifold too."""
+    import chip_smoke
+
+    opts = ctt.GradientProblemOptions(
+        max_num_iterations=100, line_search_direction_type=ctt.LineSearchDirectionType[direction])
+    runs = chip_smoke.gradient_problem_runs(
+        direction, ctt.GradientProblem(chip_smoke._rosenbrock, 2), [-1.2, 1.0], opts, device)
+    assert runs[1]["summary"].captured_loop and runs[1]["summary"].is_solution_usable()
+    if direction == "LBFGS":
+        gp = ctt.GradientProblem(
+            lambda x: x[0] + 2.0 * x[1] + 3.0 * x[2], 3, manifold=ctt.SphereManifold(3),
+            gradient_fn=lambda x: torch.stack([x[0] * 0 + 1.0, x[0] * 0 + 2.0, x[0] * 0 + 3.0]))
+        runs = chip_smoke.gradient_problem_runs("sphere", gp, [1.0, 0.0, 0.0], opts, device)
+        np.testing.assert_allclose(runs[1]["x"], -np.array([1.0, 2.0, 3.0]) / np.sqrt(14.0),
+                                   atol=1e-5)

@@ -6,7 +6,14 @@ and rmatvec (with and without the Schur e-arg skipped), scale_columns and
 the cost-only evaluation; then (second half) the same on a problem with
 Huber and Cauchy losses, quaternion and Subset blocks and constant blocks:
 corrected Jacobian blocks and residuals, to_dense, block_jtj, normal_matvec,
-tangent_idx and the manifold plus_apply (f64 1e-10, f32 2e-4).
+tangent_idx and the manifold plus_apply (f64 1e-10, f32 2e-4); the
+Evaluator class; and (last part) the reverse mode's fixed-order gather
+(``evaluator._RowGather`` over ``ops/reduce.build_gather_plan``): the
+gradient of ``_cost_grad_impl`` against JAX's (f64 1e-12, f32 2e-4) and
+against autograd's own backward of the index (f64 1e-13) on problems with
+constant blocks, manifolds, padding rows and blocks shared by many rows;
+each gather-plan kind's backward against the index's; and the plan rule,
+which never gives a card ``scatter``.
 """
 
 import jax.numpy as jnp
@@ -14,14 +21,17 @@ import numpy as np
 import pytest
 import torch
 
+from ceres_tpu.evaluator import _cost_grad_impl as jax_cost_grad
 from ceres_tpu.evaluator import _cost_impl as jax_cost
 from ceres_tpu.evaluator import _full_impl as jax_full
 from ceres_tpu.models import bal as jbal
 from ceres_tpu.problem import PlusStructure as JaxPlusStructure
 from ceres_tpu.problem import cast_program as jax_cast
 from ceres_tpu.problem import plus_apply as jax_plus_apply
-from ceres_tpu_torch.evaluator import _cost_impl, _full_impl
+from ceres_tpu_torch import evaluator as tev
+from ceres_tpu_torch.evaluator import _cost_grad_impl, _cost_impl, _full_impl
 from ceres_tpu_torch.models import bal as tbal
+from ceres_tpu_torch.ops.reduce import build_gather_plan, choose_gather_plan_kind
 from ceres_tpu_torch.problem import PlusStructure, cast_program, plus_apply
 
 SIZES = dict(num_cameras=6, num_points=700, num_observations=2600, noise=2.0, perturb=0.7)
@@ -322,3 +332,137 @@ def test_evaluation_callback_hook_follows_point_identity():
         seqs.append(calls)
     assert seqs[0] == seqs[1] == [(True, False), (False, True), (True, False), (False, False),
                                   (True, False), (True, False)]
+
+
+# -- the reverse mode's fixed-order gather -------------------------------------
+
+# 300 cameras (G+1 > 288, ids in any order: the ``unsorted`` kind) and 4200
+# points (G+1 > 4096: ``sorted``, through a row list, the constant points
+# dropped), each shared by many rows.
+GATHER_BAL = dict(num_cameras=300, num_points=4200, num_observations=12600, noise=2.0,
+                  perturb=0.7, seed=3)
+
+
+def _gather_case(case: str):
+    """(JAX program, port program): ``mixed`` is test_torch_problem_api's
+    problem (losses, quaternion and Subset blocks, constant blocks);
+    ``bal`` a Huber BAL with 3 constant cameras and every 50th point
+    constant; ``bal_padded`` the same with its family padded to 13 000 rows
+    (``parallel.bucket_program``: padding rows repeat row 0)."""
+    import ceres_tpu as ct
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.parallel import bucket_program
+
+    if case == "mixed":
+        from test_torch_problem_api import _build
+
+        return _build("jax")[0].program(), _build("torch")[0].program("cpu")
+    inst = jbal.synthesize_bal(**GATHER_BAL)
+    progs = []
+    for bm, mod, dev in ((jbal, ct, ()), (tbal, ctt, ("cpu",))):
+        p, cams, pts = bm.build_problem(inst, loss=mod.loss.HuberLoss(1.0))
+        p.set_parameter_block_constant(cams[:3])
+        p.set_parameter_block_constant(pts[::50])
+        progs.append(p.program(*dev))
+    if case == "bal_padded":
+        bucket_program(progs[1], 6500)
+        assert progs[1].families[0].batch == 13000
+    return tuple(progs)
+
+
+GATHER_KINDS = {"mixed": {"onehot"}, "bal": {"unsorted", "sorted"},
+                "bal_padded": {"unsorted", "sorted"}}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", sorted(GATHER_KINDS))
+def test_fixed_order_gradient(case, dtype, monkeypatch):
+    """``_cost_grad_impl``'s gradient, summed through the gather plans,
+    against JAX's and against autograd's own backward of the index."""
+    jprog, tprog = _gather_case(case)
+    jax_cast(jprog, dtype)
+    cast_program(tprog, dtype)
+    fams = tprog.families
+    assert {p.kind for f in fams for p in f.gather_plans} == GATHER_KINDS[case]
+    if case.startswith("bal"):
+        dropped = [p.rows for f in fams for p in f.gather_plans if p.kind == "sorted"]
+        assert dropped[0] is not None and dropped[0].shape[0] < fams[0].batch
+    x0 = np.asarray(jprog.initial_ambient())
+    xt = torch.tensor(x0, dtype=getattr(torch, dtype))
+    cost, grad = _cost_grad_impl(xt, fams, tprog.plus_struct, True, tprog.num_tangent)
+    cost_j, grad_j = jax_cost_grad(jnp.asarray(x0, dtype), jprog.families, jprog.plus_struct,
+                                   True, jprog.num_tangent)
+    rtol = 1e-12 if dtype == "float64" else 2e-4
+    assert grad.dtype == xt.dtype
+    _close(cost, cost_j, rtol)
+    _close(grad, grad_j, rtol)
+    if dtype == "float64":
+        monkeypatch.setattr(tev._RowGather, "apply",
+                            staticmethod(lambda table, index, plan: table[index]))
+        cost_a, grad_a = _cost_grad_impl(xt, fams, tprog.plus_struct, True, tprog.num_tangent)
+        assert float(cost_a) == float(cost)
+        _close(grad, grad_a, 1e-13)
+
+
+def _ids(layout: str, B: int, G: int, rng) -> np.ndarray:
+    """B row ids into G rows; ids G and -1 are rows whose gradient is
+    dropped."""
+    ids = rng.integers(0, G, B) if G else np.zeros(B, dtype=np.int64)
+    if layout == "sorted":
+        return np.sort(ids)
+    if layout == "reversed":
+        return np.sort(ids)[::-1].copy()
+    if layout == "dropped":
+        ids[::7] = G
+        ids[3::11] = -1
+        return ids
+    if layout == "sorted_dropped_last":
+        return np.concatenate([np.sort(ids[: B // 2]), np.full(B - B // 2, G)])
+    if layout == "all_dropped":
+        return np.full(B, G)
+    return ids  # "random"
+
+
+GATHER_LAYOUTS = ["sorted", "reversed", "dropped", "sorted_dropped_last", "all_dropped",
+                  "random"]
+
+
+@pytest.mark.parametrize("layout", GATHER_LAYOUTS)
+def test_gather_plan_rule_never_gives_a_card_scatter(layout):
+    """The rule (one for every device: a CPU plan is the card's) over id
+    layouts, table sizes and row counts: never ``scatter``, whose atomics
+    add in no fixed order on a card; above K3's range always K1."""
+    rng = np.random.default_rng(1)
+    for G in (1, 100, 287, 288, 300, 4095, 4096, 5000, 40000):
+        for B in (0, 10, 5000):
+            kind = choose_gather_plan_kind(_ids(layout, B, G, rng), G)
+            assert kind in ("onehot", "sorted", "unsorted"), (layout, G, B, kind)
+            if G + 1 > 4096:
+                assert kind == "sorted"
+
+
+# (layout, G, the kind, whether a sorted plan goes through a row list)
+GATHER_PLANS = [("random", 100, "onehot", None), ("dropped", 200, "onehot", None),
+                ("sorted", 2000, "sorted", False), ("sorted_dropped_last", 5000, "sorted", True),
+                ("random", 1000, "unsorted", None), ("dropped", 1000, "unsorted", None),
+                ("random", 6000, "sorted", True), ("dropped", 6000, "sorted", True)]
+
+
+@pytest.mark.parametrize("layout,G,kind,listed", GATHER_PLANS)
+def test_gather_backward_sums_like_the_index(layout, G, kind, listed):
+    """Each kind's backward against autograd's backward of ``table[index]``
+    with the dropped rows' gradients zeroed (f64, 1e-13)."""
+    rng = np.random.default_rng(G)
+    B = 6000
+    ids = _ids(layout, B, G, rng)
+    plan = build_gather_plan(ids, G, "cpu")
+    assert plan.kind == kind
+    if kind == "sorted":
+        assert (plan.rows is not None) == listed
+    index = torch.from_numpy(np.where((ids < 0) | (ids >= G), 0, ids))
+    keep = torch.from_numpy((ids >= 0) & (ids < G)).to(torch.float64)[:, None]
+    table = torch.tensor(rng.standard_normal((G, 3)), requires_grad=True)
+    w = torch.tensor(rng.standard_normal((B, 3)))
+    (ours,) = torch.autograd.grad((tev._RowGather.apply(table, index, plan) * w).sum(), table)
+    (ref,) = torch.autograd.grad((table[index] * (w * keep)).sum(), table)
+    _close(ours, ref.numpy(), 1e-13)
