@@ -42,6 +42,7 @@ from ceres_tpu_torch.linear.cg import CG_FAILURE
 from ceres_tpu_torch.loss import loss_leaves, loss_structure
 from ceres_tpu_torch.solver import SolverSummary, initial_state, preprocess
 from ceres_tpu_torch.trust_region import (
+    _SPARSE_TYPES,
     IterationSummary,
     _SolveConfig,
     _build_solve_aux,
@@ -393,6 +394,23 @@ def captured_loop_eligible(options, program) -> bool:
     factorization runs on the host."""
     return (regions_capturable(program.device, program.comm, program_functions(program))
             and options.linear_solver_type in _CAPTURED_SOLVERS)
+
+
+def host_loop_capturable(options, program) -> bool:
+    """Whether the host loop's regions (``host_loop_graphs``, driven by
+    ``trust_region.TrustRegionMinimizer``) run as CUDA graphs: where
+    ``captured_loop_eligible`` admits the fused loop, and also under
+    SPARSE_NORMAL_CHOLESKY (static or dynamic sparsity) and SPARSE_SCHUR,
+    whose host factor sits between two regions. Not DOGLEG under
+    SPARSE_NORMAL_CHOLESKY: its Gauss-Newton solve sends the Jacobian to
+    the host inside the ``dogleg`` region (``trust_region._base_linear_solve``).
+    Decided from the options, never by trying."""
+    lst = options.linear_solver_type
+    if (lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY
+            and options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG):
+        return False
+    return (regions_capturable(program.device, program.comm, program_functions(program))
+            and lst in _CAPTURED_SOLVERS + _SPARSE_TYPES)
 
 
 def _loss_key(program) -> tuple:

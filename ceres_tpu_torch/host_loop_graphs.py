@@ -12,13 +12,14 @@ into static buffers of its own, so that every call is the same device
 work on the same memory. The host writes an input (a fill, or a copy of
 the point to evaluate) and runs the region; what it reads it reads from
 the region's scalar vector, once, where the JAX package's ``device_get``
-reads. With ``captured`` (the card, ``fused_lm.captured_loop_eligible``)
+reads. With ``captured`` (the card, ``fused_lm.host_loop_capturable``)
 each region is captured at its first call, after an eager warm-up that
 allocates its buffers and whose launches count nowhere, as one CUDA graph,
 its CG a WHILE node (``linear/cg.py``), and replayed after; every graph of
 the object allocates from the first one's memory pools. Otherwise the
-same functions run eagerly on the same buffers: the CPU, a mesh, the sparse
-solvers (whose step is factored on the host), and the eager baseline
+same functions run eagerly on the same buffers: the CPU, a mesh, the C
+API's host callbacks, DOGLEG under SPARSE_NORMAL_CHOLESKY (whose
+Gauss-Newton solve reads the Jacobian on the host), and the eager baseline
 (``tools/profile_solve.eager_host_loop``). Nothing falls back: a failed
 capture raises.
 
@@ -37,6 +38,29 @@ Regions:
   full evaluation at the candidate; eight scalars), into candidate buffers;
   ``accept`` copies the candidate into the current buffers.
 - ``dogleg``: DOGLEG's Gauss-Newton solve with its Cauchy point at mu.
+
+The sparse solvers' steps factor on the host between two regions of
+``SparseRegions`` (the JAX package jits ``_sparse_prep_radius_free_impl``,
+``_sparse_prep_impl``, ``_sparse_finish_impl``, ``_normal_cells_impl``,
+``_sparse_schur_prep_impl`` and ``_sparse_schur_finish_impl``), which read
+the step's context (the current or scaled buffers) and write one flat
+buffer that the host reads once (``read_flat``: the parts joined in the
+first one's dtype), or take the host's solution copied into a static
+buffer before the replay:
+
+- ``sparse_normal_prep``: SPARSE_NORMAL_CHOLESKY's radius-free half, the
+  clipped LM diagonal, J'f and every J'J cell;
+- ``sparse_normal_damped``: under ``dynamic_sparsity``, the damping at the
+  radius (a device scalar) and J'f;
+- ``sparse_finish``: the step -y and its model cost change;
+- ``sparse_schur_prep_{0,1}``: SPARSE_SCHUR's eliminator pass at the
+  radius of its set: the damping, the point blocks' inverses (kept for the
+  finish), every reduced cell, the reduced rhs and the cameras' damping.
+  Two sets, each with its own radius scalar and buffers, because inside a
+  reject streak the step enqueues the prep at the predicted radius into
+  the other set while the host factors this one;
+- ``sparse_schur_finish_{0,1}``: the points back-substituted with that
+  set's blocks, the step and its model cost change.
 
 The line-search minimizer's device work is ``LineSearchGraphs``' (the JAX
 package jits the evaluator's ``_cost_grad_impl`` and GradientProblem's
@@ -73,6 +97,7 @@ import time
 import weakref
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ceres_tpu_torch import dogleg
@@ -82,12 +107,18 @@ from ceres_tpu_torch.evaluator import (
     _cost_impl,
     _full_impl,
 )
+from ceres_tpu_torch.linear.inner_product import compute_normal_cells
+from ceres_tpu_torch.linear.schur import SchurOperator
+from ceres_tpu_torch.linear.sparse_schur import _sparse_schur_finish_impl, _sparse_schur_prep_impl
 from ceres_tpu_torch.trust_region import (
     _F64,
     _SolveConfig,
     _candidate_impl,
     _linear_solve,
     _lm_step_impl,
+    _sparse_finish_impl,
+    _sparse_prep_impl,
+    _sparse_prep_radius_free_impl,
     _tr_iteration_impl,
 )
 from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, pool_bytes, uncounted
@@ -166,13 +197,135 @@ class _Regions:
         return pool_bytes(self.graphs.values()) if self.graphs else 0
 
 
-class HostLoopGraphs(_Regions):
+class SparseRegions(_Regions):
+    """The sparse steps' card halves (``sparse_*`` in the module's
+    docstring), for ``trust_region._SparseNormalStep`` and
+    ``linear/sparse_schur.SparseSchurStep``. Each region reads the context
+    its step was given: where ``captured``, the host loop's current or
+    scaled buffers (``HostLoopGraphs``); otherwise any context, eagerly (a
+    step made without the host loop's regions, or on a mesh's gathered
+    context)."""
+
+    def __init__(self, device: torch.device, captured: bool, solve_config: _SolveConfig):
+        super().__init__(device, captured)
+        self.solve_config = solve_config
+        # SPARSE_SCHUR's radius of each prep set; set 0's also dynamic sparsity's
+        self.sparse_radius = tuple(torch.zeros((), dtype=_F64, device=device) for _ in range(2))
+        self._ctx: Optional[JacobianContext] = None  # the step's context
+        self._inputs: dict = {}  # host solutions by name, copied in before a finish
+        self._flat_shapes: dict = {}  # a flat buffer's parts, by name
+
+    def _use(self, ctx: JacobianContext) -> None:
+        """The context the next region reads."""
+        self._ctx = ctx
+
+    def _keep_flat(self, name: str, *tensors: torch.Tensor) -> None:
+        """``tensors`` flattened and joined in the first one's dtype into the
+        static buffer ``name``, which :meth:`read_flat` reads once."""
+        self._flat_shapes.setdefault(name, [tuple(t.shape) for t in tensors])
+        dtype = tensors[0].dtype
+        self._keep(name, torch.cat([t.reshape(-1).to(dtype) for t in tensors]))
+
+    def read_flat(self, name: str) -> list:
+        """The parts of the flat buffer ``name`` as host arrays, in ONE
+        read."""
+        host = self._bufs[name][0].cpu().numpy()
+        out, k = [], 0
+        for shape in self._flat_shapes[name]:
+            n = int(np.prod(shape, dtype=np.int64))
+            out.append(host[k : k + n].reshape(shape))
+            k += n
+        return out
+
+    def _host_input(self, name: str, array: np.ndarray, dtype: torch.dtype) -> None:
+        """Copy a host array into the static device buffer ``name`` (in
+        ``dtype``), outside any region."""
+        host = torch.from_numpy(np.asarray(array))
+        buf = self._inputs.get(name)
+        if buf is None:
+            buf = self._inputs[name] = torch.empty(host.shape, dtype=dtype, device=self.device)
+        buf.copy_(host)
+
+    # -- SPARSE_NORMAL_CHOLESKY --------------------------------------------------
+
+    def sparse_normal_prep(self, ctx: JacobianContext, plan) -> None:
+        """The radius-free half at ``ctx``: the clipped LM diagonal, J'f and
+        every J'J cell of ``plan`` (``linear/inner_product.NormalPlan``)
+        into the flat buffer "sparse_normal_prep". A ``scatter`` plan's
+        ``index_add_`` adds in no fixed order; its bits are fixed only
+        where at most two rows feed a cell (0 + a + b = 0 + b + a), as in
+        the pose graphs, whose cells take one edge or two."""
+        self._use(ctx)
+        self._run("sparse_normal_prep", lambda: self._sparse_normal_prep(plan))
+
+    def _sparse_normal_prep(self, plan) -> None:
+        diag, rhs = _sparse_prep_radius_free_impl(self._ctx, self.solve_config)
+        self._keep_flat("sparse_normal_prep", diag, rhs, *compute_normal_cells(self._ctx, plan))
+
+    def sparse_normal_damped(self, ctx: JacobianContext, radius: float) -> None:
+        """``dynamic_sparsity``'s half at ``ctx`` and ``radius``: the LM
+        damping and J'f into the flat buffer "sparse_normal_damped"."""
+        self._use(ctx)
+        self.sparse_radius[0].fill_(radius)
+        self._run("sparse_normal_damped", self._sparse_normal_damped)
+
+    def _sparse_normal_damped(self) -> None:
+        D, rhs = _sparse_prep_impl(self._ctx, self.sparse_radius[0], self.solve_config)
+        self._keep_flat("sparse_normal_damped", D, rhs)
+
+    def sparse_finish(self, ctx: JacobianContext, y: np.ndarray):
+        """The step -y of the host's solution y and its model cost change
+        (f64) at ``ctx``, static buffers valid until the next finish."""
+        self._use(ctx)
+        self._host_input("sparse_y", y, ctx.dtype)
+        self._run("sparse_finish", self._sparse_finish)
+        return self._bufs["step"][0], self._bufs["sparse_mcc"][0]
+
+    def _sparse_finish(self) -> None:
+        step, mcc = _sparse_finish_impl(self._ctx, self._inputs["sparse_y"])
+        self._keep("step", step)
+        self._keep("sparse_mcc", mcc)
+
+    # -- SPARSE_SCHUR ------------------------------------------------------------
+
+    def sparse_schur_prep(self, ctx: JacobianContext, radius: float, ss, k: int) -> None:
+        """The eliminator pass at ``ctx`` and ``radius`` into set ``k``:
+        the reduced rhs, the cameras' damping and every reduced cell in the
+        flat buffer "sparse_schur_cells_{k}", the damping and the point
+        blocks' inverses kept for :meth:`sparse_schur_finish`."""
+        self._use(ctx)
+        self.sparse_radius[k].fill_(radius)
+        self._run(f"sparse_schur_prep_{k}", lambda: self._sparse_schur_prep(ss, k))
+
+    def _sparse_schur_prep(self, ss, k: int) -> None:
+        op, cells, rhs_red, df = _sparse_schur_prep_impl(
+            self._ctx, self.sparse_radius[k], ss, self.solve_config)
+        self._keep_flat(f"sparse_schur_cells_{k}", rhs_red, df, *cells)
+        self._keep(f"sparse_schur_blocks_{k}", op.D, op._ete_inv)
+
+    def sparse_schur_finish(self, ctx: JacobianContext, xf: np.ndarray, ss, k: int):
+        """The host's reduced solution xf back-substituted with set ``k``'s
+        point blocks: (step, model cost change), as :meth:`sparse_finish`."""
+        self._use(ctx)
+        self._host_input("sparse_xf", xf, ctx.dtype)
+        self._run(f"sparse_schur_finish_{k}", lambda: self._sparse_schur_finish(ss, k))
+        return self._bufs["step"][0], self._bufs["sparse_mcc"][0]
+
+    def _sparse_schur_finish(self, ss, k: int) -> None:
+        D, ete_inv = self._bufs[f"sparse_schur_blocks_{k}"]
+        op = SchurOperator.from_inverse(self._ctx, D, ss, ete_inv)
+        step, mcc = _sparse_schur_finish_impl(op, self._inputs["sparse_xf"])
+        self._keep("step", step)
+        self._keep("sparse_mcc", mcc)
+
+
+class HostLoopGraphs(SparseRegions):
     """The host loop's regions over one program's static buffers (see the
     module's docstring)."""
 
     def __init__(self, program, solve_aux: dict, config: HostLoopConfig, captured: bool,
                  losses: tuple):
-        super().__init__(program.device, captured)
+        super().__init__(program.device, captured, config.solve)
         # the program holds this object, not the other way round: a dropped
         # program frees the graphs' memory at once
         self._program = weakref.ref(program)
@@ -286,6 +439,14 @@ class HostLoopGraphs(_Regions):
 
     def _step_source(self) -> str:
         return "scaled" if self.config.jacobi_scaling else "current"
+
+    def _use(self, ctx: JacobianContext) -> None:
+        """A captured region reads the buffers of :meth:`scaled`'s context,
+        whatever object holds them; any other context raises."""
+        static = self._bufs.get(self._step_source())
+        if self.captured and (static is None or ctx.residuals[0] is not static[0]):
+            raise ValueError("a captured sparse region takes the host loop's scaled context")
+        self._ctx = ctx
 
     def lm_step(self, radius: float):
         """The LM step at ``radius`` on :meth:`scaled`'s context: (step,

@@ -416,6 +416,18 @@ class SchurOperator:
         self._ete_inv = spd_inverse(ete)
         self._coordinates = None  # s_columns' coordinate tables, made at first use
 
+    @classmethod
+    def from_inverse(cls, ctx: JacobianContext, D: torch.Tensor, ss: SchurStructure,
+                     ete_inv: torch.Tensor) -> "SchurOperator":
+        """The operator of (ctx, D) with its (E'E + D_e^2)^{-1} blocks
+        already computed (an earlier operator's ``_ete_inv``)."""
+        op = cls.__new__(cls)
+        op.ctx, op.ss, op.D = ctx, ss, D
+        op.dtype = ctx.residuals[0].dtype
+        op._ete_inv = ete_inv
+        op._coordinates = None
+        return op
+
     def _gather_e(self, v: torch.Tensor) -> torch.Tensor:
         """(P, Te) view of the e coordinates of a tangent vector."""
         ss = self.ss

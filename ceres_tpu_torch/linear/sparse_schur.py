@@ -91,29 +91,35 @@ class SparseSchurStep:
     """The host-driven SPARSE_SCHUR LM step for the trust-region loop:
     f(ctx, radius) -> (step, model cost change, linear iterations,
     termination). The CSC assembly and the factor's symbolic analysis live
-    on the Schur structure across solves (sparse_cholesky.h:71-112).
+    on the Schur structure across solves (sparse_cholesky.h:71-112). The
+    card's halves run on ``regions`` (``host_loop_graphs.SparseRegions``:
+    the host loop's, captured where it is, or eager ones of the step's
+    own): the prep into one of two buffer sets, the finish with that set's
+    point blocks.
 
     Unlike J'J, S's cells depend on the radius (the eliminated point blocks
     carry D_e^2), so a rejected step cannot reuse the transfer. Inside a
     reject streak the step instead enqueues the card's work for the
-    predicted next radius after reading this step's cells and before
-    factoring them: the card computes the next system while the host
-    factors this one."""
+    predicted next radius into the other set after reading this step's
+    cells and before factoring them: the card computes the next system
+    while the host factors this one."""
 
-    def __init__(self, config, solve_aux):
+    def __init__(self, config, solve_aux, device, regions=None):
+        from ceres_tpu_torch.host_loop_graphs import SparseRegions
+
         ss = solve_aux["ss"]
         if ss.explicit is None:
             raise ValueError("SPARSE_SCHUR needs the explicit cell plan")
         if ss.sparse_assembly is None:
             ss.sparse_assembly = build_sparse_schur_assembly(ss.explicit)
         self.config, self.ss, self.assembly = config, ss, ss.sparse_assembly
+        self.regions = regions or SparseRegions(device, False, config)
         self._state: dict = {"ctx": None}
 
     def __call__(self, ctx, radius: float):
-        from ceres_tpu_torch.trust_region import _failed_step, _step_result, to_host_arrays
+        from ceres_tpu_torch.trust_region import _failed_step, _step_result
 
-        state, ss, c = self._state, self.ss, self.config
-        dev = ctx.residuals[0].device
+        state, ss, c, regions = self._state, self.ss, self.config, self.regions
         in_streak = state["ctx"] is ctx
         if in_streak:
             prev = state.get("prev_radius")
@@ -123,15 +129,15 @@ class SparseSchurStep:
             state.update(ctx=ctx, pred_factor=2.0, prev_radius=None, spec=None)
         spec = state.pop("spec", None)
         if spec is not None and abs(spec[0] - radius) <= 1e-9 * max(radius, 1.0):
-            op, cells, rhs_red, df = spec[1]  # enqueued during the last factorization
+            k = spec[1]  # the set enqueued during the last factorization
         else:
-            op, cells, rhs_red, df = _sparse_schur_prep_impl(
-                ctx, torch.full((), radius, dtype=torch.float64, device=dev), ss, c)
-        rhs_h, df_h, *cells_h = to_host_arrays(rhs_red, df, *cells)
+            k = 0
+            regions.sparse_schur_prep(ctx, radius, ss, k)
+        rhs_h, df_h, *cells_h = regions.read_flat(f"sparse_schur_cells_{k}")
         if in_streak:
             r_pred = radius / state["pred_factor"]
-            state["spec"] = (r_pred, _sparse_schur_prep_impl(
-                ctx, torch.full((), r_pred, dtype=torch.float64, device=dev), ss, c))
+            regions.sparse_schur_prep(ctx, r_pred, ss, 1 - k)
+            state["spec"] = (r_pred, 1 - k)
         state["prev_radius"] = radius
         # the host half: the normal equations' with the reduced system's damping
         xf, term = host_normal_factor_solve(
@@ -140,6 +146,5 @@ class SparseSchurStep:
             num_refinement_iterations=c.num_refinement_iterations,
         )
         if term != CG_SUCCESS:
-            return _failed_step(ctx.num_tangent, ctx.dtype, dev, term)
-        xf_dev = torch.from_numpy(xf).to(dev, op.dtype)
-        return _step_result(*_sparse_schur_finish_impl(op, xf_dev), term)
+            return _failed_step(ctx.num_tangent, ctx.dtype, ctx.residuals[0].device, term)
+        return _step_result(*regions.sparse_schur_finish(ctx, xf, ss, k), term)

@@ -12,11 +12,12 @@ block Jacobi, cut to its first 6 LM iterations because the whole solve runs
 tens of thousands of CG iterations; host_loop_large: the large case through
 ``ctt.solve`` with progress output and an iteration callback, i.e. the
 host-loop minimizer's fused iteration), after a 2-iteration warm-up solve.
-``ctt.fused_solve`` runs the fused loop, and ``ctt.solve`` the host loop's
-device work, as CUDA graphs where ``fused_lm.captured_loop_eligible`` says
-so; the same loop run eagerly (``eager_loop``, ``eager_host_loop``: every
-``run_if`` reads its predicate, one host read per LM and per CG iteration)
-is measured beside it:
+``ctt.fused_solve`` runs the fused loop as CUDA graphs where
+``fused_lm.captured_loop_eligible`` says so, and ``ctt.solve`` the host
+loop's device work where ``fused_lm.host_loop_capturable`` does; the same
+loop run eagerly (``eager_loop``, ``eager_host_loop``: every ``run_if``
+reads its predicate, one host read per LM and per CG iteration) is
+measured beside it:
 
 1. ``stages``: one eager loop with every stage bracketed by
    ``torch.cuda.synchronize()`` and timed on the host clock, so a stage's

@@ -540,18 +540,6 @@ def _damping_np(diag_h: np.ndarray, radius: float) -> np.ndarray:
     return D.astype(diag_h.dtype)
 
 
-def to_host_arrays(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """Device tensors as host arrays in ONE read: flattened, joined in the
-    first one's dtype, copied, split again."""
-    dtype = tensors[0].dtype
-    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors]).cpu().numpy()
-    out, k = [], 0
-    for t in tensors:
-        out.append(flat[k : k + t.numel()].reshape(tuple(t.shape)))
-        k += t.numel()
-    return out
-
-
 def _step_result(step: torch.Tensor, mcc: torch.Tensor, term: int):
     dev = step.device
     return (step, mcc, torch.ones((), dtype=torch.int32, device=dev),
@@ -580,9 +568,10 @@ class _SparseNormalStep:
     ``dynamic_sparsity`` sends the Jacobian instead and analyzes its pattern
     every iteration (dynamic_sparse_normal_cholesky_solver.cc)."""
 
-    def __init__(self, config: _SolveConfig, program):
+    def __init__(self, config: _SolveConfig, program, regions=None):
         import concurrent.futures
 
+        from ceres_tpu_torch.host_loop_graphs import SparseRegions
         from ceres_tpu_torch.linear.inner_product import (
             build_normal_assembly,
             build_normal_plan,
@@ -590,6 +579,9 @@ class _SparseNormalStep:
 
         self.config = config
         self.program = program
+        # the card's halves (host_loop_graphs.SparseRegions): the host
+        # loop's, captured where it is, or eager ones of this step's own
+        self.regions = regions or SparseRegions(program.device, False, config)
         self.plan = self.assembly = self._executor = None
         self._state: dict = {"ctx": None}
         if not config.dynamic_sparsity:
@@ -619,14 +611,11 @@ class _SparseNormalStep:
     def __call__(self, ctx, radius: float):
         if self.config.dynamic_sparsity:
             return self._dynamic(ctx, radius)
-        from ceres_tpu_torch.linear.inner_product import compute_normal_cells
-
-        state, executor = self._state, self._executor
+        state, executor, regions = self._state, self._executor, self.regions
         in_streak = state["ctx"] is ctx
         if not in_streak:
-            diag, rhs = _sparse_prep_radius_free_impl(ctx, self.config)
-            cells = compute_normal_cells(ctx, self.plan)
-            diag_h, rhs_h, *cells_h = to_host_arrays(diag, rhs, *cells)
+            regions.sparse_normal_prep(ctx, self.plan)
+            diag_h, rhs_h, *cells_h = regions.read_flat("sparse_normal_prep")
             spec = state.pop("spec", None)
             if spec is not None:
                 spec[1].cancel()
@@ -650,29 +639,25 @@ class _SparseNormalStep:
             state["spec"] = (r_pred, executor.submit(
                 self._host_solve, _damping_np(diag_h, r_pred), cells_h, rhs_h))
         state["prev_radius"] = radius
-        dev = ctx.residuals[0].device
         if term != CG_SUCCESS:
-            return _failed_step(ctx.num_tangent, ctx.dtype, dev, term)
-        y_dev = torch.from_numpy(np.asarray(y)).to(dev, ctx.dtype)
-        return _step_result(*_sparse_finish_impl(ctx, y_dev), term)
+            return _failed_step(ctx.num_tangent, ctx.dtype, ctx.residuals[0].device, term)
+        return _step_result(*regions.sparse_finish(ctx, y), term)
 
     def _dynamic(self, ctx, radius: float):
         from ceres_tpu_torch.evaluator import to_crs
         from ceres_tpu_torch.linear.sparse_cholesky import host_sparse_normal_solve
 
-        c = self.config
-        dev = ctx.residuals[0].device
-        D, rhs = _sparse_prep_impl(ctx, torch.full((), radius, dtype=_F64, device=dev), c)
-        D_h, rhs_h = to_host_arrays(D, rhs)
+        c, regions = self.config, self.regions
+        regions.sparse_normal_damped(ctx, radius)
+        D_h, rhs_h = regions.read_flat("sparse_normal_damped")
         y, term = host_sparse_normal_solve(
             to_crs(ctx), True, D_h, rhs_h, ordering=c.ordering_type,
             use_postordering=c.use_postordering, mixed_precision=c.use_mixed_precision_solves,
             num_refinement_iterations=c.num_refinement_iterations,
         )
         if term != CG_SUCCESS:
-            return _failed_step(ctx.num_tangent, ctx.dtype, dev, term)
-        y_dev = torch.from_numpy(y).to(dev, ctx.dtype)
-        return _step_result(*_sparse_finish_impl(ctx, y_dev), term)
+            return _failed_step(ctx.num_tangent, ctx.dtype, ctx.residuals[0].device, term)
+        return _step_result(*regions.sparse_finish(ctx, y), term)
 
 
 class _GatheredStep:
@@ -693,20 +678,22 @@ class _GatheredStep:
             close()
 
 
-def _make_lm_step_fn(options, program):
+def _make_lm_step_fn(options, program, regions=None):
     """f(ctx, radius) -> (step, model_cost_change, lin_iters, lin_termination)
     for a host radius: the host-driven sparse steps for SPARSE_NORMAL_CHOLESKY
-    and SPARSE_SCHUR, the card's step for every other solver."""
+    and SPARSE_SCHUR (their card halves on ``regions``, the host loop's
+    ``HostLoopGraphs``, or on eager regions of their own; a mesh's gathered
+    step always the latter), the card's step for every other solver."""
     config = _config_from_options(options)
     if program.comm is not None and config.linear_solver_type in _SPARSE_TYPES:
         return _GatheredStep(_make_lm_step_fn(options, program.unsharded()), program.comm)
     if config.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
-        return _SparseNormalStep(config, program)
+        return _SparseNormalStep(config, program, regions)
     solve_aux = _build_solve_aux(options, program)
     if config.linear_solver_type == LinearSolverType.SPARSE_SCHUR:
         from ceres_tpu_torch.linear.sparse_schur import SparseSchurStep
 
-        return SparseSchurStep(config, solve_aux)
+        return SparseSchurStep(config, solve_aux, program.device, regions)
 
     def step_fn(ctx, radius: float):
         r = torch.full((), radius, dtype=_F64, device=ctx.residuals[0].device)
@@ -721,19 +708,20 @@ def _make_lm_step_fn(options, program):
 class TrustRegionMinimizer:
     """The outer loop (trust_region_minimizer.cc:68-136), Levenberg-Marquardt
     or DOGLEG, with inner iterations and gradient checks. Its device work
-    between the host's decisions runs from ``host_loop_graphs`` (static
-    buffers; CUDA graphs where ``fused_lm.captured_loop_eligible`` says so,
-    or ``captured`` when given, which the eager baseline sets False)."""
+    between the host's decisions, the sparse steps' card halves included,
+    runs from ``host_loop_graphs`` (static buffers; CUDA graphs where
+    ``fused_lm.host_loop_capturable`` says so, or ``captured`` when given,
+    which the eager baseline sets False)."""
 
     def __init__(self, program, options, summary, captured=None):
-        from ceres_tpu_torch.fused_lm import captured_loop_eligible
+        from ceres_tpu_torch.fused_lm import host_loop_capturable
         from ceres_tpu_torch.host_loop_graphs import host_loop_graphs
 
         self.program = program
         self.options = options
         self.summary = summary
         if captured is None:
-            captured = captured_loop_eligible(options, program)
+            captured = host_loop_capturable(options, program)
         self.graphs = host_loop_graphs(program, options, _build_solve_aux(options, program),
                                        captured, program.eval_dtype)
         self.evaluator = Evaluator(program, evaluation_callback=options.evaluation_callback,
@@ -746,7 +734,7 @@ class TrustRegionMinimizer:
                                          graphs=self.graphs)
             self.step_fn = None
         else:
-            self.step_fn = _make_lm_step_fn(options, program)
+            self.step_fn = _make_lm_step_fn(options, program, self.graphs)
         self._plus = program.plus
 
         # The fused iteration (one host read per loop trip,

@@ -23,9 +23,12 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    over 67 TFLOP/s of plain float32 if that is more (CUDA events after a
    warm-up). ``ms`` is a call as the solve makes it, host enqueue included;
    ``device_ms`` is the same call replayed from a CUDA graph, which leaves
-   the host out. K3's ``kernel_time`` lines also carry the times of its two
-   kernels on their own (the gather, the sum of the pieces), the number of
-   pieces and the bytes of its scratch. K4's ``kernel_time`` line also
+   the host out (20 calls a replay: what the last call left in the 50 MB
+   L2 serves the next); ``cold_device_ms`` one call a replay, each after a
+   write of L2_SCRUB_BYTES outside its events, the median of 30 (L2 cold,
+   as the bound's bytes assume). K3's ``kernel_time`` lines also carry the
+   times of its two kernels on their own (the gather, the sum of the
+   pieces), the number of pieces and the bytes of its scratch. K4's ``kernel_time`` line also
    carries ``floor_ms``, a number modelled from the pair lists and not
    measured (so it stays out of the ``kernels`` line): the 32-byte sectors
    its row gathers touch, less those an L2 window of 25 MB of gathered
@@ -236,17 +239,22 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
 21. solve, pose graph, SPARSE_NORMAL_CHOLESKY
    (``pose_graph_sparse_cholesky``): the 2500-pose sphere through
    ``ctt.solve`` (the host loop's sparse step: J'J cells reduced on the card,
-   factored on the host by the native core, AMD), float64, twice: JAX's
-   record count and cost within 1e-9, the two solves equal to the bit, the
-   CGNR phase's seconds beside it;
+   factored on the host by the native core, AMD), float64, run eagerly,
+   captured (the evaluations, the candidate and the step's prep and finish
+   as CUDA graphs around the host factor), again and eagerly
+   (``_eager_captured_repeat``): every run the same bits and launches,
+   JAX's record count and cost within 1e-9, the captured repeat at most
+   SPARSE_MAX_READS_PER_LM_ITERATION host reads an LM iteration plus
+   HOST_LOOP_SETUP_READS, the CGNR phase's seconds beside it;
 22. solve, sequential bundle adjustment, SPARSE_SCHUR
    (``sequential_ba_sparse_schur``): ``sequential_instance`` (1723 cameras,
    156 502 points, 678 718 observations, the shape of BAL's Ladybug
    problem-1723-156502; nf = 15 507), the host loop's SPARSE_SCHUR step (the
    reduced cells on the card: K1, K3, K4; the banded S factored on the
-   host), float32 and float64 after a 2-iteration warm-up: float64 against
-   JAX's record count and cost (1e-9), float32 within 1e-5 of float64, K1,
-   K3 and K4 each launched;
+   host), float32 and float64, each eager, captured, again and eager as
+   phase 21: float64 against JAX's record count and cost (1e-9), float32
+   within 1e-5 of float64, K1, K3 and K4 each launched, as many times in
+   every run, the same read bound;
 23. solve, flagship clusters (``flagship_cluster_jacobi``,
    ``flagship_cluster_tridiagonal``): the flagship under ITERATIVE_SCHUR
    with each cluster preconditioner (the fused loop; the clusters by
@@ -320,11 +328,13 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    libmv_bundle_adjuster and denoising must launch the kernels of
    EXAMPLE_KERNELS.
 
-Every sparse phase (21, 22) also prints the host's seconds of symbolic
-analysis, numeric factorization and solve, the bytes copied to the host per
-iteration, the nnz of the factored matrix and of L, and the host reads per
-iteration (a short solve's, its set-up done beforehand). The native core is
-compiled with g++ at its first use (``ceres_tpu_torch/utils/native.py``).
+Every sparse phase (21, 22) also prints, per run, the host's seconds of
+numeric factorization and solve and their share of the run, the bytes
+copied to the host per iteration, and the host reads, seconds and host
+reads per LM iteration; the first run's symbolic analysis seconds and the
+nnz of the factored matrix and of L; the capture's seconds, the graphs'
+names and pool bytes beside the eager peak. The native core is compiled
+with g++ at its first use (``ceres_tpu_torch/utils/native.py``).
 
 ``solve_seconds`` is the LM loop on the device (the graphs' replays where
 the loop is captured: ``fused_lm.captured_loop_eligible``); the host set-up
@@ -360,7 +370,6 @@ import torch
 
 import ceres_tpu_torch as ctt
 from ceres_tpu_torch import dogleg, fused_lm, host_loop_graphs, inner_iterations
-from ceres_tpu_torch import trust_region
 from ceres_tpu_torch.linear import schur as schur_mod
 from ceres_tpu_torch.linear import sparse_cholesky
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
@@ -825,6 +834,7 @@ SECTOR_BYTES = 32  # what a memory access moves at the least
 # Gathered traffic an L2 of 50 MB is taken to still hold when a row is
 # wanted again (half of it: lists, output and the other slab share it).
 L2_WINDOW_BYTES = 25e6
+L2_SCRUB_BYTES = 100 * 2**20  # written between the L2-cold timings' replays
 KERNELS = {
     "sorted_segment_sum": (ss, "ceres_tpu/ops/pallas_segment.py:389"),
     "unsorted_segment_sum": (us, "ceres_tpu/ops/pallas_segment.py:224"),
@@ -1262,6 +1272,31 @@ def _device_ms(fn, launches: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * launches)
 
 
+def _cold_device_ms(fn, replays: int = 30) -> float:
+    """Device time of one call that finds L2 cold: ``fn`` captured alone
+    into a CUDA graph, each replay between two events of its own, each
+    after a write of L2_SCRUB_BYTES outside the events (twice the card's
+    L2, so nothing the last replay left there stays). The median over
+    ``replays``; the write also keeps the host's enqueue ahead of the
+    card, so the events hold the graph's own work."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    scrub = torch.empty((L2_SCRUB_BYTES // 4,), dtype=torch.float32, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(replays)]
+    graph.replay()
+    for i, (start, end) in enumerate(events):
+        scrub.fill_(float(i))
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in events]))
+
+
 def _bound(num_bytes: float, flops: float):
     """(least ms the card could take, what sets it)."""
     by_bytes = num_bytes / PEAK_BYTES_PER_S * 1e3
@@ -1408,6 +1443,7 @@ def _time_sorted(row_ptr, G, c, reps) -> dict:
         plain_ms=_time_ms(lambda: ss.segment_sum_sorted_plain(c, row_ptr, G), reps),
         library_ms=_time_ms(library, reps), bound_ms=bound_ms, bound_by=bound_by,
         device_ms=_device_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G)),
+        cold_device_ms=_cold_device_ms(lambda: ss.segment_sum_sorted(c, row_ptr, G)),
         library_device_ms=_device_ms(library),
     )
 
@@ -1501,6 +1537,7 @@ def check_unsorted(device, camera_plan) -> dict:
                 plain_ms=_time_ms(lambda: us.segment_sum_unsorted_plain(c, plan), 30),
                 library_ms=_time_ms(library, 30), bound_ms=bound_ms, bound_by=by,
                 device_ms=_device_ms(lambda: us.segment_sum_unsorted(c, plan)),
+                cold_device_ms=_cold_device_ms(lambda: us.segment_sum_unsorted(c, plan)),
                 library_device_ms=_device_ms(library),
             )
             # The two kernels of the pair on their own, from a CUDA graph.
@@ -1609,6 +1646,9 @@ def check_outer(device, group, num_slots: int) -> dict:
             library_ms=None, bound_ms=bound_ms, bound_by=by,
             device_ms=_device_ms(
                 lambda: osum.outer_segment_sum(W, Y, a, b, row_ptr, G, K, T1, T2), 5
+            ),
+            cold_device_ms=_cold_device_ms(
+                lambda: osum.outer_segment_sum(W, Y, a, b, row_ptr, G, K, T1, T2)
             ),
         )
         # Modelled from the pair lists, not measured: in this line only.
@@ -2569,17 +2609,19 @@ def _accept_copy(graphs) -> tuple:
 HOST_LOOP_RUNS = ("eager", "captured", "repeat", "eager_again")
 
 
-def _eager_captured_repeat(label: str, problem, opts, device) -> list:
+def _eager_captured_repeat(label: str, problem, opts, device, clock=None) -> list:
     """The host loop's runs on one problem from one start (HOST_LOOP_RUNS):
     its regions run eagerly (``profile_solve.eager_host_loop``),
     ``ctt.solve`` (which captures them: its
     ``graph_capture_time_in_seconds``), a repeat (replays only) and the
     eager run again. Per run: {summary, seconds, reads, launches, x, calls
-    (an evaluation callback's), peak}. Raises unless every run gives the
-    first's bits (records but their times, final cost, x, the callback's
-    calls) and K1 / K3 / K4 launches, the repeat reads the host nowhere
-    inside a graph (no CG predicate) and at most once more than the eager
-    run again (its launch counts), and the repeat captures nothing."""
+    (an evaluation callback's), peak, and with ``clock`` (a context manager,
+    such as ``_sparse_host_clock``) what it yielded around the run}. Raises
+    unless every run gives the first's bits (records but their times, final
+    cost, x, the callback's calls) and K1 / K3 / K4 launches, the repeat
+    reads the host nowhere inside a graph (no CG predicate) and at most once
+    more than the eager run again (its launch counts), and the repeat
+    captures nothing."""
     start = problem.state().copy()
     runs = []
     for kind in HOST_LOOP_RUNS:
@@ -2590,7 +2632,8 @@ def _eager_captured_repeat(label: str, problem, opts, device) -> list:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
-        with contextlib.redirect_stdout(io.StringIO()) as text:
+        with contextlib.redirect_stdout(io.StringIO()) as text, \
+                (clock or contextlib.nullcontext)() as clocked:
             if kind.startswith("eager"):
                 (summary, seconds), reads = _host_reads(
                     lambda: eager_host_loop(problem, opts, device))
@@ -2600,7 +2643,7 @@ def _eager_captured_repeat(label: str, problem, opts, device) -> list:
         runs.append(dict(summary=summary, seconds=seconds, reads=reads, launches=_launches(),
                          x=problem.state().copy(), text=text.getvalue(),
                          calls=None if callback is None else callback.calls,
-                         peak=torch.cuda.max_memory_allocated()))
+                         peak=torch.cuda.max_memory_allocated(), clock=clocked))
     eager, repeat = runs[0], runs[2]
     for kind, run in zip(HOST_LOOP_RUNS[1:], runs[1:]):
         same = (_host_loop_records_key(run["summary"]) == _host_loop_records_key(eager["summary"])
@@ -3191,13 +3234,14 @@ def _sparse_host_clock():
     """The host's seconds in the sparse factor's symbolic analysis (the
     ``SparseCholesky`` construction: ordering and analysis), numeric
     factorization and solve, the bytes the sparse steps copy to the host
-    (``trust_region.to_host_arrays``) and the factors made."""
+    (``host_loop_graphs.SparseRegions.read_flat``: the cells, diagonal and
+    right-hand side of one prep) and the factors made."""
     seconds = collections.Counter()
     host_bytes = []
     made = []
     cls = sparse_cholesky.SparseCholesky
     real = {name: getattr(cls, name) for name in ("__init__", "factorize", "solve")}
-    real_copy = trust_region.to_host_arrays
+    real_read = host_loop_graphs.SparseRegions.read_flat
 
     def timed(name):
         def call(self, *args, **kw):
@@ -3209,94 +3253,98 @@ def _sparse_host_clock():
             return out
         return call
 
-    def copied(*tensors):
-        host_bytes.append(sum(t.numel() * t.element_size() for t in tensors))
-        return real_copy(*tensors)
+    def read(self, name):
+        flat = self._bufs[name][0]
+        host_bytes.append(flat.numel() * flat.element_size())
+        return real_read(self, name)
 
     for name in real:
         setattr(cls, name, timed(name))
-    trust_region.to_host_arrays = copied
+    host_loop_graphs.SparseRegions.read_flat = read
     try:
         yield dict(seconds=seconds, host_bytes=host_bytes, factors=made)
     finally:
         for name, fn in real.items():
             setattr(cls, name, fn)
-        trust_region.to_host_arrays = real_copy
+        host_loop_graphs.SparseRegions.read_flat = real_read
 
 
-def _sparse_fields(clock, summary) -> dict:
-    n = max(summary.num_iterations, 1)
-    s = clock["seconds"]
-    factor = clock["factors"][0] if clock["factors"] else None
-    return dict(
-        host_symbolic_seconds=s["__init__"], host_numeric_seconds=s["factorize"],
-        host_solve_seconds=s["solve"],
-        host_factor_share=(s["__init__"] + s["factorize"] + s["solve"])
-        / max(summary.minimizer_time_in_seconds, 1e-12),
-        bytes_to_host_per_iteration=sum(clock["host_bytes"]) / n,
-        transfers=len(clock["host_bytes"]),
+def _sparse_fields(runs) -> dict:
+    """The host factor's fields of _eager_captured_repeat's runs under
+    ``_sparse_host_clock``: the symbolic analysis made in the first run
+    (nnz of the matrix and of L), each run's numeric and solve seconds and
+    their share of the run's seconds, bytes to the host an LM iteration."""
+    factor = next((f for r in runs for f in r["clock"]["factors"]), None)
+    s0 = runs[0]["clock"]["seconds"]
+    out = dict(
+        host_symbolic_seconds=s0["__init__"],
         factored_n=None if factor is None else factor.n,
         factored_nnz=None if factor is None else int(factor.Ap[-1]),
         nnz_L=None if factor is None else factor.nnz_L,
+        host_numeric_seconds={}, host_solve_seconds={}, host_factor_share={},
+        bytes_to_host_per_iteration={}, transfers={},
     )
+    for kind, r in zip(HOST_LOOP_RUNS, runs):
+        s, n = r["clock"]["seconds"], max(r["summary"].num_iterations, 1)
+        out["host_numeric_seconds"][kind] = s["factorize"]
+        out["host_solve_seconds"][kind] = s["solve"]
+        out["host_factor_share"][kind] = (s["__init__"] + s["factorize"] + s["solve"]) / max(
+            r["seconds"], 1e-12)
+        out["bytes_to_host_per_iteration"][kind] = sum(r["clock"]["host_bytes"]) / n
+        out["transfers"][kind] = len(r["clock"]["host_bytes"])
+    return out
 
 
-def _record_costs(summary) -> list:
-    return [r.cost for r in summary.iterations]
+# A captured sparse repeat's host reads an LM iteration, at most: an
+# accepted step reads the prep's flat buffer, uploads the host's solution,
+# reads the model cost change, the candidate's scalars and the new point's
+# gradient norms; HOST_LOOP_SETUP_READS more a solve.
+SPARSE_MAX_READS_PER_LM_ITERATION = 5
+
+
+def _sparse_phase(label: str, problem, opts, device, smi: str, **fields) -> list:
+    """A sparse solver's host loop on ``problem``: eager, captured, again
+    and eager (``_eager_captured_repeat``, which raises unless every run
+    gives the first's bits and launches; the host factor clocked), its
+    phase line printed. Raises too where the captured repeat reads the host
+    more than SPARSE_MAX_READS_PER_LM_ITERATION times an LM iteration plus
+    HOST_LOOP_SETUP_READS. Returns the runs."""
+    runs = _eager_captured_repeat(label, problem, opts, device, clock=_sparse_host_clock)
+    loop = _host_loop_fields(runs, problem, device)
+    s = runs[2]["summary"]
+    phase("solve", case=label, dtype=opts.evaluation_dtype or "float64",
+          initial_cost=s.initial_cost, final_cost=s.final_cost, records=len(s.iterations),
+          rejected_steps=s.num_unsuccessful_steps, termination=str(s.termination_type),
+          message=s.message, card=smi,
+          max_host_reads_per_lm_iteration=SPARSE_MAX_READS_PER_LM_ITERATION,
+          **fields, **loop, **_sparse_fields(runs))
+    bound = SPARSE_MAX_READS_PER_LM_ITERATION * loop["lm_iterations"] + HOST_LOOP_SETUP_READS
+    if loop["host_reads"]["repeat"] > bound:
+        raise RuntimeError(f"{label}: the captured repeat read the host "
+                           f"{loop['host_reads']['repeat']} times (bound {bound})")
+    return runs
 
 
 def solve_pose_graph_sparse(device, smi: str, cgnr_seconds: float) -> dict:
     """The 2500-pose sphere through ctt.solve with SPARSE_NORMAL_CHOLESKY
-    (AMD), float64, twice: JAX's record count and final cost within 1e-9,
-    and whether the two solves are equal to the bit (its J'J cells reduce
-    through ``index_add_``, 2598 rows into 4998 blocks). The second solve's
-    host reads are counted."""
+    (AMD), float64, eager, captured, again and eager (``_sparse_phase``):
+    the same bits every run, JAX's record count and final cost within
+    1e-9. Its J'J cells reduce through ``index_add_`` (2598 rows into 4998
+    blocks, at most two rows a cell: the atomics' order cannot change a
+    bit), inside the captured ``sparse_normal_prep`` region."""
     graph = pose_graph.synthesize_sphere(POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED)[:3]
-
-    def options(max_iters=None):
-        opts = pose_graph.default_options()
-        opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
-        if max_iters is not None:
-            opts.max_num_iterations = max_iters
-        return opts
-
-    ctt.solve(options(2), pose_graph.build_problem_3d(*graph)[0], device=device)  # warm-up
     problem = pose_graph.build_problem_3d(*graph)[0]
-    _reset_launches()
-    with _sparse_host_clock() as clock:
-        first = ctt.solve(options(), problem, device=device)
-    launches = _launches()
-    again = pose_graph.build_problem_3d(*graph)[0]
-    second, reads = _reads(lambda: ctt.solve(options(), again, device=device),
-                           lambda: ctt.solve(options(0), again, device=device))
-    program = problem.program(device)
-    plan = program.solve_aux_cache["normal_assembly"][0]
-    kinds = sorted({s.plan.kind for s in plan.sites})
+    opts = pose_graph.default_options()
+    opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
     records, reference = POSE_GRAPH_SPARSE_REFERENCE
-    bits = _record_costs(first) == _record_costs(second) and first.final_cost == second.final_cost
-    rel = abs(first.final_cost - reference) / reference
-    phase(
-        "solve", case="pose_graph_sparse_cholesky", dtype="float64", poses=POSE_GRAPH_POSES,
-        initial_cost=first.initial_cost, final_cost=first.final_cost,
-        reference_final_cost=reference, rel_err=rel, records=len(first.iterations),
-        reference_records=records, lm_iterations=first.num_iterations,
-        linear_iterations=first.num_linear_solver_iterations,
-        termination=str(first.termination_type), message=first.message,
-        solve_seconds=first.minimizer_time_in_seconds,
-        seconds_per_iteration=first.minimizer_time_in_seconds / max(first.num_iterations, 1),
-        setup_seconds=first.preprocessor_time_in_seconds,
-        cgnr_solve_seconds=cgnr_seconds, repeats_equal_to_the_bit=bits,
-        second_final_cost=second.final_cost,
-        host_reads_per_iteration=sum(reads.values()) / max(second.num_iterations, 1),
-        host_reads_by_site=dict(reads.most_common(8)), cell_plan_kinds=kinds,
-        launches=launches, card=smi, **_sparse_fields(clock, first),
-    )
-    if len(first.iterations) != records or not rel <= MINIMIZER_F64_RTOL:
-        raise RuntimeError(f"pose graph sparse: {len(first.iterations)} records, cost "
-                           f"{first.final_cost} (JAX {records}, {reference})")
-    if not bits:
-        raise RuntimeError("pose graph sparse: two solves differ")
-    return launches
+    runs = _sparse_phase("pose_graph_sparse_cholesky", problem, opts, device, smi,
+                         poses=POSE_GRAPH_POSES, reference_final_cost=reference,
+                         reference_records=records, cgnr_solve_seconds=cgnr_seconds)
+    plan = problem.program(device).solve_aux_cache["normal_assembly"][0]
+    phase("plan", case="pose_graph_sparse_cholesky",
+          cell_plan_kinds=sorted({s.plan.kind for s in plan.sites}))
+    _held_to_jax(runs[2]["summary"], records, reference, "pose_graph_sparse_cholesky")
+    return runs[2]["launches"]
 
 
 def _sequential_options(dtype: str, max_iters: int = 50):
@@ -3309,46 +3357,28 @@ def _sequential_options(dtype: str, max_iters: int = 50):
 
 def solve_sequential_sparse_schur(device, smi: str) -> dict:
     """The sequential bundle adjustment (sequential_instance) through ctt.solve
-    with SPARSE_SCHUR (AMD) in the host loop, float32 and float64, each after
-    a 2-iteration warm-up: float64 against JAX's record count and cost
-    (1e-9), float32 within 1e-5 of float64, K1, K3 and K4 launched."""
+    with SPARSE_SCHUR (AMD) in the host loop, float32 and float64, each
+    eager, captured, again and eager (``_sparse_phase``): the same bits
+    every run, float64 against JAX's record count and cost (1e-9), float32
+    within 1e-5 of float64, K1, K3 and K4 launched, each as many times in
+    every run."""
     inst = sequential_instance()
     paths, out = {}, {}
     for dtype in ("float32", "float64"):
-        ctt.solve(_sequential_options(dtype, 2), bal.build_problem(inst)[0], device=device)
         problem = bal.build_problem(inst)[0]
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
-        with _sparse_host_clock() as clock:
-            s = ctt.solve(_sequential_options(dtype), problem, device=device)
-        launches, by_width = _launches(), _launches_by_width()
-        peak = torch.cuda.max_memory_allocated()
-        again = bal.build_problem(inst)[0]
-        short, reads = _reads(
-            lambda: ctt.solve(_sequential_options(dtype, 3), again, device=device),
-            lambda: ctt.solve(_sequential_options(dtype, 0), again, device=device))
+        label = f"sequential_ba_sparse_schur_{dtype}"
+        runs = _sparse_phase(label, problem, _sequential_options(dtype), device, smi,
+                             cameras=inst.num_cameras, points=inst.num_points,
+                             observations=inst.num_observations)
         ss_ = problem.program(device).schur_structure
-        _usable(s, f"sequential sparse schur {dtype}")
-        phase(
-            "solve", case="sequential_ba_sparse_schur", dtype=dtype,
-            cameras=inst.num_cameras, points=inst.num_points,
-            observations=inst.num_observations, nf=int(ss_.f_idx.shape[0]),
-            initial_cost=s.initial_cost, final_cost=s.final_cost,
-            records=len(s.iterations), lm_iterations=s.num_iterations,
-            rejected_steps=s.num_unsuccessful_steps,
-            termination=str(s.termination_type), message=s.message,
-            solve_seconds=s.minimizer_time_in_seconds,
-            seconds_per_iteration=s.minimizer_time_in_seconds / max(s.num_iterations, 1),
-            setup_seconds=s.preprocessor_time_in_seconds,
-            host_reads_per_iteration=sum(reads.values()) / max(short.num_iterations, 1),
-            host_reads_by_site=dict(reads.most_common(8)),
-            s_cells_nnz=ss_.sparse_assembly.nnz, launches=launches,
-            launches_by_width=by_width, peak_device_bytes=peak, card=smi,
-            **_sparse_fields(clock, s),
-        )
+        launches = runs[2]["launches"]
+        phase("plan", case=label, nf=int(ss_.f_idx.shape[0]),
+              s_cells_nnz=ss_.sparse_assembly.nnz, launches_by_width=_launches_by_width())
+        _usable(runs[2]["summary"], label)
         if any(n == 0 for n in launches.values()):
-            raise RuntimeError(f"sequential sparse schur {dtype}: launches {launches}")
-        out[dtype], paths[f"sequential_ba_sparse_schur_{dtype}"] = s, launches
+            raise RuntimeError(f"{label}: launches {launches}")
+        out[dtype], paths[label] = runs[2]["summary"], launches
+        del problem, runs
     _held_to_jax(out["float64"], *SEQUENTIAL_SPARSE_SCHUR_REFERENCE, "sequential_ba_sparse_schur")
     _held_to_f64(out["float32"], out["float64"], "sequential_ba_sparse_schur",
                  SPARSE_F32_RTOL)

@@ -15,7 +15,9 @@ output, bounds, an evaluation callback with non-monotonic steps, DOGLEG,
 inner iterations) against its regions run eagerly, to the bit, and the
 Evaluator's three entry points from their graphs; the line search and
 GradientProblem on their captured regions against the same regions run
-eagerly, to the bit. Skipped without a card.
+eagerly, to the bit; the sparse solvers' captured regions (evaluations,
+prep and finish on either side of the host factor) against the eager
+ones, with ``torch.equal``. Skipped without a card.
 
 This file imports neither jax nor ceres_tpu, so it also runs where only
 PyTorch is installed:
@@ -30,7 +32,7 @@ import torch
 import ceres_tpu_torch as ctt
 from ceres_tpu_torch.evaluator import _full_impl
 from ceres_tpu_torch.linear import schur
-from ceres_tpu_torch.models import bal
+from ceres_tpu_torch.models import bal, pose_graph
 from ceres_tpu_torch.ops import outer_segment_sum as osum
 from ceres_tpu_torch.ops import reduce as tred
 from ceres_tpu_torch.ops import segment_sum as ss
@@ -924,3 +926,66 @@ def test_captured_gradient_problem_matches_the_eager_one(device, direction):
         runs = chip_smoke.gradient_problem_runs("sphere", gp, [1.0, 0.0, 0.0], opts, device)
         np.testing.assert_allclose(runs[1]["x"], -np.array([1.0, 2.0, 3.0]) / np.sqrt(14.0),
                                    atol=1e-5)
+
+
+def _sparse_capture_case(name: str):
+    """(problem, options) of a sparse host-loop case: the 500-pose sphere
+    under SPARSE_NORMAL_CHOLESKY (its J'J cells through ``index_add_``), or
+    the 4 / 1100 / 4400 BAL of ``_host_loop_case`` (its reductions K1 and
+    one-hot matmuls, which add in a fixed order) under
+    SPARSE_NORMAL_CHOLESKY (static, dynamic) or SPARSE_SCHUR (a reject
+    streak: its speculative prep into the other buffer set)."""
+    if name == "pose_graph_normal":
+        problem = pose_graph.build_problem_3d(*pose_graph.synthesize_sphere(500, seed=0)[:3])[0]
+        opts = pose_graph.default_options()
+        opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+        return problem, opts
+    inst = bal.synthesize_bal(num_cameras=4, num_points=1100, num_observations=4400,
+                              noise=6.0, perturb=2.5, seed=42)
+    opts = bal.default_options(iterative=False)
+    opts.max_num_iterations = 20
+    if name.startswith("normal"):
+        opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+        opts.dynamic_sparsity = name == "normal_dynamic"
+    else:
+        opts.linear_solver_type = ctt.LinearSolverType.SPARSE_SCHUR
+        opts.initial_trust_region_radius, opts.min_relative_decrease = 1e6, 0.9
+    return bal.build_problem(inst)[0], opts
+
+
+@pytest.mark.parametrize("name", ["normal_static", "normal_dynamic", "pose_graph_normal",
+                                  "schur_reject_streak"])
+def test_captured_sparse_regions_match_the_eager_ones(device, name):
+    """ctt.solve under the sparse solvers runs its evaluations, the Jacobi
+    scaling, the candidate and each sparse step's prep and finish from CUDA
+    graphs (``host_loop_graphs.SparseRegions``): eager, captured, again and
+    eager (``chip_smoke._eager_captured_repeat``) give the same records, x
+    and launches, and every sparse region's buffers of the captured set
+    equal the eager set's with ``torch.equal``. The pose graph's J'J cells
+    go through ``index_add_``, whose atomics add in no fixed order: at most
+    two rows feed a cell there, so its bits are fixed all the same."""
+    import chip_smoke
+    from ceres_tpu_torch import host_loop_graphs
+
+    problem, opts = _sparse_capture_case(name)
+    runs = chip_smoke._eager_captured_repeat(name, problem, opts, device)
+    assert runs[1]["summary"].is_solution_usable() and len(runs[1]["summary"].iterations) > 3
+    program = problem.program(device)
+    sets = host_loop_graphs.host_loop_graph_sets(program)
+    eager = next(g for g in sets if not g.captured)
+    captured = next(g for g in sets if g.captured)
+    names = [n for n in captured._bufs if n.startswith("sparse") or n == "step"]
+    assert names and set(names) <= set(eager._bufs)
+    for n in names:
+        assert all(torch.equal(a, b) for a, b in zip(eager._bufs[n], captured._bufs[n])), n
+    graphs = set(captured.graphs)
+    assert {"full", "scale", "candidate"} <= graphs, graphs
+    if name == "schur_reject_streak":
+        assert {f"sparse_schur_{p}_{k}" for p in ("prep", "finish") for k in (0, 1)} <= graphs
+        assert sum(not r.step_is_successful for r in runs[1]["summary"].iterations) >= 2
+    else:
+        region = "sparse_normal_damped" if name == "normal_dynamic" else "sparse_normal_prep"
+        assert {region, "sparse_finish"} <= graphs, graphs
+    if name == "pose_graph_normal":
+        plan = program.solve_aux_cache["normal_assembly"][0]
+        assert {s.plan.kind for s in plan.sites} == {"scatter"}
