@@ -11,13 +11,15 @@ reference's, and the 2-D boundary problem's quartic is solved on the host
 
 Scaling convention of dogleg_strategy.cc:168-175: the elliptical trust
 region ||D step|| <= r is handled in the scaled space step' = D step, with
-D = sqrt(clamped diag(J'J)). Every array stays in the evaluation dtype; the
-host reads through ``trust_region._to_host``, one read per retry of the
-Gauss-Newton solve and one for the step's norm and model cost change. In
-the host loop ``precompute`` runs from ``host_loop_graphs`` (a CUDA graph
-on the card, replayed per retry with mu a device scalar); ``traditional``,
-``subspace_model`` and the model cost change are a few vector operations
-and run eagerly.
+D = sqrt(clamped diag(J'J)). Every array stays in the evaluation dtype. The
+device work runs from ``host_loop_graphs``' regions (CUDA graphs on the card
+where the host loop is captured): ``precompute`` (the ``dogleg`` region,
+replayed per retry with mu a device scalar), and the step choice of
+``host_loop_graphs.DoglegRegions`` (the radius a device scalar, the
+subspace step's coefficients copied in from the host). The host reads once
+per retry of the Gauss-Newton solve, once for the subspace model (which
+holds ||gn_step||, so the Gauss-Newton branch needs no read of its own) and
+once for the step's norm and model cost change.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ import torch
 
 from ceres_tpu_torch.linear.cg import CG_FAILURE, CG_SUCCESS
 from ceres_tpu_torch.ops.polynomial import polynomial_roots
-from ceres_tpu_torch.trust_region import _model_cost_change, _to_host
 from ceres_tpu_torch.types import DoglegType
 
 _MIN_MU = 1e-8
@@ -54,30 +55,34 @@ def precompute(ctx, mu: torch.Tensor, linear_solve, solve_aux, min_diagonal: flo
     return diagonal, gradient, alpha, gn_step, lin_iters, lin_term
 
 
-def traditional(diagonal, gradient, alpha, gn_step, radius: float):
+def traditional(diagonal, gradient, alpha, gn_step, radius: torch.Tensor):
     """ComputeTraditionalDoglegStep (dogleg_strategy.cc:199-257), branchless
     on the device: the Gauss-Newton step inside the region, else the Cauchy
     point on its boundary when that lies outside, else the interpolant.
-    Returns (step, ||scaled step||) as device tensors."""
+    ``radius`` an f64 device scalar, taken in the evaluation dtype (its
+    square rounded once from f64). Returns (step, ||scaled step||) as device
+    tensors."""
+    r = radius.to(gradient.dtype)
+    r2 = (radius * radius).to(gradient.dtype)
     gn_norm = torch.linalg.norm(gn_step)
     g_norm = torch.linalg.norm(gradient)
     b_dot_a = -alpha * torch.sum(gradient * gn_step)
     a_sq = (alpha * g_norm) ** 2
     b_minus_a_sq = a_sq - 2 * b_dot_a + gn_norm**2
     c = b_dot_a - a_sq
-    d = torch.sqrt(torch.clamp(c * c + b_minus_a_sq * (radius**2 - a_sq), min=0.0))
+    d = torch.sqrt(torch.clamp(c * c + b_minus_a_sq * (r2 - a_sq), min=0.0))
     one = torch.ones_like(c)
     beta = torch.where(
         c <= 0,
         (d - c) / torch.where(b_minus_a_sq == 0, one, b_minus_a_sq),
-        (radius**2 - a_sq) / torch.where(d + c == 0, one, d + c),
+        (r2 - a_sq) / torch.where(d + c == 0, one, d + c),
     )
     interp = (-alpha * (1.0 - beta)) * gradient + beta * gn_step
-    cauchy = -(radius / torch.where(g_norm == 0, one, g_norm)) * gradient
+    cauchy = -(r / torch.where(g_norm == 0, one, g_norm)) * gradient
     step_scaled = torch.where(
-        gn_norm <= radius,
+        gn_norm <= r,
         gn_step,
-        torch.where(g_norm * alpha >= radius, cauchy, interp),
+        torch.where(g_norm * alpha >= r, cauchy, interp),
     )
     return step_scaled / diagonal, torch.linalg.norm(step_scaled)
 
@@ -98,6 +103,17 @@ def subspace_model(ctx, diagonal, gradient, gn_step):
     g2 = Q.T @ gradient
     rdiag = torch.abs(torch.diagonal(R))
     return Q, B, g2, rdiag
+
+
+def subspace_step(Q, gradient, diagonal, coef: torch.Tensor) -> torch.Tensor:
+    """The subspace dogleg's step from the host's coefficients ``coef`` (an
+    f64 device 4-vector (m0, m1, c, one_d)): Q m, the minimum on the
+    boundary in Q's basis, or with one_d nonzero c * gradient, the 1-D
+    subspace's step along the gradient to the boundary; unscaled by the
+    diagonal."""
+    w = coef.to(Q.dtype)
+    step_scaled = torch.where(coef[3] != 0, w[2] * gradient, Q[:, 0] * w[0] + Q[:, 1] * w[1])
+    return step_scaled / diagonal
 
 
 def find_boundary_minimum(B: np.ndarray, g: np.ndarray, radius: float):
@@ -142,7 +158,9 @@ class DoglegStrategy:
     ``LevenbergMarquardtStrategy`` plus ``compute_step``. With ``graphs``
     (``host_loop_graphs.HostLoopGraphs``) the Gauss-Newton solve is its
     ``dogleg`` region, on the context ``graphs.scaled()``, which is then
-    the one ``compute_step`` is given."""
+    the one ``compute_step`` is given, and the step choice its
+    ``DoglegRegions``' regions; without, both run eagerly (the step choice
+    on ``DoglegRegions`` of its own, made at the first step)."""
 
     def __init__(self, options, linear_solve, solve_aux=None, graphs=None):
         self.radius = options.initial_trust_region_radius
@@ -156,7 +174,9 @@ class DoglegStrategy:
         self._linear_solve = linear_solve
         self._solve_aux = solve_aux
         self._graphs = graphs
+        self._regions = graphs
         self._cache = None  # (ctx, diagonal, gradient, alpha, gn_step)
+        self._model = None  # the subspace model of the cache, read on the host
         # Gauss-Newton solves redone at a larger mu in this solve (each
         # retry is one more linear solve and host read).
         self.mu_retries = 0
@@ -180,19 +200,25 @@ class DoglegStrategy:
                 if self.mu >= _MAX_MU:
                     return None, 0.0, lin_iters, lin_term
             self._cache = (ctx, diagonal, gradient, alpha, gn_step)
-        ctx, diagonal, gradient, alpha, gn_step = self._cache
+            self._model = None
+        if self._regions is None:
+            from ceres_tpu_torch.host_loop_graphs import DoglegRegions
+
+            self._regions = DoglegRegions(ctx.residuals[0].device, captured=False)
 
         if self.dogleg_type == DoglegType.SUBSPACE_DOGLEG:
-            step, norm = self._subspace_step(ctx, diagonal, gradient, alpha, gn_step)
+            step, norm, mcc = self._subspace_step()
         else:
-            step, norm = traditional(diagonal, gradient, alpha, gn_step, self.radius)
-        mcc = _model_cost_change(ctx, step)
-        if isinstance(norm, torch.Tensor):
-            norm, mcc = _to_host(norm, mcc)
-        else:
-            (mcc,) = _to_host(mcc)
-        self.dogleg_step_norm = float(norm)
+            step, norm, mcc = self._traditional()
+        self.dogleg_step_norm = norm
         return step, mcc, lin_iters, lin_term
+
+    def _traditional(self):
+        """The traditional step at this radius: (step, norm, model cost
+        change), one read."""
+        step, scalars = self._regions.dogleg_traditional(self._cache, self.radius)
+        norm, mcc = scalars.cpu().tolist()
+        return step, norm, mcc
 
     def _precompute(self, ctx):
         """:func:`precompute` at this mu: (diagonal, gradient, alpha,
@@ -208,36 +234,39 @@ class DoglegStrategy:
                               term.to(f64)])
         return diagonal, gradient, alpha, gn_step, checks
 
-    def _subspace_step(self, ctx, diagonal, gradient, alpha, gn_step):
+    def _subspace_step(self):
         """ComputeSubspaceDoglegStep (dogleg_strategy.cc:265-343): the
         Gauss-Newton step when inside the region, else the minimum of the
         model on the boundary within span(gradient, gn_step). Returns
-        (step, norm), the norm a host float or a device tensor."""
-        radius = self.radius
-        (gn_norm,) = _to_host(torch.linalg.norm(gn_step))
+        (step, norm, model cost change). The model (with ||gn_step||) is
+        read once per Gauss-Newton solve, the step's model cost change once
+        per step."""
+        radius, regions = self.radius, self._regions
+        if self._model is None:
+            host = regions.dogleg_subspace_model(self._cache).cpu().numpy()
+            self._model = (host[:4].reshape(2, 2), host[4:6], host[6:8], float(host[8]),
+                           float(host[9]))
+        Bnp, gnp, rd, g_norm, gn_norm = self._model
         if gn_norm <= radius:
-            return gn_step / diagonal, gn_norm
-
-        Q, B, g2, rdiag = subspace_model(ctx, diagonal, gradient, gn_step)
-        host = torch.cat(
-            [B.reshape(-1), g2, rdiag, torch.linalg.norm(gradient).reshape(1)]
-        ).to(torch.float64).cpu().numpy()
-        Bnp, gnp, rd, g_norm = host[:4].reshape(2, 2), host[4:6], host[6:8], float(host[8])
+            # the traditional step is the Gauss-Newton step there
+            return self._traditional()
         rank = int((rd > 1e-12 * max(rd.max(), 1e-300)).sum())
         if rank < 2:
             # 1-D subspace: along the gradient to the boundary.
-            return -(radius / g_norm) * gradient / diagonal, radius
-
-        minimum = find_boundary_minimum(Bnp, gnp, radius)
-        if minimum is None:
-            return traditional(diagonal, gradient, alpha, gn_step, radius)
-        # First-order optimality check (dogleg_strategy.cc:322-343).
-        grad_min = Bnp @ minimum + gnp
-        denom = np.linalg.norm(minimum) * np.linalg.norm(grad_min)
-        if denom == 0 or (-minimum @ grad_min) / denom < 0.99:
-            return traditional(diagonal, gradient, alpha, gn_step, radius)
-        step_scaled = Q[:, 0] * float(minimum[0]) + Q[:, 1] * float(minimum[1])
-        return step_scaled / diagonal, radius
+            coef = np.array([0.0, 0.0, -(radius / g_norm), 1.0])
+        else:
+            minimum = find_boundary_minimum(Bnp, gnp, radius)
+            if minimum is None:
+                return self._traditional()
+            # First-order optimality check (dogleg_strategy.cc:322-343).
+            grad_min = Bnp @ minimum + gnp
+            denom = np.linalg.norm(minimum) * np.linalg.norm(grad_min)
+            if denom == 0 or (-minimum @ grad_min) / denom < 0.99:
+                return self._traditional()
+            coef = np.array([float(minimum[0]), float(minimum[1]), 0.0, 0.0])
+        step, mcc = regions.dogleg_subspace_step(self._cache, coef)
+        (mcc,) = mcc.cpu().tolist()
+        return step, radius, mcc
 
     # -- radius state machine (dogleg_strategy.cc:617-643) -------------------
 
@@ -249,7 +278,7 @@ class DoglegStrategy:
         self.radius = min(self.radius, self.max_radius)
         self.mu = max(_MIN_MU, 2.0 * self.mu / _MU_INCREASE)
         self.reuse = False
-        self._cache = None
+        self._cache = self._model = None
 
     def step_rejected(self, step_quality: float) -> None:
         del step_quality
@@ -260,4 +289,4 @@ class DoglegStrategy:
         del step_quality
         self.mu *= _MU_INCREASE
         self.reuse = False
-        self._cache = None
+        self._cache = self._model = None

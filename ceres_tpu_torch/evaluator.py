@@ -586,11 +586,14 @@ class Evaluator:
         self._last_x = None
         self.execution_summary = ExecutionSummary()
 
-    def _notify(self, x, evaluate_jacobians: bool) -> None:
-        """EvaluationCallback hook (evaluation_callback.h:63-80)."""
+    def _notify(self, x, evaluate_jacobians: bool, new_point: Optional[bool] = None) -> None:
+        """EvaluationCallback hook (evaluation_callback.h:63-80); x's identity
+        says whether the point is new unless ``new_point`` does (a static
+        buffer that holds a new point)."""
         if self.evaluation_callback is None:
             return
-        new_point = self._last_x is not x
+        if new_point is None:
+            new_point = self._last_x is not x
         self._last_x = x
         self.evaluation_callback.prepare_for_evaluation(new_point, evaluate_jacobians)
 

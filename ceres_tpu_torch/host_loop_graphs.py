@@ -1,8 +1,9 @@
 """The host loop's device work between its decisions, in static buffers and,
 on the card, as CUDA graphs (the JAX package jits each of these pieces:
 ``trust_region._tr_iteration_impl``, ``_lm_step_impl``,
-``_scale_columns_jit``, ``_candidate_impl``, the evaluator's entry points
-and DOGLEG's ``precompute``).
+``_scale_columns_jit``, ``_candidate_impl``, ``_plus_jit``, the evaluator's
+entry points, DOGLEG's ``precompute``, ``traditional``, ``subspace_model``
+and ``model_cost_change``, and the inner iterations' ``set_step``).
 
 ``HostLoopGraphs`` holds, for one program and option set, a region per
 piece: a function that reads static device buffers (the current point x,
@@ -37,7 +38,17 @@ Regions:
 - ``iteration``: the fused iteration (step, candidate and a speculative
   full evaluation at the candidate; eight scalars), into candidate buffers;
   ``accept`` copies the candidate into the current buffers.
-- ``dogleg``: DOGLEG's Gauss-Newton solve with its Cauchy point at mu.
+- ``dogleg``: DOGLEG's Gauss-Newton solve with its Cauchy point at mu;
+  ``dogleg_traditional``, ``dogleg_subspace_model`` and
+  ``dogleg_subspace_step``: its step choice (``DoglegRegions``).
+- ``jacobi_scaling``: the solve's Jacobi scaling from the current Jacobian
+  at iteration 0.
+- ``bounded_line`` and ``bounded_trial``: the bounds line search's
+  direction scaling * step with phi'(0), and a trial clamp(x [+] a delta)
+  with its cost and norms, the step a a device scalar.
+- ``inner_set_{si}``: an inner-iteration step of independent set si
+  (``InnerRegions``, one object per ``inner_iteration_ordering``, kept with
+  the others and sharing their pools).
 
 The sparse solvers' steps factor on the host between two regions of
 ``SparseRegions`` (the JAX package jits ``_sparse_prep_radius_free_impl``,
@@ -116,6 +127,7 @@ from ceres_tpu_torch.trust_region import (
     _candidate_impl,
     _linear_solve,
     _lm_step_impl,
+    _model_cost_change,
     _sparse_finish_impl,
     _sparse_prep_impl,
     _sparse_prep_radius_free_impl,
@@ -143,6 +155,8 @@ class _Regions:
         self.graphs: dict = {}  # region name -> CapturedGraph
         self._pool_owner: Optional[CapturedGraph] = None
         self.capture_seconds = 0.0
+        self._inputs: dict = {}  # host arrays by name, copied in before a region
+        self._staged: dict = {}  # their pinned host copies and copy events, on the card
 
     def _keep(self, name: str, *tensors: torch.Tensor) -> list:
         """Copy ``tensors`` into the static buffers ``name``, made like them
@@ -166,18 +180,50 @@ class _Regions:
             fn()
             return
         t0 = time.perf_counter()
-        with uncounted():
-            fn()
+        self._warm_up(fn)
         graph = CapturedGraph(fn, self.device, share=self._pool_owner)
         self._pool_owner = self._pool_owner or graph
         self.graphs[name] = graph
         self.capture_seconds += time.perf_counter() - t0
         graph.replay()
 
+    def _warm_up(self, fn) -> None:
+        """The eager run before a capture, its launches counted nowhere."""
+        with uncounted():
+            fn()
+
+    def _host_input(self, name: str, array: np.ndarray, dtype: torch.dtype) -> None:
+        """Copy a host array into the static device buffer ``name`` (in
+        ``dtype``), outside any region. On the card through a pinned
+        staging buffer of its own, without waiting for the device (a copy
+        from pageable memory waits for the stream, a read by another name);
+        the staging buffer is written again only once its last copy is
+        done (an event, normally long passed)."""
+        host = torch.from_numpy(np.asarray(array))
+        buf = self._inputs.get(name)
+        if buf is None:
+            buf = self._inputs[name] = torch.empty(host.shape, dtype=dtype, device=self.device)
+        if self.device.type != "cuda":
+            buf.copy_(host)
+            return
+        staged = self._staged.get(name)
+        if staged is None:
+            staged = self._staged[name] = (torch.empty(host.shape, dtype=dtype, pin_memory=True),
+                                           torch.cuda.Event())
+        pinned, done = staged
+        done.synchronize()
+        pinned.copy_(host)
+        buf.copy_(pinned, non_blocking=True)
+        done.record()
+
+    def _graph_list(self) -> list:
+        """Every graph these regions account for."""
+        return list(self.graphs.values())
+
     def credit(self) -> None:
         """Credit the graphs' kernel launches since the last credit (one
         host read of their run counters)."""
-        graphs = list(self.graphs.values())
+        graphs = self._graph_list()
         if not graphs:
             return
         counts = torch.cat([g.launch_counts() for g in graphs]).cpu().tolist()
@@ -190,14 +236,160 @@ class _Regions:
     @property
     def graph_launches(self) -> int:
         """Kernel launches credited from the graphs' replays so far."""
-        return sum(g.launches for g in self.graphs.values())
+        return sum(g.launches for g in self._graph_list())
 
     def pool_bytes(self) -> int:
         """Device bytes the graphs' memory pools hold."""
-        return pool_bytes(self.graphs.values()) if self.graphs else 0
+        graphs = self._graph_list()
+        return pool_bytes(graphs) if graphs else 0
 
 
-class SparseRegions(_Regions):
+class InnerRegions(_Regions):
+    """The inner iterations' device work (``inner_iterations.
+    CoordinateDescentMinimizer``; the JAX package jits one ``set_step`` per
+    independent set) over static buffers: the pass's point x, each set's
+    per-block trust radii (one f64 vector per tangent size) and the cost.
+    Region ``inner_set_{si}`` is one batched LM step of every block of set
+    si from x, which it overwrites with the new point, as it overwrites the
+    set's radii with the new radii and the cost with the new point's (each
+    written after every read of it, in the graph's one stream). A pass
+    copies its start into x, fills a set's radii before its first step,
+    runs the set's region once per step and reads the cost once. Each
+    replay credits its launches on the host, with no read (the graphs hold
+    no conditional node). With ``share`` (the host loop's
+    ``HostLoopGraphs``) the graphs allocate from its memory pools, and its
+    ``credit``, ``graph_launches`` and ``pool_bytes`` cover them."""
+
+    def __init__(self, device: torch.device, captured: bool, share: Optional[_Regions] = None):
+        super().__init__(device, captured)
+        self._share = share
+        self.x: Optional[torch.Tensor] = None
+        self.cost = torch.zeros((), dtype=_F64, device=device)
+        self.radii: dict = {}  # (set, T) -> (G_T,) f64
+
+    def _run(self, name: str, fn) -> None:
+        share = self._share
+        if share is not None and self._pool_owner is None:
+            self._pool_owner = share._pool_owner
+        super()._run(name, fn)
+        if share is not None and share._pool_owner is None:
+            share._pool_owner = self._pool_owner
+        graph = self.graphs.get(name)
+        if graph is not None:
+            graph.credit_replay()
+
+    def _warm_up(self, fn) -> None:
+        """A set step overwrites its own inputs: the warm-up before a capture
+        leaves the point, radii and cost as it found them, so that the
+        replay after the capture is the pass's one step."""
+        kept = [t.clone() for t in (self.x, self.cost, *self.radii.values())]
+        super()._warm_up(fn)
+        for t, k in zip((self.x, self.cost, *self.radii.values()), kept):
+            t.copy_(k)
+
+    def start(self, x: torch.Tensor) -> None:
+        """A pass from x (copied into the static point)."""
+        if self.x is None:
+            self.x = torch.empty_like(x)
+        self.x.copy_(x)
+
+    def fill_radii(self, si: int, sizes: dict, radius: float) -> None:
+        """Set si's radii ({T: G_T}) to ``radius``, a device fill."""
+        for T, G in sizes.items():
+            buf = self.radii.get((si, T))
+            if buf is None:
+                buf = self.radii[si, T] = torch.empty((G,), dtype=_F64, device=self.device)
+            buf.fill_(radius)
+
+    def set_step(self, si: int, step) -> None:
+        """One step of set si: ``step(x, radii)`` -> (new x, new radii, cost)
+        (``CoordinateDescentMinimizer._set_step`` on the set's plans)."""
+        self._run(f"inner_set_{si}", lambda: self._set_step(si, step))
+
+    def _set_step(self, si: int, step) -> None:
+        radii = {T: r for (s, T), r in self.radii.items() if s == si}
+        new_x, new_radii, cost = step(self.x, radii)
+        self.x.copy_(new_x)
+        for T, r in radii.items():
+            r.copy_(new_radii[T])
+        self.cost.copy_(cost)
+
+
+class DoglegRegions(_Regions):
+    """DOGLEG's step choice over ``precompute``'s outputs (the JAX package
+    jits ``traditional``, ``subspace_model`` and ``model_cost_change``):
+
+    - ``dogleg_traditional``: the traditional step at the radius (a device
+      scalar) into "step", its scaled norm and model cost change (f64) in
+      one vector;
+    - ``dogleg_subspace_model``: the orthonormal basis Q of span(gradient,
+      Gauss-Newton step) (kept for the step) and, in one f64 vector, the
+      reduced model B and g, |diag R|, ||gradient|| and ||Gauss-Newton
+      step||, which the host reads once for its quartic, rank test and
+      optimality check;
+    - ``dogleg_subspace_step``: the step from the host's coefficients
+      (``dogleg.subspace_step``, copied in before the run) into "step" and
+      its model cost change.
+
+    Each reads the tuple (context, diagonal, gradient, alpha, gn_step) the
+    strategy caches: where ``captured``, the host loop's ``dogleg`` buffers
+    and scaled context (``HostLoopGraphs``); otherwise any, eagerly (a
+    strategy made without the host loop's regions)."""
+
+    def __init__(self, device: torch.device, captured: bool):
+        super().__init__(device, captured)
+        self.dogleg_radius = torch.zeros((), dtype=_F64, device=device)
+        self._dl: Optional[tuple] = None
+
+    def _use_dogleg(self, cache: tuple) -> None:
+        self._dl = cache
+
+    def dogleg_traditional(self, cache: tuple, radius: float):
+        """(step, (scaled norm, model cost change) as one f64 device
+        vector), static buffers valid until the next step."""
+        self._use_dogleg(cache)
+        self.dogleg_radius.fill_(radius)
+        self._run("dogleg_traditional", self._dogleg_traditional)
+        return self._bufs["step"][0], self._bufs["dogleg_scalars"][0]
+
+    def _dogleg_traditional(self) -> None:
+        ctx, diagonal, gradient, alpha, gn_step = self._dl
+        step, norm = dogleg.traditional(diagonal, gradient, alpha, gn_step, self.dogleg_radius)
+        self._keep("step", step)
+        self._keep("dogleg_scalars", torch.stack([norm.to(_F64), _model_cost_change(ctx, step)]))
+
+    def dogleg_subspace_model(self, cache: tuple) -> torch.Tensor:
+        """The reduced model's f64 vector (B row-major, g, |diag R|,
+        ||gradient||, ||gn_step||) for one read; Q stays on the device."""
+        self._use_dogleg(cache)
+        self._run("dogleg_subspace_model", self._dogleg_subspace_model)
+        return self._bufs["dogleg_model"][1]
+
+    def _dogleg_subspace_model(self) -> None:
+        ctx, diagonal, gradient, _, gn_step = self._dl
+        Q, B, g2, rdiag = dogleg.subspace_model(ctx, diagonal, gradient, gn_step)
+        norms = torch.stack([torch.linalg.norm(gradient), torch.linalg.norm(gn_step)])
+        self._keep("dogleg_model", Q, torch.cat(
+            [B.reshape(-1).to(_F64), g2.to(_F64), rdiag.to(_F64), norms.to(_F64)]))
+
+    def dogleg_subspace_step(self, cache: tuple, coef: np.ndarray):
+        """(step, model cost change as a 1-vector f64) from the host's
+        coefficients ``coef`` (``dogleg.subspace_step``) and the basis of
+        the last :meth:`dogleg_subspace_model`."""
+        self._use_dogleg(cache)
+        self._host_input("dogleg_coef", coef, _F64)
+        self._run("dogleg_subspace_step", self._dogleg_subspace_step)
+        return self._bufs["step"][0], self._bufs["dogleg_mcc"][0]
+
+    def _dogleg_subspace_step(self) -> None:
+        ctx, diagonal, gradient, _, _ = self._dl
+        step = dogleg.subspace_step(self._bufs["dogleg_model"][0], gradient, diagonal,
+                                    self._inputs["dogleg_coef"])
+        self._keep("step", step)
+        self._keep("dogleg_mcc", _model_cost_change(ctx, step).reshape(1))
+
+
+class SparseRegions(DoglegRegions):
     """The sparse steps' card halves (``sparse_*`` in the module's
     docstring), for ``trust_region._SparseNormalStep`` and
     ``linear/sparse_schur.SparseSchurStep``. Each region reads the context
@@ -212,7 +404,6 @@ class SparseRegions(_Regions):
         # SPARSE_SCHUR's radius of each prep set; set 0's also dynamic sparsity's
         self.sparse_radius = tuple(torch.zeros((), dtype=_F64, device=device) for _ in range(2))
         self._ctx: Optional[JacobianContext] = None  # the step's context
-        self._inputs: dict = {}  # host solutions by name, copied in before a finish
         self._flat_shapes: dict = {}  # a flat buffer's parts, by name
 
     def _use(self, ctx: JacobianContext) -> None:
@@ -236,15 +427,6 @@ class SparseRegions(_Regions):
             out.append(host[k : k + n].reshape(shape))
             k += n
         return out
-
-    def _host_input(self, name: str, array: np.ndarray, dtype: torch.dtype) -> None:
-        """Copy a host array into the static device buffer ``name`` (in
-        ``dtype``), outside any region."""
-        host = torch.from_numpy(np.asarray(array))
-        buf = self._inputs.get(name)
-        if buf is None:
-            buf = self._inputs[name] = torch.empty(host.shape, dtype=dtype, device=self.device)
-        buf.copy_(host)
 
     # -- SPARSE_NORMAL_CHOLESKY --------------------------------------------------
 
@@ -337,6 +519,19 @@ class HostLoopGraphs(SparseRegions):
         # the contexts handed out for the current point (name -> context),
         # made anew by every evaluation at x and every accepted candidate
         self._contexts: dict = {}
+        self.bounded_a: Optional[torch.Tensor] = None  # the bounds line search's step
+        self._inner: dict = {}  # inner_iteration_ordering's key -> InnerRegions
+
+    def inner_regions(self, key) -> InnerRegions:
+        """The inner iterations' regions for the ordering ``key``
+        (``inner_iterations._ordering_key``), kept between solves."""
+        regions = self._inner.get(key)
+        if regions is None:
+            regions = self._inner[key] = InnerRegions(self.device, self.captured, share=self)
+        return regions
+
+    def _graph_list(self) -> list:
+        return super()._graph_list() + [g for r in self._inner.values() for g in r.graphs.values()]
 
     @property
     def program(self):
@@ -417,9 +612,16 @@ class HostLoopGraphs(SparseRegions):
 
     # -- the step-by-step branch --------------------------------------------------------
 
-    def set_scaling(self, scaling: torch.Tensor) -> torch.Tensor:
-        """Keep this solve's Jacobi scaling (computed at iteration 0)."""
-        return self._keep("scaling", scaling)[0]
+    def jacobi_scaling(self) -> torch.Tensor:
+        """This solve's Jacobi scaling from the current Jacobian (at
+        iteration 0), 1 / (1 + sqrt(diag(J'J))), kept (region
+        ``jacobi_scaling``)."""
+        self._run("jacobi_scaling", self._jacobi_scaling)
+        return self._bufs["scaling"][0]
+
+    def _jacobi_scaling(self) -> None:
+        norms = self._context("current").squared_column_norms()
+        self._keep("scaling", 1.0 / (1.0 + torch.sqrt(norms)))
 
     def _scaling(self) -> Optional[torch.Tensor]:
         return self._bufs["scaling"][0] if self.config.jacobi_scaling else None
@@ -479,6 +681,45 @@ class HostLoopGraphs(SparseRegions):
             p.comm)
         self._keep("candidate", cand, torch.stack([cost, step_norm, x_norm]))
 
+    # -- the bounds line search ----------------------------------------------------------
+
+    def bounded_line(self, step: torch.Tensor) -> torch.Tensor:
+        """The projected line search's direction from the current point,
+        delta = scaling * step (the step itself without Jacobi scaling),
+        into a static buffer (region ``bounded_line``); returns phi'(0) =
+        g'delta as an f64 device scalar for the search's one read of it."""
+        if step is not self._bufs.get("step", [None])[0]:
+            self._keep("step", step)
+        self._run("bounded_line", self._bounded_line)
+        return self._bufs["bounded_line"][1]
+
+    def _bounded_line(self) -> None:
+        step, scaling = self._bufs["step"][0], self._scaling()
+        delta = step if scaling is None else step * scaling
+        grad = self._bufs["current_cost_gradient"][1]
+        self._keep("bounded_line", delta, torch.dot(grad.to(_F64), delta.to(_F64)))
+
+    def bounded_trial(self, a: float):
+        """A trial of the search: clamp(x [+] a delta) from the current
+        point (region ``bounded_trial``, a device scalar in delta's dtype):
+        (the point, (its cost, step norm, x norm) as one f64 device
+        vector), static buffers valid until the next trial."""
+        if self.bounded_a is None:
+            self.bounded_a = torch.zeros((), dtype=self._bufs["bounded_line"][0].dtype,
+                                         device=self.device)
+        self.bounded_a.fill_(a)
+        self._run("bounded_trial", self._bounded_trial)
+        cand, scalars = self._bufs["bounded_trial"]
+        return cand, scalars
+
+    def _bounded_trial(self) -> None:
+        p = self.program
+        cand = p.clamp(p.plus(self.x, self.bounded_a * self._bufs["bounded_line"][0]))
+        cost = _cost_impl(cand, p.families, True, p.comm)
+        self._keep("bounded_trial", cand, torch.stack([
+            cost, torch.linalg.norm((self.x - cand).to(_F64)),
+            torch.linalg.norm(self.x.to(_F64))]))
+
     # -- the fused iteration ----------------------------------------------------------
 
     def iteration(self, radius: float) -> torch.Tensor:
@@ -513,6 +754,15 @@ class HostLoopGraphs(SparseRegions):
         self._bufs["current_cost_gradient"][1].copy_(src[len(dst) + 1])
 
     # -- DOGLEG --------------------------------------------------------------------
+
+    def _use_dogleg(self, cache: tuple) -> None:
+        """A captured step choice reads the ``dogleg`` region's buffers and
+        :meth:`scaled`'s context; any others raise."""
+        static, ctx_bufs = self._bufs.get("dogleg"), self._bufs.get(self._step_source())
+        if self.captured and (static is None or cache[1] is not static[0]
+                              or ctx_bufs is None or cache[0].residuals[0] is not ctx_bufs[0]):
+            raise ValueError("a captured DOGLEG step takes the host loop's dogleg buffers")
+        self._dl = cache
 
     def dogleg_precompute(self, mu: float):
         """DOGLEG's ``precompute`` on :meth:`scaled`'s context at mu:

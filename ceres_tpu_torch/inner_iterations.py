@@ -11,16 +11,32 @@ one block of the set. A batched per-block LM step is then one evaluation,
 per-block gradients and J'J blocks through reduce plans, batched (T, T)
 solves, per-block cost segments and a masked update.
 
-Every per-block sum goes through a reduce plan built once per (set, family,
-arg) (``ops/reduce.py``), so it is summed in a fixed order: on the card a
-point set with its ids sorted takes the sorted segment-sum kernel, a camera
-set of a few hundred blocks the unsorted one. As in the JAX package, the
-step is built in f64 whatever the evaluation dtype: the per-observation
-products are formed in the evaluation dtype and summed into f64 per-block
-gradients and J'J blocks, the trust radii, the damped (T, T) solves and the
-delta are f64, and ``program.plus`` adds the delta to x in x's own dtype, so
-an f32 x stays f32. The per-block costs the accept test compares are summed
-in f64 too.
+Every per-block sum goes through a gather plan built once per (set, family,
+arg) (``ops/reduce.build_gather_plan``), so it is summed in one fixed order
+on every device: a point set takes the sorted segment-sum kernel (K1) over
+its rows in block order, a camera set of a few hundred blocks the unsorted
+one (K3), a few blocks a one-hot matmul, never ``index_add_``. As the JAX
+package's ``.at[pos].add(..., mode="drop")``, a row whose block is not in
+the set adds to no block. As in the JAX package, the step is built in f64
+whatever the evaluation dtype: the per-observation products are formed in
+the evaluation dtype and summed into f64 per-block gradients and J'J blocks,
+the trust radii, the damped (T, T) solves and the delta are f64, and
+``program.plus`` adds the delta to x in x's own dtype, so an f32 x stays
+f32. The per-block costs the accept test compares are summed in f64 too.
+The damped (T, T) blocks are solved by ``torch.linalg.solve_ex`` with
+``check_errors=False``: the LU of ``torch.linalg.solve`` without its read of
+the factorization's status, so a step never waits for the device (a CUDA
+graph captures it, ``tools/capture_ops.py``). H + diag(clip(diag H) / r) is
+symmetric positive definite wherever H is finite; a block that is not has a
+non-finite step, whose cost test fails, and the block stays where it was.
+
+The sets and plans (the coloring is most of the set-up) are made once per
+program and ``inner_iteration_ordering`` and kept in
+``Program.solve_aux_cache`` (:func:`inner_structure`). A pass runs on
+``host_loop_graphs.InnerRegions``: each set step is a region over static
+buffers (the point, the radii, the cost), a CUDA graph on the card where
+the host loop's regions are captured, and the pass reads the host once, its
+final cost.
 
 On a sharded program (``parallel/sharding.py``) the sets come from the
 whole program, the same on every rank, and the per-block gradients, J'J
@@ -29,13 +45,14 @@ blocks and costs, sums over rows, are all-reduced.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ceres_tpu_torch.evaluator import _context_impl, _cost_impl, family_residuals
-from ceres_tpu_torch.ops.reduce import apply_reduce, build_reduce_plan, choose_plan_kind
+from ceres_tpu_torch.ops.reduce import apply_reduce, build_gather_plan, choose_gather_plan_kind
 from ceres_tpu_torch.ordered_groups import normalize_ordering, validate_independent_set
 from ceres_tpu_torch.problem import _ragged_ranges
 
@@ -114,70 +131,108 @@ def compute_independent_sets(program) -> List[List[int]]:
     return sets
 
 
-class CoordinateDescentMinimizer:
-    """Batched inner-iteration minimizer over one Program."""
+@dataclasses.dataclass
+class InnerStructure:
+    """The independent sets of a program and, per set and tangent size T,
+    the (G_T, T) tangent coordinates of its blocks and per family and arg of
+    size T the gather plan summing the batch into the group's rows by the
+    instance's block position in the group (G_T: not in the set, dropped);
+    ``segment_ids`` (set, T, G_T, ids) per plan."""
 
-    def __init__(self, program, options, evaluator):
+    sets: List[List[int]]
+    set_structs: list
+    segment_ids: list
+
+
+def _ordering_key(ordering) -> Optional[tuple]:
+    groups = normalize_ordering(ordering)
+    return None if groups is None else tuple(tuple(int(p) for p in g) for g in groups)
+
+
+def inner_structure(program, ordering) -> InnerStructure:
+    """The sets and plans of ``program`` for ``ordering`` (a user's
+    ``inner_iteration_ordering``, or None for the coloring), made at the
+    first call and kept in ``program.solve_aux_cache``."""
+    key = ("inner_structure", _ordering_key(ordering))
+    hit = program.solve_aux_cache.get(key)
+    if hit is None:
+        hit = program.solve_aux_cache[key] = _build_structure(program, ordering)
+    return hit
+
+
+def _build_structure(program, user) -> InnerStructure:
+    whole = program.unsharded()
+    if user is not None:
+        # User groups (Solver::Options::inner_iteration_ordering):
+        # validated as independent sets, visited in group order
+        # (coordinate_descent_minimizer.cc IsOrderingValid).
+        sets = []
+        for g in normalize_ordering(user):
+            g = [int(p) for p in g if program.active[int(p)]]
+            if not g:
+                continue
+            validate_independent_set(whole, g)
+            sets.append(g)
+    else:
+        sets = compute_independent_sets(whole)
+    dev = program.device
+    tsizes = program.tangent_sizes
+    set_structs, segment_ids = [], []
+    for si, s in enumerate(sets):
+        s = np.asarray(s, dtype=np.int64)
+        groups = {}
+        for T in dict.fromkeys(tsizes[s].tolist()):
+            members = s[tsizes[s] == T]
+            G = members.shape[0]
+            pos = np.full(program.num_pids, G, dtype=np.int64)
+            pos[members] = np.arange(G)
+            rows = program.tangent_offsets[members][:, None] + np.arange(T)
+            plans = []
+            for fam in program.families:
+                fam_plans = []
+                for j in range(fam.num_args):
+                    plan = None
+                    if fam.structure.tangent_sizes[j] == T:
+                        seg = pos[fam.block_ids[:, j]]
+                        plan = build_gather_plan(seg, G, dev)
+                        segment_ids.append((si, T, G, seg))
+                    fam_plans.append(plan)
+                plans.append(tuple(fam_plans))
+            groups[T] = (torch.from_numpy(rows).to(dev), tuple(plans))
+        set_structs.append(groups)
+    return InnerStructure(sets, set_structs, segment_ids)
+
+
+class CoordinateDescentMinimizer:
+    """Batched inner-iteration minimizer over one Program, its passes on
+    ``regions`` (``host_loop_graphs.InnerRegions``: the host loop's, which
+    it keeps between solves; eager regions of its own by default)."""
+
+    def __init__(self, program, options, evaluator, regions=None):
         self.program = program
         self.options = options
-        self.evaluator = evaluator
-        whole = program.unsharded()
-        user = options.inner_iteration_ordering
-        if user is not None:
-            # User groups (Solver::Options::inner_iteration_ordering):
-            # validated as independent sets, visited in group order
-            # (coordinate_descent_minimizer.cc IsOrderingValid).
-            self.sets = []
-            for g in normalize_ordering(user):
-                g = [int(p) for p in g if program.active[int(p)]]
-                if not g:
-                    continue
-                validate_independent_set(whole, g)
-                self.sets.append(g)
-        else:
-            self.sets = compute_independent_sets(whole)
+        self.apply_loss = True if evaluator is None else evaluator.apply_loss
+        structure = inner_structure(program, options.inner_iteration_ordering)
+        self.sets = structure.sets
+        self._set_structs = structure.set_structs
+        self._segment_ids = structure.segment_ids
         self.num_steps = 3  # batched LM steps per set per pass
+        if regions is None:
+            from ceres_tpu_torch.host_loop_graphs import InnerRegions
 
-        # Per set, per tangent size T: the (G_T, T) tangent coordinates of
-        # its blocks, and per family and arg of size T the plan reducing
-        # the batch into the group's rows by the instance's block position
-        # in the group (G_T: not in the set), with those ids.
-        dev = program.device
-        tsizes = program.tangent_sizes
-        self._set_structs = []
-        self._segment_ids = []  # (set, T, G_T, ids) per plan
-        for si, s in enumerate(self.sets):
-            s = np.asarray(s, dtype=np.int64)
-            groups = {}
-            for T in dict.fromkeys(tsizes[s].tolist()):
-                members = s[tsizes[s] == T]
-                G = members.shape[0]
-                pos = np.full(program.num_pids, G, dtype=np.int64)
-                pos[members] = np.arange(G)
-                rows = program.tangent_offsets[members][:, None] + np.arange(T)
-                plans = []
-                for fam in program.families:
-                    fam_plans = []
-                    for j in range(fam.num_args):
-                        plan = None
-                        if fam.structure.tangent_sizes[j] == T:
-                            seg = pos[fam.block_ids[:, j]]
-                            plan = build_reduce_plan(seg, G, dev)
-                            self._segment_ids.append((si, T, G, seg))
-                        fam_plans.append(plan)
-                    plans.append(tuple(fam_plans))
-                groups[T] = (torch.from_numpy(rows).to(dev), tuple(plans))
-            self._set_structs.append(groups)
+            regions = InnerRegions(program.device, captured=False)
+        self.regions = regions
 
     def plan_kinds(self, device_type=None) -> List[Tuple[int, int, int, str]]:
         """(set, T, G_T, kind) of every plan: the kinds built, or those a
-        device of ``device_type`` ("cpu", "cuda") would get."""
+        device of ``device_type`` ("cpu", "cuda") would get, which are the
+        same (``ops/reduce.choose_gather_plan_kind``)."""
         if device_type is None:
             built = [p for groups in self._set_structs for _, plans in groups.values()
                      for fp in plans for p in fp if p is not None]
             return [(si, T, G, p.kind)
                     for (si, T, G, _), p in zip(self._segment_ids, built)]
-        return [(si, T, G, choose_plan_kind(seg, G, device_type))
+        return [(si, T, G, choose_gather_plan_kind(seg, G))
                 for si, T, G, seg in self._segment_ids]
 
     def _set_step(self, groups, x: torch.Tensor, radii: Dict[int, torch.Tensor]):
@@ -185,7 +240,7 @@ class CoordinateDescentMinimizer:
         cost at new x as an f64 device scalar)."""
         program, opts = self.program, self.options
         families = program.families
-        apply_loss = self.evaluator.apply_loss
+        apply_loss = self.apply_loss
         comm = program.comm
         _, ctx = _context_impl(x, families, program.num_tangent, program.groups, apply_loss, comm)
         f64 = torch.float64
@@ -207,9 +262,8 @@ class CoordinateDescentMinimizer:
             diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1),
                                opts.min_lm_diagonal, opts.max_lm_diagonal)
             damped = H + torch.diag_embed(diag / radii[T][:, None])
-            step = -torch.linalg.solve(damped, g[..., None])[..., 0]
+            step = -torch.linalg.solve_ex(damped, g[..., None], check_errors=False)[0][..., 0]
             delta[rows.reshape(-1)] = step.reshape(-1)
-
         # Per-block accept: each block's cost segments at x and at the
         # candidate, summed in f64.
         candidate = program.plus(x, delta)
@@ -245,17 +299,16 @@ class CoordinateDescentMinimizer:
         return new_x, new_radii, _cost_impl(new_x, families, apply_loss, comm)
 
     def minimize(self, x: torch.Tensor) -> Tuple[torch.Tensor, float]:
-        """One inner-iteration pass: (x, final cost), one host read."""
-        from ceres_tpu_torch.trust_region import _to_host
-
-        cost = None
+        """One inner-iteration pass from x: (a copy of the new point, its
+        cost), one host read. Each set's radii start at the initial trust
+        region radius (a device fill), then each of its steps is a run of
+        its region."""
+        regions = self.regions
+        regions.start(x)
         r0 = self.options.initial_trust_region_radius
-        for groups in self._set_structs:
-            radii = {
-                T: torch.full((rows.shape[0],), r0, dtype=torch.float64, device=x.device)
-                for T, (rows, _) in groups.items()
-            }
+        for si, groups in enumerate(self._set_structs):
+            regions.fill_radii(si, {T: rows.shape[0] for T, (rows, _) in groups.items()}, r0)
             for _ in range(self.num_steps):
-                x, radii, cost = self._set_step(groups, x, radii)
-        (cost,) = _to_host(cost)
-        return x, cost
+                regions.set_step(si, lambda x_, radii, g=groups: self._set_step(g, x_, radii))
+        cost = float(regions.cost.cpu())  # the pass's one read
+        return regions.x.clone(), cost

@@ -17,7 +17,13 @@ written before they were made capturable (``index_put_`` with
 ``accumulate=True`` into J'J, a single-matrix ``torch.cholesky_solve``) and
 as they are now (``ops/segment_sum.py``'s K1 over a fixed cell order, then
 ``index_copy_``; two triangular solves), and the batched
-``torch.cholesky_solve`` that ``ops/small_linalg.spd_inverse`` replaced.
+``torch.cholesky_solve`` that ``ops/small_linalg.spd_inverse`` replaced;
+then the library calls of the inner iterations and DOGLEG's subspace step:
+``torch.linalg.solve_ex`` of a batch of (T, T) systems at the large case's
+point and camera sets (200 000 of 3 x 3, 464 of 9 x 9) and
+``torch.linalg.qr`` of an (n, 2) basis at its tangent size, in float32 and
+float64. Each line also says whether the eager call waits for the device
+(``syncs``: it raised under ``torch.cuda.set_sync_debug_mode("error")``).
 """
 
 from __future__ import annotations
@@ -62,6 +68,13 @@ def _operations(device, N):
     row_ptr = torch.from_numpy(build_row_ptr(seg, unique.size)).to(device)
     unique_d = torch.from_numpy(unique).to(device)
     eye = torch.eye(9, dtype=Ls.dtype, device=device).expand(Ls.shape)
+    rng = np.random.default_rng(1)
+    systems = {}
+    for T, batch in ((3, 200_000), (9, 464)):
+        a = rng.standard_normal((batch, T, T))
+        systems[T] = (torch.from_numpy(a @ a.transpose(0, 2, 1) + T * np.eye(T)).to(device),
+                      torch.from_numpy(rng.standard_normal((batch, T, 1))).to(device))
+    basis = torch.from_numpy(rng.standard_normal((604_176, 2))).to(device)
 
     def index_put_accumulate():
         out = torch.zeros((N, N), dtype=contrib.dtype, device=device)
@@ -80,6 +93,10 @@ def _operations(device, N):
         "two_triangular_solves": lambda: cholesky_solve(L, v[:, None]),
         "cholesky_solve_batched": lambda: torch.cholesky_solve(eye, Ls),
         "two_triangular_solves_batched": lambda: cholesky_solve(Ls, eye),
+        "solve_ex_3x3": lambda: torch.linalg.solve_ex(*systems[3], check_errors=False)[0],
+        "solve_ex_9x9": lambda: torch.linalg.solve_ex(*systems[9], check_errors=False)[0],
+        "qr_two_columns_float64": lambda: torch.linalg.qr(basis)[0],
+        "qr_two_columns_float32": lambda: torch.linalg.qr(basis.float())[0],
     }
 
 
@@ -89,6 +106,14 @@ def check(name: str, way: str, N: int) -> dict:
     device = torch.device("cuda", 0)
     op = _operations(device, N)[name]
     eager = op()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        op()
+        syncs = False
+    except RuntimeError:
+        syncs = True
+    torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     result = {}
     try:
@@ -130,14 +155,15 @@ def check(name: str, way: str, N: int) -> dict:
             result["out"] = out
         torch.cuda.synchronize()
     except Exception as e:  # the capture's failure is the finding
-        return dict(operation=name, way=way, n=N, captured=False,
+        return dict(operation=name, way=way, n=N, captured=False, syncs=syncs,
                     error=f"{type(e).__name__}: {e}"[:400])
-    return dict(operation=name, way=way, n=N, captured=True,
+    return dict(operation=name, way=way, n=N, captured=True, syncs=syncs,
                 equal_to_eager=bool(torch.equal(result["out"], eager)))
 
 
 NAMES = ["index_put_accumulate", "k1_cells_index_copy", "cholesky_ex", "cholesky_solve",
-         "two_triangular_solves", "cholesky_solve_batched", "two_triangular_solves_batched"]
+         "two_triangular_solves", "cholesky_solve_batched", "two_triangular_solves_batched",
+         "solve_ex_3x3", "solve_ex_9x9", "qr_two_columns_float64", "qr_two_columns_float32"]
 
 
 def main(argv) -> int:

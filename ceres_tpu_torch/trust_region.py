@@ -735,7 +735,6 @@ class TrustRegionMinimizer:
             self.step_fn = None
         else:
             self.step_fn = _make_lm_step_fn(options, program, self.graphs)
-        self._plus = program.plus
 
         # The fused iteration (one host read per loop trip,
         # _tr_iteration_impl) stands down whenever a feature needs host work
@@ -767,9 +766,13 @@ class TrustRegionMinimizer:
         self.inner_minimizer = None
         self._inner_enabled = options.use_inner_iterations
         if options.use_inner_iterations:
-            from ceres_tpu_torch.inner_iterations import CoordinateDescentMinimizer
+            # its sets and plans are the program's, its regions the host
+            # loop's: a second solve neither colors nor captures again
+            from ceres_tpu_torch.inner_iterations import CoordinateDescentMinimizer, _ordering_key
 
-            self.inner_minimizer = CoordinateDescentMinimizer(program, options, self.evaluator)
+            self.inner_minimizer = CoordinateDescentMinimizer(
+                program, options, self.evaluator,
+                regions=self.graphs.inner_regions(_ordering_key(options.inner_iteration_ordering)))
 
     def minimize(self, x0: torch.Tensor) -> torch.Tensor:
         """The solution from x0 (the regions' current point: read it before
@@ -798,12 +801,12 @@ class TrustRegionMinimizer:
         x = program.clamp(x0)
         strategy = self.dogleg if self.use_dogleg else LevenbergMarquardtStrategy(opts)
 
-        # Iteration zero (trust_region_minimizer.cc:196-283). From here on x,
-        # ctx and grad are the regions' current buffers (graphs.x, ...),
-        # written by an evaluation at an accepted point.
+        # Iteration zero (trust_region_minimizer.cc:196-283). From here on x
+        # and grad are the regions' current buffers (graphs.x, ...), written
+        # by an evaluation at an accepted point.
         t0 = time.perf_counter()
         full = self.evaluator.cost_gradient_jacobian(x)
-        x, grad, ctx = graphs.x, full.gradient, full.jacobian_context
+        x, grad = graphs.x, full.gradient
         x_cost, gmax0, gnorm0 = _to_host(full.cost, *_grad_norms(grad))
         summary.jacobian_evaluation_time_in_seconds += time.perf_counter() - t0
         summary.num_jacobian_evaluations += 1
@@ -812,12 +815,10 @@ class TrustRegionMinimizer:
             summary.message = "Initial cost evaluation failed (non-finite)."
             return x
 
-        jacobi_scaling = None
         if opts.jacobi_scaling:
             # scale_i = 1 / (1 + sqrt(diag(J'J)_i)), fixed at iteration 0
             # (trust_region_minimizer.cc:263-279)
-            jacobi_scaling = graphs.set_scaling(
-                1.0 / (1.0 + torch.sqrt(ctx.squared_column_norms())))
+            graphs.jacobi_scaling()
 
         step_evaluator = TrustRegionStepEvaluator(
             x_cost,
@@ -961,16 +962,13 @@ class TrustRegionMinimizer:
                 x_norm = f_x_norm
             elif program.has_bounds:
                 # Projected line search for bounds
-                # (trust_region_minimizer.cc:103-108).
-                delta = step_scaled if jacobi_scaling is None else step_scaled * jacobi_scaling
-                delta = self._projected_line_search(x, x_cost, delta, grad)
-                candidate_x = program.clamp(self._plus(x, delta))
+                # (trust_region_minimizer.cc:103-108): its step along
+                # scaling * step, then the candidate at that step evaluated
+                # again with the norms, one read.
+                alpha = self._projected_line_search(x_cost, step_scaled)
                 t0 = time.perf_counter()
-                cost = self.evaluator.cost(candidate_x)
-                candidate_cost, x_norm, step_norm = _to_host(
-                    cost, torch.linalg.norm(x.to(_F64)),
-                    torch.linalg.norm((x - candidate_x).to(_F64)),
-                )
+                candidate_x, scalars = self._bounded_trial(alpha)
+                candidate_cost, step_norm, x_norm = scalars.cpu().tolist()
                 summary.residual_evaluation_time_in_seconds += time.perf_counter() - t0
                 summary.num_residual_evaluations += 1
             else:
@@ -1118,8 +1116,20 @@ class TrustRegionMinimizer:
             return True
         return False
 
-    def _projected_line_search(self, x, x_cost, delta, gradient):
-        """Projected Armijo backtracking with polynomial interpolation.
+    def _bounded_trial(self, alpha: float):
+        """The bounds line search's point at step ``alpha`` (a new point for
+        the evaluation callback), its cost and norms (``graphs.bounded_trial``)."""
+        evaluator = self.evaluator
+        evaluator._notify(None, False, new_point=True)
+        with evaluator._timer("Evaluator::Residual"):
+            candidate_x, scalars = self.graphs.bounded_trial(alpha)
+        evaluator._last_x = candidate_x  # the point it was told of
+        return candidate_x, scalars
+
+    def _projected_line_search(self, x_cost, step):
+        """Projected Armijo backtracking with polynomial interpolation along
+        delta = scaling * step from the current point; returns the step
+        size to take (1, the full step, when the search fails).
 
         Analog of TrustRegionMinimizer::DoLineSearch
         (trust_region_minimizer.cc:290-379,590-635): sufficient-decrease
@@ -1127,22 +1137,23 @@ class TrustRegionMinimizer:
         with the next trial step chosen by quadratic (first backtrack) then
         cubic (subsequent) interpolation of the sampled values, safeguarded
         to [0.1a, 0.5a] like line_search.cc's min/max_relative_step_size_change
-        defaults. One host read per trial (its cost) and one for phi'(0).
+        defaults. One host read per trial (its cost) and one for phi'(0);
+        each trial is a run of the ``bounded_trial`` region.
         """
         from ceres_tpu_torch.ops.polynomial import (
             cubic_minimizer_from_samples,
             quadratic_minimizer,
         )
 
-        program, opts = self.program, self.options
+        opts = self.options
         c1 = opts.line_search_sufficient_function_decrease
         phi0 = x_cost
-        (dphi0,) = _to_host(torch.dot(gradient.to(_F64), delta.to(_F64)))
+        dphi0 = float(self.graphs.bounded_line(step).cpu())
         if not np.isfinite(dphi0) or dphi0 >= 0.0:
             # Scaling/projection degraded descent: keep the full step and
             # let the step-quality test reject it (the reference treats a
             # non-descent direction as line search failure).
-            return delta
+            return 1.0
         alpha = 1.0
         prev = None  # (alpha, phi) of the previous trial
         for _ in range(opts.max_num_line_search_step_size_iterations):
@@ -1151,10 +1162,9 @@ class TrustRegionMinimizer:
                 # rounding-level alpha can satisfy the sufficient-decrease
                 # test spuriously and trip the parameter-tolerance check.
                 break
-            cand = program.clamp(self._plus(x, alpha * delta))
-            (phi,) = _to_host(self.evaluator.cost(cand))
+            phi = self._bounded_trial(alpha)[1].cpu().tolist()[0]
             if np.isfinite(phi) and phi <= phi0 + c1 * alpha * dphi0:
-                return alpha * delta
+                return alpha
             if prev is None or not np.isfinite(phi):
                 # Quadratic through phi(0), phi'(0), (alpha, phi).
                 a_next = quadratic_minimizer(phi0, dphi0, alpha, phi)
@@ -1176,7 +1186,7 @@ class TrustRegionMinimizer:
         # direction follows the projected gradient; returning the best tiny
         # step instead would trip the parameter-tolerance test and report
         # false convergence at an active bound.
-        return delta
+        return 1.0
 
     def _run_callbacks(self, it: IterationSummary, x=None) -> bool:
         """Returns True if minimization should stop (callbacks.h:45-75)."""

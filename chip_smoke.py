@@ -177,7 +177,9 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    captured solve against the JAX package's float64 result for the same
    problem and options: the same record count, the cost within 1e-6
    relative, (a) the final state inside the box with active bounds, (b) the
-   same number of evaluation-callback calls;
+   same number of evaluation-callback calls; (a)'s line search runs its
+   direction and each trial from regions (``bounded_line``,
+   ``bounded_trial``), its Jacobi scaling too;
 15. solve, DOGLEG, large (``dogleg_large_traditional`` in float32 and
    float64, ``dogleg_large_subspace`` in float64): the large instance at
    DENSE_SCHUR through ``ctt.solve`` with ``trust_region_strategy_type``
@@ -187,15 +189,25 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    counted by ``torch.cuda.set_sync_debug_mode``). float64 against the JAX
    package's float64 record count and cost (1e-9), float32 within 1e-6 of
    float64; K1, K3 and K4 launched; the Gauss-Newton retries at a larger
-   mu reported;
+   mu reported; the step choice runs from regions too
+   (``host_loop_graphs.DoglegRegions``: traditional, subspace model,
+   subspace step);
 16. solve, inner iterations, large (``inner_iterations_large``): the same
-   with LM and ``use_inner_iterations`` (the LM step captured, the inner
-   passes eager), float32 and float64: the
-   independent sets, their plan kinds, the inner steps and seconds, the set
-   construction's seconds, and the launches of the inner passes apart from
-   the LM step's (both K1 and K3 launched inside them); float64 against
-   JAX's records, cost and inner steps, float32 within 1e-5 of float64 (ten
-   function tolerances: the f32 end is set by rounding noise, INNER_F32_RTOL);
+   with LM and ``use_inner_iterations`` (the LM step and each set step of
+   the inner passes captured, ``host_loop_graphs.InnerRegions``), float32
+   and float64: the independent sets, their plan kinds (gather plans),
+   the inner steps, a pass's seconds in each run, the sets' construction
+   once per program (its seconds; a second one fails the phase), the
+   launches of the inner passes apart from the LM step's (both K1 and K3
+   launched inside them, credited at each replay), and each run's inner
+   passes reading the host once each, at one site of inner_iterations.py;
+   float64 against JAX's records, cost and inner steps, its repeat's reads
+   an LM iteration beside the 11.3 of the set steps run op by op, float32
+   within 1e-5 of float64 (ten function tolerances: the f32 end is set by
+   rounding noise, INNER_F32_RTOL); then ``inner_iterations_flagship``, the flagship with
+   inner iterations at ``bal.default_options(iterative=True)`` the same
+   way, float64 against FLAGSHIP_INNER_REFERENCE (records, inner steps,
+   cost within 1e-9), float32 within 1e-6 of float64;
 17. solve, flagship line search (``flagship_line_search``): the flagship
    through ``ctt.solve`` with the LINE_SEARCH minimizer (L-BFGS, Wolfe,
    100 iterations), float64, on one problem from one start: its regions
@@ -359,6 +371,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import subprocess
@@ -462,6 +475,16 @@ LARGE_DOGLEG_REFERENCE = {
 # iteration steps); in float32 JAX ends at 3587824.5405506883 in 3 records,
 # 9.1e-7 from its float64 cost.
 LARGE_INNER_REFERENCE = (3, 3587827.7881201766, 2)
+# The large f64 solve's captured repeat read the host 11.3 times an LM
+# iteration while the inner set steps ran op by op (PERF.md §5): of its 34
+# reads, 12 were the set steps' torch.linalg.solve waiting for its LU's
+# status and 6 the sets' and plans' construction, made again in every solve.
+INNER_LARGE_F64_READS_OP_BY_OP = 11.3
+# ceres_tpu.solve of the flagship instance at bal.default_options(
+# iterative=True) (50 iterations) with use_inner_iterations, float64, JAX on
+# the CPU: (records, final cost, inner iteration steps); CONVERGENCE after 8
+# CG iterations. ``python tests/test_torch_references.py flagship_inner``.
+FLAGSHIP_INNER_REFERENCE = (4, 202425.46404757453, 2)
 MINIMIZER_F64_RTOL = 1e-9  # the port's f64 against JAX f64
 MINIMIZER_F32_RTOL = 1e-6  # the port's f32 against its own f64 (DOGLEG)
 # With inner iterations in f32 the end is set by f32 noise: each inner
@@ -2681,7 +2704,9 @@ def _host_loop_fields(runs, problem, device) -> dict:
         host_reads_by_site={"eager": dict(runs[0]["reads"].most_common(6)),
                             "repeat": dict(runs[2]["reads"])},
         capture_seconds=runs[1]["summary"].graph_capture_time_in_seconds,
-        graphs=sorted(name for g in graphs for name in g.graphs),
+        graphs=sorted(name for g in graphs for name in g.graphs)
+        + sorted(name for g in graphs for r in getattr(g, "_inner", {}).values()
+                 for name in r.graphs),
         graph_pool_bytes=sum(g.pool_bytes() for g in graphs),
         peak_device_bytes={"eager": runs[0]["peak"], "captured": runs[1]["peak"]},
         launches=runs[2]["launches"],
@@ -2867,15 +2892,52 @@ def _reads(run, prepare):
     return _host_reads(run)
 
 
-def solve_large_minimizer(device, label: str, dtype: str, inst, changes: dict, smi: str):
-    """The large case through ctt.solve (DENSE_SCHUR) with the minimizer
-    options ``changes``: a 2-iteration warm-up on a problem of its own, then
-    on one problem its regions run eagerly, captured, again and eagerly
-    (``_eager_captured_repeat``: the same bits and launches). Returns (the
-    captured solve's summary, its launches, extra fields)."""
+def _inner_pass_reads(reads) -> dict:
+    """The host reads of ``reads`` (by site) made inside an inner pass:
+    in ``CoordinateDescentMinimizer.minimize`` or ``_set_step`` (not in
+    the sets' and plans' construction, a program's set-up)."""
+    spans = []
+    for fn in (inner_iterations.CoordinateDescentMinimizer.minimize,
+               inner_iterations.CoordinateDescentMinimizer._set_step):
+        lines, first = inspect.getsourcelines(fn)
+        spans.append((first, first + len(lines)))
+    out = {}
+    for site, n in reads.items():
+        name, _, line = site.rpartition(":")
+        if name == "inner_iterations.py" and any(a <= int(line) < b for a, b in spans):
+            out[site] = n
+    return out
+
+
+def _large_options(dtype: str, max_iters: int = 50):
+    return _options(dtype, False, max_iters)
+
+
+def _flagship_minimizer_options(dtype: str, max_iters: int = 50):
+    """bal.default_options(iterative=True) (ITERATIVE_SCHUR + SCHUR_JACOBI),
+    as tests/test_torch_references.py's flagship_inner_references sets it."""
+    opts = bal.default_options(iterative=True)
+    opts.max_num_iterations = max_iters
+    opts.evaluation_dtype = dtype
+    return opts
+
+
+def solve_large_minimizer(device, label: str, dtype: str, inst, changes: dict, smi: str,
+                          base_options=_large_options, reference=LARGE_REFERENCE_FINAL_COST,
+                          kernels=("sorted_segment_sum", "unsorted_segment_sum",
+                                   "outer_segment_sum")):
+    """The large case (or ``inst``) through ctt.solve (DENSE_SCHUR, or
+    ``base_options``) with the minimizer options ``changes``: a 2-iteration
+    warm-up on a problem of its own, then on one problem its regions run
+    eagerly, captured, again and eagerly (``_eager_captured_repeat``: the
+    same bits and launches), each of ``kernels`` launched. With inner
+    iterations: a captured pass reads
+    the host once (its cost) and nowhere else in inner_iterations.py, and
+    its launches (credited at each replay) are the eager pass's. Returns
+    (the captured solve's summary, its launches, extra fields)."""
 
     def options(max_iters=50):
-        opts = _options(dtype, False, max_iters)
+        opts = base_options(dtype, max_iters)
         for k, v in changes.items():
             setattr(opts, k, v)
         return opts
@@ -2888,27 +2950,43 @@ def solve_large_minimizer(device, label: str, dtype: str, inst, changes: dict, s
         inner_iterations.CoordinateDescentMinimizer
     ) as inner, _inner_launches() as inner_counts, _timed_calls(
         inner_iterations, "compute_independent_sets"
-    ) as coloring:
+    ) as coloring, _timed_calls(inner_iterations, "_build_structure") as structures:
         runs = _eager_captured_repeat(f"{label} {dtype}", problem, options(), device)
     summary, launches = runs[1]["summary"], runs[1]["launches"]
     # every run's inner passes launch alike
     inner_only = {k: inner_counts[k] // len(runs) for k in launches}
-    _checked(problem, summary, LARGE_REFERENCE_FINAL_COST, f"{label} {dtype}")
+    _checked(problem, summary, reference, f"{label} {dtype}")
     _usable(summary, f"{label} {dtype}")
     extra = {}
     if strategies:
         extra["mu_retries"] = strategies[0].mu_retries
     if inner:
         cd = inner[0]
+        passes = [r["summary"].num_inner_iteration_steps for r in runs]
+        pass_reads = {k: _inner_pass_reads(r["reads"]) for k, r in zip(HOST_LOOP_RUNS, runs)}
+        regions = [r for g in _host_loop_graph_sets(problem, device) for r in g._inner.values()]
         extra.update(
             sets=[len(s) for s in cd.sets], plans=cd.plan_kinds(),
             inner_iteration_steps=summary.num_inner_iteration_steps,
             inner_iteration_seconds=summary.inner_iteration_time_in_seconds,
-            inner_setup_seconds=[c.made_seconds for c in inner],
+            inner_pass_seconds={k: r["summary"].inner_iteration_time_in_seconds / max(n, 1)
+                                for k, r, n in zip(HOST_LOOP_RUNS, runs, passes)},
+            inner_pass_reads_by_site=pass_reads,
+            # the sets and plans are made once per program: one build here
+            inner_setup_seconds=structures,
+            inner_minimizers_made=len(inner),
             coloring_seconds=coloring,
             inner_launches=inner_only,
+            inner_graph_launches=sum(r.graph_launches for r in regions),
+            inner_graphs=sorted(n for r in regions for n in r.graphs),
             lm_step_launches={k: launches[k] - inner_only[k] for k in launches},
         )
+        for kind, reads in pass_reads.items():
+            if len(reads) > 1 or sum(reads.values()) != passes[HOST_LOOP_RUNS.index(kind)]:
+                raise RuntimeError(f"{label} {dtype}: the {kind} run's inner passes read the "
+                                   f"host {reads} in {passes} passes")
+        if len(structures) != 1 or len(coloring) > 1:
+            raise RuntimeError(f"{label} {dtype}: the sets were made {len(structures)} times")
     phase(
         "solve", case=label, dtype=dtype, initial_cost=summary.initial_cost,
         final_cost=summary.final_cost, records=len(summary.iterations),
@@ -2920,10 +2998,10 @@ def solve_large_minimizer(device, label: str, dtype: str, inst, changes: dict, s
         launches_by_width=_launches_by_width(), card=smi,
         **_host_loop_fields(runs, problem, device), **extra,
     )
-    for name, count in launches.items():
-        if count == 0:
+    for name in kernels:
+        if launches[name] == 0:
             raise RuntimeError(f"{label} {dtype}: {name} was never launched")
-    if inner and not (inner_only["sorted_segment_sum"] and inner_only["unsorted_segment_sum"]):
+    if inner and not all(inner_only[k] for k in kernels if k != "outer_segment_sum"):
         raise RuntimeError(f"{label} {dtype}: the inner pass launched {inner_only}")
     return summary, launches, extra
 
@@ -2965,18 +3043,43 @@ def solve_dogleg_large(device, inst, smi: str) -> dict:
 
 
 def solve_inner_iterations_large(device, inst, smi: str) -> dict:
-    """The large case, LM at DENSE_SCHUR with inner iterations, f32 and f64."""
+    """The large case, LM at DENSE_SCHUR with inner iterations, f32 and f64
+    (the f64 repeat's host reads per LM iteration beside those of the set
+    steps run op by op)."""
     paths, out = {}, {}
     for dtype in ("float32", "float64"):
         out[dtype], paths[f"inner_iterations_large_{dtype}"], extra = solve_large_minimizer(
             device, "inner_iterations_large", dtype, inst, dict(use_inner_iterations=True), smi)
         paths[f"inner_iterations_large_{dtype}_inner_pass"] = extra["inner_launches"]
+    phase("compare", case="inner_iterations_large", dtype="float64",
+          op_by_op_repeat_reads_per_lm_iteration=INNER_LARGE_F64_READS_OP_BY_OP)
     records, reference, steps = LARGE_INNER_REFERENCE
     _held_to_jax(out["float64"], records, reference, "inner_iterations_large float64")
     if out["float64"].num_inner_iteration_steps != steps:
         raise RuntimeError(f"inner iterations large: {out['float64'].num_inner_iteration_steps} "
                            f"inner steps (JAX {steps})")
     _held_to_f64(out["float32"], out["float64"], "inner_iterations_large", INNER_F32_RTOL)
+    return paths
+
+
+def solve_inner_iterations_flagship(device, smi: str) -> dict:
+    """The flagship with inner iterations (ITERATIVE_SCHUR + SCHUR_JACOBI),
+    f64 and f32, each eager, captured, again and eager; f64 held to JAX
+    f64's records, inner steps and final cost (FLAGSHIP_INNER_REFERENCE),
+    f32 to f64 (MINIMIZER_F32_RTOL)."""
+    paths, out = {}, {}
+    for dtype in ("float64", "float32"):
+        out[dtype], paths[f"inner_iterations_flagship_{dtype}"], extra = solve_large_minimizer(
+            device, "inner_iterations_flagship", dtype, flagship_instance(),
+            dict(use_inner_iterations=True), smi, base_options=_flagship_minimizer_options,
+            reference=REFERENCE_FINAL_COST, kernels=("sorted_segment_sum",))
+        paths[f"inner_iterations_flagship_{dtype}_inner_pass"] = extra["inner_launches"]
+    records, reference, steps = FLAGSHIP_INNER_REFERENCE
+    _held_to_jax(out["float64"], records, reference, "inner_iterations_flagship float64")
+    if out["float64"].num_inner_iteration_steps != steps:
+        raise RuntimeError(f"inner iterations flagship: "
+                           f"{out['float64'].num_inner_iteration_steps} inner steps (JAX {steps})")
+    _held_to_f64(out["float32"], out["float64"], "inner_iterations_flagship")
     return paths
 
 
@@ -4088,6 +4191,7 @@ def main() -> int:
     paths.update(solve_host_loop_progress(device, smi))
     paths.update(solve_dogleg_large(device, inst, smi))
     paths.update(solve_inner_iterations_large(device, inst, smi))
+    paths.update(solve_inner_iterations_flagship(device, smi))
     paths["large_iterative_cluster_jacobi_float32"] = solve_large_cluster_jacobi(
         device, inst, smi)
     for dtype in ("float64", "float32"):

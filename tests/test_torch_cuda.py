@@ -12,7 +12,9 @@ and SUBSET among them), the matrix-free covariance's batched CG and
 TinySolver captured, each against the same loop run eagerly, to the bit;
 the host loop's device work captured (``host_loop_graphs``: progress
 output, bounds, an evaluation callback with non-monotonic steps, DOGLEG,
-inner iterations) against its regions run eagerly, to the bit, and the
+inner iterations) against its regions run eagerly, to the bit (the inner
+set steps, DOGLEG's step choice and the bounds line search's trials
+region by region), and the
 Evaluator's three entry points from their graphs; the line search and
 GradientProblem on their captured regions against the same regions run
 eagerly, to the bit; the sparse solvers' captured regions (evaluations,
@@ -989,3 +991,55 @@ def test_captured_sparse_regions_match_the_eager_ones(device, name):
     if name == "pose_graph_normal":
         plan = program.solve_aux_cache["normal_assembly"][0]
         assert {s.plan.kind for s in plan.sites} == {"scatter"}
+
+
+# case -> the regions of the captured solve's graphs it must have run
+STEP_CHOICE_REGIONS = {
+    "inner_iterations": {"inner_set_0", "inner_set_1", "jacobi_scaling"},
+    "dogleg_traditional": {"dogleg", "dogleg_traditional"},
+    "dogleg_subspace": {"dogleg", "dogleg_subspace_model", "dogleg_subspace_step"},
+    "bounds": {"bounded_line", "bounded_trial", "jacobi_scaling"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(STEP_CHOICE_REGIONS))
+def test_captured_step_choice_regions_match_the_eager_ones(device, name):
+    """The inner iterations' set steps, DOGLEG's step choice and the bounds
+    line search's trials from CUDA graphs (``host_loop_graphs.InnerRegions``,
+    ``DoglegRegions``, ``bounded_line`` / ``bounded_trial``): eager,
+    captured, again and eager (``chip_smoke._eager_captured_repeat``) give
+    the same records, x and K1 / K3 / K4 launches, each region's buffers of
+    the captured set equal the eager set's with ``torch.equal``, and a set
+    step's replay waits for nothing (``torch.cuda.set_sync_debug_mode``
+    "error")."""
+    import chip_smoke
+    from ceres_tpu_torch import host_loop_graphs
+
+    problem, opts = _host_loop_case(name)
+    if name == "dogleg_subspace":
+        opts.initial_trust_region_radius = 10.0  # steps on the region's boundary
+    runs = chip_smoke._eager_captured_repeat(name, problem, opts, device)
+    assert runs[1]["summary"].is_solution_usable() and len(runs[1]["summary"].iterations) > 3
+    program = problem.program(device)
+    sets = host_loop_graphs.host_loop_graph_sets(program)
+    eager = next(g for g in sets if not g.captured)
+    captured = next(g for g in sets if g.captured)
+    inner = [(e, c) for e, c in zip(eager._inner.values(), captured._inner.values())]
+    graphs = set(captured.graphs) | {n for _, c in inner for n in c.graphs}
+    assert STEP_CHOICE_REGIONS[name] <= graphs, graphs
+    names = [n for n in captured._bufs if n.startswith(("dogleg", "bounded")) or n == "step"]
+    for n in names:
+        assert all(torch.equal(a, b) for a, b in zip(eager._bufs[n], captured._bufs[n])), n
+    for e, c in inner:
+        assert torch.equal(e.x, c.x) and torch.equal(e.cost, c.cost)
+        assert all(torch.equal(e.radii[k], c.radii[k]) for k in e.radii)
+        assert c.graph_launches > 0 and captured.graph_launches >= c.graph_launches
+        graph = c.graphs["inner_set_0"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert bool(inner) == (name == "inner_iterations")

@@ -3,7 +3,7 @@
 takes the native core's coloring), a user ordering validated and rejected
 as tests/test_ordered_groups.py:97 does, solves with inner iterations record
 by record (f64 costs rtol 1e-10, as tests/test_torch_host_loop.py), the f32
-dtypes, and the plan kinds a CUDA device would get.
+dtypes, and the plan kinds (gather plans, the same on every device).
 """
 
 import functools
@@ -21,6 +21,7 @@ from ceres_tpu.models import bal as jbal
 from ceres_tpu.models import pose_graph as jpg
 from ceres_tpu_torch import inner_iterations as tii
 from ceres_tpu_torch.evaluator import Evaluator
+from ceres_tpu_torch.ops.reduce import apply_reduce
 from ceres_tpu_torch.models import bal as tbal
 from ceres_tpu_torch.models import pose_graph as tpg
 
@@ -177,19 +178,31 @@ def test_float32_keeps_the_evaluation_dtype(monkeypatch):
 
 
 def test_plan_kinds_for_a_cuda_device():
-    """On a CUDA device a point set with sorted ids takes the sorted kernel
-    (K1) and a camera set of 288 to 4095 blocks the unsorted one (K3);
-    below 288 blocks a one-hot matmul (choose_plan_kind is pure)."""
-    problem = _bal(ctt, dict(num_cameras=300, num_points=1500, num_observations=6000,
-                             seed=5), loss=False)[0]
+    """The inner plans are gather plans, the same kind on every device: a
+    point set takes the sorted kernel (K1) and a camera set of 288 to 4095
+    blocks the unsorted one (K3); below 288 blocks a one-hot matmul; never
+    ``scatter`` (choose_gather_plan_kind is pure). A user ordering whose
+    point set leaves points out drops their rows from K1's row list."""
+    problem, cams, pts = _bal(ctt, dict(num_cameras=300, num_points=1500, num_observations=6000,
+                                        seed=5), loss=False)
     program = problem.program("cpu")
     cd = tii.CoordinateDescentMinimizer(program, ctt.SolverOptions(), Evaluator(program))
     assert [len(s) for s in cd.sets] == [1500, 300]
     assert cd.plan_kinds("cuda") == [(0, 3, 1500, "sorted"), (1, 9, 300, "unsorted")]
-    assert cd.plan_kinds() == [(0, 3, 1500, "scatter"), (1, 9, 300, "scatter")]
+    assert cd.plan_kinds() == cd.plan_kinds("cpu") == cd.plan_kinds("cuda")
     small = tii.CoordinateDescentMinimizer(
         _program(ctt, _bal(ctt, SMALL)[0]), ctt.SolverOptions(), None)
-    assert [k for *_, k in small.plan_kinds("cuda")] == ["scatter", "onehot"]
+    assert [k for *_, k in small.plan_kinds("cuda")] == ["sorted", "onehot"]
+    # half the points: ids with the dummy between them, 751 rows (K3); each
+    # kept point sums its own observations, the others' rows add nowhere
+    half = [int(p) for p in pts[::2]]
+    part = ctt.SolverOptions(inner_iteration_ordering=[half])
+    (_, plans), = tii.CoordinateDescentMinimizer(program, part, None)._set_structs[0].values()
+    (plan,) = [p for fp in plans for p in fp if p is not None]
+    assert plan.kind == "unsorted"
+    ids = program.families[0].block_ids[:, 1]
+    counts = apply_reduce(plan, torch.ones(ids.shape[0], dtype=torch.float64))
+    assert counts[:-1].tolist() == [float(np.sum(ids == p)) for p in half]
 
 
 def test_inner_iteration_tolerance_is_checked():

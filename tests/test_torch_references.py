@@ -16,6 +16,9 @@ the CPU, WHAT one of:
   instance at the large phase's options under DOGLEG (traditional and
   subspace) and with inner iterations, the latter in float32 too
   (LARGE_DOGLEG_REFERENCE, LARGE_INNER_REFERENCE);
+- ``flagship_inner``: ``ceres_tpu.solve`` of the flagship instance at
+  bal.default_options(iterative=True) with inner iterations
+  (FLAGSHIP_INNER_REFERENCE);
 - ``flagship_line_search``: ``ceres_tpu.solve`` of the flagship instance
   with the LINE_SEARCH minimizer (L-BFGS, Wolfe, 100 iterations), and the
   same from a start one ulp away in one coordinate, either way: how far the
@@ -174,6 +177,23 @@ def large_minimizer_references(mod, names, sizes=LARGE, dtype="float64"):
         out[name] = (len(s.iterations), s.final_cost, s.termination_type.name,
                      s.num_inner_iteration_steps, time.time() - t0)
     return out
+
+
+def flagship_inner_references(mod, sizes=FLAGSHIP, dtype="float64"):
+    """``solve`` of the flagship instance at bal.default_options(
+    iterative=True) (ITERATIVE_SCHUR + SCHUR_JACOBI, 50 iterations) with
+    ``use_inner_iterations``, ``dtype``: (records, final cost, termination,
+    inner-iteration steps, CG iterations, seconds)."""
+    bm, kw = _package(mod)
+    t0 = time.time()
+    opts = bm.default_options(iterative=True)
+    opts.max_num_iterations = 50
+    opts.evaluation_dtype = dtype
+    opts.use_inner_iterations = True
+    inst = bm.synthesize_bal(noise=2.0, perturb=0.7, **sizes)
+    s = mod.solve(opts, bm.build_problem(inst)[0], **kw)
+    return (len(s.iterations), s.final_cost, s.termination_type.name,
+            s.num_inner_iteration_steps, s.num_linear_solver_iterations, time.time() - t0)
 
 
 def _cg_records(s):
@@ -833,6 +853,15 @@ def test_wrong_jacobian_message_matches_jax():
     assert wrong_jacobian_message(ctt) == wrong_jacobian_message(ct)
 
 
+def test_flagship_inner_solve_matches_jax():
+    """The inner_iterations_flagship phase's solve at a small size: JAX's
+    records, termination, inner-iteration steps and CG iterations, the
+    final cost within 1e-10."""
+    j, t = (flagship_inner_references(m, SMALL) for m in (ct, ctt))
+    assert t[0] == j[0] > 3 and t[2:5] == j[2:5] and t[3] > 0
+    np.testing.assert_allclose(t[1], j[1], rtol=1e-10)
+
+
 def test_large_minimizer_solves_match_jax():
     js = large_minimizer_references(ct, list(LARGE_MINIMIZERS), SMALL)
     ts = large_minimizer_references(ctt, list(LARGE_MINIMIZERS), SMALL)
@@ -968,6 +997,9 @@ if __name__ == "__main__":
             for dtype in ("float64", "float32") if what == "large_inner" else ("float64",):
                 for name, result in large_minimizer_references(ct, names, dtype=dtype).items():
                     print(json.dumps(dict(reference=name, dtype=dtype, result=result)), flush=True)
+        elif what == "flagship_inner":
+            print(json.dumps(dict(reference=what, result=flagship_inner_references(ct))),
+                  flush=True)
         elif what == "flagship_line_search":
             runs = [flagship_line_search_references(ct, nudge=n) for n in (0, 1, -1)]
             print(json.dumps(dict(

@@ -68,8 +68,8 @@ def _minimizer(solver: str, **changes):
     minimizer = TrustRegionMinimizer(program, resolved, SolverSummary())
     graphs = minimizer.graphs
     assert not graphs.captured and minimizer.step_fn.regions is graphs
-    _, _, ctx = graphs.full(program.clamp(initial_state(program)))
-    graphs.set_scaling(1.0 / (1.0 + torch.sqrt(ctx.squared_column_norms())))
+    graphs.full(program.clamp(initial_state(program)))
+    graphs.jacobi_scaling()
     return minimizer, graphs.scaled()
 
 
