@@ -20,9 +20,11 @@ too (``linear/cg.py``); the host then replays the iteration
 ``max_num_iterations`` times without reading (a replay after the stop is a
 skipped node) and reads the trace and the final scalars once, as the JAX
 package reads its loop's result once. The capture, with the eager warm-up
-iteration it needs, is set-up. Elsewhere (the CPU, a mesh, the options the
-capture does not take) the same iteration runs eagerly and each ``run_if``
-reads its predicate: one read per LM iteration and one per CG iteration.
+iteration it needs, is set-up. On an NCCL mesh the graphs hold the
+collectives too (``parallel/sharding.py``). Elsewhere (the CPU, a gloo
+mesh, the options the capture does not take) the same iteration runs
+eagerly and each ``run_if`` reads its predicate: one read per LM
+iteration and one per CG iteration.
 
 Scalars kept in f64 whatever the evaluation dtype, as the JAX package does
 under its global x64 switch: the costs, the model cost change, rho, the
@@ -367,13 +369,16 @@ _CAPTURED_SOLVERS = (LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CH
 def regions_capturable(device, comm, functions) -> bool:
     """Whether device work that calls ``functions`` (residual functions,
     losses, a GradientProblem's ``fn`` and ``gradient_fn``; None skipped)
-    runs as CUDA graphs: on the card, without a mesh (its collectives go
-    through the host), and with no function that calls back into the host
-    (``runs_on_host``: the C API's). The line search and GradientProblem
-    take this alone; the host loop adds its linear solvers
-    (``captured_loop_eligible``). Decided from the device and the
-    functions, never by trying: the rest runs the same regions eagerly."""
-    return (torch.device(device).type == "cuda" and comm is None
+    runs as CUDA graphs: on the card, without a mesh or on a mesh whose
+    collectives run on the device (``MeshComm.on_device``: NCCL; a gloo
+    mesh's go through the host), and with no function that calls back into
+    the host (``runs_on_host``: the C API's). The line search and
+    GradientProblem take this alone; the host loop adds its linear solvers
+    (``captured_loop_eligible``). Decided from the device, the comm's
+    backend and the functions, never by trying: the rest runs the same
+    regions eagerly."""
+    return (torch.device(device).type == "cuda"
+            and (comm is None or getattr(comm, "on_device", False))
             and not any(getattr(f, "runs_on_host", False) for f in functions))
 
 
@@ -404,10 +409,15 @@ def host_loop_capturable(options, program) -> bool:
     whose host factor sits between two regions. Not DOGLEG under
     SPARSE_NORMAL_CHOLESKY: its Gauss-Newton solve sends the Jacobian to
     the host inside the ``dogleg`` region (``trust_region._base_linear_solve``).
-    Decided from the options, never by trying."""
+    Not a sparse solver on a mesh: its step gathers the Jacobian and
+    broadcasts rank 0's step around the host factor outside any region
+    (``trust_region._GatheredStep``). Decided from the options, never by
+    trying."""
     lst = options.linear_solver_type
     if (lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY
             and options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG):
+        return False
+    if program.comm is not None and lst in _SPARSE_TYPES:
         return False
     return (regions_capturable(program.device, program.comm, program_functions(program))
             and lst in _CAPTURED_SOLVERS + _SPARSE_TYPES)

@@ -18,8 +18,10 @@ each region is captured at its first call, after an eager warm-up that
 allocates its buffers and whose launches count nowhere, as one CUDA graph,
 its CG a WHILE node (``linear/cg.py``), and replayed after; every graph of
 the object allocates from the first one's memory pools. Otherwise the
-same functions run eagerly on the same buffers: the CPU, a mesh, the C
-API's host callbacks, DOGLEG under SPARSE_NORMAL_CHOLESKY (whose
+same functions run eagerly on the same buffers: the CPU, a gloo mesh
+(an NCCL mesh's collectives are captured with the rest,
+``parallel/sharding.py``), a sparse solver on a mesh, the C API's host
+callbacks, DOGLEG under SPARSE_NORMAL_CHOLESKY (whose
 Gauss-Newton solve reads the Jacobian on the host), and the eager baseline
 (``tools/profile_solve.eager_host_loop``). Nothing falls back: a failed
 capture raises.

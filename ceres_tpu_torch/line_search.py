@@ -494,8 +494,9 @@ class LineSearchMinimizer:
                 summary.message = "Parameter tolerance reached."
                 return x
             over = time.perf_counter() - start > opts.max_solver_time_in_seconds
-            if self.oracle.comm is not None:
-                over = self.oracle.comm.agree(over, x.device)  # rank 0's clock
+            if self.oracle.comm is not None:  # rank 0's clock
+                over = self.oracle.comm.over_budget(over, opts.max_solver_time_in_seconds,
+                                                    x.device)
             if over:
                 summary.termination_type = TerminationType.NO_CONVERGENCE
                 summary.message = "Maximum solver time reached."

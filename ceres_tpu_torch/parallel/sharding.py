@@ -44,6 +44,18 @@ from rank 0's clock.
 
 :class:`MeshComm` holds the collectives and counts their calls, bytes and
 seconds (``stats``).
+
+**On CUDA graphs.** Over NCCL the collectives run on the device, on
+NCCL's stream ordered against the caller's with events, so a CUDA graph
+captures them where they are issued, inside the conditional IF and WHILE
+bodies of ``utils/cuda_graph.py`` too: a sharded solve on an NCCL mesh runs
+as the same graphs as a one-process solve, with its all-reduces and
+broadcasts inside them, as the JAX package's GSPMD computation holds its
+collectives (``fused_lm.regions_capturable``). Over gloo they run through
+the host, and the solve runs eagerly. Under a mesh every ``run_if`` and
+``run_while`` predicate is computed from all-reduced or broadcast values
+only, so every rank's graph takes the same branches and enters the same
+collectives in the same order.
 """
 
 from __future__ import annotations
@@ -60,6 +72,7 @@ from torch.utils import _pytree as pytree
 from ceres_tpu_torch.loss import loss_take
 from ceres_tpu_torch.ops.reduce import build_gather_plan, build_reduce_plan
 from ceres_tpu_torch.problem import Family, Program
+from ceres_tpu_torch.utils import cuda_graph
 
 OBS_AXIS = "obs"
 PT_AXIS = "pt"
@@ -67,6 +80,11 @@ PT_AXIS = "pt"
 # The JAX package pads large batches to a multiple of its evaluation bucket
 # (one compiled bucket body on the TPU); ``bucket_program`` keeps its size.
 EVAL_BUCKET_SIZE = 131072
+
+# A time budget at or above this many seconds is no budget, as ``solve``
+# treats it (``fused_lm.fused_traced_eligible`` runs the fused loop, which
+# never reads the clock): the ranks agree on rank 0's clock only below it.
+NO_TIME_BUDGET = 1e6
 
 
 def _require_process_group() -> int:
@@ -122,42 +140,67 @@ def _mesh_device(mesh) -> torch.device:
 class MeshComm:
     """The collectives of one sharded program: this rank's position in the
     mesh (``rank``), the unsharded families (``full_families``), the
-    elimination ordering it was sharded by (``e_blocks``) and the e-block
+    elimination ordering it was sharded by (``e_blocks``), the e-block
     owners (``e_owner``, per parameter block id, -1 for a block that is no
-    e-block). Every collective spans the world group.
+    e-block) and the process group's backend (``backend``, "nccl" or
+    "gloo"). Every collective spans the world group.
 
     ``stats`` counts the calls, bytes and seconds of each kind of
-    collective ("all_reduce", "broadcast"). With ``timed`` (a class
-    attribute, so that a measurement can set it before a solve creates its
-    program's MeshComm) the device is synchronized before and after each
-    collective, so that the seconds are the collective's own (an NCCL call
-    returns before its work is done); off, they are the host's time in the
-    call."""
+    collective ("all_reduce", "broadcast"); ``new_stats`` starts a solve's.
+    Calls and bytes are counted as the kernels' launches are
+    (``cuda_graph.launched``): at once where a collective runs eagerly,
+    and for one captured into a CUDA graph once for each run of its region
+    on the device, credited with the graph's launches; a warm-up before a
+    capture counts nowhere. So a captured solve counts what an eager one
+    does. ``seconds`` is measured only where a collective runs eagerly:
+    with ``timed`` (a class attribute, so that a measurement can set it
+    before a solve creates its program's MeshComm) the device is
+    synchronized before and after each one, so that the seconds are the
+    collective's own (an NCCL call returns before its work is done); off,
+    they are the host's time in the call. A captured collective adds no
+    seconds (its time is inside the graph's replay)."""
 
     timed = False
 
     def __init__(self, rank: int, full_families, e_blocks: np.ndarray, e_owner: np.ndarray,
-                 root: int):
+                 root: int, backend: str):
         self.rank = rank
         self.full_families = list(full_families)
         self.e_blocks = e_blocks
         self.e_owner = e_owner
+        self.backend = backend
         self._root = root  # global rank of position 0
+        self.new_stats()
+
+    @property
+    def on_device(self) -> bool:
+        """Whether the collectives run on the device (NCCL), so that a CUDA
+        graph holds them; gloo's go through the host."""
+        return self.backend == "nccl"
+
+    def new_stats(self) -> dict:
+        """Start counting anew (a solve's ``SolverSummary.collectives``)."""
         self.stats = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
                       for k in ("all_reduce", "broadcast")}
+        return self.stats
+
+    def _credit(self, n: int, kind: str, nbytes: int) -> None:
+        st = self.stats[kind]
+        st["calls"] += n
+        st["bytes"] += n * nbytes
 
     def _run(self, kind: str, op, t: torch.Tensor) -> None:
-        sync = self.timed and t.is_cuda
+        captured = t.is_cuda and torch.cuda.is_current_stream_capturing()
+        sync = self.timed and t.is_cuda and not captured
         if sync:
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
         op(t)
         if sync:
             torch.cuda.synchronize(t.device)
-        st = self.stats[kind]
-        st["seconds"] += time.perf_counter() - t0
-        st["calls"] += 1
-        st["bytes"] += t.numel() * t.element_size()
+        if not captured:
+            self.stats[kind]["seconds"] += time.perf_counter() - t0
+        cuda_graph.launched(self._credit, kind, t.numel() * t.element_size())
 
     def sum(self, a: torch.Tensor) -> torch.Tensor:
         """``a`` summed over the ranks (a new tensor; the same bits on every
@@ -184,27 +227,32 @@ class MeshComm:
         self._run("broadcast", lambda t: dist.broadcast(t, src=self._root), out)
         return out
 
-    def agree(self, flag: bool, device) -> bool:
-        """Rank 0's host decision on every rank (a time budget, which each
-        rank's own clock would decide apart)."""
-        t = torch.tensor([1.0 if flag else 0.0], dtype=torch.float64, device=device)
+    def over_budget(self, over: bool, budget: float, device) -> bool:
+        """Rank 0's ``over`` (its clock past the time budget ``budget``) on
+        every rank, which each rank's own clock would decide apart: a
+        broadcast and a host read, between regions, for a budget below
+        ``NO_TIME_BUDGET``; at or above it no rank stops for time. The
+        options are the same on every rank, so every rank makes that call or
+        none does."""
+        if budget >= NO_TIME_BUDGET:
+            return False
+        t = torch.tensor([1.0 if over else 0.0], dtype=torch.float64, device=device)
         return bool(self.broadcast(t)[0].item() > 0.5)
 
     def gather_rows(self, families, full_families, residuals, jacs):
         """The whole families' residuals (and Jacobian blocks, unless
         ``jacs`` is None) on every rank, rows in the user's order: each rank
-        puts its rows in place in zeros, and one all-reduce adds them (each
+        puts its rows in place in zeros (``Family.source_index``, fixed
+        index tensors on the device), and one all-reduce adds them (each
         row is held by one rank, so the sum is the row itself). Returns
         (residuals, jacs or None) as tuples per family."""
         parts = []
         for fi, (fam, full) in enumerate(zip(families, full_families)):
             arrays = [residuals[fi]] + ([] if jacs is None else list(jacs[fi]))
-            src = torch.from_numpy(fam.source_rows).to(arrays[0].device)
-            keep = src >= 0
+            rows, dst = fam.source_index
             for a in arrays:
                 out = a.new_zeros((full.batch,) + tuple(a.shape[1:]))
-                out[src[keep]] = a[keep]
-                parts.append(out)
+                parts.append(out.index_copy_(0, dst, a.index_select(0, rows)))
         whole = iter(self.sum_all(parts))
         res, jac = [], []
         for fam in families:
@@ -243,6 +291,7 @@ def _take_rows(fam: Family, rows: np.ndarray, real: np.ndarray, dtype) -> Family
         m = torch.from_numpy(real.astype(np.float64)).to(dev, mdt)
         mask = m if fam.mask is None else fam.mask[rows_t].to(mdt) * m
     source = np.where(real, rows if fam.source_rows is None else fam.source_rows[rows], -1)
+    kept = np.nonzero(source >= 0)[0]
     plans = tuple(
         build_reduce_plan(b.cpu().numpy()[rows], p.num_groups, dev)
         for b, p in zip(fam.bd_pos, fam.reduce_plans)
@@ -268,6 +317,7 @@ def _take_rows(fam: Family, rows: np.ndarray, real: np.ndarray, dtype) -> Family
         gather_plans=gather_plans,
         mask=mask,
         source_rows=source,
+        source_index=(torch.from_numpy(kept).to(dev), torch.from_numpy(source[kept]).to(dev)),
     )
 
 
@@ -283,7 +333,7 @@ def pad_family(fam: Family, multiple: int, dtype=None) -> Family:
     real = np.arange(Bp) < B
     out = _take_rows(fam, rows, real, _family_float_dtype(fam, dtype))
     if fam.source_rows is None:
-        out.source_rows = None  # an unsharded family stays one
+        out.source_rows = out.source_index = None  # an unsharded family stays one
     return out
 
 
@@ -374,7 +424,9 @@ def shard_program(program: Program, mesh, axis_name: str = OBS_AXIS,
     Schur ordering of the whole program). Each family keeps its row order
     and gets its reduce plans rebuilt on its rows (so the CUDA kernels run
     per rank); a family with no rows here keeps one padding row. Sets
-    ``program.mesh``, ``mesh_axis``, ``point_axis`` and ``comm``."""
+    ``program.mesh``, ``mesh_axis``, ``point_axis`` and ``comm`` (with the
+    process group's backend, which decides whether the solve's regions
+    run as CUDA graphs: ``fused_lm.regions_capturable``)."""
     if program.comm is not None:
         raise ValueError("the program is sharded already")
     ranks = _mesh_ranks(mesh)
@@ -399,6 +451,7 @@ def shard_program(program: Program, mesh, axis_name: str = OBS_AXIS,
     program.mesh_axis = axis_name
     names = mesh.mesh_dim_names or ()
     program.point_axis = PT_AXIS if PT_AXIS in names and axis_name != PT_AXIS else None
-    program.comm = MeshComm(shard, full, e_blocks, e_owner, ranks[0])
+    program.comm = MeshComm(shard, full, e_blocks, e_owner, ranks[0],
+                           str(dist.get_backend()))
     _invalidate_structure_caches(program)
     return program

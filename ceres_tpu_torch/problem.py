@@ -219,6 +219,7 @@ class Problem:
         self._rid_first: List[int] = []
         self._rid_entry: List[Tuple[str, int]] = []
         self._programs: Dict[torch.device, Program] = {}
+        self._sharded: dict = {}  # this rank's programs by (device, mesh, ordering, losses)
 
     # -- parameter blocks ---------------------------------------------------
 
@@ -540,17 +541,39 @@ class Problem:
 
     def _dirty(self) -> None:
         self._programs.clear()
+        self._sharded.clear()
 
     def program(self, device) -> "Program":
-        """Freeze into an evaluation-ready Program on ``device``: the cached
-        one, unless a sharded solve left only this rank's rows in it
-        (``parallel.shard_program``), which is rebuilt whole (the JAX
-        package rebuilds it too, problem.py:600-604)."""
+        """Freeze into an evaluation-ready Program on ``device`` (the cached
+        one): every family whole, also after a sharded solve."""
         device = torch.device(device)
         prog = self._programs.get(device)
-        if prog is None or prog.mesh is not None:
+        if prog is None:
             prog = Program(self, device)
             self._programs[device] = prog
+        return prog
+
+    def sharded_program(self, device, mesh, e_blocks=None) -> "Program":
+        """This rank's share of the program on ``device`` over ``mesh``
+        (``parallel.shard_program`` by the elimination ordering
+        ``e_blocks``): the cached one for that mesh, ordering and the
+        whole program's losses, so that a repeat solve replays the CUDA
+        graphs its first solve captured, as the JAX package's repeat solve
+        reuses its compiled sharded computation (its problem.py:600-604
+        rebuilds the program, the port keeps it). Made anew when the
+        problem changes."""
+        from ceres_tpu_torch.fused_lm import _loss_key
+        from ceres_tpu_torch.parallel import shard_program
+
+        device = torch.device(device)
+        order = None if e_blocks is None else tuple(int(p) for p in e_blocks)
+        key = (device, mesh, order, _loss_key(self.program(device)))
+        prog = self._sharded.get(key)
+        if prog is None:
+            for k in [k for k in self._sharded if k[:3] == key[:3]]:
+                del self._sharded[k]  # made for other losses
+            prog = self._sharded[key] = shard_program(Program(self, device), mesh,
+                                                      e_blocks=order)
         return prog
 
     def write_back(self, x_ambient: np.ndarray) -> None:
@@ -698,7 +721,10 @@ class Family:
       row's ids and contribute nothing), in the evaluation dtype; None when
       every row is real (``parallel.pad_family``);
     - ``source_rows``: on a sharded program, the (B,) row of each instance
-      in the unsharded family, -1 on padding (``parallel.shard_program``).
+      in the unsharded family, -1 on padding (``parallel.shard_program``);
+    - ``source_index``: beside it, on the family's device, (the real rows,
+      their rows in the unsharded family): the fixed index tensors with
+      which ``MeshComm.gather_rows`` puts them in place.
     """
 
     structure: FamilyStructure
@@ -714,6 +740,7 @@ class Family:
     gather_plans: Tuple
     mask: Optional[torch.Tensor] = None
     source_rows: Optional[np.ndarray] = None
+    source_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def residual_size(self) -> int:

@@ -561,22 +561,21 @@ def preprocess(options: SolverOptions, problem, device, summary: SolverSummary):
     summary.preconditioner_type_used = resolved.preconditioner_type
     summary.trust_region_strategy_type_used = resolved.trust_region_strategy_type
     summary.evaluation_dtype = options.evaluation_dtype
-    if options.evaluation_dtype is not None:
-        cast_program(program, options.evaluation_dtype)
     if options.mesh is not None:
         # shard by the elimination ordering the solve will use
         # (the JAX package's shard_program call, solver.py:589-594)
         from ceres_tpu_torch.ordered_groups import normalize_ordering
-        from ceres_tpu_torch.parallel import shard_program
         from ceres_tpu_torch.trust_region import _SCHUR_TYPES
 
         groups = normalize_ordering(resolved.linear_solver_ordering)
         e_blocks = None
         if groups and resolved.linear_solver_type in _SCHUR_TYPES:
             e_blocks = list(groups[0])
-        shard_program(program, options.mesh, e_blocks=e_blocks)
+        program = problem.sharded_program(device, options.mesh, e_blocks)
         summary.num_devices = int(options.mesh.size())
-        summary.collectives = program.comm.stats  # filled in as the solve runs
+        summary.collectives = program.comm.new_stats()  # filled in as the solve runs
+    if options.evaluation_dtype is not None:
+        cast_program(program, options.evaluation_dtype)
     return program, resolved
 
 

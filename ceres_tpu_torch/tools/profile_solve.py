@@ -196,11 +196,12 @@ def eager_loop(problem, opts, device="cuda", revert_on_tolerance: bool = True):
     or of ``ctt.fused_solve`` (without), on the problem's program and the
     options, run eagerly (``fused_lm._device_loop`` with captured=False:
     every run_if reads its predicate), its summary filled by the functions
-    that solve fills its own with: a captured solve's baseline. Returns
-    (the summary, the loop's seconds)."""
+    that solve fills its own with: a captured solve's baseline (it writes
+    nothing back; its final x is the loop's ``state.x``). Returns (the
+    summary, the loop's seconds)."""
     summary = ctt.SolverSummary()
     program, resolved = preprocess(opts, problem, device, summary)
-    x0 = initial_state(program)
+    x0 = initial_state(program, opts.mesh)
     loop = fused_lm._device_loop(program, trust_region._build_solve_aux(resolved, program),
                                  fused_lm._fused_config(resolved, revert_on_tolerance),
                                  revert_on_tolerance, False, x0)
@@ -230,7 +231,7 @@ def eager_host_loop(problem, opts, device="cuda"):
     seconds)."""
     summary = ctt.SolverSummary()
     program, resolved = preprocess(opts, problem, device, summary)
-    x0 = initial_state(program)
+    x0 = initial_state(program, opts.mesh)
     if program.device.type == "cuda":
         torch.cuda.synchronize(program.device)
     t0 = time.perf_counter()  # as solve's minimizer time: the minimizer's set-up too

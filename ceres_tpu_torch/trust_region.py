@@ -1108,8 +1108,9 @@ class TrustRegionMinimizer:
             return True
         total = it.cumulative_time_in_seconds = summary.iterations[-1].cumulative_time_in_seconds
         over = total >= opts.max_solver_time_in_seconds
-        if self.program.comm is not None:
-            over = self.program.comm.agree(over, self.program.device)  # rank 0's clock
+        if self.program.comm is not None:  # rank 0's clock
+            over = self.program.comm.over_budget(over, opts.max_solver_time_in_seconds,
+                                                 self.program.device)
         if over:
             summary.termination_type = TerminationType.NO_CONVERGENCE
             summary.message = "Maximum solver time reached."

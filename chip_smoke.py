@@ -72,22 +72,37 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    after the capture. Then ``loss_swap``: a small robust BAL solved, its
    ``LossFunctionWrapper`` reset to TrivialLoss and solved again, which
    must capture anew and equal a fresh problem's solve to the bit;
-5b. sharded (``sharded``, right after phase 5a): ``fused_solve`` with
+5b. sharded (``sharded``, right after phase 5a): a solve with
    ``options.mesh`` (``ceres_tpu_torch/parallel/``), the ranks started by
    ``parallel.launch.spawn_ranks`` (spawn, a ``file://`` rendezvous). (a)
-   Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card): the
-   large case in float64 twice (the same bits both times, the same LM
-   iterations as phase 5's float64 solve, the final cost within
-   SHARDED_F64_RTOL), in float32 (within COST_RTOL of phase 5's float64),
-   and the flagship in float64 (ITERATIVE_SCHUR on the explicit S at
-   nf = 144; phase 4's float64 iterations, SHARDED_F64_RTOL). (b) One rank
-   over NCCL: the flagship in float32 through the mesh path, twice, each
-   phase 4's float32 result to the bit. Per rank and solve: its K1 / K3 / K4 launches
-   (each non-zero where the one-process solve launches it), set-up seconds,
-   seconds per LM iteration, and the calls, bytes and seconds of its
-   all-reduces (``MeshComm.timed``: the card is synchronized around each
-   collective, so the seconds are the collectives' own and the LM
-   iterations include those waits);
+   Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card),
+   ``fused_solve`` eagerly (gloo's collectives go through the host, so
+   nothing is captured: every line ``captured: false``): the large case in
+   float64 twice (the same bits both times, the same LM iterations as
+   phase 5's float64 solve, the final cost within SHARDED_F64_RTOL), in
+   float32 (within COST_RTOL of phase 5's float64), and the flagship in
+   float64 (ITERATIVE_SCHUR on the explicit S at nf = 144; phase 4's
+   float64 iterations, SHARDED_F64_RTOL). (b) One rank over NCCL, whose
+   collectives the CUDA graphs hold (SHARDED_NCCL_RUNS): the flagship in
+   float32 and the large case in float64 through ``fused_solve``, and the
+   flagship in float64 with progress output through ``ctt.solve`` (the
+   host loop's fused iteration), each SHARDED_NCCL_KINDS ways on one
+   problem from one start: eager (``profile_solve.eager_loop`` /
+   ``eager_host_loop``), captured (the first solve, which captures),
+   again, and eager again. Every run the same bits (costs, records, x),
+   K1 / K3 / K4 launches and all-reduce and broadcast calls and bytes;
+   the fused cases phase 4's and 5's one-process results to the bit, the
+   host loop the same rank's one-process ``ctt.solve``; the repeat at most
+   CAPTURED_MAX_HOST_READS host reads (fused) or one an LM iteration plus
+   HOST_LOOP_SETUP_READS (host loop). Per rank and solve: its K1 / K3 / K4
+   launches (each non-zero where the one-process solve launches it),
+   set-up seconds, seconds per LM iteration (by run, beside the
+   one-process solve's), host reads by run and site, capture seconds, the
+   graphs' pool bytes beside the eager peak, and the calls, bytes and
+   seconds of its all-reduces (``MeshComm.timed``: the card is
+   synchronized around each eager collective, so its seconds are the
+   collective's own and the LM iterations include those waits; a captured
+   collective adds no seconds);
 6. solve, robust large: the large instance again with ``HuberLoss(1.0)``
    (the Jacobians and residuals the kernels reduce are the loss-corrected
    ones), DENSE_SCHUR, float32 and float64, a 2-iteration warm-up and two
@@ -1747,13 +1762,17 @@ def check_kernels(device) -> list:
 
 SHARDED_RANKS = 2
 SHARDED_F64_RTOL = 1e-8
-# (a): two ranks on one card over gloo; (b): one rank over NCCL. A rank's
-# first solve also pays the process's first use of the card (2.5 s an LM
-# iteration against 0.23 at the large case, on an NVIDIA H100 80GB HBM3 at
-# 700 W): its repeat is the one to read.
+# (a): two ranks on one card over gloo (eager: gloo's collectives go through
+# the host); (b): one rank over NCCL, captured. A rank's first solve also
+# pays the process's first use of the card (2.5 s an LM iteration against
+# 0.23 at the large case, on an NVIDIA H100 80GB HBM3 at 700 W): its repeat
+# is the one to read.
 SHARDED_GLOO_RUNS = [("large", "float64"), ("large", "float64"), ("large", "float32"),
                      ("flagship", "float64")]
-SHARDED_NCCL_RUNS = [("flagship", "float32"), ("flagship", "float32")]
+# (case, dtype, loop): each run four ways on one problem (SHARDED_NCCL_KINDS)
+SHARDED_NCCL_RUNS = [("flagship", "float32", "fused"), ("large", "float64", "fused"),
+                     ("flagship", "float64", "host_loop")]
+SHARDED_NCCL_KINDS = ("eager", "captured", "repeat", "eager_again")
 SHARDED_TIMEOUT = 480.0  # one spawn: imports, set-up and every solve of every rank
 
 
@@ -2057,18 +2076,12 @@ def solve_captured_loop(device, inst, smi) -> dict:
     return paths
 
 
-def _sharded_solve(case: str, dtype: str, mesh, device) -> dict:
-    """One sharded ``fused_solve`` of ``case`` on this rank: its summary's
-    numbers, its kernel launches and its collectives."""
-    problem, _, _ = bal.build_problem(large_instance() if case == "large" else flagship_instance())
-    opts = _options(dtype, case == "flagship")
-    opts.mesh = mesh
-    _reset_launches()
-    s = ctt.fused_solve(opts, problem, device=device)
+def _sharded_fields(s) -> dict:
+    """A sharded solve's numbers: its summary's, and its collectives."""
     iters = max(s.num_iterations, 1)
     reduce = s.collectives["all_reduce"]
     return dict(
-        case=case, dtype=dtype, rank=torch.distributed.get_rank(), ranks=s.num_devices,
+        rank=torch.distributed.get_rank(), ranks=s.num_devices, captured=s.captured_loop,
         initial_cost=s.initial_cost, final_cost=s.final_cost, lm_iterations=s.num_iterations,
         termination=str(s.termination_type), setup_seconds=s.preprocessor_time_in_seconds,
         solve_seconds=s.minimizer_time_in_seconds,
@@ -2076,22 +2089,120 @@ def _sharded_solve(case: str, dtype: str, mesh, device) -> dict:
         all_reduce_calls=reduce["calls"], all_reduce_bytes=reduce["bytes"],
         all_reduce_bytes_per_lm_iteration=reduce["bytes"] / iters,
         all_reduce_seconds=reduce["seconds"], broadcasts=s.collectives["broadcast"]["calls"],
-        launches=_launches(),
+        broadcast_bytes=s.collectives["broadcast"]["bytes"],
     )
 
 
-def sharded_rank(rank: int, world: int, runs) -> list:
-    """A rank of the sharded phase: every (case, dtype) of ``runs`` on a
-    mesh over the world, on cuda:0 (every rank: one card)."""
-    del rank
+def _sharded_problem(case: str, dtype: str, mesh, loop: str = "fused"):
+    problem, _, _ = bal.build_problem(large_instance() if case == "large" else flagship_instance())
+    opts = _options(dtype, case == "flagship")
+    opts.mesh = mesh
+    opts.minimizer_progress_to_stdout = loop == "host_loop"
+    return problem, opts
+
+
+def _sharded_solve(case: str, dtype: str, mesh, device) -> dict:
+    """One sharded ``fused_solve`` of ``case`` on this rank: its summary's
+    numbers, its kernel launches and its collectives."""
+    problem, opts = _sharded_problem(case, dtype, mesh)
+    _reset_launches()
+    s = ctt.fused_solve(opts, problem, device=device)
+    return dict(case=case, dtype=dtype, **_sharded_fields(s), launches=_launches())
+
+
+def _mesh_setup():
+    """(cuda:0, a mesh over the world) for a rank of the sharded phase."""
     from ceres_tpu_torch.parallel import make_mesh, sharding
 
-    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
     torch.backends.cudnn.allow_tf32 = False
     sharding.MeshComm.timed = True
-    device = torch.device("cuda", 0)
-    mesh = make_mesh(world, device_type="cuda")
+    return device, make_mesh(torch.distributed.get_world_size(), device_type="cuda")
+
+
+def sharded_rank(rank: int, world: int, runs) -> list:
+    """A gloo rank of the sharded phase: every (case, dtype) of ``runs`` on
+    a mesh over the world, on cuda:0 (every rank: one card)."""
+    del rank, world
+    device, mesh = _mesh_setup()
     return [_sharded_solve(case, dtype, mesh, device) for case, dtype in runs]
+
+
+def _sharded_graphs(program, loop: str) -> list:
+    """The captured graphs kept on a sharded program."""
+    if loop == "fused":
+        return [g for lp in fused_lm.device_loops(program) for g in lp.graphs or ()]
+    return [g for graphs in host_loop_graphs.host_loop_graph_sets(program) if graphs.captured
+            for g in graphs._graph_list()]
+
+
+def _eager_loop_x(program) -> np.ndarray:
+    """The final x of ``program``'s eager fused loop (``eager_loop`` writes
+    nothing back)."""
+    lp = next(lp for lp in fused_lm.device_loops(program) if not lp.captured)
+    return lp.state.x.to(torch.float64).cpu().numpy()
+
+
+def _nccl_run(problem, opts, loop: str, kind: str, device) -> dict:
+    """One of SHARDED_NCCL_KINDS: the loop run eagerly
+    (``profile_solve.eager_loop`` / ``eager_host_loop``) or the entry point
+    (``fused_solve`` / ``solve``, captured), its host reads counted."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        if kind.startswith("eager"):
+            run = ((lambda: eager_loop(problem, opts, device, revert_on_tolerance=False))
+                   if loop == "fused" else (lambda: eager_host_loop(problem, opts, device)))
+            (s, _), reads = _host_reads(run)
+        else:
+            entry = ctt.fused_solve if loop == "fused" else ctt.solve
+            s, reads = _host_reads(lambda: entry(opts, problem, device=device))
+    x = problem.state().copy()
+    if loop == "fused" and kind.startswith("eager"):
+        x = _eager_loop_x(problem.sharded_program(device, opts.mesh))
+    return dict(_sharded_fields(s), launches=_launches(), host_reads=sum(reads.values()),
+                host_reads_by_site=dict(reads.most_common(6)),
+                capture_seconds=s.graph_capture_time_in_seconds,
+                peak_device_bytes=torch.cuda.max_memory_allocated(),
+                records=_host_loop_records_key(s), progress_lines=len(text.getvalue().splitlines()),
+                x=x)
+
+
+def nccl_rank(rank: int, world: int, runs) -> list:
+    """The NCCL rank of the sharded phase: every (case, dtype, loop) of
+    ``runs`` SHARDED_NCCL_KINDS ways on one problem from one start; the
+    host loop's case also through ``ctt.solve`` without the mesh (the
+    one-process bits it is held to). Returns per case its runs, the graphs'
+    pool bytes and the one-process host loop's records and x."""
+    del rank, world
+    device, mesh = _mesh_setup()
+    out = []
+    for case, dtype, loop in runs:
+        problem, opts = _sharded_problem(case, dtype, mesh, loop)
+        start = problem.state().copy()
+        done = []
+        for kind in SHARDED_NCCL_KINDS:
+            problem.write_back(start)
+            done.append(dict(kind=kind, **_nccl_run(problem, opts, loop, kind, device)))
+        program = problem.sharded_program(device, mesh)
+        result = dict(case=case, dtype=dtype, loop=loop, runs=done,
+                      graph_pool_bytes=cuda_graph.pool_bytes(_sharded_graphs(program, loop)))
+        x0 = done[0]["x"]
+        for run in done:
+            run["x_equal"] = bool(np.array_equal(run.pop("x"), x0))
+        if loop == "host_loop":
+            problem.write_back(start)
+            opts.mesh = None
+            with contextlib.redirect_stdout(io.StringIO()):
+                one = ctt.solve(opts, problem, device=device)
+            result["one_process"] = dict(final_cost=one.final_cost, captured=one.captured_loop,
+                                         records=_host_loop_records_key(one),
+                                         x_equal=bool(np.array_equal(problem.state(), x0)))
+        out.append(result)
+        del problem, program
+    return out
 
 
 def _held(label: str, got: dict, ref, rtol: float) -> float:
@@ -2105,6 +2216,68 @@ def _held(label: str, got: dict, ref, rtol: float) -> float:
     return rel
 
 
+def _check_nccl(result: dict, single: dict, paths: dict, smi: str) -> dict:
+    """The NCCL rank's runs of one case: the same bits four ways (final and
+    initial cost, records, x), the one-process result's bits, equal K1 / K3
+    / K4 launches and all-reduce calls and bytes, the captured runs
+    captured and the eager ones not, the repeat's host reads within the
+    one-process bound. Prints the phase line; returns the repeat's
+    launches."""
+    case, dtype, loop, runs = result["case"], result["dtype"], result["loop"], result["runs"]
+    label = f"sharded {case} {dtype} nccl {loop}"
+    first = runs[0]
+    keys = ("initial_cost", "final_cost", "lm_iterations", "termination", "records",
+            "launches", "all_reduce_calls", "all_reduce_bytes", "broadcasts", "broadcast_bytes")
+    for run in runs:
+        if any(run[k] != first[k] for k in keys) or not run["x_equal"]:
+            raise RuntimeError(f"{label}: the {run['kind']} run differs from the eager one: "
+                               f"{ {k: (run[k], first[k]) for k in keys if run[k] != first[k]} }")
+        if run["captured"] != (run["kind"] in ("captured", "repeat")):
+            raise RuntimeError(f"{label}: the {run['kind']} run captured={run['captured']}")
+    repeat = runs[2]
+    lm = repeat["lm_iterations"]
+    bound = CAPTURED_MAX_HOST_READS if loop == "fused" else lm + HOST_LOOP_SETUP_READS
+    if repeat["host_reads"] > bound or repeat["capture_seconds"] != 0.0:
+        raise RuntimeError(f"{label}: the repeat read the host {repeat['host_reads']} times "
+                           f"(bound {bound}): {repeat['host_reads_by_site']}")
+    if loop == "fused":
+        one = single[case, dtype]
+        rel = _held(label, repeat, one, 0.0)
+        if repeat["initial_cost"] != one.initial_cost:
+            raise RuntimeError(f"{label}: initial cost {repeat['initial_cost']}")
+        one_seconds = one.minimizer_time_in_seconds / max(one.num_iterations, 1)
+        one_cost = one.final_cost
+        for name, n in paths[f"{case}_{dtype}"].items():
+            if n and not repeat["launches"][name]:
+                raise RuntimeError(f"{label}: {name} never launched")
+    else:
+        one = result["one_process"]
+        if not (one["captured"] and one["final_cost"] == repeat["final_cost"]
+                and one["records"] == repeat["records"] and one["x_equal"]):
+            raise RuntimeError(f"{label}: {repeat['final_cost']} against the one-process "
+                               f"{one['final_cost']}")
+        rel, one_seconds, one_cost = 0.0, None, one["final_cost"]
+        if repeat["progress_lines"] != 1 + len(repeat["records"]):
+            raise RuntimeError(f"{label}: {repeat['progress_lines']} progress lines")
+    if repeat["launches"]["sorted_segment_sum"] == 0 or repeat["all_reduce_calls"] == 0:
+        raise RuntimeError(f"{label}: K1 or the all-reduces never ran: {repeat}")
+    fields = {k: v for k, v in repeat.items() if k not in ("records", "x_equal", "kind")}
+    phase("sharded", backend="nccl", case=case, dtype=dtype, loop=loop, nvidia_smi=smi,
+          runs=list(SHARDED_NCCL_KINDS), rel_err_vs_one_process=rel,
+          one_process_final_cost=one_cost,
+          one_process_seconds_per_lm_iteration=one_seconds,
+          seconds_per_lm_iteration_by_run={r["kind"]: r["seconds_per_lm_iteration"]
+                                           for r in runs},
+          host_reads_by_run={r["kind"]: r["host_reads"] for r in runs},
+          eager_host_reads_by_site=runs[0]["host_reads_by_site"],
+          capture_seconds_first=runs[1]["capture_seconds"],
+          peak_device_bytes={"eager": runs[0]["peak_device_bytes"],
+                             "captured_first": runs[1]["peak_device_bytes"]},
+          graph_pool_bytes=result["graph_pool_bytes"], equal_to_the_bit=True,
+          **{k: v for k, v in fields.items() if k != "peak_device_bytes"})
+    return repeat["launches"]
+
+
 def solve_sharded(single: dict, paths: dict, smi: str) -> dict:
     """Phase 5b: the sharded runs, held to the one-process summaries of
     phases 4 and 5 (``single[case, dtype]``) and to their launches
@@ -2116,38 +2289,37 @@ def solve_sharded(single: dict, paths: dict, smi: str) -> dict:
     gloo = spawn_ranks(sharded_rank, SHARDED_RANKS, (SHARDED_GLOO_RUNS,), backend="gloo",
                        timeout=SHARDED_TIMEOUT)
     t1 = time.perf_counter()
-    nccl = spawn_ranks(sharded_rank, 1, (SHARDED_NCCL_RUNS,), backend="nccl",
-                       timeout=SHARDED_TIMEOUT)
+    nccl = spawn_ranks(nccl_rank, 1, (SHARDED_NCCL_RUNS,), backend="nccl",
+                       timeout=SHARDED_TIMEOUT)[0]
     t2 = time.perf_counter()
     out = {}
-    for backend, ranks, runs in (("gloo", gloo, SHARDED_GLOO_RUNS), ("nccl", nccl, SHARDED_NCCL_RUNS)):
-        for i, (case, dtype) in enumerate(runs):
-            got = [r[i] for r in ranks]
-            label = f"sharded {case} {dtype} {backend} run {i}"
-            keys = ("initial_cost", "final_cost", "lm_iterations", "termination")
-            if any(tuple(g[k] for k in keys) != tuple(got[0][k] for k in keys) for g in got):
-                raise RuntimeError(f"{label}: the ranks disagree: {got}")
-            one = single[case, dtype]
-            if backend == "nccl":
-                # one rank: the mesh path must give the unsharded bits
-                rel = _held(label, got[0], one, 0.0)
-                if got[0]["initial_cost"] != one.initial_cost:
-                    raise RuntimeError(f"{label}: initial cost {got[0]['initial_cost']}")
-            elif dtype == "float64":
-                rel = _held(label, got[0], one, SHARDED_F64_RTOL)
-            else:
-                ref = single[case, "float64"].final_cost
-                rel = abs(got[0]["final_cost"] - ref) / ref
-                if not rel <= COST_RTOL:
-                    raise RuntimeError(f"{label}: {got[0]['final_cost']} against float64 {ref}")
-            for g in got:
-                for name, n in paths[f"{case}_{dtype}"].items():
-                    if n and not g["launches"][name]:
-                        raise RuntimeError(f"{label}, rank {g['rank']}: {name} never launched")
-                tag = f"sharded_{case}_{dtype}_{backend}_{len(ranks)}rank_run{i}_rank{g['rank']}"
-                out[tag] = g["launches"]
-                phase("sharded", backend=backend, run=i, rel_err_vs_one_process=rel,
-                      one_process_final_cost=one.final_cost, **g)
+    for i, (case, dtype) in enumerate(SHARDED_GLOO_RUNS):
+        got = [r[i] for r in gloo]
+        label = f"sharded {case} {dtype} gloo run {i}"
+        keys = ("initial_cost", "final_cost", "lm_iterations", "termination")
+        if any(tuple(g[k] for k in keys) != tuple(got[0][k] for k in keys) for g in got):
+            raise RuntimeError(f"{label}: the ranks disagree: {got}")
+        one = single[case, dtype]
+        if dtype == "float64":
+            rel = _held(label, got[0], one, SHARDED_F64_RTOL)
+        else:
+            ref = single[case, "float64"].final_cost
+            rel = abs(got[0]["final_cost"] - ref) / ref
+            if not rel <= COST_RTOL:
+                raise RuntimeError(f"{label}: {got[0]['final_cost']} against float64 {ref}")
+        for g in got:
+            if g["captured"]:
+                raise RuntimeError(f"{label}: a gloo mesh was captured")
+            for name, n in paths[f"{case}_{dtype}"].items():
+                if n and not g["launches"][name]:
+                    raise RuntimeError(f"{label}, rank {g['rank']}: {name} never launched")
+            out[f"sharded_{case}_{dtype}_gloo_{len(gloo)}rank_run{i}_rank{g['rank']}"] = (
+                g["launches"])
+            phase("sharded", backend="gloo", run=i, rel_err_vs_one_process=rel,
+                  one_process_final_cost=one.final_cost, **g)
+    for result in nccl:
+        tag = f"sharded_{result['case']}_{result['dtype']}_nccl_1rank_{result['loop']}"
+        out[tag] = _check_nccl(result, single, paths, smi)
     large64 = [r[0]["final_cost"] == r[1]["final_cost"] for r in gloo]
     phase("sharded_summary", nvidia_smi=smi, gloo_seconds=t1 - t0, nccl_seconds=t2 - t1,
           large_float64_repeats_equal_bits=all(large64))

@@ -19,7 +19,9 @@ Evaluator's three entry points from their graphs; the line search and
 GradientProblem on their captured regions against the same regions run
 eagerly, to the bit; the sparse solvers' captured regions (evaluations,
 prep and finish on either side of the host factor) against the eager
-ones, with ``torch.equal``. Skipped without a card.
+ones, with ``torch.equal``; a sharded solve on one NCCL rank, captured
+(the fused loop, the host loop with progress output, L-BFGS), against the
+same solve run eagerly and the one-process solve. Skipped without a card.
 
 This file imports neither jax nor ceres_tpu, so it also runs where only
 PyTorch is installed:
@@ -1043,3 +1045,121 @@ def test_captured_step_choice_regions_match_the_eager_ones(device, name):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
     assert bool(inner) == (name == "inner_iterations")
+
+
+# -- a sharded solve on one NCCL rank, captured ----------------------------------
+
+# The 4400-observation BAL of CAPTURED_OPTIONS (deterministic reductions)
+# through fused_solve under DENSE_SCHUR and ITERATIVE_SCHUR, and through
+# ctt.solve with progress output (the host loop's fused iteration) and
+# under L-BFGS (the line search's regions)
+MESH_CASES = ["fused_dense_schur", "fused_iterative_schur", "host_loop_progress",
+              "line_search"]
+MESH_RUNS = ("eager", "captured", "again", "eager_again")
+
+
+def _mesh_case(name: str):
+    """(problem, options, loop) of a MESH_CASES case, without the mesh."""
+    if name == "host_loop_progress":
+        problem, opts = _host_loop_case("progress_float64")
+        return problem, opts, "host_loop"
+    inst = bal.synthesize_bal(num_cameras=4, num_points=1100, num_observations=4400, seed=42)
+    problem = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))[0]
+    opts = bal.default_options(iterative=name.endswith("iterative_schur"))
+    if name == "line_search":
+        opts.minimizer_type = ctt.MinimizerType.LINE_SEARCH
+        opts.max_num_iterations = 20
+        return problem, opts, "host_loop"
+    return problem, opts, "fused"
+
+
+def _mesh_solve(problem, opts, loop: str, eager: bool, device):
+    import contextlib
+    import io
+
+    from ceres_tpu_torch.tools.profile_solve import eager_host_loop, eager_loop
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        if eager:
+            if loop == "fused":
+                return eager_loop(problem, opts, device, revert_on_tolerance=False)[0]
+            return eager_host_loop(problem, opts, device)[0]
+        return (ctt.fused_solve if loop == "fused" else ctt.solve)(opts, problem, device=device)
+
+
+def _mesh_record(s, problem, x=None) -> dict:
+    """A solve's record; ``x``: its final x where it wrote none back (numpy:
+    a tensor would cross the process boundary as shared memory, which the
+    finished rank no longer serves)."""
+    import dataclasses
+
+    return dict(final_cost=s.final_cost, captured=s.captured_loop,
+                records=[repr(dataclasses.astuple(r)[:-3]) for r in s.iterations],
+                x=problem.state().copy() if x is None else x,
+                collectives=None if s.collectives is None else {
+                    k: (v["calls"], v["bytes"]) for k, v in s.collectives.items()},
+                launches=(ss.launches, us.launches, osum.launches))
+
+
+def nccl_mesh_rank(rank, world, names):
+    """One NCCL rank on cuda:0 (NCCL takes one rank a card): every case of
+    ``names`` MESH_RUNS ways on one problem from one start."""
+    del rank
+    from ceres_tpu_torch.parallel import make_mesh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    mesh = make_mesh(world, device_type="cuda")
+    out = {}
+    for name in names:
+        problem, opts, loop = _mesh_case(name)
+        opts.mesh = mesh
+        start = problem.state().copy()
+        runs = []
+        for kind in MESH_RUNS:
+            problem.write_back(start)
+            ss.launches = us.launches = osum.launches = 0
+            eager = kind.startswith("eager")
+            s = _mesh_solve(problem, opts, loop, eager, device)
+            x = None
+            if eager and loop == "fused":  # eager_loop writes nothing back
+                from ceres_tpu_torch import fused_lm
+
+                program = problem.sharded_program(device, mesh)
+                lp = next(lp for lp in fused_lm.device_loops(program) if not lp.captured)
+                x = lp.state.x.to(torch.float64).cpu().numpy()
+            runs.append(_mesh_record(s, problem, x))
+        out[name] = runs
+    return out
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh_runs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL)")
+    from ceres_tpu_torch.parallel.launch import spawn_ranks
+
+    return spawn_ranks(nccl_mesh_rank, 1, (MESH_CASES,), backend="nccl", timeout=600.0)[0]
+
+
+@pytest.mark.parametrize("name", MESH_CASES)
+def test_a_captured_nccl_mesh_solve_matches_the_eager_one(nccl_mesh_runs, device, name):
+    """On one NCCL rank the sharded solve runs as CUDA graphs with its
+    collectives inside them (``parallel/sharding.py``; the fused loop, the
+    host loop's regions, the line search's): eager, captured,
+    again and eager give the same bits (records less their times, final
+    cost, x with ``torch.equal``), the same all-reduce and broadcast calls
+    and bytes and K1 / K3 / K4 launches; and the one-process solve's bits."""
+    runs = nccl_mesh_runs[name]
+    eager = runs[0]
+    assert [r["captured"] for r in runs] == [False, True, True, False]
+    assert eager["collectives"]["all_reduce"][0] > 0 and eager["launches"][0] > 0
+    for r in runs[1:]:
+        assert r["final_cost"] == eager["final_cost"] and r["records"] == eager["records"]
+        assert torch.equal(torch.from_numpy(r["x"]), torch.from_numpy(eager["x"]))
+        assert r["collectives"] == eager["collectives"] and r["launches"] == eager["launches"]
+    problem, opts, loop = _mesh_case(name)
+    one = _mesh_record(_mesh_solve(problem, opts, loop, False, device), problem)
+    assert one["captured"] and one["collectives"] is None
+    assert one["final_cost"] == eager["final_cost"] and one["records"] == eager["records"]
+    assert torch.equal(torch.from_numpy(one["x"]), torch.from_numpy(eager["x"]))
