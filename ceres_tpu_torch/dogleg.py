@@ -19,7 +19,10 @@ replayed per retry with mu a device scalar), and the step choice of
 subspace step's coefficients copied in from the host). The host reads once
 per retry of the Gauss-Newton solve, once for the subspace model (which
 holds ||gn_step||, so the Gauss-Newton branch needs no read of its own) and
-once for the step's norm and model cost change.
+once for the step's norm and model cost change. Under
+SPARSE_NORMAL_CHOLESKY the Gauss-Newton solve is two regions around the
+host factor (:class:`SparseGaussNewton`), which read J'J's cells once a
+point.
 """
 
 from __future__ import annotations
@@ -36,18 +39,27 @@ _MAX_MU = 1.0
 _MU_INCREASE = 10.0
 
 
+def cauchy(ctx, min_diagonal: float, max_diagonal: float):
+    """The diagonal scaling, J'f, the scaled gradient and the Cauchy alpha
+    (dogleg_strategy.cc:120-134, 176-195): (diagonal, jtf, gradient,
+    alpha)."""
+    diagonal = torch.sqrt(torch.clamp(ctx.squared_column_norms(), min_diagonal, max_diagonal))
+    jtf = ctx.gradient()
+    gradient = jtf / diagonal
+    jg = ctx.matvec(gradient / diagonal)
+    jg_sq = ctx._sum(sum(torch.sum(w * w) for w in jg))
+    alpha = torch.sum(gradient * gradient) / jg_sq
+    return diagonal, jtf, gradient, alpha
+
+
 def precompute(ctx, mu: torch.Tensor, linear_solve, solve_aux, min_diagonal: float,
                max_diagonal: float):
     """The diagonal scaling, the scaled gradient, the Cauchy alpha and the
     scaled Gauss-Newton step regularized by D = diagonal * sqrt(mu)
-    (dogleg_strategy.cc:120-134, 176-195, 560-568, ComputeGaussNewtonStep),
+    (:func:`cauchy`; dogleg_strategy.cc:560-568, ComputeGaussNewtonStep),
     mu an f64 device scalar. Returns (diagonal, gradient, alpha, gn_step,
     lin_iters, lin_term)."""
-    diagonal = torch.sqrt(torch.clamp(ctx.squared_column_norms(), min_diagonal, max_diagonal))
-    gradient = ctx.gradient() / diagonal
-    jg = ctx.matvec(gradient / diagonal)
-    jg_sq = ctx._sum(sum(torch.sum(w * w) for w in jg))
-    alpha = torch.sum(gradient * gradient) / jg_sq
+    diagonal, _, gradient, alpha = cauchy(ctx, min_diagonal, max_diagonal)
     y, lin_iters, lin_term = linear_solve(ctx, diagonal * torch.sqrt(mu).to(diagonal.dtype),
                                           solve_aux)
     # a mixed-precision solve returns an f64-refined y
@@ -153,6 +165,51 @@ def find_boundary_minimum(B: np.ndarray, g: np.ndarray, radius: float):
     return best
 
 
+class SparseGaussNewton:
+    """DOGLEG's Gauss-Newton solve under SPARSE_NORMAL_CHOLESKY, f(ctx, mu)
+    -> :func:`precompute`'s (diagonal, gradient, alpha, gn_step) and its
+    checks vector, as two regions around the host factor (the JAX package
+    computes the solve in its graph through a host callback, its
+    ``trust_region.py:399-420``), on ``regions``
+    (``host_loop_graphs.SparseRegions``):
+
+    - ``dogleg_sparse_prep``: :func:`cauchy`'s terms and J'J's cells
+      (``linear/inner_product.py``; on a sharded program the whole
+      program's, all-reduced), the diagonal, J'f and the cells read once;
+    - the host damps the cells with D = diagonal sqrt(mu), the reference's
+      D (no f32 floor), and factors them
+      (``inner_product.host_normal_factor_solve``);
+    - ``dogleg_sparse_finish``: gn_step from the host's solution (rank 0's,
+      broadcast, on a sharded program) and the checks vector.
+
+    A new mu at the same point damps the same host cells again, with no
+    card work, as the LM step's reject streak does. Not under
+    ``use_mixed_precision_solves``, whose f32 solve and f64 refinement
+    run in the ``dogleg`` region."""
+
+    def __init__(self, config, program, regions):
+        from ceres_tpu_torch.linear.inner_product import normal_assembly
+
+        self.config, self.regions = config, regions
+        self.plan, self.assembly = normal_assembly(program)
+        self._state: dict = {"ctx": None}
+
+    def __call__(self, ctx, mu: float):
+        from ceres_tpu_torch.linear.inner_product import host_normal_factor_solve
+
+        c, regions, state = self.config, self.regions, self._state
+        if state["ctx"] is not ctx:
+            regions.dogleg_sparse_prep(ctx, self.plan)
+            diag_h, rhs_h, *cells_h = regions.read_flat("dogleg_sparse_prep")
+            state.update(ctx=ctx, diag=diag_h, rhs=rhs_h, cells=cells_h)
+        diag_h = state["diag"]
+        D_h = diag_h * diag_h.dtype.type(np.sqrt(mu))
+        y, term = host_normal_factor_solve(
+            self.assembly, state["cells"], D_h, state["rhs"], ordering=c.ordering_type,
+            use_postordering=c.use_postordering)
+        return regions.dogleg_sparse_finish(ctx, y, term)
+
+
 class DoglegStrategy:
     """The host state machine over the functions above; the interface of
     ``LevenbergMarquardtStrategy`` plus ``compute_step``. With ``graphs``
@@ -160,9 +217,11 @@ class DoglegStrategy:
     ``dogleg`` region, on the context ``graphs.scaled()``, which is then
     the one ``compute_step`` is given, and the step choice its
     ``DoglegRegions``' regions; without, both run eagerly (the step choice
-    on ``DoglegRegions`` of its own, made at the first step)."""
+    on ``DoglegRegions`` of its own, made at the first step). ``sparse``
+    (a :class:`SparseGaussNewton`) takes the Gauss-Newton solve in place
+    of the ``dogleg`` region."""
 
-    def __init__(self, options, linear_solve, solve_aux=None, graphs=None):
+    def __init__(self, options, linear_solve, solve_aux=None, graphs=None, sparse=None):
         self.radius = options.initial_trust_region_radius
         self.max_radius = options.max_trust_region_radius
         self.mu = _MIN_MU
@@ -175,6 +234,7 @@ class DoglegStrategy:
         self._solve_aux = solve_aux
         self._graphs = graphs
         self._regions = graphs
+        self._sparse = sparse
         self._cache = None  # (ctx, diagonal, gradient, alpha, gn_step)
         self._model = None  # the subspace model of the cache, read on the host
         # Gauss-Newton solves redone at a larger mu in this solve (each
@@ -224,6 +284,8 @@ class DoglegStrategy:
         """:func:`precompute` at this mu: (diagonal, gradient, alpha,
         gn_step, (gn_step finite, lin_iters, lin_term) as one f64 device
         vector, read by the caller)."""
+        if self._sparse is not None:
+            return self._sparse(ctx, self.mu)
         if self._graphs is not None:
             return self._graphs.dogleg_precompute(self.mu)
         f64 = torch.float64

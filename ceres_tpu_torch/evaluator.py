@@ -438,33 +438,48 @@ class JacobianContext:
         return dense[:, :nt]
 
 
-def to_crs(ctx: JacobianContext):
-    """Scipy CSR of the block Jacobian (include/ceres/crs_matrix.h analog
-    for Problem.evaluate), assembled on the host from the per-family
-    (B, r, T_j) blocks without the dense matrix."""
+def crs_from_blocks(families, blocks, tidx, num_tangent: int):
+    """Scipy CSR of a block Jacobian from host arrays: ``blocks`` the
+    families' (B, r, T_j) Jacobian blocks and ``tidx`` their (B, T_j)
+    tangent coordinates (``num_tangent``: a constant block, left out), both
+    in (family, arg) order."""
     import scipy.sparse as sp
 
     rows_l, cols_l, vals_l = [], [], []
-    row0 = 0
-    nt = ctx.num_tangent
-    for fi, fam in enumerate(ctx.families):
+    row0, k = 0, 0
+    for fam in families:
         B, r = fam.batch, fam.residual_size
         rows_f = row0 + np.arange(B * r).reshape(B, r)
-        for j in range(fam.num_args):
-            tj = ctx.tangent_idx(fi, j).cpu().numpy()
-            Jj = ctx.jacs[fi][j].cpu().numpy()
+        for _ in range(fam.num_args):
+            tj, Jj = tidx[k], blocks[k]
+            k += 1
             T = tj.shape[1]
-            kk = np.broadcast_to((tj < nt)[:, None, :], (B, r, T))
+            kk = np.broadcast_to((tj < num_tangent)[:, None, :], (B, r, T))
             rows_l.append(np.broadcast_to(rows_f[:, :, None], (B, r, T))[kk])
             cols_l.append(np.broadcast_to(tj[:, None, :], (B, r, T))[kk])
             vals_l.append(Jj[kk])
         row0 += B * r
     if not rows_l:
-        return sp.csr_matrix((0, nt))
+        return sp.csr_matrix((0, num_tangent))
     return sp.csr_matrix(
         (np.concatenate(vals_l), (np.concatenate(rows_l), np.concatenate(cols_l))),
-        shape=(row0, nt),
+        shape=(row0, num_tangent),
     )
+
+
+def to_crs(ctx: JacobianContext):
+    """Scipy CSR of the block Jacobian (include/ceres/crs_matrix.h analog
+    for Problem.evaluate), assembled on the host from the per-family
+    (B, r, T_j) blocks without the dense matrix; the whole problem's on a
+    sharded context."""
+    if ctx.comm is not None:
+        return to_crs(ctx.gathered())
+    blocks, tidx = [], []
+    for fi, fam in enumerate(ctx.families):
+        for j in range(fam.num_args):
+            tidx.append(ctx.tangent_idx(fi, j).cpu().numpy())
+            blocks.append(ctx.jacs[fi][j].cpu().numpy())
+    return crs_from_blocks(ctx.families, blocks, tidx, ctx.num_tangent)
 
 
 def _cost_impl(x: torch.Tensor, families, apply_loss: bool = True, comm=None) -> torch.Tensor:

@@ -49,6 +49,7 @@ from ceres_tpu_torch.trust_region import (
     _SolveConfig,
     _build_solve_aux,
     _config_from_options,
+    _dogleg_jacobian_to_host,
     candidate_point,
     lm_step,
 )
@@ -405,22 +406,21 @@ def host_loop_capturable(options, program) -> bool:
     """Whether the host loop's regions (``host_loop_graphs``, driven by
     ``trust_region.TrustRegionMinimizer``) run as CUDA graphs: where
     ``captured_loop_eligible`` admits the fused loop, and also under
-    SPARSE_NORMAL_CHOLESKY (static or dynamic sparsity) and SPARSE_SCHUR,
-    whose host factor sits between two regions. Not DOGLEG under
-    SPARSE_NORMAL_CHOLESKY: its Gauss-Newton solve sends the Jacobian to
-    the host inside the ``dogleg`` region (``trust_region._base_linear_solve``).
-    Not a sparse solver on a mesh: its step gathers the Jacobian and
-    broadcasts rank 0's step around the host factor outside any region
-    (``trust_region._GatheredStep``). Decided from the options, never by
-    trying."""
-    lst = options.linear_solver_type
-    if (lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY
-            and options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG):
-        return False
-    if program.comm is not None and lst in _SPARSE_TYPES:
+    SPARSE_NORMAL_CHOLESKY (static or dynamic sparsity, mixed precision)
+    and SPARSE_SCHUR, whose host factor sits between two regions, on one
+    process or on a comm whose collectives run on the device (the cells'
+    all-reduce inside the prep, rank 0's solution broadcast inside the
+    finish), and DOGLEG under SPARSE_NORMAL_CHOLESKY, whose Gauss-Newton
+    solve is two regions around the host factor
+    (``dogleg.SparseGaussNewton``). Not DOGLEG under SPARSE_NORMAL_CHOLESKY
+    with ``use_mixed_precision_solves``: its f32 solve and f64 refinement
+    send the Jacobian to the host inside the ``dogleg`` region
+    (``trust_region._dogleg_jacobian_to_host``). Decided from the options,
+    never by trying."""
+    if _dogleg_jacobian_to_host(options):
         return False
     return (regions_capturable(program.device, program.comm, program_functions(program))
-            and lst in _CAPTURED_SOLVERS + _SPARSE_TYPES)
+            and options.linear_solver_type in _CAPTURED_SOLVERS + _SPARSE_TYPES)
 
 
 def _loss_key(program) -> tuple:

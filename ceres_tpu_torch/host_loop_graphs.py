@@ -20,11 +20,11 @@ its CG a WHILE node (``linear/cg.py``), and replayed after; every graph of
 the object allocates from the first one's memory pools. Otherwise the
 same functions run eagerly on the same buffers: the CPU, a gloo mesh
 (an NCCL mesh's collectives are captured with the rest,
-``parallel/sharding.py``), a sparse solver on a mesh, the C API's host
-callbacks, DOGLEG under SPARSE_NORMAL_CHOLESKY (whose
-Gauss-Newton solve reads the Jacobian on the host), and the eager baseline
-(``tools/profile_solve.eager_host_loop``). Nothing falls back: a failed
-capture raises.
+``parallel/sharding.py``), the C API's host callbacks, DOGLEG under
+SPARSE_NORMAL_CHOLESKY with ``use_mixed_precision_solves`` (whose
+Gauss-Newton solve reads the Jacobian on the host inside the ``dogleg``
+region), and the eager baseline (``tools/profile_solve.eager_host_loop``).
+Nothing falls back: a failed capture raises.
 
 Regions:
 
@@ -59,13 +59,21 @@ The sparse solvers' steps factor on the host between two regions of
 the step's context (the current or scaled buffers) and write one flat
 buffer that the host reads once (``read_flat``: the parts joined in the
 first one's dtype), or take the host's solution copied into a static
-buffer before the replay:
+buffer before the replay. On a sharded program each prep holds the one
+all-reduce of the rank's cells (the diagonal and right-hand side are sums
+already) and each finish the broadcast of rank 0's solution:
 
 - ``sparse_normal_prep``: SPARSE_NORMAL_CHOLESKY's radius-free half, the
   clipped LM diagonal, J'f and every J'J cell;
 - ``sparse_normal_damped``: under ``dynamic_sparsity``, the damping at the
-  radius (a device scalar) and J'f;
+  radius (a device scalar), J'f and the Jacobian's blocks (on a sharded
+  program its rows gathered);
 - ``sparse_finish``: the step -y and its model cost change;
+- ``dogleg_sparse_prep``: DOGLEG's Gauss-Newton solve under
+  SPARSE_NORMAL_CHOLESKY (``dogleg.SparseGaussNewton``), its Cauchy terms
+  kept, the diagonal, J'f and every J'J cell read;
+- ``dogleg_sparse_finish``: its Gauss-Newton step from the host's
+  solution and the checks vector, into the ``dogleg`` region's buffers;
 - ``sparse_schur_prep_{0,1}``: SPARSE_SCHUR's eliminator pass at the
   radius of its set: the damping, the point blocks' inverses (kept for the
   finish), every reduced cell, the reduced rhs and the cameras' damping.
@@ -392,19 +400,24 @@ class DoglegRegions(_Regions):
 
 
 class SparseRegions(DoglegRegions):
-    """The sparse steps' card halves (``sparse_*`` in the module's
-    docstring), for ``trust_region._SparseNormalStep`` and
-    ``linear/sparse_schur.SparseSchurStep``. Each region reads the context
-    its step was given: where ``captured``, the host loop's current or
-    scaled buffers (``HostLoopGraphs``); otherwise any context, eagerly (a
-    step made without the host loop's regions, or on a mesh's gathered
-    context)."""
+    """The sparse steps' card halves (``sparse_*`` and ``dogleg_sparse_*``
+    in the module's docstring), for ``trust_region._SparseNormalStep``,
+    ``linear/sparse_schur.SparseSchurStep`` and
+    ``dogleg.SparseGaussNewton``. Each region reads the context its step
+    was given: where ``captured``, the host loop's current or scaled
+    buffers (``HostLoopGraphs``); otherwise any context, eagerly (a step
+    made without the host loop's regions). On a sharded program the
+    collectives sit inside the regions: the preps' cells all-reduced (or,
+    under ``dynamic_sparsity``, the rows gathered), the host's solution
+    broadcast from rank 0 in the finishes."""
 
     def __init__(self, device: torch.device, captured: bool, solve_config: _SolveConfig):
         super().__init__(device, captured)
         self.solve_config = solve_config
         # SPARSE_SCHUR's radius of each prep set; set 0's also dynamic sparsity's
         self.sparse_radius = tuple(torch.zeros((), dtype=_F64, device=device) for _ in range(2))
+        # the host factor's termination code, for DOGLEG's checks vector
+        self.sparse_term = torch.zeros((), dtype=_F64, device=device)
         self._ctx: Optional[JacobianContext] = None  # the step's context
         self._flat_shapes: dict = {}  # a flat buffer's parts, by name
 
@@ -434,11 +447,10 @@ class SparseRegions(DoglegRegions):
 
     def sparse_normal_prep(self, ctx: JacobianContext, plan) -> None:
         """The radius-free half at ``ctx``: the clipped LM diagonal, J'f and
-        every J'J cell of ``plan`` (``linear/inner_product.NormalPlan``)
-        into the flat buffer "sparse_normal_prep". A ``scatter`` plan's
-        ``index_add_`` adds in no fixed order; its bits are fixed only
-        where at most two rows feed a cell (0 + a + b = 0 + b + a), as in
-        the pose graphs, whose cells take one edge or two."""
+        every J'J cell of ``plan`` (``linear/inner_product.NormalPlan``; on
+        a sharded program the whole program's, all-reduced) into the flat
+        buffer "sparse_normal_prep". The cells' plans add in a fixed order
+        (``ops/reduce.build_fixed_order_plan``)."""
         self._use(ctx)
         self._run("sparse_normal_prep", lambda: self._sparse_normal_prep(plan))
 
@@ -448,14 +460,20 @@ class SparseRegions(DoglegRegions):
 
     def sparse_normal_damped(self, ctx: JacobianContext, radius: float) -> None:
         """``dynamic_sparsity``'s half at ``ctx`` and ``radius``: the LM
-        damping and J'f into the flat buffer "sparse_normal_damped"."""
+        damping, J'f and the Jacobian's blocks (the whole program's, its
+        rows gathered, on a sharded program) into the flat buffer
+        "sparse_normal_damped"."""
         self._use(ctx)
         self.sparse_radius[0].fill_(radius)
         self._run("sparse_normal_damped", self._sparse_normal_damped)
 
     def _sparse_normal_damped(self) -> None:
-        D, rhs = _sparse_prep_impl(self._ctx, self.sparse_radius[0], self.solve_config)
-        self._keep_flat("sparse_normal_damped", D, rhs)
+        ctx, comm = self._ctx, self._ctx.comm
+        D, rhs = _sparse_prep_impl(ctx, self.sparse_radius[0], self.solve_config)
+        jacs = ctx.jacs
+        if comm is not None:
+            _, jacs = comm.gather_rows(ctx.families, comm.full_families, ctx.residuals, jacs)
+        self._keep_flat("sparse_normal_damped", D, rhs, *(J for js in jacs for J in js))
 
     def sparse_finish(self, ctx: JacobianContext, y: np.ndarray):
         """The step -y of the host's solution y and its model cost change
@@ -469,6 +487,45 @@ class SparseRegions(DoglegRegions):
         step, mcc = _sparse_finish_impl(self._ctx, self._inputs["sparse_y"])
         self._keep("step", step)
         self._keep("sparse_mcc", mcc)
+
+    # -- DOGLEG's Gauss-Newton solve under SPARSE_NORMAL_CHOLESKY ----------------
+
+    def dogleg_sparse_prep(self, ctx: JacobianContext, plan) -> None:
+        """DOGLEG's Cauchy terms at ``ctx`` (``dogleg.cauchy``) into the
+        buffers "dogleg_sparse", and the diagonal, J'f and every J'J cell of
+        ``plan`` into the flat buffer "dogleg_sparse_prep"."""
+        self._use(ctx)
+        self._run("dogleg_sparse_prep", lambda: self._dogleg_sparse_prep(plan))
+
+    def _dogleg_sparse_prep(self, plan) -> None:
+        c = self.solve_config
+        diagonal, jtf, gradient, alpha = dogleg.cauchy(self._ctx, c.min_lm_diagonal,
+                                                       c.max_lm_diagonal)
+        self._keep("dogleg_sparse", diagonal, gradient, alpha)
+        self._keep_flat("dogleg_sparse_prep", diagonal, jtf,
+                        *compute_normal_cells(self._ctx, plan))
+
+    def dogleg_sparse_finish(self, ctx: JacobianContext, y: np.ndarray, term: int) -> tuple:
+        """The scaled Gauss-Newton step -diagonal * y of the host's solution
+        y and the checks vector (gn_step finite, 1 linear iteration, the
+        factor's termination ``term``), with the prep's terms: the
+        ``dogleg`` buffers (diagonal, gradient, alpha, gn_step, checks), as
+        :meth:`HostLoopGraphs.dogleg_precompute` returns them."""
+        self._use(ctx)
+        self._host_input("dogleg_y", y, ctx.dtype)
+        self.sparse_term.fill_(term)
+        self._run("dogleg_sparse_finish", self._dogleg_sparse_finish)
+        return tuple(self._bufs["dogleg"])
+
+    def _dogleg_sparse_finish(self) -> None:
+        diagonal, gradient, alpha = self._bufs["dogleg_sparse"]
+        y = self._inputs["dogleg_y"]
+        if self._ctx.comm is not None:
+            y = self._ctx.comm.broadcast(y)
+        gn_step = -diagonal * y
+        checks = torch.stack([torch.all(torch.isfinite(gn_step)).to(_F64),
+                              torch.ones((), dtype=_F64, device=y.device), self.sparse_term])
+        self._keep("dogleg", diagonal, gradient, alpha, gn_step, checks)
 
     # -- SPARSE_SCHUR ------------------------------------------------------------
 

@@ -15,6 +15,16 @@ A host plan lists the cell sites (per family arg pair: diagonal, upper, and
 lower cells moved to the upper triangle by a transpose on the card); a host
 assembly maps every cell value into the upper-triangular CSC pattern of H,
 so that one ``np.bincount`` builds the matrix.
+
+On a sharded program (``parallel/sharding.py``) J'J is linear in the rows,
+as the JAX package's GSPMD sums its partial cells: each rank reduces its
+own rows into its own sites, places them in the cell list of the whole
+program (``Program.unsharded``, the same list on every rank,
+:class:`CellLayout`), and one all-reduce sums them, so that only the
+O(nnz(H)) cells cross between ranks and to the host. Sites whose cells take
+more than two rows reduce through a fixed-order plan
+(``ops/reduce.build_fixed_order_plan``), so the cells have the same bits on
+every run, captured or not.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ceres_tpu_torch.ops.reduce import ReducePlan, apply_reduce, build_reduce_plan
+from ceres_tpu_torch.ops.reduce import ReducePlan, apply_reduce, build_fixed_order_plan
 
 
 @dataclasses.dataclass
@@ -40,15 +50,71 @@ class NormalSite:
     j2: int
     diagonal: bool
     transpose: bool
-    plan: ReducePlan
+    plan: Optional[ReducePlan]  # None: the whole program's layout (host only)
     rows: np.ndarray  # (C, Tr) tangent coordinates of each cell's row block
     cols: np.ndarray  # (C, Tc)
 
 
 @dataclasses.dataclass
+class CellLayout:
+    """Where a rank's cells go in the whole program's cell list (a sharded
+    program's): ``shapes``, the whole program's sites' (C, ...) block
+    shapes, in its order; ``places``, for each site of this rank, the whole
+    site it adds to and the (C_local,) places of its cells there. Every cell
+    of a rank has one place, so placing them adds nothing and the order is
+    fixed; the ranks' placed cells are then all-reduced."""
+
+    shapes: Tuple[Tuple[int, ...], ...]
+    places: Tuple[Tuple[int, torch.Tensor], ...]
+
+
+def cell_layout(local, whole, device) -> CellLayout:
+    """The :class:`CellLayout` of a rank's sites ``local`` in the whole
+    program's ``whole``, each a list of (identity, (C,) int64 cell keys,
+    block shape): a local site adds to the whole site of its identity, a
+    cell to the whole cell of its key (built on the host, once)."""
+    index = {ident: (w, keys) for w, (ident, keys, _) in enumerate(whole)}
+    places = []
+    for ident, keys, _ in local:
+        w, wkeys = index[ident]
+        order = np.argsort(wkeys, kind="stable")
+        slot = order[np.searchsorted(wkeys, keys, sorter=order)]
+        if not np.array_equal(wkeys[slot], keys):
+            raise ValueError(f"a cell of site {ident} is not in the whole program's layout")
+        places.append((w, torch.from_numpy(slot).to(device)))
+    shapes = tuple((keys.shape[0],) + tuple(shape) for _, keys, shape in whole)
+    return CellLayout(shapes=shapes, places=tuple(places))
+
+
+def place_cells(layout: CellLayout, cells, like: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """A rank's cell blocks (one tensor per local site) in the whole
+    layout, zero where the rank has no cell (in ``like``'s dtype and
+    device)."""
+    out = [like.new_zeros(shape) for shape in layout.shapes]
+    for (w, slot), blocks in zip(layout.places, cells):
+        out[w] = out[w].index_copy(0, slot, blocks)
+    return tuple(out)
+
+
+def summed_cells(ctx, cells) -> Tuple[torch.Tensor, ...]:
+    """The cells summed over the ranks in one all-reduce (themselves in one
+    process)."""
+    if ctx.comm is None:
+        return tuple(cells)
+    return tuple(ctx.comm.sum_all(list(cells)))
+
+
+@dataclasses.dataclass
 class NormalPlan:
+    """The J'J cell sites of a program's rows. On a sharded program
+    ``layout`` places this rank's cells in those of the whole program,
+    whose sites (``whole``: host arrays, no reduce plan) the assembly is
+    built from."""
+
     sites: Tuple[NormalSite, ...]
     num_tangent: int
+    whole: Optional[Tuple[NormalSite, ...]] = None
+    layout: Optional[CellLayout] = None
 
 
 def _first_seen_ids(r: np.ndarray, c: np.ndarray, n: int):
@@ -70,12 +136,12 @@ def host_tangent_idx(program, fam, j: int) -> np.ndarray:
     return np.where(program.constant[col][:, None], program.num_tangent, idx)
 
 
-def build_normal_plan(program) -> NormalPlan:
-    """Enumerate the unique block-pair cells of H per family arg pair and
-    build their reduce plans on the program's device (the symbolic half of
-    inner_product_computer.cc ComputeOffsetsAndCreateResultMatrix)."""
+def _normal_sites(program, device) -> List[NormalSite]:
+    """The unique block-pair cells of H per family arg pair, with their
+    fixed-order reduce plans on ``device`` (``ops/reduce.
+    build_fixed_order_plan``), or without plans (None: the host's half
+    only)."""
     nt = program.num_tangent
-    dev = program.device
     sites: List[NormalSite] = []
     for fi, fam in enumerate(program.families):
         tidx = [host_tangent_idx(program, fam, j) for j in range(fam.num_args)]
@@ -100,15 +166,49 @@ def build_normal_plan(program) -> NormalPlan:
                     rep = idx[first]  # any instance of a cell has its two blocks
                     sites.append(NormalSite(
                         fi=fi, j1=a, j2=b, diagonal=diagonal, transpose=transpose,
-                        plan=build_reduce_plan(seg, C, dev),
+                        plan=None if device is None else build_fixed_order_plan(seg, C, device),
                         rows=rs[rep].astype(np.int64), cols=cs[rep].astype(np.int64),
                     ))
-    return NormalPlan(sites=tuple(sites), num_tangent=nt)
+    return sites
+
+
+def _site_keys(sites, n: int) -> list:
+    """(identity, cell keys, block shape) of each site (``cell_layout``)."""
+    return [((s.fi, s.j1, s.j2, s.diagonal, s.transpose), s.rows[:, 0] * (n + 1) + s.cols[:, 0],
+             (s.rows.shape[1], s.cols.shape[1])) for s in sites]
+
+
+def build_normal_plan(program) -> NormalPlan:
+    """Enumerate the unique block-pair cells of H per family arg pair and
+    build their reduce plans on the program's device (the symbolic half of
+    inner_product_computer.cc ComputeOffsetsAndCreateResultMatrix). On a
+    sharded program the sites are this rank's rows', laid out in the whole
+    program's cells (``Program.unsharded``: the same list on every rank)."""
+    nt = program.num_tangent
+    sites = tuple(_normal_sites(program, program.device))
+    if program.comm is None:
+        return NormalPlan(sites=sites, num_tangent=nt)
+    whole = tuple(_normal_sites(program.unsharded(), None))
+    layout = cell_layout(_site_keys(sites, nt), _site_keys(whole, nt), program.device)
+    return NormalPlan(sites=sites, num_tangent=nt, whole=whole, layout=layout)
+
+
+def normal_assembly(program):
+    """(plan, CSC assembly) of the program's J'J, built once per program (a
+    sharded program is kept per mesh) and kept in its
+    ``solve_aux_cache``."""
+    cached = program.solve_aux_cache.get("normal_assembly")
+    if cached is None:
+        plan = build_normal_plan(program)
+        cached = program.solve_aux_cache["normal_assembly"] = (plan, build_normal_assembly(plan))
+    return cached
 
 
 def compute_normal_cells(ctx, plan: NormalPlan) -> Tuple[torch.Tensor, ...]:
     """The reduced H cell blocks on the card, one (C, Tr, Tc) tensor per
-    site, in the assembly's site order."""
+    site, in the assembly's site order. On a sharded program the whole
+    program's cells: this rank's placed in its layout and all-reduced
+    (:func:`summed_cells`)."""
     out = []
     for site in plan.sites:
         X = torch.einsum("bri,brj->bij", ctx.jacs[site.fi][site.j1], ctx.jacs[site.fi][site.j2])
@@ -119,7 +219,9 @@ def compute_normal_cells(ctx, plan: NormalPlan) -> Tuple[torch.Tensor, ...]:
             # (j1, j2) and (j2, j1) both land on this diagonal cell
             blocks = blocks + blocks.transpose(1, 2)
         out.append(blocks)
-    return tuple(out)
+    if plan.layout is None:
+        return tuple(out)
+    return summed_cells(ctx, place_cells(plan.layout, out, ctx.residuals[0]))
 
 
 @dataclasses.dataclass
@@ -167,10 +269,11 @@ def csc_assembly(n: int, keys_parts, valid_parts) -> CscAssembly:
 
 
 def build_normal_assembly(plan: NormalPlan) -> CscAssembly:
-    """The CSC assembly of H = J'J from the plan's sites (host, once)."""
+    """The CSC assembly of H = J'J from the plan's sites, the whole
+    program's on a sharded program (host, once)."""
     n = plan.num_tangent
     keys_parts, valid_parts = [], []
-    for site in plan.sites:
+    for site in plan.whole or plan.sites:
         C, T1 = site.rows.shape
         T2 = site.cols.shape[1]
         r = np.broadcast_to(site.rows[:, :, None], (C, T1, T2))

@@ -141,8 +141,11 @@ class SchurStructure:
     cluster_groups: Optional[torch.Tensor] = None
     cluster_slots: Optional[torch.Tensor] = None
     chain_clusters: Optional[torch.Tensor] = None
-    # SPARSE_SCHUR's CSC assembly of upper(S) (sparse_schur.py)
+    # SPARSE_SCHUR's CSC assembly of upper(S) (sparse_schur.py), and on a
+    # sharded program where this rank's cells go in the whole program's
+    # (inner_product.CellLayout)
     sparse_assembly: Optional[object] = None
+    sparse_layout: Optional[object] = None
     # on a sharded program: (P,) bool, the points this rank owns
     e_owned: Optional[torch.Tensor] = None
 
@@ -153,14 +156,15 @@ class SchurStructure:
         return dataclasses.replace(self, f_mask=self.f_mask.to(dtype))
 
 
-def build_schur_structure(program, ordering: Optional[List[int]] = None) -> SchurStructure:
-    """Build the elimination structure on the program's device (the
-    explicit-S plan is attached by the caller when S is to be assembled).
-    ``ordering``: the e-block ids to eliminate (group 0 of
+def build_schur_structure(program, ordering: Optional[List[int]] = None,
+                          device=None) -> SchurStructure:
+    """Build the elimination structure on the program's device, or on
+    ``device`` (the explicit-S plan is attached by the caller when S is to
+    be assembled). ``ordering``: the e-block ids to eliminate (group 0 of
     ``SolverOptions.linear_solver_ordering``) in place of the automatic
     independent set; on a sharded program, the ordering it was sharded by).
     On a sharded program every e-block must have an owner rank."""
-    dev = program.device
+    dev = program.device if device is None else torch.device(device)
     comm = program.comm
     if ordering is None:
         ordering = compute_schur_ordering(program) if comm is None else comm.e_blocks

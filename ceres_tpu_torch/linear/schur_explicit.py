@@ -92,9 +92,12 @@ def _cells(pa: np.ndarray, pb: np.ndarray, n2: int):
     return ids.reshape(-1), uniq // n2, uniq % n2
 
 
-def build_explicit_plan(program, ss) -> ExplicitSchurPlan:
-    """Host-side construction of the one-pass assembly plan."""
-    dev = program.device
+def build_explicit_plan(program, ss, host_only: bool = False) -> ExplicitSchurPlan:
+    """Host-side construction of the one-pass assembly plan. ``host_only``:
+    the cells alone, on the CPU, without reduce plans or pair lists (the
+    whole program's layout of a sharded SPARSE_SCHUR,
+    ``sparse_schur.sparse_schur_assembly``)."""
+    dev = torch.device("cpu") if host_only else program.device
     families = program.families
     f_idx = ss.f_idx.cpu().numpy()
     nf = f_idx.shape[0]
@@ -142,13 +145,13 @@ def build_explicit_plan(program, ss) -> ExplicitSchurPlan:
                     ids, ca, cb = _cells(pA[sel], pB[sel], f_groups[TB].shape[0])
                     C = ca.shape[0]
                     perm, plan = None, None
-                    if sel.size == B:
+                    if not host_only and sel.size == B:
                         # Natural instance order when the plan kind does
                         # not need sorted ids (skips a row gather).
                         plan0 = build_reduce_plan(ids, C, dev)
                         if plan0.kind != "scatter":
                             plan = plan0
-                    if plan is None:
+                    if not host_only and plan is None:
                         order = np.argsort(ids, kind="stable")
                         perm = to_dev(sel[order])
                         plan = build_reduce_plan(ids[order], C, dev)
@@ -226,7 +229,7 @@ def build_explicit_plan(program, ss) -> ExplicitSchurPlan:
                 corr.append(
                     _pair_group(
                         T1, T2, diagonal, slot[a[m]], slot[b[m]], pos[a[m]],
-                        pos[b[m]], slot_count, f_groups, coords, to_dev, dev,
+                        pos[b[m]], slot_count, f_groups, coords, to_dev, dev, host_only,
                     )
                 )
 
@@ -240,10 +243,13 @@ def build_explicit_plan(program, ss) -> ExplicitSchurPlan:
 
 
 def _pair_group(T1, T2, diagonal, sa, sb, pa, pb, slot_count, f_groups, coords,
-                to_dev, dev) -> PairGroup:
+                to_dev, dev, host_only: bool = False) -> PairGroup:
     ids, ca, cb = _cells(pa, pb, f_groups[T2].shape[0])
     C = ca.shape[0]
     rows, cols = to_dev(coords(T1, ca)), to_dev(coords(T2, cb))
+    if host_only:
+        return PairGroup(T1=T1, T2=T2, diagonal=diagonal, num_cells=C, a_idx=None,
+                         b_idx=None, plan=None, rows=rows, cols=cols)
     # Self-pair mode: every slot appears exactly once as its own partner
     # -> reduce the slot-order outer products with per-slot cell ids (the
     # pad row N goes to the dummy cell), no gather.

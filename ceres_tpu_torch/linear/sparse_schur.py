@@ -22,6 +22,18 @@ Per iteration the host receives O(nnz(S cells)) values, what the
 reference's eliminator writes, not the Jacobian. This is the host loop's
 step; a caller of ``linear/schur.solve_schur`` (DOGLEG, mixed-precision
 refinement, the fused loop) takes the dense-S route, as in the JAX package.
+
+On a sharded program every row of a point lies on its owner rank
+(``parallel/sharding.py``), so the eliminator pass runs as DENSE_SCHUR's
+does there: each rank computes the cells of its own rows, whose sum over
+the ranks is S (the F'F cells are linear in the rows, and each point's
+W' M^-1 W pairs are whole on its owner). The cells are placed in the whole
+program's cell list (``inner_product.CellLayout``, built from
+``Program.unsharded`` with the same ordering on every rank) and summed by
+one all-reduce inside the prep; the reduced rhs and the damping are sums
+already. Every rank factors the same summed system, and the finish
+broadcasts rank 0's reduced solution before the owners back-substitute
+their points.
 """
 
 from __future__ import annotations
@@ -30,9 +42,16 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.linear.cg import CG_SUCCESS
-from ceres_tpu_torch.linear.inner_product import CscAssembly, csc_assembly, host_normal_factor_solve
-from ceres_tpu_torch.linear.schur import SchurOperator
-from ceres_tpu_torch.linear.schur_explicit import compute_cell_blocks
+from ceres_tpu_torch.linear.inner_product import (
+    CscAssembly,
+    cell_layout,
+    csc_assembly,
+    host_normal_factor_solve,
+    place_cells,
+    summed_cells,
+)
+from ceres_tpu_torch.linear.schur import SchurOperator, build_schur_structure
+from ceres_tpu_torch.linear.schur_explicit import FtFSite, build_explicit_plan, compute_cell_blocks
 
 
 def build_sparse_schur_assembly(plan) -> CscAssembly:
@@ -63,6 +82,40 @@ def build_sparse_schur_assembly(plan) -> CscAssembly:
     return csc_assembly(nf, keys_parts, valid_parts)
 
 
+def _site_keys(plan) -> list:
+    """(identity, cell keys, flat block shape) of each cell site of an
+    explicit plan, in ``compute_cell_blocks`` order (``cell_layout``)."""
+    out = []
+    for site in (*plan.ftf, *plan.corr):
+        if isinstance(site, FtFSite):
+            ident = ("ftf", site.fi, site.jA, site.jB, site.diagonal)
+        else:
+            ident = ("corr", site.T1, site.T2, site.diagonal)
+        rows = site.rows[:, 0].cpu().numpy().astype(np.int64)
+        cols = site.cols[:, 0].cpu().numpy().astype(np.int64)
+        out.append((ident, rows * (plan.nf + 1) + cols,
+                    (site.rows.shape[1] * site.cols.shape[1],)))
+    return out
+
+
+def sparse_schur_assembly(program, ss) -> None:
+    """Set ``ss.sparse_assembly`` (once): the CSC pattern of the whole
+    program's S, and on a sharded program ``ss.sparse_layout``, where this
+    rank's cells go in the whole program's (the whole program's cells from
+    its unsharded view, by the same ordering, on the host)."""
+    if ss.sparse_assembly is not None:
+        return
+    if program.comm is None:
+        ss.sparse_assembly = build_sparse_schur_assembly(ss.explicit)
+        return
+    whole = program.unsharded()
+    whole_ss = build_schur_structure(whole, ordering=list(ss.host_e_pids), device="cpu")
+    whole_plan = build_explicit_plan(whole, whole_ss, host_only=True)
+    ss.sparse_layout = cell_layout(_site_keys(ss.explicit), _site_keys(whole_plan),
+                                   program.device)
+    ss.sparse_assembly = build_sparse_schur_assembly(whole_plan)
+
+
 def _sparse_schur_prep_impl(ctx, radius: torch.Tensor, ss, config):
     """The card's half before the factorization: the LM damping, the point
     blocks, every reduced cell and the reduced rhs (the eliminator pass,
@@ -73,14 +126,19 @@ def _sparse_schur_prep_impl(ctx, radius: torch.Tensor, ss, config):
                        config.max_lm_diagonal)
     op = SchurOperator(ctx, _lm_damping(diag, radius), ss)
     cells = [blocks for _, blocks in compute_cell_blocks(op, ss.explicit)]
+    if ss.sparse_layout is not None:  # a rank's cells, in the whole layout and summed
+        cells = summed_cells(ctx, place_cells(ss.sparse_layout, cells, ctx.residuals[0]))
     return op, cells, op.rhs()[ss.f_idx], op.D[ss.f_idx]
 
 
 def _sparse_schur_finish_impl(op: SchurOperator, xf_red: torch.Tensor):
     """The card's half after the solve: the points back-substituted, the step
-    and its model cost change."""
+    and its model cost change. On a sharded program rank 0's ``xf_red``,
+    broadcast."""
     from ceres_tpu_torch.trust_region import _model_cost_change
 
+    if op.ctx.comm is not None:
+        xf_red = op.ctx.comm.broadcast(xf_red)
     x_f = torch.zeros((op.ctx.num_tangent,), dtype=op.dtype, device=xf_red.device)
     x_f[op.ss.f_idx] = xf_red
     step = -op.back_substitute(x_f)
@@ -102,18 +160,19 @@ class SparseSchurStep:
     reject streak the step instead enqueues the card's work for the
     predicted next radius into the other set after reading this step's
     cells and before factoring them: the card computes the next system
-    while the host factors this one."""
+    while the host factors this one. On a sharded program the cells are the
+    whole program's (:func:`sparse_schur_assembly`), summed inside the
+    prep, and the finish broadcasts rank 0's reduced solution."""
 
-    def __init__(self, config, solve_aux, device, regions=None):
+    def __init__(self, config, solve_aux, program, regions=None):
         from ceres_tpu_torch.host_loop_graphs import SparseRegions
 
         ss = solve_aux["ss"]
         if ss.explicit is None:
             raise ValueError("SPARSE_SCHUR needs the explicit cell plan")
-        if ss.sparse_assembly is None:
-            ss.sparse_assembly = build_sparse_schur_assembly(ss.explicit)
+        sparse_schur_assembly(program, ss)
         self.config, self.ss, self.assembly = config, ss, ss.sparse_assembly
-        self.regions = regions or SparseRegions(device, False, config)
+        self.regions = regions or SparseRegions(program.device, False, config)
         self._state: dict = {"ctx": None}
 
     def __call__(self, ctx, radius: float):

@@ -22,7 +22,9 @@ gather back into the gathered table's rows, the backward of the evaluator's
 ``table[index]``. It takes only the kinds that add in one fixed order on
 the card (``onehot``, ``sorted``, ``unsorted``; never ``scatter``, whose
 atomics add in no fixed order), so a reverse-mode gradient has the same
-bits on every run, captured into a CUDA graph or not.
+bits on every run, captured into a CUDA graph or not. A fixed-order plan
+(:func:`build_fixed_order_plan`, the J'J cells of ``linear/inner_product.py``)
+takes a gather plan where ``scatter`` would add more than two rows a group.
 """
 
 from __future__ import annotations
@@ -185,6 +187,23 @@ def build_gather_plan(
     if not np.array_equal(order, np.arange(seg.shape[0])):
         plan.rows = torch.from_numpy(order).to(device)
     return plan
+
+
+def build_fixed_order_plan(
+    seg_ids: np.ndarray, num_groups: int, device: torch.device
+) -> ReducePlan:
+    """:func:`build_reduce_plan`, unless that takes ``scatter`` for a group
+    of more than two rows: then :func:`build_gather_plan`, which adds in one
+    fixed order. Two rows a group add to the same bits in any order (0 + a
+    + b = 0 + b + a), so a plan of this kind gives the same bits on every
+    run, captured into a CUDA graph or not."""
+    device = torch.device(device)
+    G = int(num_groups)
+    seg = _mapped(seg_ids, G)
+    kind = choose_plan_kind(seg, G, device.type)
+    if kind == "scatter" and np.bincount(seg, minlength=G + 1)[:G].max(initial=0) > 2:
+        return build_gather_plan(seg, G, device)
+    return _build_plan(kind, seg, G, device)
 
 
 def apply_reduce(plan: ReducePlan, contrib: torch.Tensor) -> torch.Tensor:

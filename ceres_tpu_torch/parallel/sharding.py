@@ -33,10 +33,16 @@ work is already local on every rank, which is what the JAX package's
 **Solvers.** Each linear solver takes one form under a mesh, fixed by its
 type. Distributed (each rank its rows, all-reduced products): DENSE_SCHUR
 and ITERATIVE_SCHUR (S or each S x all-reduced, every preconditioner),
-CGNR (J'J x all-reduced). Gathered (every rank all-gathers the Jacobian and
-runs the one-process solver; rank 0's result is broadcast): DENSE_QR,
-DENSE_NORMAL_CHOLESKY, SPARSE_NORMAL_CHOLESKY and SPARSE_SCHUR. Inner
-iterations, DOGLEG and the line-search minimizer are distributed. Every
+CGNR (J'J x all-reduced), and the host loop's SPARSE_NORMAL_CHOLESKY and
+SPARSE_SCHUR steps, as the JAX package computes them: each rank reduces
+its rows into the whole program's J'J or S cells, one all-reduce sums
+them, every rank factors the same cells on the host, and rank 0's
+solution is broadcast (``linear/inner_product.CellLayout``; under
+``dynamic_sparsity`` the rows are gathered instead, as the Jacobian goes to
+the host). Gathered (every rank all-gathers the Jacobian and runs the
+one-process solver; rank 0's result is broadcast): DENSE_QR and
+DENSE_NORMAL_CHOLESKY. Inner iterations, DOGLEG (its sparse Gauss-Newton
+solve as the LM step's) and the line-search minimizer are distributed. Every
 host decision (CG's stop, the accept test, the tolerances) reads values
 that are all-reduced, or computed from all-reduced values in the same way
 on every rank, so every rank takes the same branch; a time budget is read

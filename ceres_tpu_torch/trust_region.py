@@ -163,13 +163,10 @@ _CLUSTER_TYPES = (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_
 _SPARSE_TYPES = (LinearSolverType.SPARSE_NORMAL_CHOLESKY, LinearSolverType.SPARSE_SCHUR)
 # The solvers that a sharded program runs in the gathered form: every rank
 # gathers the whole Jacobian and runs the one-process solver, and rank 0's
-# result is broadcast (parallel/sharding.py). The others are distributed.
-_GATHERED_TYPES = (
-    LinearSolverType.DENSE_QR,
-    LinearSolverType.DENSE_NORMAL_CHOLESKY,
-    LinearSolverType.SPARSE_NORMAL_CHOLESKY,
-    LinearSolverType.SPARSE_SCHUR,
-)
+# result is broadcast (parallel/sharding.py). The others are distributed,
+# the sparse ones as the JAX package computes them: each rank's cells
+# all-reduced before the host factor, rank 0's solution broadcast after it.
+_GATHERED_TYPES = (LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CHOLESKY)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,10 +329,12 @@ def _base_linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
         )
         return res.x, res.num_iterations, res.termination
     if lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
-        # The exact host factorization, with the Jacobian sent to the host:
-        # the solve of every caller but the host loop's own sparse step
-        # (DOGLEG, refinement corrections, the fused loop), what the JAX
-        # package computes in its graph through a host callback.
+        # The exact host factorization, with the Jacobian sent to the host
+        # (the whole problem's on a sharded ctx, ``evaluator.to_crs``): the
+        # solve of every caller but the host loop's own sparse steps (the
+        # fused loop, refinement corrections, DOGLEG under mixed
+        # precision), what the JAX package computes in its graph through a
+        # host callback.
         return solve_sparse_normal_cholesky(
             ctx, D, rhs=rhs, dynamic=config.dynamic_sparsity, ordering=config.ordering_type,
             use_postordering=config.use_postordering,
@@ -526,7 +525,10 @@ def _sparse_prep_radius_free_impl(ctx, config: _SolveConfig):
 
 def _sparse_finish_impl(ctx, y: torch.Tensor):
     """The card's half after the host solve: the step and its model cost
-    change (trust_region_minimizer.cc:424-438)."""
+    change (trust_region_minimizer.cc:424-438). On a sharded program rank
+    0's solution ``y``, broadcast."""
+    if ctx.comm is not None:
+        y = ctx.comm.broadcast(y)
     step = -y
     return step, _model_cost_change(ctx, step)
 
@@ -565,17 +567,21 @@ class _SparseNormalStep:
     transfer and only damps again on the host; inside a reject streak a
     one-worker thread pre-factors at the predicted next radius (the
     strategy's doubling decrease) while the card finishes the step.
-    ``dynamic_sparsity`` sends the Jacobian instead and analyzes its pattern
-    every iteration (dynamic_sparse_normal_cholesky_solver.cc)."""
+    ``dynamic_sparsity`` sends the Jacobian instead, in the same one read,
+    and analyzes its pattern every iteration
+    (dynamic_sparse_normal_cholesky_solver.cc).
+
+    On a sharded program the cells are the whole program's, each rank's
+    rows' placed and all-reduced inside the prep (under
+    ``dynamic_sparsity`` the prep gathers the rows), every rank factors the
+    same system (so every rank takes the same branch), and the finish
+    broadcasts rank 0's solution."""
 
     def __init__(self, config: _SolveConfig, program, regions=None):
         import concurrent.futures
 
         from ceres_tpu_torch.host_loop_graphs import SparseRegions
-        from ceres_tpu_torch.linear.inner_product import (
-            build_normal_assembly,
-            build_normal_plan,
-        )
+        from ceres_tpu_torch.linear.inner_product import host_tangent_idx, normal_assembly
 
         self.config = config
         self.program = program
@@ -584,13 +590,14 @@ class _SparseNormalStep:
         self.regions = regions or SparseRegions(program.device, False, config)
         self.plan = self.assembly = self._executor = None
         self._state: dict = {"ctx": None}
-        if not config.dynamic_sparsity:
-            cached = program.solve_aux_cache.get("normal_assembly")
-            if cached is None:
-                plan = build_normal_plan(program)
-                cached = program.solve_aux_cache["normal_assembly"] = (
-                    plan, build_normal_assembly(plan))
-            self.plan, self.assembly = cached
+        if config.dynamic_sparsity:
+            # the whole program's blocks as they reach the host
+            whole = program.unsharded()
+            self._families = whole.families
+            self._tidx = [host_tangent_idx(whole, fam, j) for fam in whole.families
+                          for j in range(fam.num_args)]
+        else:
+            self.plan, self.assembly = normal_assembly(program)
             self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=1)
 
     def close(self) -> None:
@@ -644,14 +651,15 @@ class _SparseNormalStep:
         return _step_result(*regions.sparse_finish(ctx, y), term)
 
     def _dynamic(self, ctx, radius: float):
-        from ceres_tpu_torch.evaluator import to_crs
+        from ceres_tpu_torch.evaluator import crs_from_blocks
         from ceres_tpu_torch.linear.sparse_cholesky import host_sparse_normal_solve
 
         c, regions = self.config, self.regions
         regions.sparse_normal_damped(ctx, radius)
-        D_h, rhs_h = regions.read_flat("sparse_normal_damped")
+        D_h, rhs_h, *blocks = regions.read_flat("sparse_normal_damped")
         y, term = host_sparse_normal_solve(
-            to_crs(ctx), True, D_h, rhs_h, ordering=c.ordering_type,
+            crs_from_blocks(self._families, blocks, self._tidx, ctx.num_tangent), True, D_h,
+            rhs_h, ordering=c.ordering_type,
             use_postordering=c.use_postordering, mixed_precision=c.use_mixed_precision_solves,
             num_refinement_iterations=c.num_refinement_iterations,
         )
@@ -660,40 +668,32 @@ class _SparseNormalStep:
         return _step_result(*regions.sparse_finish(ctx, y), term)
 
 
-class _GatheredStep:
-    """A host-driven sparse step on a sharded program: the step of the
-    whole program on the gathered context, rank 0's result broadcast."""
-
-    def __init__(self, step_fn, comm):
-        self._step_fn, self._comm = step_fn, comm
-
-    def __call__(self, ctx, radius: float):
-        step, mcc, iters, term = self._step_fn(ctx.gathered(), radius)
-        step, mcc, iters, term = _broadcast_scalars(self._comm, step, mcc, iters, term)
-        return step, mcc, iters.to(torch.int32), term.to(torch.int32)
-
-    def close(self) -> None:
-        close = getattr(self._step_fn, "close", None)
-        if close is not None:
-            close()
+def _dogleg_jacobian_to_host(options) -> bool:
+    """Whether DOGLEG's Gauss-Newton solve sends the Jacobian to the host
+    inside the ``dogleg`` region (``_base_linear_solve``): under
+    SPARSE_NORMAL_CHOLESKY with mixed precision, whose f32 solves and f64
+    refinement keep the reference's arithmetic. Without mixed precision
+    the solve is two regions around the host factor
+    (``dogleg.SparseGaussNewton``)."""
+    return (options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
+            and options.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY
+            and options.use_mixed_precision_solves)
 
 
 def _make_lm_step_fn(options, program, regions=None):
     """f(ctx, radius) -> (step, model_cost_change, lin_iters, lin_termination)
     for a host radius: the host-driven sparse steps for SPARSE_NORMAL_CHOLESKY
     and SPARSE_SCHUR (their card halves on ``regions``, the host loop's
-    ``HostLoopGraphs``, or on eager regions of their own; a mesh's gathered
-    step always the latter), the card's step for every other solver."""
+    ``HostLoopGraphs``, or on eager regions of their own; on a sharded
+    program too), the card's step for every other solver."""
     config = _config_from_options(options)
-    if program.comm is not None and config.linear_solver_type in _SPARSE_TYPES:
-        return _GatheredStep(_make_lm_step_fn(options, program.unsharded()), program.comm)
     if config.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
         return _SparseNormalStep(config, program, regions)
     solve_aux = _build_solve_aux(options, program)
     if config.linear_solver_type == LinearSolverType.SPARSE_SCHUR:
         from ceres_tpu_torch.linear.sparse_schur import SparseSchurStep
 
-        return SparseSchurStep(config, solve_aux, program.device, regions)
+        return SparseSchurStep(config, solve_aux, program, regions)
 
     def step_fn(ctx, radius: float):
         r = torch.full((), radius, dtype=_F64, device=ctx.residuals[0].device)
@@ -728,10 +728,14 @@ class TrustRegionMinimizer:
                                    graphs=self.graphs)
         self.use_dogleg = options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
         if self.use_dogleg:
-            from ceres_tpu_torch.dogleg import DoglegStrategy
+            from ceres_tpu_torch.dogleg import DoglegStrategy, SparseGaussNewton
 
+            sparse = None
+            if (options.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY
+                    and not _dogleg_jacobian_to_host(options)):
+                sparse = SparseGaussNewton(_config_from_options(options), program, self.graphs)
             self.dogleg = DoglegStrategy(options, *_make_linear_solve(options, program),
-                                         graphs=self.graphs)
+                                         graphs=self.graphs, sparse=sparse)
             self.step_fn = None
         else:
             self.step_fn = _make_lm_step_fn(options, program, self.graphs)

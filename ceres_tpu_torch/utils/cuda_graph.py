@@ -239,7 +239,11 @@ class CapturedGraph:
         if _open:
             raise RuntimeError("CapturedGraph captures do not nest")
         _library()
-        self.device = device
+        device = torch.device(device)
+        # the memory pool takes a device with its index: "cuda" is the
+        # current card
+        self.device = device if device.index is not None else torch.device(
+            "cuda", torch.cuda.current_device())
         # The bodies' allocations (on the body streams, which the graph's
         # private pool does not take) go to a pool of their own that lives
         # as long as the graph, as the graph's pool does.

@@ -102,7 +102,19 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    seconds of its all-reduces (``MeshComm.timed``: the card is
    synchronized around each eager collective, so its seconds are the
    collective's own and the LM iterations include those waits; a captured
-   collective adds no seconds);
+   collective adds no seconds). (c) On the same NCCL rank, the sparse
+   solvers through ``ctt.solve`` (SHARDED_NCCL_RUNS' host-factor cases):
+   the 2500-pose graph of phase 21 under SPARSE_NORMAL_CHOLESKY, static
+   (each rank's J'J cells placed in the whole program's layout, one
+   all-reduce inside the prep region, rank 0's solution broadcast inside
+   the finish) and with ``dynamic_sparsity`` (the rows gathered inside the
+   prep), and phase 22's sequential bundle adjustment under SPARSE_SCHUR
+   (the eliminator's cells all-reduced the same way), float64, each the
+   four ways of (b): the same bits, launches and collectives in every run,
+   the same rank's one-process captured ``ctt.solve``'s bits and K1 / K3 /
+   K4 launches (one rank sums nothing), the repeat at most
+   SPARSE_MAX_READS_PER_LM_ITERATION host reads an LM iteration plus
+   HOST_LOOP_SETUP_READS;
 6. solve, robust large: the large instance again with ``HuberLoss(1.0)``
    (the Jacobians and residuals the kernels reduce are the loss-corrected
    ones), DENSE_SCHUR, float32 and float64, a 2-iteration warm-up and two
@@ -272,7 +284,12 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    (``_eager_captured_repeat``): every run the same bits and launches,
    JAX's record count and cost within 1e-9, the captured repeat at most
    SPARSE_MAX_READS_PER_LM_ITERATION host reads an LM iteration plus
-   HOST_LOOP_SETUP_READS, the CGNR phase's seconds beside it;
+   HOST_LOOP_SETUP_READS, the CGNR phase's seconds beside it; then the
+   same graph under DOGLEG (``pose_graph_sparse_cholesky_dogleg``: its
+   Gauss-Newton solve as two regions around the host factor,
+   ``dogleg.SparseGaussNewton``), the same four runs and checks, held to
+   JAX's record count and cost within 1e-9
+   (POSE_GRAPH_SPARSE_DOGLEG_REFERENCE);
 22. solve, sequential bundle adjustment, SPARSE_SCHUR
    (``sequential_ba_sparse_schur``): ``sequential_instance`` (1723 cameras,
    156 502 points, 678 718 observations, the shape of BAL's Ladybug
@@ -355,7 +372,7 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    libmv_bundle_adjuster and denoising must launch the kernels of
    EXAMPLE_KERNELS.
 
-Every sparse phase (21, 22) also prints, per run, the host's seconds of
+Every sparse phase (21, 22, and 5b's host-factor cases) also prints, per run, the host's seconds of
 numeric factorization and solve and their share of the run, the bytes
 copied to the host per iteration, and the host reads, seconds and host
 reads per LM iteration; the first run's symbolic analysis seconds and the
@@ -392,6 +409,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -560,6 +578,9 @@ SEQUENTIAL = dict(num_cameras=1723, num_points=156502, fifth=52710, seed=11)
 # flagship at bal.default_options(iterative=True) with each cluster
 # preconditioner: (records, CG iterations, final cost).
 POSE_GRAPH_SPARSE_REFERENCE = (15, 0.3774149708801168)
+# the same graph and options under DOGLEG (traditional): (records, final
+# cost) (``tests/test_torch_references.py sparse_pose_graph_dogleg``)
+POSE_GRAPH_SPARSE_DOGLEG_REFERENCE = (4, 0.3774152347290844)
 SEQUENTIAL_SPARSE_SCHUR_REFERENCE = (10, 10.92539723105676)
 FLAGSHIP_CLUSTER_REFERENCE = {
     "CLUSTER_JACOBI": (4, 9, 202425.49037236028),
@@ -1769,9 +1790,15 @@ SHARDED_F64_RTOL = 1e-8
 # is the one to read.
 SHARDED_GLOO_RUNS = [("large", "float64"), ("large", "float64"), ("large", "float32"),
                      ("flagship", "float64")]
-# (case, dtype, loop): each run four ways on one problem (SHARDED_NCCL_KINDS)
+# (case, dtype, loop): each run four ways on one problem (SHARDED_NCCL_KINDS);
+# the host-factor cases (SHARDED_SPARSE_CASES) through the host loop too
 SHARDED_NCCL_RUNS = [("flagship", "float32", "fused"), ("large", "float64", "fused"),
-                     ("flagship", "float64", "host_loop")]
+                     ("flagship", "float64", "host_loop"),
+                     ("pose_graph_sparse_normal", "float64", "host_loop"),
+                     ("pose_graph_sparse_normal_dynamic", "float64", "host_loop"),
+                     ("sequential_sparse_schur", "float64", "host_loop")]
+SHARDED_SPARSE_CASES = ("pose_graph_sparse_normal", "pose_graph_sparse_normal_dynamic",
+                        "sequential_sparse_schur")
 SHARDED_NCCL_KINDS = ("eager", "captured", "repeat", "eager_again")
 SHARDED_TIMEOUT = 480.0  # one spawn: imports, set-up and every solve of every rank
 
@@ -2094,11 +2121,28 @@ def _sharded_fields(s) -> dict:
 
 
 def _sharded_problem(case: str, dtype: str, mesh, loop: str = "fused"):
-    problem, _, _ = bal.build_problem(large_instance() if case == "large" else flagship_instance())
-    opts = _options(dtype, case == "flagship")
+    if case in SHARDED_SPARSE_CASES:
+        problem, opts = _sparse_problem(case, dtype)
+    else:
+        problem, _, _ = bal.build_problem(large_instance() if case == "large"
+                                          else flagship_instance())
+        opts = _options(dtype, case == "flagship")
+        opts.minimizer_progress_to_stdout = loop == "host_loop"
     opts.mesh = mesh
-    opts.minimizer_progress_to_stdout = loop == "host_loop"
     return problem, opts
+
+
+def _sparse_problem(case: str, dtype: str):
+    """(problem, options) of a host-factor case: phase 21's 2500-pose graph
+    under SPARSE_NORMAL_CHOLESKY (``dynamic_sparsity`` for the dynamic
+    case), or phase 22's sequential bundle adjustment under SPARSE_SCHUR."""
+    if case == "sequential_sparse_schur":
+        return bal.build_problem(sequential_instance())[0], _sequential_options(dtype)
+    graph = pose_graph.synthesize_sphere(POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED)[:3]
+    opts = pose_graph.default_options()
+    opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+    opts.dynamic_sparsity = case.endswith("dynamic")
+    return pose_graph.build_problem_3d(*graph)[0], opts
 
 
 def _sharded_solve(case: str, dtype: str, mesh, device) -> dict:
@@ -2173,33 +2217,43 @@ def _nccl_run(problem, opts, loop: str, kind: str, device) -> dict:
 def nccl_rank(rank: int, world: int, runs) -> list:
     """The NCCL rank of the sharded phase: every (case, dtype, loop) of
     ``runs`` SHARDED_NCCL_KINDS ways on one problem from one start; the
-    host loop's case also through ``ctt.solve`` without the mesh (the
-    one-process bits it is held to). Returns per case its runs, the graphs'
-    pool bytes and the one-process host loop's records and x."""
+    host loop's cases also through ``ctt.solve`` without the mesh (the
+    one-process bits they are held to). Returns per case its runs (a
+    host-factor case's clocked by ``_sparse_host_clock``), the graphs' pool
+    bytes and the one-process host loop's records, x and launches."""
     del rank, world
     device, mesh = _mesh_setup()
     out = []
     for case, dtype, loop in runs:
         problem, opts = _sharded_problem(case, dtype, mesh, loop)
         start = problem.state().copy()
-        done = []
+        done, clocked = [], []
         for kind in SHARDED_NCCL_KINDS:
             problem.write_back(start)
-            done.append(dict(kind=kind, **_nccl_run(problem, opts, loop, kind, device)))
+            with (_sparse_host_clock() if case in SHARDED_SPARSE_CASES
+                  else contextlib.nullcontext()) as clock:
+                done.append(dict(kind=kind, **_nccl_run(problem, opts, loop, kind, device)))
+            clocked.append(dict(clock=clock, seconds=done[-1]["solve_seconds"],
+                                summary=types.SimpleNamespace(
+                                    num_iterations=done[-1]["lm_iterations"])))
         program = problem.sharded_program(device, mesh)
         result = dict(case=case, dtype=dtype, loop=loop, runs=done,
                       graph_pool_bytes=cuda_graph.pool_bytes(_sharded_graphs(program, loop)))
+        if case in SHARDED_SPARSE_CASES:
+            result["host_factor"] = _sparse_fields(clocked)
         x0 = done[0]["x"]
         for run in done:
             run["x_equal"] = bool(np.array_equal(run.pop("x"), x0))
         if loop == "host_loop":
             problem.write_back(start)
             opts.mesh = None
+            _reset_launches()
             with contextlib.redirect_stdout(io.StringIO()):
                 one = ctt.solve(opts, problem, device=device)
             result["one_process"] = dict(final_cost=one.final_cost, captured=one.captured_loop,
                                          records=_host_loop_records_key(one),
-                                         x_equal=bool(np.array_equal(problem.state(), x0)))
+                                         x_equal=bool(np.array_equal(problem.state(), x0)),
+                                         launches=_launches())
         out.append(result)
         del problem, program
     return out
@@ -2236,7 +2290,10 @@ def _check_nccl(result: dict, single: dict, paths: dict, smi: str) -> dict:
             raise RuntimeError(f"{label}: the {run['kind']} run captured={run['captured']}")
     repeat = runs[2]
     lm = repeat["lm_iterations"]
-    bound = CAPTURED_MAX_HOST_READS if loop == "fused" else lm + HOST_LOOP_SETUP_READS
+    sparse = case in SHARDED_SPARSE_CASES
+    bound = (CAPTURED_MAX_HOST_READS if loop == "fused"
+             else (SPARSE_MAX_READS_PER_LM_ITERATION if sparse else 1) * lm
+             + HOST_LOOP_SETUP_READS)
     if repeat["host_reads"] > bound or repeat["capture_seconds"] != 0.0:
         raise RuntimeError(f"{label}: the repeat read the host {repeat['host_reads']} times "
                            f"(bound {bound}): {repeat['host_reads_by_site']}")
@@ -2257,11 +2314,16 @@ def _check_nccl(result: dict, single: dict, paths: dict, smi: str) -> dict:
             raise RuntimeError(f"{label}: {repeat['final_cost']} against the one-process "
                                f"{one['final_cost']}")
         rel, one_seconds, one_cost = 0.0, None, one["final_cost"]
-        if repeat["progress_lines"] != 1 + len(repeat["records"]):
+        if sparse and one["launches"] != repeat["launches"]:
+            raise RuntimeError(f"{label}: launches {repeat['launches']}, one process "
+                               f"{one['launches']}")
+        if not sparse and repeat["progress_lines"] != 1 + len(repeat["records"]):
             raise RuntimeError(f"{label}: {repeat['progress_lines']} progress lines")
-    if repeat["launches"]["sorted_segment_sum"] == 0 or repeat["all_reduce_calls"] == 0:
+    if (repeat["launches"]["sorted_segment_sum"] == 0 and not sparse) or (
+            repeat["all_reduce_calls"] == 0):
         raise RuntimeError(f"{label}: K1 or the all-reduces never ran: {repeat}")
     fields = {k: v for k, v in repeat.items() if k not in ("records", "x_equal", "kind")}
+    fields.update(result.get("host_factor", {}))
     phase("sharded", backend="nccl", case=case, dtype=dtype, loop=loop, nvidia_smi=smi,
           runs=list(SHARDED_NCCL_KINDS), rel_err_vs_one_process=rel,
           one_process_final_cost=one_cost,
@@ -3622,6 +3684,29 @@ def solve_pose_graph_sparse(device, smi: str, cgnr_seconds: float) -> dict:
     return runs[2]["launches"]
 
 
+def solve_pose_graph_sparse_dogleg(device, smi: str) -> dict:
+    """The 2500-pose sphere through ctt.solve with SPARSE_NORMAL_CHOLESKY
+    under DOGLEG (traditional), float64, eager, captured, again and eager
+    (``_sparse_phase``): its Gauss-Newton solve as two regions around the
+    host factor (``dogleg.SparseGaussNewton``: the Cauchy terms and J'J's
+    cells read once a point, the step from the host's solution), the same
+    bits every run, JAX's record count and final cost within 1e-9."""
+    graph = pose_graph.synthesize_sphere(POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED)[:3]
+    problem = pose_graph.build_problem_3d(*graph)[0]
+    opts = pose_graph.default_options()
+    opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+    opts.trust_region_strategy_type = ctt.TrustRegionStrategyType.DOGLEG
+    records, reference = POSE_GRAPH_SPARSE_DOGLEG_REFERENCE
+    label = "pose_graph_sparse_cholesky_dogleg"
+    runs = _sparse_phase(label, problem, opts, device, smi, poses=POSE_GRAPH_POSES,
+                         reference_final_cost=reference, reference_records=records)
+    graphs = {name for g in _host_loop_graph_sets(problem, device) for name in g.graphs}
+    if not {"dogleg_sparse_prep", "dogleg_sparse_finish"} <= graphs:
+        raise RuntimeError(f"{label}: the Gauss-Newton regions were not captured: {graphs}")
+    _held_to_jax(runs[2]["summary"], records, reference, label)
+    return runs[2]["launches"]
+
+
 def _sequential_options(dtype: str, max_iters: int = 50):
     opts = bal.default_options(iterative=False)
     opts.linear_solver_type = ctt.LinearSolverType.SPARSE_SCHUR
@@ -4375,6 +4460,8 @@ def main() -> int:
     paths["check_gradients_flagship_float64"] = solve_check_gradients(device, smi)
     paths["pose_graph_sparse_cholesky_float64"] = solve_pose_graph_sparse(
         device, smi, cgnr_seconds)
+    paths["pose_graph_sparse_cholesky_dogleg_float64"] = solve_pose_graph_sparse_dogleg(
+        device, smi)
     paths.update(solve_sequential_sparse_schur(device, smi))
     paths.update(solve_flagship_clusters(device, smi))
     paths["covariance_pose_graph_matrix_free_float64"] = solve_covariance_matrix_free(device, smi)

@@ -790,6 +790,9 @@ def _host_loop_case(name: str):
     elif name == "evaluation_callback_nonmonotonic":
         opts.use_nonmonotonic_steps = True
         opts.evaluation_callback = _CountingCallback()
+    elif name == "dogleg_sparse_normal":
+        opts.trust_region_strategy_type = ctt.TrustRegionStrategyType.DOGLEG
+        opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
     elif name.startswith("dogleg"):
         opts.trust_region_strategy_type = ctt.TrustRegionStrategyType.DOGLEG
         opts.dogleg_type = ctt.DoglegType[name.split("_", 1)[1].upper() + "_DOGLEG"]
@@ -995,20 +998,51 @@ def test_captured_sparse_regions_match_the_eager_ones(device, name):
         assert {s.plan.kind for s in plan.sites} == {"scatter"}
 
 
+def test_the_default_device_captures_as_the_current_card(device):
+    """``ctt.solve`` with progress output (the host loop's regions) and
+    ``ctt.solve_gradient_problem`` on their default device, "cuda" without
+    an index, capture their regions (a CUDA graph's memory pool takes the
+    current card's index) and give the bits of the same solves on cuda:0."""
+    import contextlib
+    import io
+
+    import chip_smoke
+
+    problem, opts = _host_loop_case("progress_float64")
+    start = problem.state().copy()
+    with contextlib.redirect_stdout(io.StringIO()):
+        default = ctt.solve(opts, problem)
+        x = problem.state().copy()
+        problem.write_back(start)
+        indexed = ctt.solve(opts, problem, device=device)
+    assert default.captured_loop and indexed.captured_loop
+    assert default.final_cost == indexed.final_cost and np.array_equal(x, problem.state())
+    gp = ctt.GradientProblem(chip_smoke._rosenbrock, 2)
+    gopts = ctt.GradientProblemOptions(max_num_iterations=100)
+    xs = [np.array([-1.2, 1.0]) for _ in range(2)]
+    runs = [ctt.solve_gradient_problem(gopts, gp, xs[0]),
+            ctt.solve_gradient_problem(gopts, gp, xs[1], device)]
+    assert all(r.captured_loop for r in runs) and np.array_equal(xs[0], xs[1])
+
+
 # case -> the regions of the captured solve's graphs it must have run
 STEP_CHOICE_REGIONS = {
     "inner_iterations": {"inner_set_0", "inner_set_1", "jacobi_scaling"},
     "dogleg_traditional": {"dogleg", "dogleg_traditional"},
     "dogleg_subspace": {"dogleg", "dogleg_subspace_model", "dogleg_subspace_step"},
+    # the Gauss-Newton solve as two regions around the host factor
+    "dogleg_sparse_normal": {"dogleg_sparse_prep", "dogleg_sparse_finish", "dogleg_traditional"},
     "bounds": {"bounded_line", "bounded_trial", "jacobi_scaling"},
 }
 
 
 @pytest.mark.parametrize("name", sorted(STEP_CHOICE_REGIONS))
 def test_captured_step_choice_regions_match_the_eager_ones(device, name):
-    """The inner iterations' set steps, DOGLEG's step choice and the bounds
-    line search's trials from CUDA graphs (``host_loop_graphs.InnerRegions``,
-    ``DoglegRegions``, ``bounded_line`` / ``bounded_trial``): eager,
+    """The inner iterations' set steps, DOGLEG's step choice (and under
+    SPARSE_NORMAL_CHOLESKY its Gauss-Newton solve, ``dogleg_sparse_*``) and
+    the bounds line search's trials from CUDA graphs
+    (``host_loop_graphs.InnerRegions``, ``DoglegRegions``,
+    ``SparseRegions``, ``bounded_line`` / ``bounded_trial``): eager,
     captured, again and eager (``chip_smoke._eager_captured_repeat``) give
     the same records, x and K1 / K3 / K4 launches, each region's buffers of
     the captured set equal the eager set's with ``torch.equal``, and a set
@@ -1051,10 +1085,11 @@ def test_captured_step_choice_regions_match_the_eager_ones(device, name):
 
 # The 4400-observation BAL of CAPTURED_OPTIONS (deterministic reductions)
 # through fused_solve under DENSE_SCHUR and ITERATIVE_SCHUR, and through
-# ctt.solve with progress output (the host loop's fused iteration) and
-# under L-BFGS (the line search's regions)
+# ctt.solve with progress output (the host loop's fused iteration), under
+# L-BFGS (the line search's regions) and under the sparse solvers (the
+# cells' all-reduce and the solution's broadcast around the host factor)
 MESH_CASES = ["fused_dense_schur", "fused_iterative_schur", "host_loop_progress",
-              "line_search"]
+              "line_search", "sparse_normal", "sparse_schur"]
 MESH_RUNS = ("eager", "captured", "again", "eager_again")
 
 
@@ -1062,6 +1097,10 @@ def _mesh_case(name: str):
     """(problem, options, loop) of a MESH_CASES case, without the mesh."""
     if name == "host_loop_progress":
         problem, opts = _host_loop_case("progress_float64")
+        return problem, opts, "host_loop"
+    if name.startswith("sparse"):
+        problem, opts = _sparse_capture_case(
+            "normal_static" if name == "sparse_normal" else "schur_reject_streak")
         return problem, opts, "host_loop"
     inst = bal.synthesize_bal(num_cameras=4, num_points=1100, num_observations=4400, seed=42)
     problem = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))[0]

@@ -10,7 +10,9 @@ code eagerly, and the tests hold what a capture needs of it:
     fused iteration of the host loop's regions, one inner-iteration pass
     and one line-search phi read nothing of the device but their
     ``run_if`` / ``run_while`` predicates and copy nothing from the host
-    (``test_torch_device_loop``'s read guards);
+    (``test_torch_device_loop``'s read guards); a SPARSE_NORMAL_CHOLESKY
+    LM step and DOGLEG's sparse Gauss-Newton solve read the device once,
+    their prep's flat buffer, and copy in only the host's solution;
 (b) every rank takes the same branches and enters the same collectives in
     the same order: each rank's sequence of predicate values and of
     collectives (kind, bytes) over whole solves is the same;
@@ -18,9 +20,14 @@ code eagerly, and the tests hold what a capture needs of it:
     repeat on the cached sharded program, ``Problem.sharded_program``):
     the same bits and collectives both times, the port's one-process
     solve within FINAL_RTOL and the JAX package's mesh solve within
-    JAX_RTOL (``tests/test_torch_parallel.py``'s bars);
+    JAX_RTOL (``tests/test_torch_parallel.py``'s bars; JAX's CPU mesh
+    runs every option set held to it here, the sparse ones included);
 (d) the eligibility of a comm of each backend, without a process group;
-(e) the per-replay credit of the collectives' calls and bytes.
+(e) the per-replay credit of the collectives' calls and bytes;
+(f) the sparse solvers' cells: each rank's J'J and eliminator cells placed
+    in the whole program's layout and summed over the ranks are the
+    one-process cells (f64, 1e-12), and the assembly built from the layout
+    is the one-process assembly.
 
 The two ranks are spawned once for the file (a module-scoped fixture); the
 ranks import nothing of JAX.
@@ -64,7 +71,8 @@ ITERATION_CASES = {
     "cgnr_jacobi": CASES["cgnr_jacobi"],
     "dense_qr": (dict(linear_solver_type="DENSE_QR"), {}),
 }
-REGION_CASES = ["host_loop_lm_step", "inner_pass", "line_search_phi"]
+REGION_CASES = ["host_loop_lm_step", "inner_pass", "line_search_phi", "sparse_lm_step",
+                "dogleg_sparse_gauss_newton"]
 # The solves of (b) and (c): the fused loop under each solver form, the host
 # loop with progress output (its fused iteration) and with inner
 # iterations, and the line search.
@@ -76,18 +84,29 @@ SOLVE_CASES = {
                       preconditioner_type="SCHUR_JACOBI"), {"progress": True}),
     "inner_iterations": (dict(linear_solver_type="DENSE_SCHUR"), {"inner": True}),
     "line_search": CASES["line_search"],
+    "sparse_normal": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY"), {}),
+    "sparse_normal_dynamic": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY"),
+                              {"dynamic": True}),
+    "sparse_schur": (dict(linear_solver_type="SPARSE_SCHUR"), {}),
+    "dogleg_sparse_normal": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY",
+                                  trust_region_strategy_type="DOGLEG"), {}),
 }
+# the host factor's solvers, held to the JAX package's mesh solve, and the
+# solves that run no run_if / run_while (no CG)
+SPARSE_CASES = ["sparse_normal", "sparse_normal_dynamic", "sparse_schur", "dogleg_sparse_normal"]
+NO_PREDICATES = ["inner_iterations", "line_search"] + SPARSE_CASES
 
 
 def _problem():
     return tbal.build_problem(tbal.synthesize_bal(**INSTANCE))[0]
 
 
-def _solve_options(name, mesh):
+def _solve_options(name, mesh, module=ctt):
     kw, flags = SOLVE_CASES[name]
-    opts = _options(ctt, kw, mesh)
+    opts = _options(module, kw, mesh)
     opts.minimizer_progress_to_stdout = bool(flags.get("progress"))
     opts.use_inner_iterations = bool(flags.get("inner"))
+    opts.dynamic_sparsity = bool(flags.get("dynamic"))
     return opts, flags
 
 
@@ -134,6 +153,8 @@ def _reads(name, mesh) -> str:
         return _read_guarded(lambda: graphs.phi(2e-8))
     from ceres_tpu_torch.trust_region import TrustRegionMinimizer
 
+    if name in SPARSE_REGION_CASES:
+        return _sparse_reads(name, mesh)
     opts = _options(ctt, dict(linear_solver_type="ITERATIVE_SCHUR",
                               preconditioner_type="SCHUR_JACOBI"), mesh)
     opts.use_inner_iterations = name == "inner_pass"
@@ -159,6 +180,112 @@ def _reads(name, mesh) -> str:
                 regions.set_step(si, lambda x_, radii, g=groups: inner._set_step(g, x_, radii))
 
     return _read_guarded(one_pass)
+
+
+# region case -> (options, what the guarded run may read and copy in: the
+# prep's flat buffer once, the host's solution once per host solve)
+SPARSE_REGION_CASES = {
+    "sparse_lm_step": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY"),
+                       ["sparse_normal_prep", "sparse_y"]),
+    "dogleg_sparse_gauss_newton": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY",
+                                        trust_region_strategy_type="DOGLEG"),
+                                   ["dogleg_sparse_prep", "dogleg_y", "dogleg_y"]),
+}
+
+
+def _guarded_but_flat_reads(run, allowed) -> str:
+    """``run()`` under the read guards, except the sparse regions' flat
+    reads (``read_flat``) and host copies (``_host_input``), which are
+    logged by name: "ok" when the log is ``allowed``, else what read the
+    device."""
+    from test_torch_device_loop import _HostReads, _reading_only_predicates
+
+    from ceres_tpu_torch.host_loop_graphs import SparseRegions, _Regions
+
+    log, guard = [], pytest.MonkeyPatch()
+
+    def lifted(real):
+        def call(self, name, *args):
+            log.append(name)
+            guard.undo()
+            try:
+                return real(self, name, *args)
+            finally:
+                _reading_only_predicates(guard)
+
+        return call
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(SparseRegions, "read_flat", lifted(SparseRegions.read_flat))
+        m.setattr(_Regions, "_host_input", lifted(_Regions._host_input))
+        _reading_only_predicates(guard)
+        try:
+            run()
+        except _HostReads as e:
+            return str(e)
+        finally:
+            guard.undo()
+    return "ok" if log == allowed else f"read and copied in {log}"
+
+
+def _sparse_reads(name, mesh) -> str:
+    """A SPARSE_NORMAL_CHOLESKY LM step, or DOGLEG's sparse Gauss-Newton
+    solve at two mu, at a new point of the host loop's regions (the first
+    point's makes the buffers), under :func:`_guarded_but_flat_reads`."""
+    from ceres_tpu_torch.trust_region import TrustRegionMinimizer
+
+    kw, allowed = SPARSE_REGION_CASES[name]
+    program, resolved = preprocess(_options(ctt, kw, mesh), _problem(), "cpu", SolverSummary())
+    minimizer = TrustRegionMinimizer(program, resolved, SolverSummary())
+    graphs, x0 = minimizer.graphs, program.clamp(initial_state(program, mesh))
+    if name == "sparse_lm_step":
+        def run():
+            minimizer.step_fn(graphs.scaled(), 1e4)
+    else:
+        def run():
+            for mu in (1e-8, 1e-6):  # the second damps the same host cells
+                minimizer.dogleg._sparse(graphs.scaled(), mu)
+    try:
+        for point in range(2):
+            graphs.full(x0)
+            graphs.jacobi_scaling()
+            graphs.scaled()
+            if point:
+                return _guarded_but_flat_reads(run, allowed)
+            run()
+    finally:
+        minimizer.step_fn is None or minimizer.step_fn.close()
+
+
+def _cells(mesh) -> dict:
+    """At the start: SPARSE_NORMAL_CHOLESKY's J'J cells and SPARSE_SCHUR's
+    eliminator cells (at radius 1e4, with the reduced rhs and damping), as
+    the host reads them (on a mesh the whole program's, summed over the
+    ranks), and each assembly's arrays."""
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.linear.inner_product import compute_normal_cells, normal_assembly
+    from ceres_tpu_torch.linear.sparse_schur import _sparse_schur_prep_impl, sparse_schur_assembly
+    from ceres_tpu_torch.trust_region import _build_solve_aux, _config_from_options
+
+    out = {}
+    for solver in ("SPARSE_NORMAL_CHOLESKY", "SPARSE_SCHUR"):
+        program, resolved = preprocess(_options(ctt, dict(linear_solver_type=solver), mesh),
+                                       _problem(), "cpu", SolverSummary())
+        ctx = Evaluator(program).cost_gradient_jacobian(
+            initial_state(program, mesh)).jacobian_context
+        if solver == "SPARSE_NORMAL_CHOLESKY":
+            plan, assembly = normal_assembly(program)
+            cells = compute_normal_cells(ctx, plan)
+        else:
+            ss = _build_solve_aux(resolved, program)["ss"]
+            sparse_schur_assembly(program, ss)
+            _, cells, rhs_red, df = _sparse_schur_prep_impl(
+                ctx, torch.tensor(1e4, dtype=torch.float64), ss, _config_from_options(resolved))
+            cells = [*cells, rhs_red, df]
+            assembly = ss.sparse_assembly
+        out[solver] = dict(cells=[c.numpy() for c in cells],
+                           assembly=[assembly.indptr, assembly.indices, assembly.pos])
+    return out
 
 
 def _port_limit_modules():
@@ -231,6 +358,7 @@ def mesh_rank(rank, world):
         reads={name: _reads(name, mesh) for name in list(ITERATION_CASES) + REGION_CASES},
         solves={name: _solves(name, mesh) for name in SOLVE_CASES},
         budget=_budget_agreed(mesh),
+        cells=_cells(mesh),
     )
 
 
@@ -266,9 +394,9 @@ def test_one_iteration_under_the_mesh_reads_only_its_predicates(ranks, name):
 def test_every_rank_takes_the_same_branches_and_collectives(ranks, name):
     logs = [[run["log"] for run in r["solves"][name]] for r in ranks]
     first = logs[0][0]
-    # the host loop under DENSE_SCHUR and the line search run no run_if
-    assert any(k == "predicate" for k, _ in first) != (name in ("inner_iterations",
-                                                                "line_search"))
+    # the host loop under DENSE_SCHUR or a host factor and the line search
+    # run no run_if
+    assert any(k == "predicate" for k, _ in first) != (name in NO_PREDICATES)
     assert any(k == "all_reduce" for k, _ in first)
     for rank_logs in logs:
         assert rank_logs == [first, first]  # every rank, the repeat too
@@ -310,6 +438,21 @@ def test_a_gathered_mesh_solve_matches_the_jax_mesh_solve(ranks):
                                ref.final_cost, rtol=JAX_RTOL)
 
 
+@pytest.mark.parametrize("name", SPARSE_CASES)
+def test_a_sparse_mesh_solve_matches_the_jax_mesh_solve(ranks, name):
+    """The host factor's solvers against the JAX package's solve on its
+    8-device mesh, which runs each of these option sets."""
+    import ceres_tpu as ct
+    from ceres_tpu.models import bal as jbal
+    from ceres_tpu.parallel import make_mesh as jax_make_mesh
+
+    problem = jbal.build_problem(jbal.synthesize_bal(**INSTANCE))[0]
+    ref = ct.solve(_solve_options(name, jax_make_mesh(8), ct)[0], problem)
+    got = ranks[0]["solves"][name][0]
+    assert len(got["records"]) == len(ref.iterations)
+    np.testing.assert_allclose(got["final_cost"], ref.final_cost, rtol=JAX_RTOL)
+
+
 def test_the_time_budget_is_rank_0s_only_below_no_time_budget(ranks):
     assert [r["budget"] for r in ranks] == [[True, False]] * WORLD
 
@@ -328,8 +471,8 @@ ELIGIBILITY = [
     ("cuda", "nccl", LST.ITERATIVE_SCHUR, (True, True, True)),
     ("cuda", "nccl", LST.CGNR, (True, True, True)),
     ("cuda", "nccl", LST.DENSE_QR, (True, True, True)),
-    ("cuda", "nccl", LST.SPARSE_NORMAL_CHOLESKY, (True, False, False)),
-    ("cuda", "nccl", LST.SPARSE_SCHUR, (True, False, False)),
+    ("cuda", "nccl", LST.SPARSE_NORMAL_CHOLESKY, (True, False, True)),
+    ("cuda", "nccl", LST.SPARSE_SCHUR, (True, False, True)),
     ("cuda", "gloo", LST.DENSE_SCHUR, (False, False, False)),
     ("cuda", "gloo", LST.ITERATIVE_SCHUR, (False, False, False)),
     ("cpu", "nccl", LST.DENSE_SCHUR, (False, False, False)),
@@ -348,6 +491,20 @@ def test_eligibility_by_the_comms_backend(device, backend, lst, expected):
             fused_lm.captured_loop_eligible(opts, program),
             fused_lm.host_loop_capturable(opts, program)) == expected
     assert (comm is not None and comm.on_device) == (backend == "nccl")
+
+
+@pytest.mark.parametrize("device,backend,expected", [
+    ("cuda", "nccl", True), ("cuda", None, True), ("cuda", "gloo", False), ("cpu", "nccl", False)])
+def test_dogleg_under_sparse_normal_cholesky_is_captured_where_the_comm_allows(
+        device, backend, expected):
+    """Its Gauss-Newton solve is two regions around the host factor
+    (``dogleg.SparseGaussNewton``), on one process or a device comm."""
+    program = types.SimpleNamespace(device=torch.device(device),
+                                    comm=None if backend is None else _comm(backend), families=())
+    opts = ctt.SolverOptions(linear_solver_type=LST.SPARSE_NORMAL_CHOLESKY,
+                             trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG)
+    assert fused_lm.host_loop_capturable(opts, program) is expected
+    assert not fused_lm.captured_loop_eligible(opts, program)
 
 
 # -- (e) the per-replay credit ---------------------------------------------------------
@@ -386,3 +543,20 @@ def test_captured_collectives_are_credited_once_per_run_of_their_region():
     assert (comm.stats["broadcast"]["calls"], comm.stats["all_reduce"]["calls"]) == (2, 20)
     assert comm.stats["all_reduce"]["bytes"] == 20 * 96 and graph.launches == 22
     assert comm.stats["all_reduce"]["seconds"] == 0.0  # a replay adds no seconds
+
+
+# -- (f) the sparse solvers' cells -----------------------------------------------------
+
+
+@pytest.mark.parametrize("solver", ["SPARSE_NORMAL_CHOLESKY", "SPARSE_SCHUR"])
+def test_the_ranks_cells_summed_in_the_whole_layout_are_the_one_process_cells(ranks, solver):
+    ref = _cells(None)[solver]
+    for r in ranks:
+        got = r["cells"][solver]
+        for a, b in zip(got["assembly"], ref["assembly"]):
+            assert np.array_equal(a, b)
+        assert [c.shape for c in got["cells"]] == [c.shape for c in ref["cells"]]
+        for a, b in zip(got["cells"], ref["cells"]):
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12 * np.abs(b).max())
+    assert all(np.array_equal(a, b) for a, b in zip(ranks[0]["cells"][solver]["cells"],
+                                                     ranks[1]["cells"][solver]["cells"]))

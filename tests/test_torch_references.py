@@ -43,7 +43,8 @@ the CPU, WHAT one of:
   denoising program's two iterations on the 481 x 321 image);
 - ``sparse`` (or one of its parts): ``ceres_tpu.solve`` of the 2500-pose
   graph with SPARSE_NORMAL_CHOLESKY (``sparse_pose_graph``,
-  POSE_GRAPH_SPARSE_REFERENCE, 5 s), of chip_smoke.sequential_instance with
+  POSE_GRAPH_SPARSE_REFERENCE, 5 s; under DOGLEG ``sparse_pose_graph_dogleg``,
+  POSE_GRAPH_SPARSE_DOGLEG_REFERENCE), of chip_smoke.sequential_instance with
   SPARSE_SCHUR (``sparse_sequential``, SEQUENTIAL_SPARSE_SCHUR_REFERENCE,
   about 35 s and 3 GB) and of the flagship with each cluster preconditioner
   (``sparse_flagship_clusters``, FLAGSHIP_CLUSTER_REFERENCE, 20 s).
@@ -200,16 +201,19 @@ def _cg_records(s):
     return [r.linear_solver_iterations for r in s.iterations]
 
 
-def pose_graph_sparse_references(mod, poses=2500, seed=0):
+def pose_graph_sparse_references(mod, poses=2500, seed=0, dogleg=False):
     """``solve`` of ``pose_graph.synthesize_sphere(poses, seed)`` at
-    ``pose_graph.default_options()`` with SPARSE_NORMAL_CHOLESKY (AMD), f64:
-    (records, final cost, termination, seconds)."""
+    ``pose_graph.default_options()`` with SPARSE_NORMAL_CHOLESKY (AMD), f64,
+    under DOGLEG (traditional) with ``dogleg``: (records, final cost,
+    termination, seconds)."""
     pg = jpg if mod is ct else tpg
     kw = {} if mod is ct else dict(device="cpu")
     t0 = time.time()
     problem = pg.build_problem_3d(*pg.synthesize_sphere(poses, seed=seed)[:3])[0]
     opts = pg.default_options()
     opts.linear_solver_type = mod.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+    if dogleg:
+        opts.trust_region_strategy_type = mod.TrustRegionStrategyType.DOGLEG
     s = mod.solve(opts, problem, **kw)
     return len(s.iterations), s.final_cost, s.termination_type.name, time.time() - t0
 
@@ -887,13 +891,15 @@ def test_rosenbrock_matches_jax():
         np.testing.assert_allclose(t[d][2], j[d][2], rtol=1e-8, atol=1e-12)
 
 
-@pytest.mark.parametrize("what", ["pose_graph", "sequential", "flagship_clusters"])
+@pytest.mark.parametrize("what", ["pose_graph", "pose_graph_dogleg", "sequential",
+                                  "flagship_clusters"])
 def test_sparse_references_match_jax(what):
     """The sparse phases' solves at a small size: the same records,
     termination and costs (rtol 1e-10) and, for the clusters, CG
     iterations."""
-    if what == "pose_graph":
-        j, t = (pose_graph_sparse_references(m, poses=60, seed=1) for m in (ct, ctt))
+    if what.startswith("pose_graph"):
+        j, t = (pose_graph_sparse_references(m, poses=60, seed=1, dogleg=what.endswith("dogleg"))
+                for m in (ct, ctt))
     elif what == "sequential":
         tiny = dict(num_cameras=20, num_points=150, fifth=50)
         j, t = (sequential_sparse_schur_references(m, tiny) for m in (ct, ctt))
@@ -980,7 +986,8 @@ def _spread(runs):
 
 
 if __name__ == "__main__":
-    sparse = ["sparse_pose_graph", "sparse_sequential", "sparse_flagship_clusters"]
+    sparse = ["sparse_pose_graph", "sparse_pose_graph_dogleg", "sparse_sequential",
+              "sparse_flagship_clusters"]
     for what in [w for a in sys.argv[1:] or ["large", "flagship_host_loop"]
                  for w in (sparse if a == "sparse" else [a])]:
         t0 = time.time()
@@ -1006,9 +1013,9 @@ if __name__ == "__main__":
                 reference=what, result=runs[0], nudged=runs[1:],
                 spread_of_final_and_checked_costs=_spread([[r[1], *r[4]] for r in runs]),
                 seconds=time.time() - t0)), flush=True)
-        elif what == "sparse_pose_graph":
-            print(json.dumps(dict(reference=what, result=pose_graph_sparse_references(ct))),
-                  flush=True)
+        elif what in ("sparse_pose_graph", "sparse_pose_graph_dogleg"):
+            print(json.dumps(dict(reference=what, result=pose_graph_sparse_references(
+                ct, dogleg=what.endswith("dogleg")))), flush=True)
         elif what == "pose_graph_subset":
             print(json.dumps(dict(reference=what, result=pose_graph_subset_references(ct))),
                   flush=True)

@@ -154,7 +154,8 @@ CAPTURABLE = [
     (SNC, {}, True),
     (SNC, dict(dynamic_sparsity=True), True),
     (SNC, dict(use_mixed_precision_solves=True), True),
-    (SNC, dict(trust_region_strategy_type="DOGLEG"), False),
+    (SNC, dict(trust_region_strategy_type="DOGLEG"), True),
+    (SNC, dict(trust_region_strategy_type="DOGLEG", use_mixed_precision_solves=True), False),
     (SS, {}, True),
     (SS, dict(use_mixed_precision_solves=True), True),
     (SS, dict(trust_region_strategy_type="DOGLEG"), True),
