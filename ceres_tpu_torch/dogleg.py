@@ -20,9 +20,10 @@ subspace step's coefficients copied in from the host). The host reads once
 per retry of the Gauss-Newton solve, once for the subspace model (which
 holds ||gn_step||, so the Gauss-Newton branch needs no read of its own) and
 once for the step's norm and model cost change. Under
-SPARSE_NORMAL_CHOLESKY the Gauss-Newton solve is two regions around the
-host factor (:class:`SparseGaussNewton`), which read J'J's cells once a
-point.
+SPARSE_NORMAL_CHOLESKY the Gauss-Newton solve is regions around the host
+factor (:class:`SparseGaussNewton`), which read J'J's cells once a point
+(and, with mixed precision, the refinement's residual once a refinement
+step).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ceres_tpu_torch.linear.cg import CG_FAILURE, CG_SUCCESS
+from ceres_tpu_torch.linear.cg import CG_FAILURE, CG_FATAL_ERROR, CG_SUCCESS
 from ceres_tpu_torch.ops.polynomial import polynomial_roots
 from ceres_tpu_torch.types import DoglegType
 
@@ -168,7 +169,7 @@ def find_boundary_minimum(B: np.ndarray, g: np.ndarray, radius: float):
 class SparseGaussNewton:
     """DOGLEG's Gauss-Newton solve under SPARSE_NORMAL_CHOLESKY, f(ctx, mu)
     -> :func:`precompute`'s (diagonal, gradient, alpha, gn_step) and its
-    checks vector, as two regions around the host factor (the JAX package
+    checks vector, as regions around the host factor (the JAX package
     computes the solve in its graph through a host callback, its
     ``trust_region.py:399-420``), on ``regions``
     (``host_loop_graphs.SparseRegions``):
@@ -183,9 +184,17 @@ class SparseGaussNewton:
       broadcast, on a sharded program) and the checks vector.
 
     A new mu at the same point damps the same host cells again, with no
-    card work, as the LM step's reject streak does. Not under
-    ``use_mixed_precision_solves``, whose f32 solve and f64 refinement
-    run in the ``dogleg`` region."""
+    card work, as the LM step's reject streak does.
+
+    With ``use_mixed_precision_solves`` the solve is the JAX package's
+    mixed-precision wrapper around its f32 solve (its
+    ``trust_region.py:439-472``): the prep's cells are those of the
+    Jacobian cast to f32 (summed in f64, as the host callback sums them),
+    the host factors them in f64 once a (point, mu) with D cast to f32,
+    and each solve's right-hand side and result are rounded to f32; y
+    starts from rhs and takes ``num_refinement_iterations`` corrections,
+    each from the f64 residual of the ``dogleg_sparse_refine`` region (one
+    read). The iterations add up and the termination is the worst."""
 
     def __init__(self, config, program, regions):
         from ceres_tpu_torch.linear.inner_product import normal_assembly
@@ -201,13 +210,38 @@ class SparseGaussNewton:
         if state["ctx"] is not ctx:
             regions.dogleg_sparse_prep(ctx, self.plan)
             diag_h, rhs_h, *cells_h = regions.read_flat("dogleg_sparse_prep")
-            state.update(ctx=ctx, diag=diag_h, rhs=rhs_h, cells=cells_h)
+            dtype = np.float32 if ctx.dtype == torch.float32 else np.float64
+            state.update(ctx=ctx, diag=diag_h.astype(dtype), rhs=rhs_h, cells=cells_h)
         diag_h = state["diag"]
         D_h = diag_h * diag_h.dtype.type(np.sqrt(mu))
+        if c.use_mixed_precision_solves:
+            return regions.dogleg_sparse_finish(ctx, *self._refined(ctx, D_h, mu))
         y, term = host_normal_factor_solve(
             self.assembly, state["cells"], D_h, state["rhs"], ordering=c.ordering_type,
             use_postordering=c.use_postordering)
-        return regions.dogleg_sparse_finish(ctx, y, term)
+        return regions.dogleg_sparse_finish(ctx, y, 1, term)
+
+    def _refined(self, ctx, D_h, mu: float):
+        """(y f64, linear iterations, termination) of the mixed-precision
+        solve at mu (see the class). A failed solve ends it with y = 0: the
+        strategy retries at a larger mu whatever y is."""
+        from ceres_tpu_torch.linear.inner_product import host_normal_factor
+
+        c, state = self.config, self._state
+        iters = 1 + c.num_refinement_iterations
+        chol = host_normal_factor(self.assembly, state["cells"], D_h.astype(np.float32),
+                                  ordering=c.ordering_type, use_postordering=c.use_postordering)
+        if chol is None:
+            return np.zeros(ctx.num_tangent), iters, CG_FAILURE
+        y = None
+        for _ in range(iters):
+            b = state["rhs"] if y is None else self.regions.dogleg_sparse_refine(ctx, y, mu)
+            dy = chol.solve(b.astype(np.float32).astype(np.float64))
+            if not np.all(np.isfinite(dy)):
+                return np.zeros(ctx.num_tangent), iters, CG_FATAL_ERROR
+            dy = dy.astype(np.float32).astype(np.float64)
+            y = dy if y is None else y + dy
+        return y, iters, CG_SUCCESS
 
 
 class DoglegStrategy:

@@ -49,7 +49,6 @@ from ceres_tpu_torch.trust_region import (
     _SolveConfig,
     _build_solve_aux,
     _config_from_options,
-    _dogleg_jacobian_to_host,
     candidate_point,
     lm_step,
 )
@@ -411,14 +410,9 @@ def host_loop_capturable(options, program) -> bool:
     process or on a comm whose collectives run on the device (the cells'
     all-reduce inside the prep, rank 0's solution broadcast inside the
     finish), and DOGLEG under SPARSE_NORMAL_CHOLESKY, whose Gauss-Newton
-    solve is two regions around the host factor
-    (``dogleg.SparseGaussNewton``). Not DOGLEG under SPARSE_NORMAL_CHOLESKY
-    with ``use_mixed_precision_solves``: its f32 solve and f64 refinement
-    send the Jacobian to the host inside the ``dogleg`` region
-    (``trust_region._dogleg_jacobian_to_host``). Decided from the options,
-    never by trying."""
-    if _dogleg_jacobian_to_host(options):
-        return False
+    solve is regions around the host factor (``dogleg.SparseGaussNewton``;
+    with ``use_mixed_precision_solves`` a refinement region between the
+    host's solves). Decided from the options, never by trying."""
     return (regions_capturable(program.device, program.comm, program_functions(program))
             and options.linear_solver_type in _CAPTURED_SOLVERS + _SPARSE_TYPES)
 

@@ -20,10 +20,8 @@ its CG a WHILE node (``linear/cg.py``), and replayed after; every graph of
 the object allocates from the first one's memory pools. Otherwise the
 same functions run eagerly on the same buffers: the CPU, a gloo mesh
 (an NCCL mesh's collectives are captured with the rest,
-``parallel/sharding.py``), the C API's host callbacks, DOGLEG under
-SPARSE_NORMAL_CHOLESKY with ``use_mixed_precision_solves`` (whose
-Gauss-Newton solve reads the Jacobian on the host inside the ``dogleg``
-region), and the eager baseline (``tools/profile_solve.eager_host_loop``).
+``parallel/sharding.py``), the C API's host callbacks, and the eager
+baseline (``tools/profile_solve.eager_host_loop``).
 Nothing falls back: a failed capture raises.
 
 Regions:
@@ -71,7 +69,10 @@ already) and each finish the broadcast of rank 0's solution:
 - ``sparse_finish``: the step -y and its model cost change;
 - ``dogleg_sparse_prep``: DOGLEG's Gauss-Newton solve under
   SPARSE_NORMAL_CHOLESKY (``dogleg.SparseGaussNewton``), its Cauchy terms
-  kept, the diagonal, J'f and every J'J cell read;
+  kept, the diagonal, J'f and every J'J cell read (with
+  ``use_mixed_precision_solves`` those of the f32 solve's system);
+- ``dogleg_sparse_refine``: with ``use_mixed_precision_solves``, the f64
+  refinement residual of the host's solution, read once a refinement step;
 - ``dogleg_sparse_finish``: its Gauss-Newton step from the host's
   solution and the checks vector, into the ``dogleg`` region's buffers;
 - ``sparse_schur_prep_{0,1}``: SPARSE_SCHUR's eliminator pass at the
@@ -416,8 +417,11 @@ class SparseRegions(DoglegRegions):
         self.solve_config = solve_config
         # SPARSE_SCHUR's radius of each prep set; set 0's also dynamic sparsity's
         self.sparse_radius = tuple(torch.zeros((), dtype=_F64, device=device) for _ in range(2))
-        # the host factor's termination code, for DOGLEG's checks vector
+        # the host solves' linear iterations and worst termination code, for
+        # DOGLEG's checks vector, and its mu for the refinement's damping
+        self.sparse_iters = torch.zeros((), dtype=_F64, device=device)
         self.sparse_term = torch.zeros((), dtype=_F64, device=device)
+        self.sparse_mu = torch.zeros((), dtype=_F64, device=device)
         self._ctx: Optional[JacobianContext] = None  # the step's context
         self._flat_shapes: dict = {}  # a flat buffer's parts, by name
 
@@ -450,7 +454,7 @@ class SparseRegions(DoglegRegions):
         every J'J cell of ``plan`` (``linear/inner_product.NormalPlan``; on
         a sharded program the whole program's, all-reduced) into the flat
         buffer "sparse_normal_prep". The cells' plans add in a fixed order
-        (``ops/reduce.build_fixed_order_plan``)."""
+        (``ops/reduce.reduce_plan_kind``)."""
         self._use(ctx)
         self._run("sparse_normal_prep", lambda: self._sparse_normal_prep(plan))
 
@@ -493,26 +497,57 @@ class SparseRegions(DoglegRegions):
     def dogleg_sparse_prep(self, ctx: JacobianContext, plan) -> None:
         """DOGLEG's Cauchy terms at ``ctx`` (``dogleg.cauchy``) into the
         buffers "dogleg_sparse", and the diagonal, J'f and every J'J cell of
-        ``plan`` into the flat buffer "dogleg_sparse_prep"."""
+        ``plan`` into the flat buffer "dogleg_sparse_prep". With
+        ``use_mixed_precision_solves`` the f32 solve's system instead, as
+        the JAX package's host callback builds it from the Jacobian cast to
+        f32: the cells of that Jacobian summed in f64 and J'f in f64 (kept
+        too, "dogleg_sparse_rhs", for the refinement), the flat buffer f64."""
         self._use(ctx)
         self._run("dogleg_sparse_prep", lambda: self._dogleg_sparse_prep(plan))
 
     def _dogleg_sparse_prep(self, plan) -> None:
-        c = self.solve_config
-        diagonal, jtf, gradient, alpha = dogleg.cauchy(self._ctx, c.min_lm_diagonal,
-                                                       c.max_lm_diagonal)
+        c, ctx = self.solve_config, self._ctx
+        diagonal, jtf, gradient, alpha = dogleg.cauchy(ctx, c.min_lm_diagonal, c.max_lm_diagonal)
         self._keep("dogleg_sparse", diagonal, gradient, alpha)
-        self._keep_flat("dogleg_sparse_prep", diagonal, jtf,
-                        *compute_normal_cells(self._ctx, plan))
+        if not c.use_mixed_precision_solves:
+            self._keep_flat("dogleg_sparse_prep", diagonal, jtf, *compute_normal_cells(ctx, plan))
+            return
+        rhs64 = ctx.to_dtype(_F64).gradient()
+        self._keep("dogleg_sparse_rhs", rhs64)
+        cells = compute_normal_cells(ctx.to_dtype(torch.float32).to_dtype(_F64), plan)
+        self._keep_flat("dogleg_sparse_prep", diagonal.to(_F64), rhs64, *cells)
 
-    def dogleg_sparse_finish(self, ctx: JacobianContext, y: np.ndarray, term: int) -> tuple:
+    def dogleg_sparse_refine(self, ctx: JacobianContext, y: np.ndarray, mu: float) -> np.ndarray:
+        """The mixed-precision refinement's residual rhs - (J'J + D^2) y in
+        f64 at ``ctx`` (``trust_region._linear_solve``), D = diagonal
+        sqrt(mu), for the host's f64 solution y (rank 0's, broadcast, and
+        the products all-reduced, on a sharded program): one read."""
+        self._use(ctx)
+        self._host_input("dogleg_y64", y, _F64)
+        self.sparse_mu.fill_(mu)
+        self._run("dogleg_sparse_refine", self._dogleg_sparse_refine)
+        return self.read_flat("dogleg_sparse_refine")[0]
+
+    def _dogleg_sparse_refine(self) -> None:
+        ctx, y = self._ctx, self._inputs["dogleg_y64"]
+        diagonal = self._bufs["dogleg_sparse"][0]
+        if ctx.comm is not None:
+            y = ctx.comm.broadcast(y)
+        D64 = (diagonal * torch.sqrt(self.sparse_mu).to(diagonal.dtype)).to(_F64)
+        r = self._bufs["dogleg_sparse_rhs"][0] - (ctx.to_dtype(_F64).normal_matvec(y)
+                                                   + (D64 * D64) * y)
+        self._keep_flat("dogleg_sparse_refine", r)
+
+    def dogleg_sparse_finish(self, ctx: JacobianContext, y: np.ndarray, iters: int,
+                             term: int) -> tuple:
         """The scaled Gauss-Newton step -diagonal * y of the host's solution
-        y and the checks vector (gn_step finite, 1 linear iteration, the
-        factor's termination ``term``), with the prep's terms: the
+        y and the checks vector (gn_step finite, the host solves' ``iters``,
+        their worst termination ``term``), with the prep's terms: the
         ``dogleg`` buffers (diagonal, gradient, alpha, gn_step, checks), as
         :meth:`HostLoopGraphs.dogleg_precompute` returns them."""
         self._use(ctx)
         self._host_input("dogleg_y", y, ctx.dtype)
+        self.sparse_iters.fill_(iters)
         self.sparse_term.fill_(term)
         self._run("dogleg_sparse_finish", self._dogleg_sparse_finish)
         return tuple(self._bufs["dogleg"])
@@ -523,8 +558,8 @@ class SparseRegions(DoglegRegions):
         if self._ctx.comm is not None:
             y = self._ctx.comm.broadcast(y)
         gn_step = -diagonal * y
-        checks = torch.stack([torch.all(torch.isfinite(gn_step)).to(_F64),
-                              torch.ones((), dtype=_F64, device=y.device), self.sparse_term])
+        checks = torch.stack([torch.all(torch.isfinite(gn_step)).to(_F64), self.sparse_iters,
+                              self.sparse_term])
         self._keep("dogleg", diagonal, gradient, alpha, gn_step, checks)
 
     # -- SPARSE_SCHUR ------------------------------------------------------------

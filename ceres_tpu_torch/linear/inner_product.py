@@ -21,10 +21,9 @@ as the JAX package's GSPMD sums its partial cells: each rank reduces its
 own rows into its own sites, places them in the cell list of the whole
 program (``Program.unsharded``, the same list on every rank,
 :class:`CellLayout`), and one all-reduce sums them, so that only the
-O(nnz(H)) cells cross between ranks and to the host. Sites whose cells take
-more than two rows reduce through a fixed-order plan
-(``ops/reduce.build_fixed_order_plan``), so the cells have the same bits on
-every run, captured or not.
+O(nnz(H)) cells cross between ranks and to the host. The cells' plans add
+in one fixed order on the card (``ops/reduce.reduce_plan_kind``), so the
+cells have the same bits on every run, captured or not.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ceres_tpu_torch.ops.reduce import ReducePlan, apply_reduce, build_fixed_order_plan
+from ceres_tpu_torch.ops.reduce import ReducePlan, apply_reduce, build_reduce_plan
 
 
 @dataclasses.dataclass
@@ -138,8 +137,7 @@ def host_tangent_idx(program, fam, j: int) -> np.ndarray:
 
 def _normal_sites(program, device) -> List[NormalSite]:
     """The unique block-pair cells of H per family arg pair, with their
-    fixed-order reduce plans on ``device`` (``ops/reduce.
-    build_fixed_order_plan``), or without plans (None: the host's half
+    reduce plans on ``device``, or without plans (None: the host's half
     only)."""
     nt = program.num_tangent
     sites: List[NormalSite] = []
@@ -166,7 +164,7 @@ def _normal_sites(program, device) -> List[NormalSite]:
                     rep = idx[first]  # any instance of a cell has its two blocks
                     sites.append(NormalSite(
                         fi=fi, j1=a, j2=b, diagonal=diagonal, transpose=transpose,
-                        plan=None if device is None else build_fixed_order_plan(seg, C, device),
+                        plan=None if device is None else build_reduce_plan(seg, C, device),
                         rows=rs[rep].astype(np.int64), cols=cs[rep].astype(np.int64),
                     ))
     return sites
@@ -286,14 +284,9 @@ def build_normal_assembly(plan: NormalPlan) -> CscAssembly:
     return csc_assembly(n, keys_parts, valid_parts)
 
 
-def host_normal_factor_solve(assembly: CscAssembly, cell_values, D: np.ndarray, rhs: np.ndarray,
-                        ordering: str = "AMD", use_postordering: bool = False,
-                        mixed_precision: bool = False, num_refinement_iterations: int = 3):
-    """Scatter the cell values into the CSC data, add D^2 to the diagonal,
-    refactor on the cached symbolic analysis and solve (``mixed_precision``:
-    f32 factor, f64 refinement). Returns (y f64, termination code)."""
-    from ceres_tpu_torch.linear.sparse_cholesky import factor_solve_csc
-
+def _damped_data(assembly: CscAssembly, cell_values, D: np.ndarray,
+                 mixed_precision: bool = False) -> np.ndarray:
+    """The CSC data of the cells with D^2 added to the diagonal (f64)."""
     data = assembly.scatter(cell_values)
     D64 = np.asarray(D, dtype=np.float64)
     if mixed_precision:
@@ -305,9 +298,34 @@ def host_normal_factor_solve(assembly: CscAssembly, cell_values, D: np.ndarray, 
     data[assembly.diag_pos] += D64 * D64
     if assembly.cholesky is None:
         assembly.cholesky = {}
+    return data
+
+
+def host_normal_factor_solve(assembly: CscAssembly, cell_values, D: np.ndarray, rhs: np.ndarray,
+                        ordering: str = "AMD", use_postordering: bool = False,
+                        mixed_precision: bool = False, num_refinement_iterations: int = 3):
+    """Scatter the cell values into the CSC data, add D^2 to the diagonal,
+    refactor on the cached symbolic analysis and solve (``mixed_precision``:
+    f32 factor, f64 refinement). Returns (y f64, termination code)."""
+    from ceres_tpu_torch.linear.sparse_cholesky import factor_solve_csc
+
+    data = _damped_data(assembly, cell_values, D, mixed_precision)
     return factor_solve_csc(
         assembly.cholesky, assembly.n, assembly.indptr, assembly.indices, data, rhs,
         ordering=ordering, use_postordering=use_postordering, mixed_precision=mixed_precision,
         num_refinement_iterations=num_refinement_iterations,
     )
 
+
+def host_normal_factor(assembly: CscAssembly, cell_values, D: np.ndarray, ordering: str = "AMD",
+                       use_postordering: bool = False):
+    """The cells' matrix with D^2 on its diagonal factored in f64 on the
+    cached symbolic analysis (the one :func:`host_normal_factor_solve`
+    keeps): the ``SparseCholesky``, ready to solve, or None where a pivot is
+    not positive."""
+    from ceres_tpu_torch.linear.sparse_cholesky import cached_factor
+
+    data = _damped_data(assembly, cell_values, D)
+    chol = cached_factor(assembly.cholesky, assembly.n, assembly.indptr, assembly.indices,
+                         ordering, use_postordering)
+    return chol if chol.factorize(data) == 0 else None

@@ -14,14 +14,14 @@ SPARSE_NORMAL_CHOLESKY solves (J'J + D^2) y = rhs exactly.
 ``dynamic_sparsity`` (solver.h:365-383) drops numerically zero Jacobian
 entries and analyzes the pattern it then has.
 
-Two callers: the host loop's SPARSE_NORMAL_CHOLESKY step
-(``trust_region._make_sparse_lm_step_fn``), which assembles J'J from cells
-reduced on the card (``inner_product.py``), and every other caller of the
-linear solve (DOGLEG's Gauss-Newton step, the mixed-precision refinement's
-corrections), which calls :func:`solve_sparse_normal_cholesky`: the
-Jacobian goes to the host through ``evaluator.to_crs`` and is assembled
-there, what the JAX package computes inside its graph through a host
-callback.
+Two kinds of caller: the host loop's SPARSE_NORMAL_CHOLESKY steps
+(``trust_region._SparseNormalStep`` and DOGLEG's
+``dogleg.SparseGaussNewton``), which assemble J'J from cells reduced on the
+card (``inner_product.py``), and the fused loop's linear solve
+(``ctt.fused_solve``, which runs it eagerly), which calls
+:func:`solve_sparse_normal_cholesky`: the Jacobian goes to the host through
+``evaluator.to_crs`` and is assembled there, what the JAX package computes
+inside its graph through a host callback.
 """
 
 from __future__ import annotations
@@ -234,6 +234,21 @@ class SparseCholesky:
         return x
 
 
+def cached_factor(chol_cache: dict, n: int, indptr: np.ndarray, indices: np.ndarray,
+                  ordering: str = "AMD", use_postordering: bool = False,
+                  single: bool = False) -> SparseCholesky:
+    """The :class:`SparseCholesky` of this upper-CSC pattern kept in
+    ``chol_cache`` per (ordering, postordering, precision): its symbolic
+    analysis is made once and reused by every later factorization."""
+    key = (ordering, use_postordering, single)
+    chol = chol_cache.get(key)
+    if chol is None:
+        chol = chol_cache[key] = SparseCholesky(n, indptr, indices, ordering=ordering,
+                                                use_postordering=use_postordering,
+                                                precision="single" if single else "double")
+    return chol
+
+
 def factor_solve_csc(chol_cache: dict, n: int, indptr: np.ndarray, indices: np.ndarray,
                      data: np.ndarray, rhs: np.ndarray, ordering: str = "AMD",
                      use_postordering: bool = False, mixed_precision: bool = False,
@@ -246,13 +261,8 @@ def factor_solve_csc(chol_cache: dict, n: int, indptr: np.ndarray, indices: np.n
     definite at that precision) is solved by the f64 factor instead, so mixed
     precision never makes a solvable system fail. Returns (x f64,
     termination code of ``linear/cg.py``)."""
-    key = (ordering, use_postordering, mixed_precision)
-    chol = chol_cache.get(key)
-    if chol is None:
-        chol = SparseCholesky(n, indptr, indices, ordering=ordering,
-                              use_postordering=use_postordering,
-                              precision="single" if mixed_precision else "double")
-        chol_cache[key] = chol
+    chol = cached_factor(chol_cache, n, indptr, indices, ordering, use_postordering,
+                         mixed_precision)
     rc = chol.factorize(data)
     if rc != 0 and mixed_precision:
         return factor_solve_csc(chol_cache, n, indptr, indices, data, rhs, ordering=ordering,

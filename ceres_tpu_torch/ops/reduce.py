@@ -22,16 +22,21 @@ gather back into the gathered table's rows, the backward of the evaluator's
 ``table[index]``. It takes only the kinds that add in one fixed order on
 the card (``onehot``, ``sorted``, ``unsorted``; never ``scatter``, whose
 atomics add in no fixed order), so a reverse-mode gradient has the same
-bits on every run, captured into a CUDA graph or not. A fixed-order plan
-(:func:`build_fixed_order_plan`, the J'J cells of ``linear/inner_product.py``)
-takes a gather plan where ``scatter`` would add more than two rows a group.
+bits on every run, captured into a CUDA graph or not.
+
+A reduce plan adds in one fixed order on the card too
+(:func:`reduce_plan_kind`): where ``scatter`` would add more than two rows
+into a group there, it is a gather plan, which leaves the dummy group's
+rows out (row G is then zero; every caller drops it). Two rows a group
+keep ``scatter``: 0 + a + b and 0 + b + a have the same bits. On the CPU
+``index_add_`` adds in row order, so a CPU plan keeps ``scatter``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,16 +160,41 @@ def _build_plan(kind: str, seg: np.ndarray, G: int, device: torch.device) -> Red
     )
 
 
+def reduce_plan_kind(seg: np.ndarray, num_groups: int, device_type: str) -> Tuple[str, bool]:
+    """(kind, gather) of the plan :func:`build_reduce_plan` builds for
+    ``seg`` on a device of type ``device_type``: :func:`choose_plan_kind`'s
+    kind, unless that is ``scatter`` on the card with more than two rows in
+    some group (the dummy group aside): then the gather plan's
+    (:func:`choose_gather_plan_kind`), which adds in one fixed order. Pure,
+    as :func:`choose_plan_kind`."""
+    G = int(num_groups)
+    seg = _mapped(seg, G)
+    kind = choose_plan_kind(seg, G, device_type)
+    if device_type == "cuda" and kind == "scatter" and max_group_rows(seg, G) > 2:
+        return choose_gather_plan_kind(seg, G), True
+    return kind, False
+
+
+def max_group_rows(seg: np.ndarray, num_groups: int) -> int:
+    """The most rows any group 0..G-1 takes (ids outside it are the dummy
+    group's)."""
+    G = int(num_groups)
+    return int(np.bincount(_mapped(seg, G), minlength=G + 1)[:G].max(initial=0))
+
+
 def build_reduce_plan(
     seg_ids: np.ndarray, num_groups: int, device: torch.device
 ) -> ReducePlan:
-    """Plan for reducing B rows into ``num_groups`` groups; its index
-    arrays live on ``device``, the device of the contributions it will
-    reduce."""
+    """Plan for reducing B rows into ``num_groups`` groups
+    (:func:`reduce_plan_kind`); its index arrays live on ``device``, the
+    device of the contributions it will reduce."""
     device = torch.device(device)
     G = int(num_groups)
     seg = _mapped(seg_ids, G)
-    return _build_plan(choose_plan_kind(seg, G, device.type), seg, G, device)
+    kind, gather = reduce_plan_kind(seg, G, device.type)
+    if gather:
+        return build_gather_plan(seg, G, device)
+    return _build_plan(kind, seg, G, device)
 
 
 def build_gather_plan(
@@ -187,23 +217,6 @@ def build_gather_plan(
     if not np.array_equal(order, np.arange(seg.shape[0])):
         plan.rows = torch.from_numpy(order).to(device)
     return plan
-
-
-def build_fixed_order_plan(
-    seg_ids: np.ndarray, num_groups: int, device: torch.device
-) -> ReducePlan:
-    """:func:`build_reduce_plan`, unless that takes ``scatter`` for a group
-    of more than two rows: then :func:`build_gather_plan`, which adds in one
-    fixed order. Two rows a group add to the same bits in any order (0 + a
-    + b = 0 + b + a), so a plan of this kind gives the same bits on every
-    run, captured into a CUDA graph or not."""
-    device = torch.device(device)
-    G = int(num_groups)
-    seg = _mapped(seg_ids, G)
-    kind = choose_plan_kind(seg, G, device.type)
-    if kind == "scatter" and np.bincount(seg, minlength=G + 1)[:G].max(initial=0) > 2:
-        return build_gather_plan(seg, G, device)
-    return _build_plan(kind, seg, G, device)
 
 
 def apply_reduce(plan: ReducePlan, contrib: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,9 @@ path.
 Cases (``chip_smoke``'s): on the mesh, the 2500-pose graph under
 SPARSE_NORMAL_CHOLESKY, static and with ``dynamic_sparsity``, and the
 sequential bundle adjustment under SPARSE_SCHUR; without a mesh, the
-2500-pose graph under SPARSE_NORMAL_CHOLESKY and DOGLEG; all float64. Each
+2500-pose graph under SPARSE_NORMAL_CHOLESKY and DOGLEG, without and with
+``use_mixed_precision_solves``; all float64 (name cases as arguments to run
+only those). Each
 is solved three times from one start: ``ctt.solve`` (which captures the
 host loop's regions where the tree does), again (a repeat on the kept
 program), and ``profile_solve.eager_host_loop``. Prints the card's name
@@ -34,7 +36,8 @@ import tempfile
 
 # case -> on the mesh
 CASES = {"pose_graph_sparse_normal": True, "pose_graph_sparse_normal_dynamic": True,
-         "sequential_sparse_schur": True, "pose_graph_sparse_normal_dogleg": False}
+         "sequential_sparse_schur": True, "pose_graph_sparse_normal_dogleg": False,
+         "pose_graph_sparse_normal_dogleg_mixed": False}
 
 
 def _problem(case: str):
@@ -51,8 +54,9 @@ def _problem(case: str):
     opts = pose_graph.default_options()
     opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
     opts.dynamic_sparsity = case.endswith("dynamic")
-    if case.endswith("dogleg"):
+    if "dogleg" in case:
         opts.trust_region_strategy_type = ctt.TrustRegionStrategyType.DOGLEG
+    opts.use_mixed_precision_solves = case.endswith("mixed")
     return pose_graph.build_problem_3d(*graph)[0], opts
 
 
@@ -101,9 +105,9 @@ def main() -> int:
                                 rank=0, world_size=1)
         try:
             mesh = make_mesh(1, device_type="cuda")
-            for case, on_mesh in CASES.items():
+            for case in sys.argv[1:] or CASES:
                 problem, opts = _problem(case)
-                opts.mesh = mesh if on_mesh else None
+                opts.mesh = mesh if CASES[case] else None
                 start = problem.state().copy()
                 for run in ("solve", "again", "eager"):
                     problem.write_back(start)

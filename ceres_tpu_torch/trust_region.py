@@ -331,10 +331,10 @@ def _base_linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
     if lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
         # The exact host factorization, with the Jacobian sent to the host
         # (the whole problem's on a sharded ctx, ``evaluator.to_crs``): the
-        # solve of every caller but the host loop's own sparse steps (the
-        # fused loop, refinement corrections, DOGLEG under mixed
-        # precision), what the JAX package computes in its graph through a
-        # host callback.
+        # fused loop's solve and its refinement corrections (the host
+        # loop's sparse steps and DOGLEG's Gauss-Newton solve reduce J'J's
+        # cells on the card), what the JAX package computes in its graph
+        # through a host callback.
         return solve_sparse_normal_cholesky(
             ctx, D, rhs=rhs, dynamic=config.dynamic_sparsity, ordering=config.ordering_type,
             use_postordering=config.use_postordering,
@@ -668,18 +668,6 @@ class _SparseNormalStep:
         return _step_result(*regions.sparse_finish(ctx, y), term)
 
 
-def _dogleg_jacobian_to_host(options) -> bool:
-    """Whether DOGLEG's Gauss-Newton solve sends the Jacobian to the host
-    inside the ``dogleg`` region (``_base_linear_solve``): under
-    SPARSE_NORMAL_CHOLESKY with mixed precision, whose f32 solves and f64
-    refinement keep the reference's arithmetic. Without mixed precision
-    the solve is two regions around the host factor
-    (``dogleg.SparseGaussNewton``)."""
-    return (options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG
-            and options.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY
-            and options.use_mixed_precision_solves)
-
-
 def _make_lm_step_fn(options, program, regions=None):
     """f(ctx, radius) -> (step, model_cost_change, lin_iters, lin_termination)
     for a host radius: the host-driven sparse steps for SPARSE_NORMAL_CHOLESKY
@@ -731,8 +719,7 @@ class TrustRegionMinimizer:
             from ceres_tpu_torch.dogleg import DoglegStrategy, SparseGaussNewton
 
             sparse = None
-            if (options.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY
-                    and not _dogleg_jacobian_to_host(options)):
+            if options.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
                 sparse = SparseGaussNewton(_config_from_options(options), program, self.graphs)
             self.dogleg = DoglegStrategy(options, *_make_linear_solve(options, program),
                                          graphs=self.graphs, sparse=sparse)

@@ -134,7 +134,10 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    cost. Its reductions are below the kernels' sizes (2598 rows into 4998
    groups: ``index_add_``), which the phase checks and prints;
 9. solve, dense: a small robust BAL (8 / 500 / 2000, seed 42, Huber) with
-   DENSE_QR and with DENSE_NORMAL_CHOLESKY, final costs within 1e-6 relative
+   DENSE_QR and with DENSE_NORMAL_CHOLESKY, each solved twice: the two
+   solves' final costs and x equal to the bit (its point plan takes up to 4
+   rows a group, a gather plan on the card since ``index_add_``'s atomics
+   gave other last bits run to run), the two solvers within 1e-6 relative
    of each other;
 10. solve, large iterative (``large_iterative``): the large instance at
    ``bal.default_options(iterative=True)``: ITERATIVE_SCHUR + SCHUR_JACOBI,
@@ -289,7 +292,14 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    Gauss-Newton solve as two regions around the host factor,
    ``dogleg.SparseGaussNewton``), the same four runs and checks, held to
    JAX's record count and cost within 1e-9
-   (POSE_GRAPH_SPARSE_DOGLEG_REFERENCE);
+   (POSE_GRAPH_SPARSE_DOGLEG_REFERENCE); then under DOGLEG with
+   ``use_mixed_precision_solves`` (``pose_graph_sparse_cholesky_dogleg_mixed``:
+   the f32 system's cells read once a point, the host's f32 solve refined
+   from the ``dogleg_sparse_refine`` region's f64 residual), the same four
+   runs, JAX's record count and cost within 1e-9
+   (POSE_GRAPH_SPARSE_DOGLEG_MIXED_REFERENCE), at most
+   SPARSE_MAX_READS_PER_LM_ITERATION + the refinement steps host reads an
+   LM iteration plus HOST_LOOP_SETUP_READS, its three regions captured;
 22. solve, sequential bundle adjustment, SPARSE_SCHUR
    (``sequential_ba_sparse_schur``): ``sequential_instance`` (1723 cameras,
    156 502 points, 678 718 observations, the shape of BAL's Ladybug
@@ -324,8 +334,10 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    its own test), captured once per ``compute`` and replayed per chunk; the
    quaternion blocks of poses 1, 1250 and 2499 in ambient space against JAX
    (1e-5) and each column's CG iterations against JAX's (20%); the same
-   computation with the CG run eagerly, equal to the bit (columns and
-   counts); host reads per chunk and seconds per CG iteration of both;
+   computation on a 700-pose sphere (COVARIANCE_TWIN_POSES: the eager
+   twin's depth, cut so that the script stays within its time) with the CG
+   run eagerly and captured, equal to the bit (columns and counts); host
+   reads per chunk and seconds per CG iteration of each;
 26. numeric differentiation (``numeric_diff_flagship``): the flagship with
    its Snavely residual under ``ctt.numeric_diff``, CENTRAL to convergence
    and RIDDERS for 3 iterations, float64: JAX's records and CG iterations,
@@ -389,6 +401,14 @@ per replay that ran it (the counts are read with the loop's results); the
 eager warm-up a capture needs counts nowhere. K1's and K3's are also
 reported by the width d of what they reduce (``launches_by_width``).
 
+A ``plan`` line of case ``every_program`` lists every site that built a
+reduce or gather plan on the card in this run, the sharded phase's ranks
+included (the file:line outside ``ops/reduce.py`` that asked for the plan):
+its plan kinds, how many of each and the most rows any group took; the run
+fails where a card plan is ``scatter`` with more than two rows in a group
+(``index_add_``'s atomics would give other last bits run to run;
+``ops/reduce.reduce_plan_kind``).
+
 Before the last line: an ``elapsed`` line (the script's seconds), one
 ``{"kernels": [...]}`` line (per kernel: its times at the large case's
 float32 shape, its launches in the large float32 solve, its launches by
@@ -406,6 +426,7 @@ import dataclasses
 import inspect
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -422,6 +443,7 @@ from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
 from ceres_tpu_torch.models import bal, denoising, libmv, nist, pose_graph
 from ceres_tpu_torch.ops import cuda_build
 from ceres_tpu_torch.ops import outer_segment_sum as osum
+from ceres_tpu_torch.ops import reduce as reduce_mod
 from ceres_tpu_torch.ops import segment_sum as ss
 from ceres_tpu_torch.ops import unsorted_segment_sum as us
 from ceres_tpu_torch.tools.profile_solve import (
@@ -581,6 +603,9 @@ POSE_GRAPH_SPARSE_REFERENCE = (15, 0.3774149708801168)
 # the same graph and options under DOGLEG (traditional): (records, final
 # cost) (``tests/test_torch_references.py sparse_pose_graph_dogleg``)
 POSE_GRAPH_SPARSE_DOGLEG_REFERENCE = (4, 0.3774152347290844)
+# and with use_mixed_precision_solves (its f32 solves refined once in f64)
+# (``tests/test_torch_references.py sparse_pose_graph_dogleg_mixed``)
+POSE_GRAPH_SPARSE_DOGLEG_MIXED_REFERENCE = (4, 0.3774152347290854)
 SEQUENTIAL_SPARSE_SCHUR_REFERENCE = (10, 10.92539723105676)
 FLAGSHIP_CLUSTER_REFERENCE = {
     "CLUSTER_JACOBI": (4, 9, 202425.49037236028),
@@ -1803,6 +1828,66 @@ SHARDED_NCCL_KINDS = ("eager", "captured", "repeat", "eager_again")
 SHARDED_TIMEOUT = 480.0  # one spawn: imports, set-up and every solve of every rank
 
 
+class PlanLog:
+    """Every reduce and gather plan built on the card while installed (a
+    ``with`` block, or ``install`` / ``uninstall``), through
+    ``ops/reduce._build_plan``: ``sites`` maps the file:line in the
+    package that asked for the plan to its plan kinds, how many of each and the
+    most rows any group took (``reduce.max_group_rows``), and separately
+    the most rows of a ``scatter`` plan's group."""
+
+    def __init__(self):
+        self.sites: dict = {}
+        self._real = None
+
+    def install(self) -> "PlanLog":
+        real = self._real = reduce_mod._build_plan
+        package = os.path.dirname(ctt.__file__)
+
+        def logged(kind, seg, G, device):
+            if device.type == "cuda":
+                frame = sys._getframe(1)
+                while frame.f_code.co_filename == reduce_mod.__file__:
+                    frame = frame.f_back
+                site = f"{os.path.relpath(frame.f_code.co_filename, package)}:{frame.f_lineno}"
+                self.add(site, kind, reduce_mod.max_group_rows(seg, G))
+            return real(kind, seg, G, device)
+
+        reduce_mod._build_plan = logged
+        return self
+
+    def uninstall(self) -> None:
+        reduce_mod._build_plan = self._real
+
+    __enter__ = install
+
+    def __exit__(self, *exc) -> None:
+        self.uninstall()
+
+    def add(self, site: str, kind: str, rows: int, count: int = 1) -> None:
+        entry = self.sites.setdefault(site, {"kinds": {}, "largest_group": 0,
+                                             "scatter_largest_group": 0})
+        entry["kinds"][kind] = entry["kinds"].get(kind, 0) + count
+        entry["largest_group"] = max(entry["largest_group"], rows)
+        if kind == "scatter":
+            entry["scatter_largest_group"] = max(entry["scatter_largest_group"], rows)
+
+    def merge(self, sites: dict) -> None:
+        """Another process's ``sites`` (a sharded phase's rank)."""
+        for site, entry in sites.items():
+            for kind, count in entry["kinds"].items():
+                rows = entry["scatter_largest_group" if kind == "scatter" else "largest_group"]
+                self.add(site, kind, rows, count)
+
+    def check(self) -> None:
+        """The ``plan`` line; raises where a card plan is ``scatter`` with
+        more than two rows in a group."""
+        phase("plan", case="every_program", sites=self.sites)
+        bad = {s: e for s, e in self.sites.items() if e["scatter_largest_group"] > 2}
+        if bad:
+            raise RuntimeError(f"index_add_ over more than two rows a group on the card: {bad}")
+
+
 def _reset_launches() -> None:
     for mod, _ in KERNELS.values():
         mod.launches = 0
@@ -2170,7 +2255,8 @@ def sharded_rank(rank: int, world: int, runs) -> list:
     a mesh over the world, on cuda:0 (every rank: one card)."""
     del rank, world
     device, mesh = _mesh_setup()
-    return [_sharded_solve(case, dtype, mesh, device) for case, dtype in runs]
+    with PlanLog() as plans:
+        return [_sharded_solve(case, dtype, mesh, device) for case, dtype in runs], plans.sites
 
 
 def _sharded_graphs(program, loop: str) -> list:
@@ -2220,9 +2306,15 @@ def nccl_rank(rank: int, world: int, runs) -> list:
     host loop's cases also through ``ctt.solve`` without the mesh (the
     one-process bits they are held to). Returns per case its runs (a
     host-factor case's clocked by ``_sparse_host_clock``), the graphs' pool
-    bytes and the one-process host loop's records, x and launches."""
+    bytes and the one-process host loop's records, x and launches; and the
+    rank's ``PlanLog`` sites."""
     del rank, world
     device, mesh = _mesh_setup()
+    with PlanLog() as plans:
+        return _nccl_cases(runs, device, mesh), plans.sites
+
+
+def _nccl_cases(runs, device, mesh) -> list:
     out = []
     for case, dtype, loop in runs:
         problem, opts = _sharded_problem(case, dtype, mesh, loop)
@@ -2340,10 +2432,11 @@ def _check_nccl(result: dict, single: dict, paths: dict, smi: str) -> dict:
     return repeat["launches"]
 
 
-def solve_sharded(single: dict, paths: dict, smi: str) -> dict:
+def solve_sharded(single: dict, paths: dict, smi: str, plans: PlanLog = None) -> dict:
     """Phase 5b: the sharded runs, held to the one-process summaries of
     phases 4 and 5 (``single[case, dtype]``) and to their launches
-    (``paths``); returns each rank's launches by path."""
+    (``paths``); the ranks' plans merged into ``plans``; returns each
+    rank's launches by path."""
     from ceres_tpu_torch.parallel.launch import spawn_ranks
 
     torch.cuda.empty_cache()  # leave the card to the ranks
@@ -2351,9 +2444,13 @@ def solve_sharded(single: dict, paths: dict, smi: str) -> dict:
     gloo = spawn_ranks(sharded_rank, SHARDED_RANKS, (SHARDED_GLOO_RUNS,), backend="gloo",
                        timeout=SHARDED_TIMEOUT)
     t1 = time.perf_counter()
-    nccl = spawn_ranks(nccl_rank, 1, (SHARDED_NCCL_RUNS,), backend="nccl",
-                       timeout=SHARDED_TIMEOUT)[0]
+    nccl, nccl_plans = spawn_ranks(nccl_rank, 1, (SHARDED_NCCL_RUNS,), backend="nccl",
+                                   timeout=SHARDED_TIMEOUT)[0]
     t2 = time.perf_counter()
+    if plans is not None:
+        for sites in [nccl_plans] + [r[1] for r in gloo]:
+            plans.merge(sites)
+    gloo = [r[0] for r in gloo]
     out = {}
     for i, (case, dtype) in enumerate(SHARDED_GLOO_RUNS):
         got = [r[i] for r in gloo]
@@ -2697,25 +2794,36 @@ def solve_pose_graph_twice(device) -> dict:
 
 
 def solve_dense(device) -> None:
-    """A small robust BAL with both dense solvers, one against the other."""
+    """A small robust BAL with both dense solvers, each solved twice: the
+    two solves the same final cost and x to the bit (its point plan adds up
+    to 4 rows a group in one fixed order on the card), the solvers one
+    against the other."""
     inst = bal.synthesize_bal(**SMALL_ROBUST)
     costs = {}
     for solver in (ctt.LinearSolverType.DENSE_QR, ctt.LinearSolverType.DENSE_NORMAL_CHOLESKY):
-        problem, _, _ = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))
-        opts = ctt.SolverOptions(linear_solver_type=solver)
-        summary = ctt.solve(opts, problem, device=device)
-        _usable(summary, f"dense {solver}")
-        x = problem.state()
-        if not np.all(np.isfinite(x)) or not summary.final_cost < 0.1 * summary.initial_cost:
-            raise RuntimeError(f"dense {solver}: no progress or non-finite solution")
+        runs = []
+        for _ in range(2):
+            problem, _, _ = bal.build_problem(inst, loss=ctt.HuberLoss(1.0))
+            opts = ctt.SolverOptions(linear_solver_type=solver)
+            summary = ctt.solve(opts, problem, device=device)
+            _usable(summary, f"dense {solver}")
+            x = problem.state()
+            if not np.all(np.isfinite(x)) or not summary.final_cost < 0.1 * summary.initial_cost:
+                raise RuntimeError(f"dense {solver}: no progress or non-finite solution")
+            runs.append((summary, x))
+        (summary, x), (again, x_again) = runs
         costs[solver] = summary.final_cost
         phase(
             "solve", case="small_robust_dense", linear_solver=str(solver), dtype="float64",
-            initial_cost=summary.initial_cost, final_cost=summary.final_cost,
+            initial_cost=summary.initial_cost, final_costs=[summary.final_cost, again.final_cost],
             lm_iterations=len(summary.iterations) - 1,
             termination=str(summary.termination_type),
-            solve_seconds=summary.minimizer_time_in_seconds,
+            solve_seconds=[summary.minimizer_time_in_seconds, again.minimizer_time_in_seconds],
+            point_plan_kind=problem.program(device).families[0].reduce_plans[1].kind,
         )
+        if again.final_cost != summary.final_cost or not np.array_equal(x, x_again):
+            raise RuntimeError(f"dense {solver}: two solves differ: {summary.final_cost!r} "
+                               f"and {again.final_cost!r}")
     qr, chol = costs.values()
     if abs(qr - chol) > DENSE_RTOL * chol:
         raise RuntimeError(f"DENSE_QR {qr} and DENSE_NORMAL_CHOLESKY {chol} disagree")
@@ -3639,12 +3747,14 @@ def _sparse_fields(runs) -> dict:
 SPARSE_MAX_READS_PER_LM_ITERATION = 5
 
 
-def _sparse_phase(label: str, problem, opts, device, smi: str, **fields) -> list:
+def _sparse_phase(label: str, problem, opts, device, smi: str,
+                  reads_per_lm_iteration: int = SPARSE_MAX_READS_PER_LM_ITERATION,
+                  **fields) -> list:
     """A sparse solver's host loop on ``problem``: eager, captured, again
     and eager (``_eager_captured_repeat``, which raises unless every run
     gives the first's bits and launches; the host factor clocked), its
     phase line printed. Raises too where the captured repeat reads the host
-    more than SPARSE_MAX_READS_PER_LM_ITERATION times an LM iteration plus
+    more than ``reads_per_lm_iteration`` times an LM iteration plus
     HOST_LOOP_SETUP_READS. Returns the runs."""
     runs = _eager_captured_repeat(label, problem, opts, device, clock=_sparse_host_clock)
     loop = _host_loop_fields(runs, problem, device)
@@ -3652,10 +3762,9 @@ def _sparse_phase(label: str, problem, opts, device, smi: str, **fields) -> list
     phase("solve", case=label, dtype=opts.evaluation_dtype or "float64",
           initial_cost=s.initial_cost, final_cost=s.final_cost, records=len(s.iterations),
           rejected_steps=s.num_unsuccessful_steps, termination=str(s.termination_type),
-          message=s.message, card=smi,
-          max_host_reads_per_lm_iteration=SPARSE_MAX_READS_PER_LM_ITERATION,
+          message=s.message, card=smi, max_host_reads_per_lm_iteration=reads_per_lm_iteration,
           **fields, **loop, **_sparse_fields(runs))
-    bound = SPARSE_MAX_READS_PER_LM_ITERATION * loop["lm_iterations"] + HOST_LOOP_SETUP_READS
+    bound = reads_per_lm_iteration * loop["lm_iterations"] + HOST_LOOP_SETUP_READS
     if loop["host_reads"]["repeat"] > bound:
         raise RuntimeError(f"{label}: the captured repeat read the host "
                            f"{loop['host_reads']['repeat']} times (bound {bound})")
@@ -3684,24 +3793,34 @@ def solve_pose_graph_sparse(device, smi: str, cgnr_seconds: float) -> dict:
     return runs[2]["launches"]
 
 
-def solve_pose_graph_sparse_dogleg(device, smi: str) -> dict:
+def solve_pose_graph_sparse_dogleg(device, smi: str, mixed: bool = False) -> dict:
     """The 2500-pose sphere through ctt.solve with SPARSE_NORMAL_CHOLESKY
     under DOGLEG (traditional), float64, eager, captured, again and eager
-    (``_sparse_phase``): its Gauss-Newton solve as two regions around the
-    host factor (``dogleg.SparseGaussNewton``: the Cauchy terms and J'J's
-    cells read once a point, the step from the host's solution), the same
-    bits every run, JAX's record count and final cost within 1e-9."""
+    (``_sparse_phase``): its Gauss-Newton solve as regions around the host
+    factor (``dogleg.SparseGaussNewton``: the Cauchy terms and J'J's cells
+    read once a point, the step from the host's solution), the same bits
+    every run, JAX's record count and final cost within 1e-9. With
+    ``mixed``, under ``use_mixed_precision_solves``: the f32 system's cells,
+    and each refinement's f64 residual from the ``dogleg_sparse_refine``
+    region, one more read an LM iteration per refinement step."""
     graph = pose_graph.synthesize_sphere(POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED)[:3]
     problem = pose_graph.build_problem_3d(*graph)[0]
     opts = pose_graph.default_options()
     opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
     opts.trust_region_strategy_type = ctt.TrustRegionStrategyType.DOGLEG
-    records, reference = POSE_GRAPH_SPARSE_DOGLEG_REFERENCE
-    label = "pose_graph_sparse_cholesky_dogleg"
-    runs = _sparse_phase(label, problem, opts, device, smi, poses=POSE_GRAPH_POSES,
-                         reference_final_cost=reference, reference_records=records)
+    opts.use_mixed_precision_solves = mixed
+    refinements = max(opts.max_num_refinement_iterations, 1) if mixed else 0
+    records, reference = (POSE_GRAPH_SPARSE_DOGLEG_MIXED_REFERENCE if mixed
+                          else POSE_GRAPH_SPARSE_DOGLEG_REFERENCE)
+    label = "pose_graph_sparse_cholesky_dogleg" + ("_mixed" if mixed else "")
+    runs = _sparse_phase(label, problem, opts, device, smi,
+                         SPARSE_MAX_READS_PER_LM_ITERATION + refinements, poses=POSE_GRAPH_POSES,
+                         reference_final_cost=reference, reference_records=records,
+                         refinement_iterations=refinements)
     graphs = {name for g in _host_loop_graph_sets(problem, device) for name in g.graphs}
-    if not {"dogleg_sparse_prep", "dogleg_sparse_finish"} <= graphs:
+    regions = {"dogleg_sparse_prep", "dogleg_sparse_finish"} | (
+        {"dogleg_sparse_refine"} if mixed else set())
+    if not regions <= graphs:
         raise RuntimeError(f"{label}: the Gauss-Newton regions were not captured: {graphs}")
     _held_to_jax(runs[2]["summary"], records, reference, label)
     return runs[2]["launches"]
@@ -3973,21 +4092,43 @@ def _matrix_free_covariance(problem, pairs, device, captured: bool):
     return cov, seconds, reads, _launches()
 
 
+def _sphere_quaternion_pairs(poses: int):
+    """(the sphere of ``poses`` poses, the pairs of its quaternion blocks of
+    poses 1, poses / 2 and poses - 1: three diagonal blocks and one
+    cross block)."""
+    problem, _, quat_id = pose_graph.build_problem_3d(
+        *pose_graph.synthesize_sphere(poses, seed=POSE_GRAPH_SEED)[:3])
+    q = [quat_id[v] for v in (1, poses // 2, poses - 1)]
+    return problem, [(q[0], q[0]), (q[1], q[1]), (q[2], q[2]), (q[0], q[2])]
+
+
+# The matrix-free covariance's eager twin runs on a sphere of this many
+# poses, not the 2500-pose one, whose eager CG took 35 s (an NVIDIA H100
+# 80GB HBM3 at 700 W), a twentieth of the script: the smallest round count
+# whose tangent coordinates (4200) still take the matrix-free path (over
+# covariance.DENSE_COVARIANCE_MAX_TANGENT, 4096); 4606 batched CG
+# iterations there against 11 731.
+COVARIANCE_TWIN_POSES = 700
+
+
 def solve_covariance_matrix_free(device, smi: str) -> dict:
     """Covariance of the 2500-pose sphere at its own values: 15 000 tangent
     coordinates and no Schur structure, so the requested columns of
     inverse(J'J) are solved by CG, 8 at a time, captured once per compute()
     and replayed per chunk; the quaternion blocks of poses 1, 1250 and 2499
-    in ambient space against JAX f64; the same computation with the CG run
-    eagerly, equal to the bit; host reads per chunk and seconds per CG
-    iteration of both."""
-    problem, _, quat_id = pose_graph.build_problem_3d(
-        *pose_graph.synthesize_sphere(POSE_GRAPH_POSES, seed=POSE_GRAPH_SEED)[:3])
-    q = [quat_id[v] for v in (1, POSE_GRAPH_POSES // 2, POSE_GRAPH_POSES - 1)]
-    pairs = [(q[0], q[0]), (q[1], q[1]), (q[2], q[2]), (q[0], q[2])]
-    # eager first: the program's set-up is the eager computation's, and the
-    # captured one reads only what a compute() of a set-up program reads
-    eager, eager_seconds, eager_reads, _ = _matrix_free_covariance(problem, pairs, device, False)
+    in ambient space against JAX f64; the same computation on the
+    COVARIANCE_TWIN_POSES sphere with the CG run eagerly and captured, equal
+    to the bit; host reads per chunk and seconds per CG iteration of
+    each."""
+    # the twin eager first: the program's set-up is the eager computation's,
+    # and its captured twin reads only what a compute() of a set-up program
+    # reads
+    twin_problem, twin_pairs = _sphere_quaternion_pairs(COVARIANCE_TWIN_POSES)
+    eager, eager_seconds, eager_reads, _ = _matrix_free_covariance(
+        twin_problem, twin_pairs, device, False)
+    twin, twin_seconds, twin_reads, _ = _matrix_free_covariance(
+        twin_problem, twin_pairs, device, True)
+    problem, pairs = _sphere_quaternion_pairs(POSE_GRAPH_POSES)
     cov, seconds, reads, launches = _matrix_free_covariance(problem, pairs, device, True)
     ref = COVARIANCE_MATRIX_FREE_REFERENCE
     errs = [_fingerprint_err(cov.get_covariance_block(*pair), r)
@@ -3995,22 +4136,30 @@ def solve_covariance_matrix_free(device, smi: str) -> dict:
     iterations = cov.statistics["cg_iterations"]
     moved = [abs(a - b) / b for a, b in zip(iterations, ref["cg_iterations"])]
     chunks = -(-len(iterations) // 8)
-    # the batched loop runs as long as its longest column, chunk by chunk
-    batch_iterations = sum(max(iterations[c * 8:(c + 1) * 8]) for c in range(chunks))
-    equal = (np.array_equal(cov._mf_Z, eager._mf_Z)
-             and iterations == eager.statistics["cg_iterations"])
+
+    def batch_iterations(its):
+        # the batched loop runs as long as its longest column, chunk by chunk
+        return sum(max(its[c * 8:(c + 1) * 8]) for c in range(-(-len(its) // 8)))
+
+    twin_iterations = twin.statistics["cg_iterations"]
+    equal = (np.array_equal(twin._mf_Z, eager._mf_Z)
+             and twin_iterations == eager.statistics["cg_iterations"])
+    twin_chunks = -(-len(twin_iterations) // 8)
     phase("solve", case="covariance_pose_graph_matrix_free", dtype="float64", nvidia_smi=smi,
           block_rel_err=errs, rtol=COVARIANCE_MATRIX_FREE_RTOL, cg_iterations=iterations,
           reference_cg_iterations=ref["cg_iterations"], cg_iterations_rel=moved,
-          chunks=chunks, seconds={"captured": seconds, "eager": eager_seconds},
-          host_reads={"captured": sum(reads.values()), "eager": sum(eager_reads.values())},
-          host_reads_per_chunk={"captured": sum(reads.values()) / chunks,
-                                "eager": sum(eager_reads.values()) / chunks},
-          host_reads_by_site={"captured": dict(reads), "eager": dict(eager_reads.most_common(4))},
-          cg_seconds={"captured": cov.statistics["cg_seconds"],
-                      "eager": eager.statistics["cg_seconds"]},
-          seconds_per_cg_iteration={"captured": cov.statistics["cg_seconds"] / batch_iterations,
-                                    "eager": eager.statistics["cg_seconds"] / batch_iterations},
+          chunks=chunks, seconds=seconds, host_reads=sum(reads.values()),
+          host_reads_by_site=dict(reads), cg_seconds=cov.statistics["cg_seconds"],
+          seconds_per_cg_iteration=cov.statistics["cg_seconds"] / batch_iterations(iterations),
+          twin=dict(poses=COVARIANCE_TWIN_POSES, cg_iterations=twin_iterations,
+                    seconds={"captured": twin_seconds, "eager": eager_seconds},
+                    host_reads_per_chunk={"captured": sum(twin_reads.values()) / twin_chunks,
+                                          "eager": sum(eager_reads.values()) / twin_chunks},
+                    host_reads_by_site={"captured": dict(twin_reads),
+                                        "eager": dict(eager_reads.most_common(4))},
+                    seconds_per_cg_iteration={
+                        k: c.statistics["cg_seconds"] / batch_iterations(twin_iterations)
+                        for k, c in (("captured", twin), ("eager", eager))}),
           captured_equal_to_eager_to_the_bit=equal,
           **{k: v for k, v in cov.statistics.items() if k not in ("cg_iterations", "cg_seconds")},
           launches=launches)
@@ -4019,7 +4168,7 @@ def solve_covariance_matrix_free(device, smi: str) -> dict:
                            f"against JAX {ref['cg_iterations']}")
     if not equal:
         raise RuntimeError(f"covariance matrix-free: captured and eager differ: CG iterations "
-                           f"{iterations} against {eager.statistics['cg_iterations']}")
+                           f"{twin_iterations} against {eager.statistics['cg_iterations']}")
     return launches
 
 
@@ -4412,6 +4561,7 @@ def main() -> int:
     smi = check_device()
     device = torch.device("cuda", 0)
     build_kernels()
+    plans = PlanLog().install()
     records = check_kernels(device)
     paths, single = {}, {}
     for dtype in ("float32", "float64"):
@@ -4421,7 +4571,7 @@ def main() -> int:
     paths["large_float32"] = launches
     paths["large_float64"], _, single["large", "float64"] = solve_large(device, "float64", inst)
     paths.update(solve_captured_loop(device, inst, smi))
-    paths.update(solve_sharded(single, paths, smi))
+    paths.update(solve_sharded(single, paths, smi, plans))
     r32, paths["robust_large_float32"] = solve_robust_large(device, "float32", inst)
     r64, paths["robust_large_float64"] = solve_robust_large(device, "float64", inst)
     rel = abs(r32.final_cost - r64.final_cost) / r64.final_cost
@@ -4462,6 +4612,8 @@ def main() -> int:
         device, smi, cgnr_seconds)
     paths["pose_graph_sparse_cholesky_dogleg_float64"] = solve_pose_graph_sparse_dogleg(
         device, smi)
+    paths["pose_graph_sparse_cholesky_dogleg_mixed_float64"] = solve_pose_graph_sparse_dogleg(
+        device, smi, mixed=True)
     paths.update(solve_sequential_sparse_schur(device, smi))
     paths.update(solve_flagship_clusters(device, smi))
     paths["covariance_pose_graph_matrix_free_float64"] = solve_covariance_matrix_free(device, smi)
@@ -4473,6 +4625,8 @@ def main() -> int:
     paths["c_api_float64"] = solve_c_api(device, smi)
     paths["interpolation_float64"] = solve_interpolation(device, smi)
     paths.update(solve_examples(device, smi))
+    plans.uninstall()
+    plans.check()
     for record in records:
         record["launches"] = launches[record["name"]]
         record["launches_by_path"] = {k: v[record["name"]] for k, v in paths.items()}

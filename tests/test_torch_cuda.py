@@ -144,6 +144,37 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         ss.segment_sum_sorted(torch.ones(10, 2, device=device), row_ptr.long(), 10)
 
 
+@pytest.mark.parametrize("case", ["sorted", "sorted_rows", "unsorted"])
+def test_a_plan_that_index_add_would_take_adds_in_one_order(device, case):
+    """Ids ``choose_plan_kind`` sends to ``index_add_`` on the card with more
+    than two rows a group (sorted below 4096 rows; unsorted over 4096
+    groups; unsorted below 4096 rows) get a gather plan (K1, K1 through a
+    row list with the dummy rows left out, K3): launched twice, the same
+    bits; against its plain version (the same plan on the CPU) within the
+    summation-order tolerance; its dummy row zero."""
+    rng = np.random.default_rng(len(case))
+    G, B = {"sorted": (1200, 3000), "sorted_rows": (4500, 20000), "unsorted": (700, 3000)}[case]
+    seg = rng.integers(0 if case == "sorted" else -3, G + 3, B)
+    seg = np.sort(np.minimum(seg, G - 1)) if case == "sorted" else seg
+    assert tred.choose_plan_kind(seg, G, "cuda") == "scatter" and tred.max_group_rows(seg, G) > 2
+    plan = tred.build_reduce_plan(seg, G, device)
+    kind = "unsorted" if case == "unsorted" else "sorted"
+    assert plan.kind == kind and (plan.rows is not None) == (case == "sorted_rows")
+    plain_plan = tred.build_gather_plan(seg, G, "cpu")
+    module = us if kind == "unsorted" else ss
+    for dtype in (torch.float32, torch.float64):
+        c = torch.tensor(rng.standard_normal((B, 9)), dtype=dtype)
+        before = module.launches
+        out = tred.apply_reduce(plan, c.to(device))
+        again = tred.apply_reduce(plan, c.to(device))
+        assert module.launches == before + 2 and torch.equal(out, again)
+        ref = tred.apply_reduce(plain_plan, c)
+        bound = RTOL[dtype] * tred.apply_reduce(plain_plan, c.abs())
+        assert bool(((out.cpu() - ref).abs()[:G] <= bound[:G]).all())
+        if case != "unsorted":
+            assert torch.count_nonzero(out[G]) == 0
+
+
 def test_sorted_plan_on_cuda_launches_the_kernel(device):
     seg = np.sort(np.random.default_rng(1).integers(0, 20000, 50000))
     plan = tred.build_reduce_plan(seg, 20000, device)
@@ -662,8 +693,9 @@ def test_captured_solve_matches_the_eager_loop(device, dtype, name, monkeypatch)
     the same loop run eagerly, to the bit, and a repeat solve of the same
     program reads the host at most 3 times. 4400 observations: the point
     sums go to K1 and the camera sums to a one-hot matmul, both in a fixed
-    order (below 4096 rows they are index_add_'s atomics, whose order
-    changes from run to run, captured or not); SUBSET's J'J cells go to K1."""
+    order (below 4096 rows too, since a plan that would take index_add_'s
+    atomics for more than two rows a group is a gather plan,
+    ``ops/reduce.reduce_plan_kind``); SUBSET's J'J cells go to K1."""
     from ceres_tpu_torch import trust_region
     from ceres_tpu_torch.tools.profile_solve import _host_reads, eager_loop
 
@@ -790,9 +822,10 @@ def _host_loop_case(name: str):
     elif name == "evaluation_callback_nonmonotonic":
         opts.use_nonmonotonic_steps = True
         opts.evaluation_callback = _CountingCallback()
-    elif name == "dogleg_sparse_normal":
+    elif name.startswith("dogleg_sparse"):
         opts.trust_region_strategy_type = ctt.TrustRegionStrategyType.DOGLEG
         opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+        opts.use_mixed_precision_solves = name.endswith("mixed")
     elif name.startswith("dogleg"):
         opts.trust_region_strategy_type = ctt.TrustRegionStrategyType.DOGLEG
         opts.dogleg_type = ctt.DoglegType[name.split("_", 1)[1].upper() + "_DOGLEG"]
@@ -937,16 +970,25 @@ def test_captured_gradient_problem_matches_the_eager_one(device, direction):
 
 def _sparse_capture_case(name: str):
     """(problem, options) of a sparse host-loop case: the 500-pose sphere
-    under SPARSE_NORMAL_CHOLESKY (its J'J cells through ``index_add_``), or
-    the 4 / 1100 / 4400 BAL of ``_host_loop_case`` (its reductions K1 and
-    one-hot matmuls, which add in a fixed order) under
-    SPARSE_NORMAL_CHOLESKY (static, dynamic) or SPARSE_SCHUR (a reject
-    streak: its speculative prep into the other buffer set)."""
+    under SPARSE_NORMAL_CHOLESKY (its J'J cells through ``index_add_``), the
+    12 / 400 / 1600 BAL of ``test_sparse_solvers_and_clusters_on_the_card``
+    under SPARSE_NORMAL_CHOLESKY (its point sums, up to 4 rows a point below
+    4096 rows, through a gather plan: K1 in a fixed order), or the 4 / 1100
+    / 4400 BAL of ``_host_loop_case`` (its reductions K1 and one-hot
+    matmuls, which add in a fixed order) under SPARSE_NORMAL_CHOLESKY
+    (static, dynamic) or SPARSE_SCHUR (a reject streak: its speculative prep
+    into the other buffer set)."""
     if name == "pose_graph_normal":
         problem = pose_graph.build_problem_3d(*pose_graph.synthesize_sphere(500, seed=0)[:3])[0]
         opts = pose_graph.default_options()
         opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
         return problem, opts
+    if name == "bal_12_400_1600_normal":
+        inst = bal.synthesize_bal(num_cameras=12, num_points=400, num_observations=1600,
+                                  noise=2.0, perturb=0.7, seed=5)
+        opts = bal.default_options(iterative=True)
+        opts.linear_solver_type = ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY
+        return bal.build_problem(inst)[0], opts
     inst = bal.synthesize_bal(num_cameras=4, num_points=1100, num_observations=4400,
                               noise=6.0, perturb=2.5, seed=42)
     opts = bal.default_options(iterative=False)
@@ -961,7 +1003,7 @@ def _sparse_capture_case(name: str):
 
 
 @pytest.mark.parametrize("name", ["normal_static", "normal_dynamic", "pose_graph_normal",
-                                  "schur_reject_streak"])
+                                  "bal_12_400_1600_normal", "schur_reject_streak"])
 def test_captured_sparse_regions_match_the_eager_ones(device, name):
     """ctt.solve under the sparse solvers runs its evaluations, the Jacobi
     scaling, the candidate and each sparse step's prep and finish from CUDA
@@ -996,6 +1038,9 @@ def test_captured_sparse_regions_match_the_eager_ones(device, name):
     if name == "pose_graph_normal":
         plan = program.solve_aux_cache["normal_assembly"][0]
         assert {s.plan.kind for s in plan.sites} == {"scatter"}
+    if name == "bal_12_400_1600_normal":
+        point_plan = program.families[0].reduce_plans[1]
+        assert point_plan.kind == "sorted" and point_plan.rows is None
 
 
 def test_the_default_device_captures_as_the_current_card(device):
@@ -1032,6 +1077,9 @@ STEP_CHOICE_REGIONS = {
     "dogleg_subspace": {"dogleg", "dogleg_subspace_model", "dogleg_subspace_step"},
     # the Gauss-Newton solve as two regions around the host factor
     "dogleg_sparse_normal": {"dogleg_sparse_prep", "dogleg_sparse_finish", "dogleg_traditional"},
+    # with mixed precision, and the f64 refinement's residual between the host's solves
+    "dogleg_sparse_mixed": {"dogleg_sparse_prep", "dogleg_sparse_refine", "dogleg_sparse_finish",
+                            "dogleg_traditional"},
     "bounds": {"bounded_line", "bounded_trial", "jacobi_scaling"},
 }
 

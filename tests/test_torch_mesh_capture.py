@@ -12,7 +12,8 @@ code eagerly, and the tests hold what a capture needs of it:
     ``run_if`` / ``run_while`` predicates and copy nothing from the host
     (``test_torch_device_loop``'s read guards); a SPARSE_NORMAL_CHOLESKY
     LM step and DOGLEG's sparse Gauss-Newton solve read the device once,
-    their prep's flat buffer, and copy in only the host's solution;
+    their prep's flat buffer, and copy in only the host's solution (with
+    mixed precision, DOGLEG's also reads each refinement's residual);
 (b) every rank takes the same branches and enters the same collectives in
     the same order: each rank's sequence of predicate values and of
     collectives (kind, bytes) over whole solves is the same;
@@ -72,7 +73,7 @@ ITERATION_CASES = {
     "dense_qr": (dict(linear_solver_type="DENSE_QR"), {}),
 }
 REGION_CASES = ["host_loop_lm_step", "inner_pass", "line_search_phi", "sparse_lm_step",
-                "dogleg_sparse_gauss_newton"]
+                "dogleg_sparse_gauss_newton", "dogleg_sparse_gauss_newton_mixed"]
 # The solves of (b) and (c): the fused loop under each solver form, the host
 # loop with progress output (its fused iteration) and with inner
 # iterations, and the line search.
@@ -90,10 +91,13 @@ SOLVE_CASES = {
     "sparse_schur": (dict(linear_solver_type="SPARSE_SCHUR"), {}),
     "dogleg_sparse_normal": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY",
                                   trust_region_strategy_type="DOGLEG"), {}),
+    "dogleg_sparse_normal_mixed": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY",
+                                        trust_region_strategy_type="DOGLEG"), {"mixed": True}),
 }
 # the host factor's solvers, held to the JAX package's mesh solve, and the
 # solves that run no run_if / run_while (no CG)
-SPARSE_CASES = ["sparse_normal", "sparse_normal_dynamic", "sparse_schur", "dogleg_sparse_normal"]
+SPARSE_CASES = ["sparse_normal", "sparse_normal_dynamic", "sparse_schur", "dogleg_sparse_normal",
+                "dogleg_sparse_normal_mixed"]
 NO_PREDICATES = ["inner_iterations", "line_search"] + SPARSE_CASES
 
 
@@ -107,6 +111,7 @@ def _solve_options(name, mesh, module=ctt):
     opts.minimizer_progress_to_stdout = bool(flags.get("progress"))
     opts.use_inner_iterations = bool(flags.get("inner"))
     opts.dynamic_sparsity = bool(flags.get("dynamic"))
+    opts.use_mixed_precision_solves = bool(flags.get("mixed"))
     return opts, flags
 
 
@@ -183,13 +188,18 @@ def _reads(name, mesh) -> str:
 
 
 # region case -> (options, what the guarded run may read and copy in: the
-# prep's flat buffer once, the host's solution once per host solve)
+# prep's flat buffer once, the host's solution once per host solve; with
+# mixed precision, at each mu, the refinement's f64 solution in and its
+# residual read)
 SPARSE_REGION_CASES = {
     "sparse_lm_step": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY"),
                        ["sparse_normal_prep", "sparse_y"]),
     "dogleg_sparse_gauss_newton": (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY",
                                         trust_region_strategy_type="DOGLEG"),
                                    ["dogleg_sparse_prep", "dogleg_y", "dogleg_y"]),
+    "dogleg_sparse_gauss_newton_mixed": (
+        dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY", trust_region_strategy_type="DOGLEG"),
+        ["dogleg_sparse_prep"] + ["dogleg_y64", "dogleg_sparse_refine", "dogleg_y"] * 2),
 }
 
 
@@ -230,12 +240,14 @@ def _guarded_but_flat_reads(run, allowed) -> str:
 
 def _sparse_reads(name, mesh) -> str:
     """A SPARSE_NORMAL_CHOLESKY LM step, or DOGLEG's sparse Gauss-Newton
-    solve at two mu, at a new point of the host loop's regions (the first
+    solve at two mu (with mixed precision: one refinement each), at a new point of the host loop's regions (the first
     point's makes the buffers), under :func:`_guarded_but_flat_reads`."""
     from ceres_tpu_torch.trust_region import TrustRegionMinimizer
 
     kw, allowed = SPARSE_REGION_CASES[name]
-    program, resolved = preprocess(_options(ctt, kw, mesh), _problem(), "cpu", SolverSummary())
+    opts = _options(ctt, kw, mesh)
+    opts.use_mixed_precision_solves = name.endswith("mixed")
+    program, resolved = preprocess(opts, _problem(), "cpu", SolverSummary())
     minimizer = TrustRegionMinimizer(program, resolved, SolverSummary())
     graphs, x0 = minimizer.graphs, program.clamp(initial_state(program, mesh))
     if name == "sparse_lm_step":

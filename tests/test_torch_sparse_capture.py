@@ -6,8 +6,9 @@ card.
 (a) Each region reads nothing from the device and copies nothing from the
 host (the read guards of ``test_torch_device_loop.py``): SPARSE_NORMAL_CHOLESKY's
 radius-free prep (diagonal, J'f and J'J cells), dynamic sparsity's damped
-prep, the finish; SPARSE_SCHUR's prep into either buffer set and the finish
-with either set's point blocks, on the 6 / 120 / 480 BAL of
+prep, the finish, DOGLEG's mixed-precision refinement; SPARSE_SCHUR's prep
+into either buffer set and the finish with either set's point blocks, on
+the 6 / 120 / 480 BAL of
 ``test_torch_sparse_cholesky.py``. Each gives the bits of the functions it
 wraps, and a captured region refuses a context that is not over the host
 loop's buffers. Which option sets ``fused_lm.host_loop_capturable`` lets
@@ -138,6 +139,37 @@ def test_sparse_schur_prep_and_finish_read_nothing(k, monkeypatch):
     assert torch.equal(graphs._bufs["sparse_mcc"][0], mcc)
 
 
+def test_dogleg_sparse_refinement_reads_nothing(monkeypatch):
+    """DOGLEG under SPARSE_NORMAL_CHOLESKY with mixed precision: the prep
+    reads the f32 solve's system (the cells of the Jacobian cast to f32,
+    summed in f64, and J'f in f64), and the ``dogleg_sparse_refine`` region
+    gives rhs - (J'J + D^2) y in f64 for the host's y, D = diagonal
+    sqrt(mu), reading nothing and copying nothing in."""
+    problem = _bal(ctt)
+    opts = _options(ctt, SNC, trust_region_strategy_type="DOGLEG",
+                    use_mixed_precision_solves=True)
+    program, resolved = preprocess(opts, problem, "cpu", SolverSummary())
+    minimizer = TrustRegionMinimizer(program, resolved, SolverSummary())
+    graphs, sparse = minimizer.graphs, minimizer.dogleg._sparse
+    graphs.full(program.clamp(initial_state(program)))
+    graphs.jacobi_scaling()
+    ctx, mu = graphs.scaled(), 1e-4
+    sparse(ctx, mu)  # the prep, one refinement and the finish make the buffers
+    f64 = torch.float64
+    assert _bits_equal(graphs.read_flat("dogleg_sparse_prep"), [
+        graphs._bufs["dogleg_sparse"][0], ctx.gradient(),
+        *compute_normal_cells(ctx.to_dtype(torch.float32).to_dtype(f64), sparse.plan)])
+    y = np.linspace(-1e-3, 1e-3, ctx.num_tangent)
+    graphs._use(ctx)
+    graphs._host_input("dogleg_y64", y, f64)  # the host's copy, outside the region
+    graphs.sparse_mu.fill_(mu)
+    _guarded(monkeypatch, graphs._dogleg_sparse_refine)
+    D = graphs._bufs["dogleg_sparse"][0] * torch.sqrt(graphs.sparse_mu)
+    yt = torch.from_numpy(y)
+    want = ctx.gradient() - (ctx.normal_matvec(yt) + (D * D) * yt)
+    assert torch.equal(graphs._bufs["dogleg_sparse_refine"][0], want)
+
+
 def test_a_captured_sparse_region_takes_only_the_host_loops_context():
     minimizer, ctx = _minimizer(SNC)
     graphs = minimizer.graphs
@@ -155,7 +187,7 @@ CAPTURABLE = [
     (SNC, dict(dynamic_sparsity=True), True),
     (SNC, dict(use_mixed_precision_solves=True), True),
     (SNC, dict(trust_region_strategy_type="DOGLEG"), True),
-    (SNC, dict(trust_region_strategy_type="DOGLEG", use_mixed_precision_solves=True), False),
+    (SNC, dict(trust_region_strategy_type="DOGLEG", use_mixed_precision_solves=True), True),
     (SS, {}, True),
     (SS, dict(use_mixed_precision_solves=True), True),
     (SS, dict(trust_region_strategy_type="DOGLEG"), True),
