@@ -24,6 +24,13 @@
 //
 // A handle's default value is 0 and every replay sets it before the node,
 // so a body never runs on a stale condition.
+//
+// ctt_graph_stamp(stream, log, cursor, capacity, code): a one-thread kernel
+// on `stream` (captured like any kernel) that takes the next row of `log`,
+// (capacity, 2) int64, by an atomic add on *cursor and writes (code,
+// %globaltimer) there; a row past `capacity` is not written, and the cursor
+// then counts the stamps that found no room. The kernel runs after the work
+// enqueued before it on its stream, so its time is when that work ended.
 
 #include <cuda_runtime.h>
 
@@ -33,7 +40,25 @@ __global__ void set_condition_kernel(cudaGraphConditionalHandle handle, const bo
     cudaGraphSetConditional(handle, *pred ? 1u : 0u);
 }
 
+__global__ void stamp_kernel(long long* log, unsigned long long* cursor, long long capacity,
+                             long long code) {
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    unsigned long long row = atomicAdd(cursor, 1ull);
+    if (row < static_cast<unsigned long long>(capacity)) {
+        log[2 * row] = code;
+        log[2 * row + 1] = static_cast<long long>(now);
+    }
+}
+
 }  // namespace
+
+extern "C" int ctt_graph_stamp(void* stream, void* log, void* cursor, long long capacity,
+                               long long code) {
+    stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<long long*>(log), static_cast<unsigned long long*>(cursor), capacity, code);
+    return cudaGetLastError();
+}
 
 extern "C" int ctt_graph_set_condition(void* stream, unsigned long long handle,
                                        const void* pred) {

@@ -48,6 +48,7 @@ from ceres_tpu_torch.loss import (
 from ceres_tpu_torch.ops.reduce import apply_reduce
 from ceres_tpu_torch.ops.small_linalg import contract
 from ceres_tpu_torch.problem import BlockGroups, Family, plus_apply
+from ceres_tpu_torch.utils import observability
 
 
 def _group_rows(groups: BlockGroups, v: torch.Tensor, T: int) -> torch.Tensor:
@@ -541,7 +542,9 @@ def _context_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGrou
 
 def _full_impl(x: torch.Tensor, families, num_tangent: int, groups: BlockGroups,
                apply_loss: bool = True, comm=None):
-    """(cost f64, gradient, JacobianContext) at x (see _context_impl)."""
+    """(cost f64, gradient, JacobianContext) at x (see _context_impl); the
+    device phase ``evaluate``."""
+    observability.phase("evaluate")
     cost, ctx = _context_impl(x, families, num_tangent, groups, apply_loss, comm)
     return cost, ctx.gradient(), ctx
 

@@ -26,6 +26,11 @@ mesh, the options the capture does not take) the same iteration runs
 eagerly and each ``run_if`` reads its predicate: one read per LM
 iteration and one per CG iteration.
 
+With the tracer on (``utils/observability.py``) a loop is made with a
+device log: the start and each iteration stamp their phases into it, the
+iteration's ``replay`` and ``end`` outside its IF node, and ``read``
+reads the log with the results.
+
 Scalars kept in f64 whatever the evaluation dtype, as the JAX package does
 under its global x64 switch: the costs, the model cost change, rho, the
 radius and decrease factor, and the x/step/gradient norms.
@@ -58,7 +63,8 @@ from ceres_tpu_torch.types import (
     TerminationType,
     TrustRegionStrategyType,
 )
-from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, run_if, uncounted
+from ceres_tpu_torch.utils import observability
+from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, DeviceLog, run_if, uncounted
 
 # Termination codes of the loop (the JAX package's values).
 _RUNNING = 0
@@ -123,6 +129,7 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig, trace: bool)
                                  comm=program.comm)
 
     scaling = norms0 = None
+    observability.phase("assemble")
     if config.jacobi_scaling:
         # The scaling of this iterate's Jacobian (the host loop fixes it at
         # iteration 0; the step does not depend on it but for rounding and
@@ -136,6 +143,7 @@ def _body(s: _FusedState, program, solve_aux, config: _FusedConfig, trace: bool)
     candidate = candidate_point(program.plus_struct, s.x, step_scaled, scaling)
     cand_cost = _cost_impl(candidate, families, comm=program.comm)
     cand_cost = torch.where(torch.isfinite(cand_cost), cand_cost, torch.inf)
+    observability.phase("update")
     rho = (cost - cand_cost) / mcc
     accept = step_is_valid & (rho > config.min_relative_decrease)
 
@@ -201,10 +209,12 @@ class _DeviceLoop:
     device buffers, the start (the evaluation at x0) and one LM iteration
     under ``run_if(running)``; with ``captured``, both captured once as
     CUDA graphs, the second reusing the first's memory, and replayed
-    (``prepare``, then ``run``)."""
+    (``prepare``, then ``run``). With ``traced``, a device log of the
+    phases (``observability.phase``), reset by ``run`` and read by
+    ``read``."""
 
     def __init__(self, program, solve_aux, config: _FusedConfig, trace: bool,
-                 captured: bool, x_like: torch.Tensor, losses: tuple):
+                 captured: bool, x_like: torch.Tensor, losses: tuple, traced: bool):
         dev = x_like.device
         # the program holds the loop (in its solve_aux_cache), not the other
         # way round: a dropped program frees its graphs' memory at once
@@ -232,6 +242,10 @@ class _DeviceLoop:
                                   device=dev) if trace else None)
         self._always = torch.ones((), dtype=torch.bool, device=dev)
         self.graphs = None  # (start, iteration) CapturedGraphs
+        self.log = None
+        if traced:
+            observability.ensure_calibrated(dev)
+            self.log = DeviceLog(dev, _LOG_ROWS)
 
     @property
     def program(self):
@@ -239,8 +253,10 @@ class _DeviceLoop:
 
     def _start(self) -> None:
         program, config, s = self.program, self.config, self.state
+        observability.phase("replay")
         cost0, grad0, _ = _full_impl(self.x0, program.families, program.num_tangent,
                                      program.groups, comm=program.comm)
+        observability.phase("update")
         g0 = grad0.to(_F64)
         gmax = torch.max(torch.abs(g0))
         self.cost0.copy_(cost0)
@@ -255,6 +271,7 @@ class _DeviceLoop:
         s.gmax.copy_(gmax)
         s.gnorm.copy_(torch.linalg.norm(g0))
         s.last_accept.fill_(True)
+        observability.phase("end")
 
     def _iteration(self) -> None:
         s = self.state
@@ -275,9 +292,11 @@ class _DeviceLoop:
 
     def _step(self) -> bool:
         s = self.state
+        observability.phase("replay")
         with run_if((s.termination == _RUNNING) & (s.iteration < self.budget)) as running:
             if running:
                 self._iteration()
+        observability.phase("end")
         return running
 
     def prepare(self, x0: torch.Tensor) -> float:
@@ -289,12 +308,13 @@ class _DeviceLoop:
             return 0.0
         t0 = time.perf_counter()
         self.x0.copy_(x0)
-        with uncounted():
-            self._start()
-            self._iteration()
         dev = x0.device
-        start = CapturedGraph(self._start_in_body, dev)
-        self.graphs = (start, CapturedGraph(self._step, dev, share=start))
+        with observability.device_log(self.log):
+            with uncounted():
+                self._start()
+                self._iteration()
+            start = CapturedGraph(self._start_in_body, dev)
+            self.graphs = (start, CapturedGraph(self._step, dev, share=start))
         return time.perf_counter() - t0
 
     def run(self, x0: torch.Tensor, max_num_iterations: int) -> None:
@@ -304,15 +324,19 @@ class _DeviceLoop:
         self.budget.fill_(max_num_iterations)
         if self.captured:
             self.prepare(x0)
-            start, iteration = self.graphs
-            start.replay()
+        if self.log is not None:
+            self.log.reset()
+        with observability.span("fused.enqueue"), observability.device_log(self.log):
+            if self.captured:
+                start, iteration = self.graphs
+                start.replay()
+                for _ in range(max_num_iterations):
+                    iteration.replay()
+                return
+            self._start()
             for _ in range(max_num_iterations):
-                iteration.replay()
-            return
-        self._start()
-        for _ in range(max_num_iterations):
-            if not self._step():
-                break
+                if not self._step():
+                    break
 
     def launch_counts(self) -> torch.Tensor:
         """The graphs' region counters (f64, empty when not captured), read
@@ -335,8 +359,9 @@ class _DeviceLoop:
 
     def read(self, max_num_iterations: int):
         """One host read of the final scalars and the trace's first
-        ``max_num_iterations`` rows (crediting the graphs' launches):
-        ({name: float}, {field: (T,) numpy})."""
+        ``max_num_iterations`` rows (crediting the graphs' launches, and
+        handing the tracer the device log's stamps, read bit for bit as
+        f64): ({name: float}, {field: (T,) numpy})."""
         s = self.state
         scalars = (self.cost0, s.termination, s.successful_steps, s.unsuccessful_steps,
                    s.cost, s.gmax, s.gnorm, s.radius, s.iteration, s.linear_iterations)
@@ -346,8 +371,12 @@ class _DeviceLoop:
         rows = 0 if self.trace is None else min(max_num_iterations, _MAX_TRACED_ITERATIONS)
         if rows:
             parts.append(self.trace[:rows].reshape(-1))
-        parts.append(self.launch_counts())
-        host = torch.cat(parts).cpu().numpy()
+        counts = self.launch_counts()
+        parts.append(counts)
+        if self.log is not None:
+            parts += [p.view(_F64) for p in self.log.read_parts()]
+        with observability.span("fused.read"):
+            host = torch.cat(parts).cpu().numpy()
         k = len(scalars)
         final = dict(zip(names, host[:k].tolist()))
         for name in ("termination", "successful_steps", "unsuccessful_steps", "iteration",
@@ -355,7 +384,10 @@ class _DeviceLoop:
             final[name] = int(final[name])
         T = final["iteration"]
         tr_host = host[k : k + rows * len(_TRACE_FIELDS)].reshape(rows, len(_TRACE_FIELDS))[:T]
-        self.credit(host[k + rows * len(_TRACE_FIELDS):])
+        k += rows * len(_TRACE_FIELDS)
+        self.credit(host[k : k + counts.numel()])
+        if self.log is not None:
+            self.log.deliver(host[k + counts.numel():].view("int64"))
         return final, {f: tr_host[:, i] for i, f in enumerate(_TRACE_FIELDS)}
 
 
@@ -436,15 +468,18 @@ def _device_loop(program, solve_aux, config: _FusedConfig, trace: bool, captured
     """The program's loop for this configuration, kept beside its solve
     structures in ``program.solve_aux_cache`` (which a cast of the program
     to another dtype empties, graphs and all), as the JAX package keeps its
-    jit caches keyed on structure. One loop per configuration: a loop made
-    for other losses (``_loss_key``) is replaced, its graphs freed."""
-    key = ("device_loop", id(solve_aux), config, trace, captured, x0.dtype, x0.device)
+    jit caches keyed on structure. One loop per configuration and tracer
+    state (a loop made with the tracer on has a device log and stamps in
+    its graphs): a loop made for other losses (``_loss_key``) is replaced,
+    its graphs freed."""
+    traced = observability.tracing_enabled()
+    key = ("device_loop", id(solve_aux), config, trace, captured, x0.dtype, x0.device, traced)
     losses = _loss_key(program)
     loop = program.solve_aux_cache.get(key)
     if loop is None or loop.solve_aux is not solve_aux or loop.losses != losses:
         program.solve_aux_cache.pop(key, None)
         loop = program.solve_aux_cache[key] = _DeviceLoop(
-            program, solve_aux, config, trace, captured, x0, losses)
+            program, solve_aux, config, trace, captured, x0, losses, traced)
     return loop
 
 
@@ -592,6 +627,10 @@ def _fused_config(resolved, revert_on_tolerance: bool) -> _FusedConfig:
 # The JAX package's trace lengths: the traced loop runs at most 2048
 # iterations, and ``solve`` gives a longer budget to the host loop.
 _MAX_TRACED_ITERATIONS = 2048
+# Rows of a loop's device log: room for the start and 2048 iterations of 8
+# stamps (7, and one more a mixed-precision refinement); a solve that
+# stamps more has the rest counted as dropped.
+_LOG_ROWS = 8 * (_MAX_TRACED_ITERATIONS + 1)
 
 
 def fused_traced_eligible(options, program) -> bool:
@@ -650,7 +689,8 @@ def minimize_fused_traced(resolved, loop: _DeviceLoop, x0, summary) -> torch.Ten
     final, tr = loop.read(resolved.max_num_iterations)
     T = final["iteration"]
     summary.num_iterations = T
-    _fill_records(summary, resolved, final, final["cost0"], tr)
+    with observability.span("records"):
+        _fill_records(summary, resolved, final, final["cost0"], tr)
     # The whole solve is one device computation.
     summary.linear_solver_time_in_seconds += time.perf_counter() - t0
     summary.num_linear_solves += T
@@ -699,10 +739,20 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
     gradient checks, bounds, callbacks, progress output, non-monotonic
     steps, a time budget, dumps) raise ``ValueError``: ``solve`` runs
     them. With ``mesh`` the solve is sharded as ``solve``'s is (the JAX
-    package's fused_lm.py:364-396)."""
+    package's fused_lm.py:364-396). With the tracer on, one root span
+    ``fused_solve``, its records in ``summary.spans``."""
+    with observability.solve_scope("fused_solve") as scope:
+        summary = _fused_solve(options, problem, device)
+    if scope is not None:
+        summary.spans = scope.trace
+    return summary
+
+
+def _fused_solve(options, problem, device) -> SolverSummary:
     t0 = time.perf_counter()
     summary = SolverSummary()
-    prep = preprocess(options, problem, device, summary)
+    with observability.span("preprocess"):
+        prep = preprocess(options, problem, device, summary)
     if prep is None:
         summary.total_time_in_seconds = time.perf_counter() - t0
         return summary
@@ -723,17 +773,21 @@ def fused_solve(options, problem, device="cuda") -> SolverSummary:
             f"fused_solve runs the fused loop, which cannot honour {', '.join(refused)}; "
             "ctt.solve runs them on the host-loop or line-search minimizer"
         )
-    x0 = initial_state(program, options.mesh)
-    loop = prepare_fused_loop(resolved, program, x0, summary, revert_on_tolerance=False,
-                              trace=False)
+    with observability.span("initial_state"):
+        x0 = initial_state(program, options.mesh)
+    with observability.span("prepare_loop"):
+        loop = prepare_fused_loop(resolved, program, x0, summary, revert_on_tolerance=False,
+                                  trace=False)
     t1 = time.perf_counter()
     loop.run(x0, resolved.max_num_iterations)
     final, _ = loop.read(resolved.max_num_iterations)  # waits for the device
-    x = loop.state.x.to(_F64).cpu().numpy()
+    with observability.span("x_to_host"):
+        x = loop.state.x.to(_F64).cpu().numpy()
     t2 = time.perf_counter()
     summarize_final_state(summary, final, program.fixed_cost)
     if summary.is_solution_usable():
-        problem.write_back(x)
+        with observability.span("write_back"):
+            problem.write_back(x)
     summary.preprocessor_time_in_seconds = t1 - t0
     summary.minimizer_time_in_seconds = t2 - t1
     summary.total_time_in_seconds = time.perf_counter() - t0

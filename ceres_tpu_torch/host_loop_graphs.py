@@ -104,6 +104,14 @@ losses in ``Program.solve_aux_cache``, ``line_search_graphs``);
 ``gradient_problem`` has its own for a GradientProblem. Their eligibility
 is ``fused_lm.regions_capturable``.
 
+With the tracer on (``utils/observability.py``) a ``HostLoopGraphs`` is
+made with a device log, which its ``InnerRegions`` share: each region's run
+is a span ``region.<name>`` and its device work begins with a ``region``
+stamp and ends with an ``end`` one, its phases between (the fused
+iteration: ``assemble``, ``linear_solve``, ``candidate``, ``evaluate``);
+``credit`` reads the log with the run counters. Regions run eagerly on the
+card have no counters to read, so there the log's read is one more.
+
 The current buffers change only through ``full`` and ``accept``: a
 JacobianContext or gradient the host loop holds stays valid until its next
 evaluation. ``cost`` and ``cost_and_gradient`` return copies, which no
@@ -144,7 +152,13 @@ from ceres_tpu_torch.trust_region import (
     _sparse_prep_radius_free_impl,
     _tr_iteration_impl,
 )
-from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, pool_bytes, uncounted
+from ceres_tpu_torch.utils import observability
+from ceres_tpu_torch.utils.cuda_graph import CapturedGraph, DeviceLog, pool_bytes, uncounted
+
+# Rows of a host loop's device log: a region's run stamps about four, and
+# an LM iteration runs two or three regions; the rest of a longer solve is
+# counted as dropped.
+_LOG_ROWS = 1 << 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +182,7 @@ class _Regions:
         self.capture_seconds = 0.0
         self._inputs: dict = {}  # host arrays by name, copied in before a region
         self._staged: dict = {}  # their pinned host copies and copy events, on the card
+        self.log: Optional[DeviceLog] = None  # the device phase log, with the tracer on
 
     def _keep(self, name: str, *tensors: torch.Tensor) -> list:
         """Copy ``tensors`` into the static buffers ``name``, made like them
@@ -182,7 +197,22 @@ class _Regions:
 
     def _run(self, name: str, fn) -> None:
         """Run region ``name``: replay its graph, or run ``fn`` eagerly, or
-        (captured, first call) warm up, capture and replay."""
+        (captured, first call) warm up, capture and replay; with a device
+        log, as a span whose device work is stamped."""
+        log = self.log
+        if log is None:
+            self._run_region(name, fn)
+            return
+
+        def stamped():
+            observability.phase("region")
+            fn()
+            observability.phase("end")
+
+        with observability.span(f"region.{name}"), observability.device_log(log):
+            self._run_region(name, stamped)
+
+    def _run_region(self, name: str, fn) -> None:
         graph = self.graphs.get(name)
         if graph is not None:
             graph.replay()
@@ -231,18 +261,30 @@ class _Regions:
         """Every graph these regions account for."""
         return list(self.graphs.values())
 
+    def reset_log(self) -> None:
+        """Start the device log anew (a solve's start)."""
+        if self.log is not None:
+            self.log.reset()
+
     def credit(self) -> None:
         """Credit the graphs' kernel launches since the last credit (one
-        host read of their run counters)."""
-        graphs = self._graph_list()
-        if not graphs:
+        host read of their run counters, the device log's stamps with it,
+        handed to the tracer)."""
+        graphs, log = self._graph_list(), self.log
+        parts = [g.launch_counts() for g in graphs]
+        if log is not None:
+            parts += log.read_parts()
+        if not parts:
             return
-        counts = torch.cat([g.launch_counts() for g in graphs]).cpu().tolist()
+        with observability.span("read.credit"):
+            host = torch.cat(parts).cpu().numpy()
         k = 0
         for g in graphs:
             n = g.launch_counts().numel()
-            g.credit(counts[k : k + n])
+            g.credit(host[k : k + n])
             k += n
+        if log is not None:
+            log.deliver(host[k:])
 
     @property
     def graph_launches(self) -> int:
@@ -274,6 +316,8 @@ class InnerRegions(_Regions):
     def __init__(self, device: torch.device, captured: bool, share: Optional[_Regions] = None):
         super().__init__(device, captured)
         self._share = share
+        if share is not None:
+            self.log = share.log
         self.x: Optional[torch.Tensor] = None
         self.cost = torch.zeros((), dtype=_F64, device=device)
         self.radii: dict = {}  # (set, T) -> (G_T,) f64
@@ -600,8 +644,11 @@ class HostLoopGraphs(SparseRegions):
     module's docstring)."""
 
     def __init__(self, program, solve_aux: dict, config: HostLoopConfig, captured: bool,
-                 losses: tuple):
+                 losses: tuple, traced: bool):
         super().__init__(program.device, captured, config.solve)
+        if traced:
+            observability.ensure_calibrated(self.device)
+            self.log = DeviceLog(self.device, _LOG_ROWS)
         # the program holds this object, not the other way round: a dropped
         # program frees the graphs' memory at once
         self._program = weakref.ref(program)
@@ -714,6 +761,7 @@ class HostLoopGraphs(SparseRegions):
         return self._bufs["scaling"][0]
 
     def _jacobi_scaling(self) -> None:
+        observability.phase("assemble")
         norms = self._context("current").squared_column_norms()
         self._keep("scaling", 1.0 / (1.0 + torch.sqrt(norms)))
 
@@ -731,6 +779,7 @@ class HostLoopGraphs(SparseRegions):
         return self._handed_out("scaled")
 
     def _scale(self) -> None:
+        observability.phase("assemble")
         self._keep_context("scaled", self._context("current").scale_columns(self._scaling()))
 
     def _step_source(self) -> str:
@@ -841,6 +890,7 @@ class HostLoopGraphs(SparseRegions):
 
     def _accept(self) -> None:
         # "fused_candidate" holds the context's buffers, then x, then the gradient
+        observability.phase("update")
         src, dst = self._bufs["fused_candidate"], self._bufs["current"]
         for d, s in zip(dst, src):
             d.copy_(s)
@@ -885,19 +935,21 @@ def host_loop_graphs(program, options, solve_aux: dict, captured: bool, x_dtype)
     """The program's regions for these options (made, or kept from an
     earlier solve), kept in ``program.solve_aux_cache`` beside its fused
     loops: one object per option set, dtype and device, replaced when the
-    families' losses changed (``fused_lm._loss_key``)."""
+    families' losses changed (``fused_lm._loss_key``), and one per tracer
+    state (made with the tracer on, it has a device log)."""
     from ceres_tpu_torch.fused_lm import _loss_key
     from ceres_tpu_torch.trust_region import _config_from_options
 
     config = HostLoopConfig(solve=_config_from_options(options),
                             jacobi_scaling=bool(options.jacobi_scaling))
-    key = ("host_loop", id(solve_aux), config, captured, x_dtype, program.device)
+    traced = observability.tracing_enabled()
+    key = ("host_loop", id(solve_aux), config, captured, x_dtype, program.device, traced)
     losses = _loss_key(program)
     graphs = program.solve_aux_cache.get(key)
     if graphs is None or graphs.solve_aux is not solve_aux or graphs.losses != losses:
         program.solve_aux_cache.pop(key, None)
         graphs = program.solve_aux_cache[key] = HostLoopGraphs(
-            program, solve_aux, config, captured, losses)
+            program, solve_aux, config, captured, losses, traced)
     return graphs
 
 

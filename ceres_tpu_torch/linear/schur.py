@@ -46,6 +46,7 @@ from ceres_tpu_torch.ops.outer_segment_sum import flat_outer
 from ceres_tpu_torch.ops.reduce import apply_reduce, build_reduce_plan
 from ceres_tpu_torch.ops.small_linalg import contract, spd_inverse, spd_solve
 from ceres_tpu_torch.types import LinearSolverType, PreconditionerType
+from ceres_tpu_torch.utils import observability
 from ceres_tpu_torch.utils.cuda_graph import run_if
 
 # Below this many f coordinates ITERATIVE_SCHUR materializes S once per
@@ -863,7 +864,9 @@ def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructur
     runs PCG (iterative_schur_complement_solver.cc:64-155) on the assembled
     S when the reduced system is small or ``use_explicit_schur_complement``
     asks for it, else on the implicit S x. Returns (y, linear_iterations,
-    termination) with linear/cg.py codes."""
+    termination) with linear/cg.py codes. The device phase
+    ``linear_solve`` begins once S, the reduced rhs and the preconditioner
+    are made."""
     lst = config.linear_solver_type
     op = SchurOperator(ctx, D, ss)
     nt = ctx.num_tangent
@@ -882,8 +885,10 @@ def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructur
         # as in the JAX package). An indefinite S gives a non-finite step
         # and FAILURE, which the LM loop answers by shrinking the radius.
         S = assemble_reduced_system(op, ss.explicit)
+        b = reduced_rhs()[f_idx]
+        observability.phase("linear_solve")
         chol, info = torch.linalg.cholesky_ex(S)
-        xf_red = torch.cholesky_solve(reduced_rhs()[f_idx][:, None], chol)[:, 0]
+        xf_red = torch.cholesky_solve(b[:, None], chol)[:, 0]
         xf_red = torch.where(info == 0, xf_red, torch.nan)
         x_f = torch.zeros((nt,), dtype=op.dtype, device=D.device)
         x_f[f_idx] = xf_red
@@ -940,6 +945,7 @@ def solve_schur(ctx: JacobianContext, D: torch.Tensor, config, ss: SchurStructur
         x0 = op.power_series_preconditioner(
             config.max_num_spse_iterations, config.spse_tolerance
         )(b)
+    observability.phase("linear_solve")
 
     s_apply = op.s_times
     if S is not None:

@@ -50,6 +50,8 @@ from ceres_tpu_torch.types import (
     TerminationType,
     TrustRegionStrategyType,
 )
+from ceres_tpu_torch.utils import observability
+
 
 @dataclasses.dataclass
 class SolverOptions:
@@ -413,6 +415,9 @@ class SolverSummary:
     # (ExecutionSummary), attached by ``solve``.
     event_log: Optional[object] = None
     evaluator_statistics: Optional[object] = None
+    # The solve's host spans and device phase stamps on one clock
+    # (``utils.observability.SolveTrace``); None while the tracer is off.
+    spans: Optional[object] = None
     linear_solver_type_used: Optional[LinearSolverType] = None
     preconditioner_type_used: Optional[PreconditionerType] = None
     trust_region_strategy_type_used: Optional[TrustRegionStrategyType] = None
@@ -519,7 +524,8 @@ def preprocess(options: SolverOptions, problem, device, summary: SolverSummary):
     device = torch.device(device)
     if options.mesh is not None and device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())  # this rank's card
-    program = problem.program(device)
+    with observability.span("program"):
+        program = problem.program(device)
     summary.minimizer_type = options.minimizer_type
     summary.device = str(device)
     summary.num_parameter_blocks = program.num_parameter_blocks()
@@ -607,7 +613,17 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
     solves on ``device`` (the card by default; without one that raises, it
     does not move to the CPU) and writes the solution back into the problem.
     A step that meets the parameter or function tolerance ends the solve at
-    the iterate BEFORE that step (trust_region_minimizer.cc:720-766)."""
+    the iterate BEFORE that step (trust_region_minimizer.cc:720-766). With
+    the tracer on (``utils/observability.py``) the solve is one root span
+    ``solve``, its records in ``summary.spans``."""
+    with observability.solve_scope("solve") as scope:
+        summary = _solve(options, problem, device)
+    if scope is not None:
+        summary.spans = scope.trace
+    return summary
+
+
+def _solve(options: SolverOptions, problem, device) -> SolverSummary:
     from ceres_tpu_torch.fused_lm import (
         fused_traced_eligible,
         minimize_fused_traced,
@@ -615,14 +631,14 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
     )
     from ceres_tpu_torch.line_search import LineSearchMinimizer
     from ceres_tpu_torch.trust_region import TrustRegionMinimizer, _build_solve_aux
-    from ceres_tpu_torch.utils.observability import EventLogger
 
     t0 = time.perf_counter()
     summary = SolverSummary()
     # Scoped phase log (event_logger.h:41-75).
-    event_logger = EventLogger("Solver::Solve")
+    event_logger = observability.EventLogger("Solver::Solve")
     summary.event_log = event_logger
-    prep = preprocess(options, problem, device, summary)
+    with observability.span("preprocess"):
+        prep = preprocess(options, problem, device, summary)
     if prep is None:
         summary.total_time_in_seconds = time.perf_counter() - t0
         return summary
@@ -641,12 +657,15 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
             summary.total_time_in_seconds = time.perf_counter() - t0
             return summary
     if trust_region:
-        _build_solve_aux(resolved, program)  # memoized on the program
-    x0 = initial_state(program, options.mesh)
+        with observability.span("solve_aux"):
+            _build_solve_aux(resolved, program)  # memoized on the program
+    with observability.span("initial_state"):
+        x0 = initial_state(program, options.mesh)
     fused = trust_region and fused_traced_eligible(resolved, program)
     if fused:
-        loop = prepare_fused_loop(resolved, program, x0, summary, revert_on_tolerance=True,
-                                  trace=True)
+        with observability.span("prepare_loop"):
+            loop = prepare_fused_loop(resolved, program, x0, summary, revert_on_tolerance=True,
+                                      trace=True)
     t1 = time.perf_counter()
     summary.preprocessor_time_in_seconds = t1 - t0
     event_logger.add_event("Preprocess")
@@ -654,10 +673,11 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
     if fused:
         x = minimize_fused_traced(resolved, loop, x0, summary)
     else:
-        if trust_region:
-            minimizer = TrustRegionMinimizer(program, resolved, summary)
-        else:
-            minimizer = LineSearchMinimizer(program, resolved, summary)
+        with observability.span("minimizer_setup"):
+            if trust_region:
+                minimizer = TrustRegionMinimizer(program, resolved, summary)
+            else:
+                minimizer = LineSearchMinimizer(program, resolved, summary)
         x = minimizer.minimize(x0)
         stats = minimizer.evaluator.statistics()
         summary.evaluator_statistics = stats
@@ -674,14 +694,17 @@ def solve(options: SolverOptions, problem, device="cuda") -> SolverSummary:
             summary.jacobian_evaluation_time_in_seconds += stats.times.get(
                 "Evaluator::Gradient", 0.0
             ) + stats.times.get("Evaluator::Jacobian", 0.0)
-    x = x.to(torch.float64).cpu().numpy()
+    with observability.span("x_to_host"):
+        x = x.to(torch.float64).cpu().numpy()
     t2 = time.perf_counter()
     summary.minimizer_time_in_seconds = t2 - t1
     event_logger.add_event("Minimize")
 
-    summarize_records(summary)
+    with observability.span("records"):
+        summarize_records(summary)
     if summary.is_solution_usable():
-        problem.write_back(x)
+        with observability.span("write_back"):
+            problem.write_back(x)
     summary.postprocessor_time_in_seconds = time.perf_counter() - t2
     summary.total_time_in_seconds = time.perf_counter() - t0
     event_logger.finish()

@@ -19,17 +19,15 @@ loop run eagerly (``eager_loop``, ``eager_host_loop``: every ``run_if``
 reads its predicate, one host read per LM and per CG iteration) is
 measured beside it:
 
-1. ``stages``: one eager loop with every stage bracketed by
-   ``torch.cuda.synchronize()`` and timed on the host clock, so a stage's
-   seconds hold its host work and its device work (a captured loop runs
-   its stages inside the graph, where nothing can be bracketed). Stages
-   nest: the kernels' wrappers (K1, K3, K4) are inside the evaluation and
-   the S assembly or the S x products, S x and the preconditioner's
-   applications inside CG, and all are listed on their own. The
-   synchronizing makes this loop slower than a plain one; the plain
-   solve's loop seconds (captured), the eager loop's, the synchronized
-   ones and the seconds per CG iteration of each are printed.
-   host_loop_large's stages are those of ``eager_host_loop``.
+1. ``stages``: one plain solve with the tracer on
+   (``utils/observability.py``), its graphs captured beforehand with the
+   phase stamps: the device seconds and count of each phase (``evaluate``,
+   ``assemble``, ``linear_solve``, ``candidate``, ``update``, and the
+   replays' and regions' own, ``replay`` / ``region``) read from the
+   graphs, the device ms of the replays the fused loop skipped (None on
+   the host loop) and the solve's ms the card spent outside every graph;
+   the plain solve's loop seconds (captured, tracer off), the traced
+   one's and the eager loop's, and the seconds per CG iteration of each.
 2. ``device``: one plain solve under ``torch.profiler``, and the eager
    loop under it, on a problem whose host set-up (program, plans, copies to
    the card, the graphs' capture) was done beforehand by a 0-iteration
@@ -44,8 +42,8 @@ measured beside it:
    them: reads, and copies from the host, which wait too), in all and per
    LM iteration, by the line of the port that made them, and the device
    operations per LM iteration; for host_loop_large also the speculative
-   evaluations the rejected steps wasted, with their seconds (the full
-   evaluation's synchronized time per call, from ``stages``).
+   evaluations the rejected steps wasted, with their seconds (a host-loop
+   iteration's ``evaluate`` phase, from ``stages``).
 
 One JSON line per result on standard output, each with the card's name and
 power limit. Needs a CUDA device.
@@ -65,18 +63,10 @@ import warnings
 import torch
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import (
-    evaluator,
-    fused_lm,
-    gradient_problem,
-    host_loop_graphs,
-    line_search,
-    trust_region,
-)
-from ceres_tpu_torch.linear import cgnr, schur, schur_explicit
+from ceres_tpu_torch import fused_lm, gradient_problem, line_search, trust_region
 from ceres_tpu_torch.models import bal, pose_graph
-from ceres_tpu_torch.ops import reduce
 from ceres_tpu_torch.solver import initial_state, preprocess, summarize_records
+from ceres_tpu_torch.utils import observability
 
 _LARGE = dict(num_cameras=464, num_points=200_000, num_observations=1_200_000, seed=7)
 _FLAGSHIP = dict(num_cameras=16, num_points=22106, num_observations=83718, seed=16)
@@ -95,64 +85,12 @@ CASES = {
 POSE_GRAPH_LM_ITERATIONS = 6
 
 
-class _Stages:
-    """Synchronized host-clock timers patched over the stage functions."""
-
-    def __init__(self):
-        self.seconds = collections.defaultdict(float)
-        self.calls = collections.defaultdict(int)
-        self._undo = []
-
-    def _timed(self, fn, label):
-        def timed(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            self.seconds[label] += time.perf_counter() - t0
-            self.calls[label] += 1
-            return out
-
-        return timed
-
-    def wrap(self, owner, attr, label):
-        fn = getattr(owner, attr)
-        setattr(owner, attr, self._timed(fn, label))
-        self._undo.append((owner, attr, fn))
-
-    def wrap_returned(self, owner, attr, label):
-        """Time the calls of the function that ``owner.attr`` returns."""
-        make = getattr(owner, attr)
-        setattr(owner, attr, lambda *a, **k: self._timed(make(*a, **k), label))
-        self._undo.append((owner, attr, make))
-
-    def __enter__(self):
-        # the evaluations' call sites: the fused loop, the host loop's fused
-        # iteration and candidate, and the Evaluator
-        for mod in (fused_lm, trust_region, evaluator, host_loop_graphs):
-            self.wrap(mod, "_full_impl", "full evaluation (residuals, Jacobians, gradient)")
-            self.wrap(mod, "_cost_impl", "cost-only evaluation")
-        self.wrap(trust_region, "_linear_solve", "linear solve")
-        self.wrap(schur.SchurOperator, "rhs", "- reduced rhs")
-        self.wrap(schur.SchurOperator, "back_substitute", "- back substitution")
-        self.wrap(schur.SchurOperator, "s_times", "- S x (implicit, inside CG)")
-        self.wrap(schur.SchurOperator, "schur_jacobi_blocks", "- SCHUR_JACOBI blocks (implicit)")
-        self.wrap_returned(schur.SchurOperator, "_block_diag_apply",
-                           "- preconditioner applications (inside CG)")
-        self.wrap(schur, "SchurOperator", "- point blocks (E'E+D^2)^-1")
-        self.wrap(schur, "assemble_reduced_system", "- S assembly")
-        self.wrap(torch.linalg, "cholesky_ex", "- Cholesky factorization of S")
-        self.wrap(torch, "cholesky_solve", "- Cholesky solve")
-        self.wrap(schur, "conjugate_gradients", "- CG")
-        self.wrap(cgnr, "conjugate_gradients", "- CG on the normal equations")
-        self.wrap(reduce, "segment_sum_sorted", "K1 launches (all sites)")
-        self.wrap(reduce, "segment_sum_unsorted", "K3 launches (all sites)")
-        self.wrap(schur_explicit, "outer_segment_sum", "K4 launches")
-        return self
-
-    def __exit__(self, *exc):
-        for owner, attr, fn in reversed(self._undo):
-            setattr(owner, attr, fn)
+def _stages(summary) -> dict:
+    """{phase: {"seconds", "calls"}} of a traced solve's device phases
+    (``SolveTrace``), a phase's consecutive stamps one call."""
+    trace = summary.spans
+    seconds, calls = trace.phase_ms(), trace.phase_counts()
+    return {name: {"seconds": ms * 1e-3, "calls": calls[name]} for name, ms in seconds.items()}
 
 
 def _options(dtype, iterative, max_iters=50):
@@ -366,24 +304,27 @@ def main(argv) -> int:
         plain = solve(dtype)
         problem = build()
         eager_plain = eager(dtype, problem)
-        with _Stages() as stages:
-            timed = eager(dtype, build())
+        observability.enable_tracing()
+        timed = prepared(dtype, lambda p: solve(dtype, problem=p))()
+        calibration = observability.disable_tracing()["calibrations"]
+        stages = _stages(timed)
         emit(
             result="stages", dtype=dtype, lm_iterations=timed.num_iterations,
             linear_solver_iterations=timed.num_linear_solver_iterations,
             final_cost=timed.final_cost, captured=plain.captured_loop,
             loop_seconds_plain=plain.minimizer_time_in_seconds,
             loop_seconds_eager=eager_plain.minimizer_time_in_seconds,
-            loop_seconds_synchronized=timed.minimizer_time_in_seconds,
+            loop_seconds_traced=timed.minimizer_time_in_seconds,
             seconds_per_cg_iteration_plain=plain.minimizer_time_in_seconds
             / max(plain.num_linear_solver_iterations, 1),
             seconds_per_cg_iteration_eager=eager_plain.minimizer_time_in_seconds
             / max(eager_plain.num_linear_solver_iterations, 1),
-            seconds_per_cg_iteration_synchronized=timed.minimizer_time_in_seconds
-            / max(timed.num_linear_solver_iterations, 1),
             setup_seconds=plain.preprocessor_time_in_seconds,
             capture_seconds=plain.graph_capture_time_in_seconds,
-            stages={k: {"seconds": v, "calls": stages.calls[k]} for k, v in stages.seconds.items()},
+            skipped_replays_ms=timed.spans.skipped_replays_ms(),
+            outside_graphs_ms=timed.spans.outside_device_ms(),
+            calibration_width_ns=[c.width_ns for cs in calibration.values() for c in cs],
+            stages=stages,
         )
         loops = {"plain": lambda p: solve(dtype, problem=p), "eager": lambda p: eager(dtype, p)}
         for name, run in loops.items():
@@ -409,12 +350,11 @@ def main(argv) -> int:
             if host_loop:
                 wasted = sum(1 for r in summary.iterations[1:]
                              if r.step_is_valid and not r.step_is_successful)
-                label = "full evaluation (residuals, Jacobians, gradient)"
-                per_eval = stages.seconds[label] / max(stages.calls[label], 1)
+                per_eval = stages["evaluate"]["seconds"] / stages["evaluate"]["calls"]
                 fields = dict(
                     records=len(summary.iterations), rejected_steps=summary.num_unsuccessful_steps,
                     wasted_speculative_evaluations=wasted,
-                    full_evaluation_seconds_synchronized=per_eval, wasted_seconds=wasted * per_eval,
+                    full_evaluation_device_seconds=per_eval, wasted_seconds=wasted * per_eval,
                 )
             emit(
                 result="host_reads", dtype=dtype, loop=name, lm_iterations=summary.num_iterations,

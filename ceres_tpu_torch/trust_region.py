@@ -48,6 +48,7 @@ from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
 from ceres_tpu_torch.linear.sparse_cholesky import solve_sparse_normal_cholesky
 from ceres_tpu_torch.ordered_groups import normalize_ordering, validate_ordering_partition
 from ceres_tpu_torch.problem import plus_apply
+from ceres_tpu_torch.utils import observability
 from ceres_tpu_torch.types import (
     CallbackReturnType,
     LinearSolverType,
@@ -305,6 +306,7 @@ def _base_linear_solve(ctx, D, solve_aux, config: _SolveConfig, rhs=None):
         return y, iters.to(torch.int32), term.to(torch.int32)
     if lst in _SCHUR_TYPES:
         return solve_schur(ctx, D, config, solve_aux["ss"], rhs=rhs)
+    observability.phase("linear_solve")
     one = torch.ones((), dtype=torch.int32, device=D.device)
     if lst == LinearSolverType.DENSE_QR:
         y = solve_dense_qr(ctx, D, rhs=rhs)
@@ -420,6 +422,7 @@ def lm_step(ctx, radius: torch.Tensor, solve_aux, config: _SolveConfig, scaling=
     diag = torch.clamp(norms, config.min_lm_diagonal, config.max_lm_diagonal)
     D = _lm_damping(diag, radius)
     y, lin_iters, lin_term = _linear_solve(ctx, D, solve_aux, config)
+    observability.phase("candidate")
     # a mixed-precision solve returns an f64-refined y; the step is applied
     # to the evaluation-dtype state
     step_scaled = -y.to(diag.dtype)
@@ -451,6 +454,7 @@ def _candidate_impl(x, step_scaled, scaling, families, plus_struct, apply_loss: 
     """Candidate point, its cost and the x / step norms (f64) without a
     Jacobian: the step-by-step branch's candidate
     (trust_region_minimizer.cc:775-793), read by the host in one read."""
+    observability.phase("candidate")
     cand = candidate_point(plus_struct, x, step_scaled, scaling)
     cost = _cost_impl(cand, families, apply_loss, comm)
     step_norm = torch.linalg.norm((x - cand).to(_F64))
@@ -468,7 +472,10 @@ def _tr_iteration_impl(x, ctx, radius, scaling, program, solve_aux, config: _Sol
 
     Returns (candidate x, candidate context, candidate gradient, scalars),
     ``scalars`` one f64 device vector (mcc, lin_iters, lin_term, cand_cost,
-    step_norm, x_norm, cand_gmax, cand_gnorm) for one host read."""
+    step_norm, x_norm, cand_gmax, cand_gnorm) for one host read. Its device
+    phases: ``assemble``, ``linear_solve``, ``candidate``, then
+    ``evaluate`` at the candidate."""
+    observability.phase("assemble")
     _, step_scaled, mcc, lin_iters, lin_term = lm_step(ctx, radius, solve_aux, config, scaling)
     cand = candidate_point(program.plus_struct, x, step_scaled, scaling)
     step_norm = torch.linalg.norm((x - cand).to(_F64))
@@ -486,6 +493,7 @@ def _tr_iteration_impl(x, ctx, radius, scaling, program, solve_aux, config: _Sol
 def _lm_step_impl(ctx, radius, solve_aux, config: _SolveConfig):
     """One LM step on an already scaled context: (step, mcc, lin_iters,
     lin_term)."""
+    observability.phase("assemble")
     _, step, mcc, lin_iters, lin_term = lm_step(ctx, radius, solve_aux, config)
     return step, mcc, lin_iters, lin_term
 
@@ -772,6 +780,7 @@ class TrustRegionMinimizer:
         their launches are credited at the end (one host read)."""
         graphs = self.graphs
         capture0 = graphs.capture_seconds
+        graphs.reset_log()
         try:
             return self._minimize(x0)
         finally:
@@ -798,7 +807,8 @@ class TrustRegionMinimizer:
         t0 = time.perf_counter()
         full = self.evaluator.cost_gradient_jacobian(x)
         x, grad = graphs.x, full.gradient
-        x_cost, gmax0, gnorm0 = _to_host(full.cost, *_grad_norms(grad))
+        with observability.span("read.start"):
+            x_cost, gmax0, gnorm0 = _to_host(full.cost, *_grad_norms(grad))
         summary.jacobian_evaluation_time_in_seconds += time.perf_counter() - t0
         summary.num_jacobian_evaluations += 1
         if not np.isfinite(x_cost):
@@ -858,8 +868,10 @@ class TrustRegionMinimizer:
             fused = self._use_fused_iteration and default_step
             if fused:
                 # Step + candidate + speculative evaluation; one read.
-                (model_cost_change, lin_iters, lin_term, f_cand_cost, f_step_norm,
-                 f_x_norm, f_gmax, f_gnorm) = graphs.iteration(strategy.radius).cpu().tolist()
+                scalars = graphs.iteration(strategy.radius)
+                with observability.span("read.iteration"):
+                    (model_cost_change, lin_iters, lin_term, f_cand_cost, f_step_norm,
+                     f_x_norm, f_gmax, f_gnorm) = scalars.cpu().tolist()
                 step_scaled = True  # not None: validity checked below
             else:
                 # The Jacobian scaled once per evaluation: a rejected
@@ -872,12 +884,15 @@ class TrustRegionMinimizer:
                     )
                 elif self._step_region and default_step:
                     step_scaled, scalars = graphs.lm_step(strategy.radius)
-                    model_cost_change, lin_iters, lin_term = scalars.cpu().tolist()
+                    with observability.span("read.lm_step"):
+                        model_cost_change, lin_iters, lin_term = scalars.cpu().tolist()
                 else:
                     step_scaled, mcc, lin_iters, lin_term = self.step_fn(
                         ctx_used, strategy.radius
                     )
-                    model_cost_change, lin_iters, lin_term = _to_host(mcc, lin_iters, lin_term)
+                    with observability.span("read.step"):
+                        model_cost_change, lin_iters, lin_term = _to_host(mcc, lin_iters,
+                                                                          lin_term)
             lin_term = int(lin_term)
             it.linear_solver_iterations = int(lin_iters)
             it.step_solver_time_in_seconds = time.perf_counter() - solver_t0
@@ -959,7 +974,8 @@ class TrustRegionMinimizer:
                 alpha = self._projected_line_search(x_cost, step_scaled)
                 t0 = time.perf_counter()
                 candidate_x, scalars = self._bounded_trial(alpha)
-                candidate_cost, step_norm, x_norm = scalars.cpu().tolist()
+                with observability.span("read.bounded_trial"):
+                    candidate_cost, step_norm, x_norm = scalars.cpu().tolist()
                 summary.residual_evaluation_time_in_seconds += time.perf_counter() - t0
                 summary.num_residual_evaluations += 1
             else:
@@ -967,7 +983,8 @@ class TrustRegionMinimizer:
                 t0 = time.perf_counter()
                 self.evaluator._notify(None, False)
                 candidate_x, scalars = graphs.candidate(step_scaled)
-                candidate_cost, step_norm, x_norm = scalars.cpu().tolist()
+                with observability.span("read.candidate"):
+                    candidate_cost, step_norm, x_norm = scalars.cpu().tolist()
                 summary.residual_evaluation_time_in_seconds += time.perf_counter() - t0
                 summary.num_residual_evaluations += 1
             if not np.isfinite(candidate_cost):
@@ -1050,7 +1067,8 @@ class TrustRegionMinimizer:
                     t0 = time.perf_counter()
                     full = self.evaluator.cost_gradient_jacobian(candidate_x)
                     x, grad = graphs.x, full.gradient
-                    it.gradient_max_norm, it.gradient_norm = _to_host(*_grad_norms(grad))
+                    with observability.span("read.gradient"):
+                        it.gradient_max_norm, it.gradient_norm = _to_host(*_grad_norms(grad))
                     summary.jacobian_evaluation_time_in_seconds += time.perf_counter() - t0
                     summary.num_jacobian_evaluations += 1
                 strategy.step_accepted(it.relative_decrease)
@@ -1186,7 +1204,8 @@ class TrustRegionMinimizer:
             # solver.h:786-815: expose the current parameters to callbacks.
             self.program._problem.write_back(x.to(_F64).cpu().numpy())
         for cb in self.options.callbacks:
-            ret = cb(it)
+            with observability.span("callback"):
+                ret = cb(it)
             if ret == CallbackReturnType.SOLVER_ABORT:
                 self.summary.termination_type = TerminationType.USER_FAILURE
                 self.summary.message = "User callback returned SOLVER_ABORT."

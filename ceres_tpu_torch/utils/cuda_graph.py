@@ -33,6 +33,13 @@ it runs; a WHILE body once per trip). :meth:`CapturedGraph.launch_counts` is tha
 its other results, and credits every captured launch once for each run of
 its region since the last credit. So the counters say what the device
 launched, as they do for a loop run eagerly.
+
+Phase stamps. :class:`DeviceLog` is a loop's log of device phase stamps
+(``utils/observability.py``): a one-thread kernel of the same library
+writes (code, the device's ns clock) into its next row, eagerly or as a
+node of the graph being captured. A capture counts the stamps it captured,
+so that each replay adds them to the log's ``issued``, the rows its owner
+reads with its next read of the device.
 """
 
 from __future__ import annotations
@@ -41,11 +48,13 @@ import contextlib
 import ctypes
 import functools
 import gc
+import time
 from typing import Callable, List, Optional
 
 import torch
 
 from ceres_tpu_torch.ops import cuda_build
+from ceres_tpu_torch.utils import observability
 
 
 class _Region:
@@ -70,6 +79,9 @@ _bank = None
 # each nesting depth per device.
 _depth = 0
 _body_streams: dict = {}
+# [log, stamps] of the capture under way: the DeviceLog its stamps write and
+# how many it captured
+_stamps = None
 
 
 @functools.cache
@@ -82,8 +94,10 @@ def _library():
     lib.ctt_graph_set_condition.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
     lib.ctt_graph_end_conditional.argtypes = [ctypes.c_void_p]
     lib.ctt_graph_stream_create.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    lib.ctt_graph_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.c_longlong]
     for fn in (lib.ctt_graph_begin_conditional, lib.ctt_graph_set_condition,
-               lib.ctt_graph_end_conditional, lib.ctt_graph_stream_create):
+               lib.ctt_graph_end_conditional, lib.ctt_graph_stream_create, lib.ctt_graph_stamp):
         fn.restype = ctypes.c_int
     return lib
 
@@ -217,6 +231,67 @@ def uncounted():
         _uncounted -= 1
 
 
+class DeviceLog:
+    """A loop's log of device phase stamps: ``capacity`` rows of (code,
+    device ns), int64, and a cursor that counts the stamps written since
+    :meth:`reset` (those past the capacity are counted, not written). On the
+    card a stamp is a one-thread kernel on the current stream, eager or
+    captured; on the CPU it takes the host's ``perf_counter_ns`` at once.
+    ``issued``: stamps enqueued since the reset, an eager one each and a
+    graph's captured ones at each replay (a bound on those written, as an
+    IF node may skip some): the rows :meth:`read_parts` reads. Allocated
+    before its graphs' captures, which bake in its addresses."""
+
+    def __init__(self, device, capacity: int):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device, self.capacity = device, capacity
+        self.buf = torch.zeros((capacity, 2), dtype=torch.int64, device=device)
+        self.cursor = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.issued = 0
+        if device.type == "cuda":
+            _library()
+
+    def reset(self) -> None:
+        """Start anew (a device fill on the card, in stream order)."""
+        self.cursor.zero_()
+        self.issued = 0
+
+    def stamp(self, code: int) -> None:
+        if self.device.type != "cuda":
+            row = int(self.cursor[0])
+            if row < self.capacity:
+                self.buf[row, 0] = code
+                self.buf[row, 1] = time.perf_counter_ns()
+            self.cursor[0] = row + 1
+            self.issued += 1
+            return
+        stream = torch.cuda.current_stream(self.device)
+        _check(_library().ctt_graph_stamp(stream.cuda_stream, self.buf.data_ptr(),
+                                          self.cursor.data_ptr(), self.capacity, code),
+               "a phase stamp")
+        if not torch.cuda.is_current_stream_capturing():
+            self.issued += 1
+        elif _stamps is not None:
+            _stamps[0] = self
+            _stamps[1] += 1
+
+    def read_parts(self) -> List[torch.Tensor]:
+        """The rows issued (flat) and the cursor, int64 tensors for the
+        caller to read with its own results."""
+        rows = min(self.issued, self.capacity)
+        return [self.buf[:rows].reshape(-1), self.cursor]
+
+    def deliver(self, host) -> None:
+        """Hand the host copy of :meth:`read_parts` (int64, flat) to the
+        tracer (``observability.device_stamps``)."""
+        written = int(host[-1])
+        rows = host[:-1].reshape(-1, 2)
+        observability.device_stamps(self.device, rows[: min(written, len(rows))],
+                                    max(written - self.capacity, 0))
+
+
 class CapturedGraph:
     """``fn()`` captured once into a CUDA graph on ``device``; every
     tensor ``fn`` reads or writes across replays must outlive the graph.
@@ -261,14 +336,16 @@ class CapturedGraph:
         self._credited = [0] * len(regions)
 
     def _capture(self, fn) -> List[_Region]:
-        """Capture ``fn``; returns the counted regions, in bank order."""
-        global _bank
+        """Capture ``fn``; returns the counted regions, in bank order (and
+        keeps the DeviceLog its stamps write, with their number)."""
+        global _bank, _stamps
         self.graph = torch.cuda.CUDAGraph()
         root = _Region()
         _open.append(root)
         _opened.clear()
         _opened.append(root)
         _bank = [self._bank, 0]
+        _stamps = [None, 0]
         self.conditional = False  # whether a conditional body was captured
         # No collection during the capture: freeing another graph (a
         # dropped program's) while a stream captures is an error.
@@ -286,11 +363,13 @@ class CapturedGraph:
             _open.clear()
             self.conditional = len(_opened) > 1
             regions, _opened[:] = list(_opened), []
-            _bank = None
+            (self.log, self.stamps), _bank, _stamps = _stamps, None, None
         return sorted((r for r in regions if r.slot is not None), key=lambda r: r.slot)
 
     def replay(self) -> None:
         self.graph.replay()
+        if self.log is not None:
+            self.log.issued += self.stamps
 
     def credit_replay(self) -> None:
         """Credit one replay's launches on the host, with no read: for a

@@ -108,14 +108,6 @@ def test_checkpoint_callback_in_a_solve(tmp_path):
     np.testing.assert_array_equal(restored, solved)
 
 
-def test_profiler_trace_writes_a_chrome_trace(tmp_path):
-    path = tmp_path / "trace.json"
-    with tobs.profiler_trace(str(path)) as tr:
-        torch.ones(8).sum()
-    assert path.exists() and path.stat().st_size > 0
-    assert tr.profile is not None
-
-
 # -- ops/polynomial.py -------------------------------------------------------
 
 
