@@ -48,7 +48,7 @@ from ceres_tpu_torch.loss import (
 from ceres_tpu_torch.ops.reduce import apply_reduce
 from ceres_tpu_torch.ops.small_linalg import contract
 from ceres_tpu_torch.problem import BlockGroups, Family, plus_apply
-from ceres_tpu_torch.utils import observability
+from ceres_tpu_torch.utils import cuda_graph, observability
 
 
 def _group_rows(groups: BlockGroups, v: torch.Tensor, T: int) -> torch.Tensor:
@@ -107,8 +107,45 @@ def _mask_rows(family: Family, a: torch.Tensor) -> torch.Tensor:
     return a * family.mask.to(a.dtype).reshape((-1,) + (1,) * (a.ndim - 1))
 
 
+# Device types on which a residual's fused form serves the evaluation (its
+# kernel's); elsewhere vmap(jacfwd) does.
+FUSED_DEVICE_TYPES = ("cuda",)
+
+
+def _fused_form(family: Family, x: torch.Tensor):
+    """The family's fused form where it can serve an evaluation at x, else
+    None (vmap(jacfwd) then). A residual function may carry one as its
+    ``fused_form`` attribute (``models/bal.py``; as Ceres gives a cost
+    function an analytic derivative beside its autodiff one): residuals
+    and Jacobians by a kernel of their own. It serves x on the card in
+    float32 or float64, the family's data in x's dtype, no arg on a
+    manifold, and no gradient being recorded (the kernel has no backward:
+    ``_cost_grad_impl``'s reverse mode keeps vmap). Counted either way
+    (``observability.count_evaluation``)."""
+    st = family.structure
+    fused = getattr(st.fn, "fused_form", None)
+    if (fused is None or x.device.type not in FUSED_DEVICE_TYPES
+            or x.dtype not in (torch.float32, torch.float64)
+            or not isinstance(family.data, torch.Tensor) or family.data.dtype != x.dtype
+            or any(m is not None for m in st.manifolds)
+            or (torch.is_grad_enabled() and x.requires_grad)):
+        fused = None
+    cuda_graph.counted(observability.count_evaluation, "vmap" if fused is None else "kernel")
+    return fused
+
+
+def _fused_args(family: Family, x: torch.Tensor):
+    """The fused form's arguments: each arg's ambient (G, A) table of x, its
+    rows in it, and the family's data."""
+    tables = tuple(_group_rows(family.amb_groups, x, A) for A in family.structure.block_sizes)
+    return tables, family.amb_pos, family.data
+
+
 def family_residuals(family: Family, x: torch.Tensor) -> torch.Tensor:
     """Raw residuals (B, r), zero on padding rows."""
+    fused = _fused_form(family, x)
+    if fused is not None:
+        return _mask_rows(family, fused(*_fused_args(family, x), jacobians=False))
     data = (family.data,) if family.structure.has_data else ()
     return _mask_rows(family, vmap(family.structure.fn)(*_gather_blocks(family, x), *data))
 
@@ -119,7 +156,12 @@ def family_residuals_and_jacobians(
     """Raw residuals (B, r) and tangent Jacobians per arg (B, r, T_j) in
     one vmapped forward-mode pass over the tangent deltas at 0. An arg
     without a manifold is differentiated with respect to the block itself,
-    which is the same Jacobian."""
+    which is the same Jacobian. A family whose residual has a fused form
+    takes it where ``_fused_form`` says so."""
+    fused = _fused_form(family, x)
+    if fused is not None:
+        r, jacs = fused(*_fused_args(family, x), jacobians=True)
+        return _mask_rows(family, r), tuple(_mask_rows(family, J) for J in jacs)
     st = family.structure
     blocks = _gather_blocks(family, x)
     fn, k = st.fn, family.num_args

@@ -17,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ceres_tpu_torch.ops import snavely
 from ceres_tpu_torch.problem import Problem
 from ceres_tpu_torch.rotation import angle_axis_rotate_point
 from ceres_tpu_torch.solver import SolverOptions
@@ -41,6 +42,12 @@ def snavely_reprojection_residual(camera, point, observed):
     predicted_x = focal * distortion * xp
     predicted_y = focal * distortion * yp
     return torch.cat([predicted_x - observed[0:1], predicted_y - observed[1:2]])
+
+
+# Residuals and Jacobians of a whole family in one kernel on the card
+# (``ops/snavely.py``), which the evaluator takes in place of
+# vmap(jacfwd) of the function above where it can (``evaluator._fused_form``).
+snavely_reprojection_residual.fused_form = snavely.fused_form
 
 
 @dataclasses.dataclass

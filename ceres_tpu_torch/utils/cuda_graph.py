@@ -32,7 +32,9 @@ it runs; a WHILE body once per trip). :meth:`CapturedGraph.launch_counts` is tha
 :meth:`CapturedGraph.credit` takes its host copy, read by the caller with
 its other results, and credits every captured launch once for each run of
 its region since the last credit. So the counters say what the device
-launched, as they do for a loop run eagerly.
+launched, as they do for a loop run eagerly. :func:`counted` counts other
+events the same way (the evaluator's evaluations by route), outside
+:attr:`CapturedGraph.launches`.
 
 Phase stamps. :class:`DeviceLog` is a loop's log of device phase stamps
 (``utils/observability.py``): a one-thread kernel of the same library
@@ -58,13 +60,15 @@ from ceres_tpu_torch.utils import observability
 
 
 class _Region:
-    """A graph or conditional body being captured: the launches captured
-    directly in it, and the device counter of its runs."""
+    """A graph or conditional body being captured: the launches and other
+    counted events captured directly in it, and the device counter of its
+    runs."""
 
-    __slots__ = ("launches", "slot")
+    __slots__ = ("launches", "events", "slot")
 
     def __init__(self):
         self.launches: list = []  # (credit, key) per captured launch
+        self.events: list = []  # (credit, key) per captured event (``counted``)
         self.slot: Optional[int] = None  # its counter in the capture's bank
 
 
@@ -134,7 +138,7 @@ def _close(region: _Region) -> None:
     bank, and capture its increment at the region's end (a bank too small
     for the capture counts into its last slot: CapturedGraph then captures
     again with a larger one)."""
-    if region.launches:
+    if region.launches or region.events:
         bank, region.slot = _bank
         _bank[1] += 1
         bank[min(region.slot, bank.numel() - 1)].add_(1)
@@ -211,10 +215,23 @@ def run_while(cond: Callable[[], torch.Tensor], body: Callable[[], None]) -> Non
 def launched(credit: Callable[..., None], *key) -> None:
     """Count one kernel launch: ``credit(n, *key)`` adds n launches to the
     wrapper's counters (see the module's docstring)."""
+    _count(credit, key, "launches")
+
+
+def counted(credit: Callable[..., None], *key) -> None:
+    """Count one event that is not a kernel launch as :func:`launched`
+    counts a launch (``credit(n, *key)`` once per run, a captured one per
+    run of its region), left out of :attr:`CapturedGraph.launches`."""
+    _count(credit, key, "events")
+
+
+def _count(credit, key, kind: str) -> None:
+    """Credit one now, or record it in the innermost region being captured
+    (its ``kind`` list)."""
     if _uncounted:
         return
     if _open and torch.cuda.is_current_stream_capturing():
-        _open[-1].launches.append((credit, key))
+        getattr(_open[-1], kind).append((credit, key))
     else:
         credit(1, *key)
 
@@ -390,7 +407,7 @@ class CapturedGraph:
             runs = int(n) - self._credited[i]
             self._credited[i] = int(n)
             if runs:
-                for credit, key in region.launches:
+                for credit, key in region.launches + region.events:
                     credit(runs, *key)
                 self.launches += runs * len(region.launches)
 

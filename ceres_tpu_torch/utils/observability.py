@@ -54,7 +54,10 @@ around a synchronize, taken when the tracer is turned on and again when
 its records are taken, and whenever ``calibrate`` is called; the latest
 maps). ``solve`` and ``fused_solve`` are each one
 ``solve_scope``: their spans and device stamps go to
-``SolverSummary.spans`` (a ``SolveTrace``; None with the tracer off).
+``SolverSummary.spans`` (a ``SolveTrace``; None with the tracer off), with
+the residual-family evaluations the solve made by route (``evaluations``:
+a residual's fused kernel or vmap(jacfwd), counted with the tracer on or
+off, captured ones once per replay that ran them).
 """
 
 from __future__ import annotations
@@ -238,6 +241,11 @@ CAPACITY = 1 << 20
 CALIBRATION_TRIES = 5
 
 _NULL = contextlib.nullcontext()
+# Residual-family evaluations since the process started, by route: "kernel"
+# (the residual's fused form, ``evaluator._fused_form``) and "vmap"
+# (vmap(jacfwd)); captured ones credited once per replay that ran them. Each
+# solve's share goes to its ``SolveTrace.evaluations``.
+evaluations: Dict[str, int] = {"kernel": 0, "vmap": 0}
 _tracer: Optional["_Tracer"] = None  # the module flag: None while the tracer is off
 _log = None  # the DeviceLog that phase() stamps into: the running loop's
 
@@ -275,13 +283,16 @@ class SolveTrace:
     bracket was ``calibration_width_ns`` wide (0 on the CPU, whose stamps
     read the host clock). ``dropped_*``: what the tracer's capacity or the
     device log's left out. The device figures are None where a stamp was
-    dropped or none was written, never 0 for want of records."""
+    dropped or none was written, never 0 for want of records.
+    ``evaluations``: the residual-family evaluations the solve made, by route
+    (``evaluations`` of this module)."""
 
     spans: List[Span]
     stamps: List[Tuple[str, int]]
     dropped_spans: int = 0
     dropped_stamps: int = 0
     calibration_width_ns: int = 0
+    evaluations: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def root(self) -> Span:
@@ -447,6 +458,7 @@ class _SolveScope:
         self.trace: Optional[SolveTrace] = None
 
     def __enter__(self):
+        self.evaluations = dict(evaluations)
         self.root.__enter__()
         self.root.solve_id = self.root.span_id
         self.tracer.solves.append(_Records(self.root.span_id))
@@ -458,7 +470,8 @@ class _SolveScope:
         r = t.solves.pop()
         t.held -= len(r.spans) + len(r.stamps)
         self.trace = SolveTrace([root] + r.spans, r.stamps, r.dropped_spans, r.dropped_stamps,
-                                r.width_ns)
+                                r.width_ns,
+                                {k: n - self.evaluations[k] for k, n in evaluations.items()})
         return False
 
 
@@ -628,6 +641,12 @@ def device_log(log):
     """``phase`` stamps into ``log`` (a ``cuda_graph.DeviceLog``) inside the
     with-body; for None, a shared null context."""
     return _NULL if log is None else _Stamping(log)
+
+
+def count_evaluation(n: int, route: str) -> None:
+    """Add n residual-family evaluations by ``route`` (a
+    ``utils.cuda_graph.counted`` credit)."""
+    evaluations[route] += n
 
 
 def phase(name: str) -> None:

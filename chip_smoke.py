@@ -6,10 +6,11 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
 
 1. device: requires CUDA, prints the card's name and power limit, and
    checks that float32 matmuls run in full float32 (no TF32);
-2. build: compiles the three kernels with nvcc from ``ceres_tpu_torch/csrc``,
+2. build: compiles the four kernels with nvcc from ``ceres_tpu_torch/csrc``,
    one nvcc each, all at the same time: the sorted segment sum (K1), the
-   unsorted segment sum (K3) and the fused pair-outer segment sum (K4), and
-   beside them the binding of the CUDA graphs' conditional nodes
+   unsorted segment sum (K3), the fused pair-outer segment sum (K4) and the
+   Snavely residual with its Jacobian (``snavely_evaluate.cu``, the port's
+   own), and beside them the binding of the CUDA graphs' conditional nodes
    (``graph_conditional.cu``);
 3. kernel: each kernel against its plain PyTorch version on the card, at the
    shapes the solves below give it (f32 and f64) and at edge cases (K1:
@@ -28,7 +29,13 @@ Phases, one JSON line each (any failure exits non-zero before the last line):
    write of L2_SCRUB_BYTES outside its events, the median of 30 (L2 cold,
    as the bound's bytes assume). K3's ``kernel_time`` lines also carry the
    times of its two kernels on their own (the gather, the sum of the
-   pieces), the number of pieces and the bytes of its scratch. K4's ``kernel_time`` line also
+   pieces), the number of pieces and the bytes of its scratch. The Snavely
+   kernel (``check_snavely``) is held to its plain version within
+   SNAVELY_RTOL of each output column's largest magnitude, at the flagship's
+   own tables and at Dubrovnik-356's counts, both entries (residuals and
+   Jacobians, residuals alone), and at theta^2 below 1e-24, 0 and near pi;
+   its ``library_ms`` is vmap(jacfwd), the route the evaluator took before,
+   and ``cold_bound_share`` its bound over ``cold_device_ms``. K4's ``kernel_time`` line also
    carries ``floor_ms``, a number modelled from the pair lists and not
    measured (so it stays out of the ``kernels`` line): the 32-byte sectors
    its row gathers touch, less those an L2 window of 25 MB of gathered
@@ -426,6 +433,7 @@ import dataclasses
 import inspect
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -434,9 +442,10 @@ import types
 
 import numpy as np
 import torch
+from torch.func import jacfwd, vmap
 
 import ceres_tpu_torch as ctt
-from ceres_tpu_torch import dogleg, fused_lm, host_loop_graphs, inner_iterations
+from ceres_tpu_torch import dogleg, evaluator, fused_lm, host_loop_graphs, inner_iterations
 from ceres_tpu_torch.linear import schur as schur_mod
 from ceres_tpu_torch.linear import sparse_cholesky
 from ceres_tpu_torch.linear.schur_explicit import build_explicit_plan
@@ -445,6 +454,7 @@ from ceres_tpu_torch.ops import cuda_build
 from ceres_tpu_torch.ops import outer_segment_sum as osum
 from ceres_tpu_torch.ops import reduce as reduce_mod
 from ceres_tpu_torch.ops import segment_sum as ss
+from ceres_tpu_torch.ops import snavely
 from ceres_tpu_torch.ops import unsorted_segment_sum as us
 from ceres_tpu_torch.tools.profile_solve import (
     _device_profile,
@@ -820,8 +830,8 @@ EXAMPLE_NIST_LRE_ATOL = 1e-6
 EXAMPLE_COST_ATOL = 1e-20
 # programs whose solves must launch the port's kernels on the card
 EXAMPLE_KERNELS = {
-    "bundle_adjuster": ("sorted_segment_sum",),
-    "simple_bundle_adjuster": ("sorted_segment_sum",),
+    "bundle_adjuster": ("sorted_segment_sum", "snavely_evaluate"),
+    "simple_bundle_adjuster": ("sorted_segment_sum", "snavely_evaluate"),
     "libmv_bundle_adjuster": ("sorted_segment_sum", "unsorted_segment_sum"),
     "denoising": ("sorted_segment_sum",),
 }
@@ -923,6 +933,8 @@ KERNELS = {
     "sorted_segment_sum": (ss, "ceres_tpu/ops/pallas_segment.py:389"),
     "unsorted_segment_sum": (us, "ceres_tpu/ops/pallas_segment.py:224"),
     "outer_segment_sum": (osum, "ceres_tpu/ops/pallas_segment.py:504"),
+    "snavely_evaluate": (snavely, "none: the port's own, in place of vmap(jacfwd) of the "
+                         "Snavely residual (ceres_tpu_torch/evaluator.py)"),
 }
 
 
@@ -1388,16 +1400,18 @@ def _bound(num_bytes: float, flops: float):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def _within(out, ref, scale, dtype, label) -> float:
-    """Hold a kernel's output to its plain version's; returns max |error|."""
+def _within(out, ref, scale, dtype, label, rtol=KERNEL_RTOL) -> float:
+    """Hold a kernel's output to its plain version's, within ``rtol[dtype]``
+    of ``scale`` (by default the sum of |contributions|); returns max
+    |error|."""
     torch.cuda.synchronize()
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise RuntimeError(f"kernel {label}: bad shape or non-finite output")
     err = (out - ref).abs()
-    if (err > KERNEL_RTOL[dtype] * scale).any():
+    if (err > rtol[dtype] * scale).any():
         raise RuntimeError(
             f"kernel {label}: max error {err.max().item():.3e} above "
-            f"rtol {KERNEL_RTOL[dtype]:g} x sum|contrib|"
+            f"rtol {rtol[dtype]:g} x its scale"
         )
     return err.max().item() if err.numel() else 0.0
 
@@ -1781,6 +1795,129 @@ def check_outer(device, group, num_slots: int) -> dict:
     return _record("outer_segment_sum", max_err, **record)
 
 
+# ---- the Snavely residual and its Jacobian ---------------------------------
+
+# Dubrovnik problem-356-226730's counts (the benchmark's bal_dubrovnik_356)
+DUBROVNIK_356 = dict(num_cameras=356, num_points=226730, num_observations=1255268)
+# the kernel against its plain version, relative to each output column's
+# largest magnitude (the two add the chain rule's terms in one order, and
+# differ only by the card's sin, cos and division against the plain ops')
+SNAVELY_RTOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+
+
+def snavely_inputs(device, dtype, num_cameras, num_points, num_observations, seed=356):
+    """Tables and rows of a bundle adjustment of these counts, made on the
+    card: cameras about 20 units from a cloud of points, each observation's
+    point sorted (as ``bal.build_problem`` orders them), random cameras."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    C, P, B = num_cameras, num_points, num_observations
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device, dtype=torch.float64)
+
+    cams = torch.zeros((C, 9), dtype=torch.float64, device=device)
+    cams[:, :3] = 0.5 * normal(C, 3)
+    cams[:, 3:6] = normal(C, 3)
+    cams[:, 5] -= 20.0
+    cams[:, 6] = 500.0 + 10.0 * normal(C)
+    cams[:, 7] = 1e-7 * normal(C)
+    cams[:, 8] = 1e-13 * normal(C)
+    pts = 3.0 * normal(P, 3)
+    ci = torch.randint(0, C, (B,), generator=g, device=device)
+    pi = torch.sort(torch.randint(0, P, (B,), generator=g, device=device)).values
+    obs = 100.0 * normal(B, 2)
+    return cams.to(dtype), pts.to(dtype), ci, pi, obs.to(dtype)
+
+
+def _compare_snavely(args, label) -> float:
+    """The kernel's both entries against the plain version (each output
+    within SNAVELY_RTOL of its columns' largest magnitudes) and against a
+    second launch (the same bits); returns the largest relative error."""
+    full = snavely.evaluate(*args)
+    alone = snavely.evaluate(*args, jacobians=False)
+    ref = snavely.evaluate_plain(*args)
+    worst = 0.0
+    for out, want, name in zip((*full, alone), (*ref, ref[0]), ("r", "J_cam", "J_pt", "r alone")):
+        if not want.numel():
+            if out.shape != want.shape:
+                raise RuntimeError(f"kernel {label} {name}: shape {tuple(out.shape)}")
+            continue
+        scale = want.abs().amax(dim=0, keepdim=True)
+        _within(out, want, scale, out.dtype, f"{label} {name}", SNAVELY_RTOL)
+        worst = max(worst, float(((out - want).abs() / scale).nan_to_num().max()))
+    again = snavely.evaluate(*args)
+    if not all(torch.equal(a, b) for a, b in zip(full, again)):
+        raise RuntimeError(f"kernel {label}: two launches gave different bits")
+    return worst
+
+
+def check_snavely(device, flagship) -> dict:
+    """The Snavely kernel against its plain version at the flagship's own
+    tables and rows (B = 83 718) and at Dubrovnik-356's counts (B =
+    1 255 268), f32 and f64, both entries, each timed beside its bound
+    (inputs and outputs once) and the plain version; vmap(jacfwd), which the
+    evaluator ran before, timed as the yardstick (``library_ms``); and at
+    edge cases: theta^2 below 1e-24, 0, near pi, ragged batches."""
+    fam = flagship.families[0]
+    max_err, checks, record, shapes = 0.0, 0, None, []
+    for case in ("flagship", "dubrovnik_356"):
+        for dtype in (torch.float32, torch.float64):
+            if case == "flagship":
+                x = torch.from_numpy(flagship.initial_ambient()).to(device, dtype)
+                tables, rows, data = evaluator._fused_args(fam, x)
+                args = (*(t.contiguous() for t in tables), *rows, data.to(dtype))
+            else:
+                args = snavely_inputs(device, dtype, **DUBROVNIK_356)
+            cams, pts, ci, pi, obs = args
+            err = _compare_snavely(args, f"snavely {case} {dtype}")
+            max_err, checks = max(max_err, err), checks + 1
+            B, e = ci.shape[0], cams.element_size()
+            tables_bytes = cams.numel() * e + pts.numel() * e
+            f = bal.snavely_reprojection_residual
+            library = vmap(jacfwd(f, argnums=(0, 1)))
+            for entry, out_values in (("full", 26), ("residuals", 2)):
+                jac = entry == "full"
+                bound_ms, by = _bound(B * (2 * 8 + 2 * e + out_values * e) + tables_bytes, 0.0)
+                times = dict(
+                    ms=_time_ms(lambda: snavely.evaluate(*args, jacobians=jac), 50),
+                    plain_ms=_time_ms(
+                        lambda: snavely.evaluate_plain(*args, jacobians=jac), 3),
+                    library_ms=_time_ms(
+                        (lambda: library(cams[ci], pts[pi], obs)) if jac
+                        else (lambda: vmap(f)(cams[ci], pts[pi], obs)), 3),
+                    bound_ms=bound_ms, bound_by=by,
+                    device_ms=_device_ms(lambda: snavely.evaluate(*args, jacobians=jac)),
+                    cold_device_ms=_cold_device_ms(
+                        lambda: snavely.evaluate(*args, jacobians=jac)),
+                )
+                times["cold_bound_share"] = times["bound_ms"] / times["cold_device_ms"]
+                dt = str(dtype).split(".")[1]
+                phase("kernel_time", kernel="snavely_evaluate", case=case, entry=entry,
+                      B=B, cameras=cams.shape[0], points=pts.shape[0], dtype=dt, **times)
+                shapes.append(dict(case=case, entry=entry, dtype=dt, **times))
+                if case == "dubrovnik_356" and dtype == torch.float64 and jac:
+                    record = times
+            del args, cams, pts, ci, pi, obs
+    edge_inputs = snavely_inputs(device, torch.float64, 40, 300, 20011, seed=5)
+    cams = edge_inputs[0]
+    edge = {"theta^2 below 1e-24": [3e-13, 0.0, 4e-13], "theta 0": [0.0, 0.0, 0.0],
+            "theta near pi": [math.pi - 1e-7, 0.0, 0.0]}
+    for label, aa in edge.items():
+        for dtype in (torch.float32, torch.float64):
+            c = cams.clone()
+            c[::2, :3] = torch.tensor(aa, dtype=torch.float64, device=device)
+            args = (c.to(dtype), edge_inputs[1].to(dtype), *edge_inputs[2:4],
+                    edge_inputs[4].to(dtype))
+            max_err = max(max_err, _compare_snavely(args, f"snavely {label} {dtype}"))
+            checks += 1
+    for B in (0, 1, 127, 129):
+        args = (*edge_inputs[:2], edge_inputs[2][:B], edge_inputs[3][:B], edge_inputs[4][:B])
+        max_err = max(max_err, _compare_snavely(args, f"snavely B={B}"))
+        checks += 1
+    phase("kernel", kernel="snavely_evaluate", checks=checks, max_rel_err=max_err)
+    return _record("snavely_evaluate", max_err, timed_shapes=shapes, **record)
+
+
 def check_kernels(device) -> list:
     """Every kernel against its plain version, on the plans the two cases
     build on this device. Returns the kernel records."""
@@ -1801,6 +1938,7 @@ def check_kernels(device) -> list:
     phase("plan", case="large", nf=plan.nf, **kinds)
     group = next(g for g in plan.corr if not g.self_pairs)
     records.append(check_outer(device, group, large.families[0].batch))
+    records.append(check_snavely(device, flagship))
     return records
 
 
